@@ -7,9 +7,10 @@ Mirrors ``ofasys_tpu``'s module paths: the counterpart of
 hand here (``ofasys_torch/csrc``), each beside a plain PyTorch version that
 the CPU tests run.
 
-This slice serves text→text: ``OFASys.inference`` and ``InferenceServer``
-over a ``GeneralistModel`` whose encoder self-attention runs the
-hand-written dense-attention forward kernel on the card.
+It serves text→text (``OFASys.inference`` and ``InferenceServer`` over a
+``GeneralistModel``) and trains it (``engine/train_step.py``: the summed
+multi-task step). Attention that meets the dense gate runs the
+hand-written dense-attention forward and backward kernels on the card.
 """
 
 import logging

@@ -19,6 +19,7 @@ from torch import nn
 
 from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.model.transformer import LayerNorm
+from ofasys_torch.ops import attention
 from ofasys_torch.utils.pytree import SlotBatch
 
 
@@ -46,9 +47,12 @@ class AdaptorOutput:
 
 class BaseAdaptor(nn.Module):
     """Shared embed post-processing: type embedding (source side),
-    embedding and position layernorms. ofasys_tpu's per-adaptor config keeps
-    its defaults here (no embed scaling, both layernorms, type embedding
-    where the model config asks for them)."""
+    embedding and position layernorms, embedding dropout. ofasys_tpu's
+    per-adaptor config keeps its defaults here (no embed scaling, both
+    layernorms, type embedding where the model config asks for them);
+    ``dropout``, the adaptor's own rate, overrides ``cfg.dropout`` when set."""
+
+    dropout: Optional[float] = None
 
     def __init__(self, cfg: GeneralistModelConfig, is_src: bool,
                  embed_tokens: nn.Embedding, pad_id: int, dtype: torch.dtype):
@@ -83,7 +87,9 @@ class BaseAdaptor(nn.Module):
     def embed_dim(self) -> int:
         return self.cfg.encoder.embed_dim
 
-    def finish(self, slot: SlotBatch, out: AdaptorOutput) -> AdaptorOutput:
+    def finish(self, slot: SlotBatch, out: AdaptorOutput,
+               generator: Optional[torch.Generator] = None) -> AdaptorOutput:
+        """``generator`` turns on training mode (embedding dropout)."""
         embed = out.embed
         if self.cfg.entangle_position_embedding and out.pos_embed is not None:
             embed = embed + out.pos_embed.to(embed.dtype)
@@ -94,6 +100,8 @@ class BaseAdaptor(nn.Module):
         pos_embed = out.pos_embed
         if pos_embed is not None:
             pos_embed = self.layernorm_position(pos_embed)
+        rate = self.dropout if self.dropout is not None else self.cfg.dropout
+        embed = attention.dropout(embed, rate, generator)
         return dataclasses.replace(out, embed=embed, pos_embed=pos_embed)
 
     # ---- output adaptor ----

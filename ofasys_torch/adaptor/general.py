@@ -103,8 +103,10 @@ class GeneralAdaptor(nn.Module):
         pos_k = self.pos_k_linear(pos_embed).reshape(B, T, H, -1)
         return torch.matmul(pos_q.permute(0, 2, 1, 3).float(), pos_k.permute(0, 2, 3, 1).float())
 
-    def forward(self, slots: List[SlotBatch]) -> GeneralAdaptorOutput:
-        outputs: List[AdaptorOutput] = [self.get_adaptor(slot)(slot) for slot in slots]
+    def forward(self, slots: List[SlotBatch],
+                generator: Optional[torch.Generator] = None) -> GeneralAdaptorOutput:
+        """``generator`` turns on training mode (embedding dropout)."""
+        outputs: List[AdaptorOutput] = [self.get_adaptor(slot)(slot, generator) for slot in slots]
 
         embed = torch.cat([o.embed for o in outputs], dim=1)
         padding_mask = torch.cat([o.padding_mask for o in outputs], dim=1)

@@ -7,7 +7,7 @@ its defaults here: bucket size 256, tied projection, no output bias.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -31,7 +31,7 @@ class TextAdaptor(BaseAdaptor):
             self.rel_pos_table = nn.Parameter(torch.zeros(
                 self.num_bias_tables, token_bucket_count(TOKEN_BUCKET_SIZE), self.num_heads))
 
-    def forward(self, slot: SlotBatch) -> AdaptorOutput:
+    def forward(self, slot: SlotBatch, generator: Optional[torch.Generator] = None) -> AdaptorOutput:
         tokens = slot.value["inputs"]
         B, T = tokens.shape
         padding_mask = tokens == self.pad_id
@@ -50,7 +50,7 @@ class TextAdaptor(BaseAdaptor):
             rel_bucket=rel_bucket,
             rel_tables=getattr(self, "rel_pos_table", None),
         )
-        return self.finish(slot, out)
+        return self.finish(slot, out, generator)
 
     def forward_output(self, x: torch.Tensor, extra: Dict[str, Any], slot: SlotBatch):
         """hidden -> vocab logits through the tied embedding, computed in the

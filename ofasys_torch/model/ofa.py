@@ -87,28 +87,34 @@ class GeneralistNet(nn.Module):
         return torch.matmul(pos_q.permute(0, 2, 1, 3).float(), pos_k.permute(0, 2, 3, 1).float())
 
     # -------------------------------------------------------------- encode
-    def encode(self, src_slots: List[SlotBatch]) -> EncoderOut:
-        a = self.encoder_adaptor(src_slots)
+    def encode(self, src_slots: List[SlotBatch],
+               generator: Optional[torch.Generator] = None) -> EncoderOut:
+        a = self.encoder_adaptor(src_slots, generator)
         x = self.encoder(a.embed, padding_mask=torch.logical_not(a.padding_mask),
-                         bias_spec=a.bias_spec)
+                         bias_spec=a.bias_spec, generator=generator)
         return EncoderOut(x=x, padding_mask=a.padding_mask, pos_embed=a.pos_embed)
 
     # ------------------------------------------------------ whole sequences
-    def forward(self, slots: List[SlotBatch], full_context: bool = False):
+    def forward(self, slots: List[SlotBatch], full_context: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Full forward: returns (output, extra); for text targets the output
-        is vocab logits (B, Tt, V) in the compute dtype."""
+        is vocab logits (B, Tt, V) in the compute dtype. ``generator`` (on
+        the net's device) turns on training mode, as ``deterministic=False``
+        with a dropout rng does in flax; None is deterministic."""
         src_slots = SlotBatch.source_slots(slots)
         tgt_slots = [s for s in slots if not s.is_src]
-        enc = self.encode(src_slots) if src_slots else None
-        out, extra = self.decode_full(tgt_slots, enc, full_context=full_context, all_slots=slots)
+        enc = self.encode(src_slots, generator) if src_slots else None
+        out, extra = self.decode_full(tgt_slots, enc, full_context=full_context, all_slots=slots,
+                                      generator=generator)
         if enc is not None:
             extra["encoder_out"] = enc
         return out, extra
 
     def decode_full(self, tgt_slots: List[SlotBatch], enc: Optional[EncoderOut],
-                    full_context: bool = False, all_slots: Optional[List[SlotBatch]] = None):
+                    full_context: bool = False, all_slots: Optional[List[SlotBatch]] = None,
+                    generator: Optional[torch.Generator] = None):
         """Decoder-side forward against a (possibly reused) encoder-out."""
-        d = self.decoder_adaptor(tgt_slots)
+        d = self.decoder_adaptor(tgt_slots, generator)
         cb = self.cross_bias(d.pos_embed, enc.pos_embed) if enc is not None else None
         x, _ = self.decoder(
             d.embed,
@@ -118,6 +124,7 @@ class GeneralistNet(nn.Module):
             self_bias_spec=d.bias_spec,
             cross_bias=cb,
             full_context=full_context,
+            generator=generator,
         )
         extra: Dict[str, Any] = {"decoder_hidden": x}
         return self.decoder_adaptor.forward_output(x, extra, all_slots or tgt_slots)
@@ -234,3 +241,14 @@ class GeneralistModel:
         if self.net is None:
             raise RuntimeError("call initialize(global_dict) first")
         return self.net(slots, full_context=full_context)
+
+    def apply_train(self, slots: List[SlotBatch], deterministic: bool = False,
+                    generator: Optional[torch.Generator] = None, full_context: bool = False):
+        """The forward with gradients (ofasys_tpu's ``apply(params, slots,
+        deterministic, rngs)``): with ``deterministic=False`` and a
+        ``generator`` on the net's device, dropout, DropPath and LayerDrop
+        draw from it; otherwise the forward is deterministic."""
+        if self.net is None:
+            raise RuntimeError("call initialize(global_dict) first")
+        return self.net(slots, full_context=full_context,
+                        generator=None if deterministic else generator)

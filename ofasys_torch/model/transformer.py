@@ -1,5 +1,5 @@
 """Unified transformer encoder/decoder (counterpart of
-ofasys_tpu/model/transformer.py, loop layout, inference).
+ofasys_tpu/model/transformer.py, loop layout).
 
   * batch-major (B, T, E); parameters fp32, compute in the module dtype
     (bf16 on the card): every Dense casts its input, weight and bias to it.
@@ -9,6 +9,10 @@ ofasys_tpu/model/transformer.py, loop layout, inference).
   * incremental decoding uses an explicit KV-cache dict.
   * normformer options: pre-LN, scale_attn, scale_fc, scale_heads,
     scale_resids; q-scaling (head_dim * attn_scale_factor) ** -0.5.
+  * training mode: a ``generator`` (``torch.Generator`` on the activations'
+    device) passed down from the step turns on residual, activation and
+    attention dropout, DropPath and LayerDrop, as ``deterministic=False``
+    with a dropout rng does in flax; ``generator=None`` is deterministic.
 
 Submodule and parameter names follow the flax tree of ofasys_tpu
 (``layers_0.self_attn.q_proj``, LayerNorm ``weight`` for flax ``scale``),
@@ -29,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ofasys_torch.model.config import GeneralistModelConfig
-from ofasys_torch.ops.attention import causal_mask, combine_masks, dot_product_attention
+from ofasys_torch.ops.attention import causal_mask, combine_masks, dot_product_attention, dropout
 from ofasys_torch.ops.dense_attention import dense_attention, dense_supported
 
 LN_EPS = 1e-5
@@ -195,6 +199,7 @@ class MultiheadAttention(nn.Module):
         causal: bool = False,
         cache: Optional[Dict[str, Any]] = None,
         static_kv: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         cfg = self.cfg
         H = self.num_heads
@@ -230,10 +235,13 @@ class MultiheadAttention(nn.Module):
                 valid = (torch.arange(Tk, device=q.device)[None, :] < row_limit)[None, None]
                 mask = valid if mask is None else torch.logical_and(mask, valid)
 
+        # attention-probability dropout, live only in training mode; both
+        # kernel gates refuse a nonzero rate
+        p_drop = cfg.attention_dropout if generator is not None else 0.0
         Tq_, Tk_ = q.shape[1], k.shape[1]
         padding_only = mask is None or (mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1)
         if (cfg.use_flash_attention and cache is None and q.is_cuda
-                and flash_supported(Tq_, Tk_, head_dim, 0.0) and padding_only):
+                and flash_supported(Tq_, Tk_, head_dim, p_drop) and padding_only):
             raise NotImplementedError(
                 f"attention with Tq={Tq_}, Tk={Tk_} belongs to the flash kernel B3 "
                 "(ofasys_tpu/ops/pallas_attention.py), which is not ported to CUDA yet; "
@@ -243,7 +251,7 @@ class MultiheadAttention(nn.Module):
             cfg.attn_kernel in ("auto", "pallas")
             and cache is None
             and (q.is_cuda or cfg.attn_kernel == "pallas")
-            and dense_supported(B, Tq_, Tk_, head_dim, H, 0.0)
+            and dense_supported(B, Tq_, Tk_, head_dim, H, p_drop)
             and (bias is None
                  or (bias.dim() == 4 and bias.shape[0] == 1
                      and bias.shape[2] == Tq_ and bias.shape[3] == Tk_))
@@ -258,7 +266,8 @@ class MultiheadAttention(nn.Module):
         else:
             eff_mask = combine_masks(mask, causal_mask(Tq_, Tk_, q.device) if causal else None)
             x = dot_product_attention(
-                q, k, v, bias=bias, mask=eff_mask, scale=scaling, dtype=self.dtype,
+                q, k, v, bias=bias, mask=eff_mask, scale=scaling,
+                dropout_rate=p_drop, generator=generator, dtype=self.dtype,
                 logits_dtype=self.dtype if cfg.attn_logits == "compute" else None,
             )
         if cfg.scale_heads:
@@ -267,19 +276,37 @@ class MultiheadAttention(nn.Module):
         return x, cache
 
 
+def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth on a residual branch (ofasys_tpu's ``DropPath``):
+    one keep draw per sample, kept samples scaled by ``1 / (1 - rate)``."""
+    return dropout(x, rate, generator, shape=(x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def layer_drop(y: torch.Tensor, x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """LayerDrop: the layer's output ``y`` is replaced by its input ``x``
+    with probability ``rate`` (one draw, on the device, no host sync)."""
+    if rate <= 0.0 or generator is None:
+        return y
+    keep = torch.rand((), generator=generator, device=y.device) < 1.0 - rate
+    return torch.where(keep, y, x)
+
+
 class FeedForward(nn.Module):
-    """FFN with optional mid-LN (scale_fc)."""
+    """FFN with optional mid-LN (scale_fc) and activation dropout."""
 
     def __init__(self, cfg: GeneralistModelConfig, ffn_dim: int, embed_dim: int,
                  dtype: torch.dtype):
         super().__init__()
+        self.cfg = cfg
         self.act = get_activation_fn(cfg.activation_fn)
         self.fc1 = Dense(embed_dim, ffn_dim, dtype)
         self.fc2 = Dense(ffn_dim, embed_dim, dtype)
         self.fc2_ln = LayerNorm(ffn_dim, dtype) if cfg.scale_fc else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.act(self.fc1(x))
+        h = dropout(h, self.cfg.activation_dropout, generator)
         if self.fc2_ln is not None:
             h = self.fc2_ln(h)
         return self.fc2(h)
@@ -301,23 +328,26 @@ class TransformerEncoderLayer(nn.Module):
             self.w_resid = nn.Parameter(torch.ones(E))
         self.dtype = dtype
 
-    def forward(self, x, mask=None, bias=None):
-        pre = self.cfg.encoder.normalize_before
+    def forward(self, x, mask=None, bias=None, generator=None, drop_path_rate: float = 0.0):
+        cfg = self.cfg
+        pre = cfg.encoder.normalize_before
         residual = x
         h = self.self_attn_layer_norm(x) if pre else x
-        h, _ = self.self_attn(h, bias=bias, mask=mask)
+        h, _ = self.self_attn(h, bias=bias, mask=mask, generator=generator)
         if self.attn_ln is not None:
             h = self.attn_ln(h)
-        x = residual + h
+        h = dropout(h, cfg.dropout, generator)
+        x = residual + drop_path(h, drop_path_rate, generator)
         if not pre:
             x = self.self_attn_layer_norm(x)
 
         residual = x
         h = self.final_layer_norm(x) if pre else x
-        h = self.ffn(h)
-        if self.cfg.scale_resids:
+        h = self.ffn(h, generator)
+        h = dropout(h, cfg.dropout, generator)
+        if cfg.scale_resids:
             residual = residual * self.w_resid.to(self.dtype)
-        x = residual + h
+        x = residual + drop_path(h, drop_path_rate, generator)
         if not pre:
             x = self.final_layer_norm(x)
         return x
@@ -344,21 +374,24 @@ class TransformerDecoderLayer(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, encoder_out=None, self_mask=None, self_bias=None, cross_mask=None,
-                cross_bias=None, cache=None, full_context: bool = False):
-        pre = self.cfg.decoder.normalize_before
+                cross_bias=None, cache=None, full_context: bool = False, generator=None,
+                drop_path_rate: float = 0.0):
+        cfg = self.cfg
+        pre = cfg.decoder.normalize_before
         new_cache: Dict[str, Any] = {}
 
         residual = x
         h = self.self_attn_layer_norm(x) if pre else x
         h, self_kv = self.self_attn(
             h, bias=self_bias, mask=self_mask, causal=(cache is None and not full_context),
-            cache=None if cache is None else cache["self"],
+            cache=None if cache is None else cache["self"], generator=generator,
         )
         if cache is not None:
             new_cache["self"] = self_kv
         if self.self_attn_ln is not None:
             h = self.self_attn_ln(h)
-        x = residual + h
+        h = dropout(h, cfg.dropout, generator)
+        x = residual + drop_path(h, drop_path_rate, generator)
         if not pre:
             x = self.self_attn_layer_norm(x)
 
@@ -368,21 +401,24 @@ class TransformerDecoderLayer(nn.Module):
             h, _ = self.encoder_attn(
                 h, encoder_out, bias=cross_bias, mask=cross_mask,
                 cache=None if cache is None else cache.get("cross"), static_kv=True,
+                generator=generator,
             )
             if cache is not None and "cross" in cache:
                 new_cache["cross"] = cache["cross"]
             if self.cross_attn_ln is not None:
                 h = self.cross_attn_ln(h)
-            x = residual + h
+            h = dropout(h, cfg.dropout, generator)
+            x = residual + drop_path(h, drop_path_rate, generator)
             if not pre:
                 x = self.encoder_attn_layer_norm(x)
 
         residual = x
         h = self.final_layer_norm(x) if pre else x
-        h = self.ffn(h)
-        if self.cfg.scale_resids:
+        h = self.ffn(h, generator)
+        h = dropout(h, cfg.dropout, generator)
+        if cfg.scale_resids:
             residual = residual * self.w_resid.to(self.dtype)
-        x = residual + h
+        x = residual + drop_path(h, drop_path_rate, generator)
         if not pre:
             x = self.final_layer_norm(x)
         return x, (new_cache if cache is not None else None)
@@ -400,12 +436,16 @@ class TransformerEncoder(nn.Module):
         self.layer_norm = LayerNorm(cfg.encoder.embed_dim, dtype) if cfg.encoder.normalize_before else None
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
-                bias_spec: Optional[BiasSpec] = None) -> torch.Tensor:
-        """x (B, T, E) adapted embeddings; padding_mask (B, T) True = valid."""
+                bias_spec: Optional[BiasSpec] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, T, E) adapted embeddings; padding_mask (B, T) True = valid;
+        ``generator`` turns on training mode (module docstring)."""
         attn_mask = padding_mask[:, None, None, :]
+        dpr = np.linspace(0.0, self.cfg.encode_drop_path_rate, self.n_layers)
         for i in range(self.n_layers):
             bias = bias_spec.layer_bias(i) if bias_spec is not None else None
-            x = getattr(self, f"layers_{i}")(x, attn_mask, bias)
+            y = getattr(self, f"layers_{i}")(x, attn_mask, bias, generator, float(dpr[i]))
+            x = layer_drop(y, x, self.cfg.encoder.layerdrop, generator)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return x
@@ -434,6 +474,7 @@ class TransformerDecoder(nn.Module):
         cache: Optional[Dict[str, Any]] = None,
         cache_index: Optional[int] = None,
         full_context: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
         Tt = x.shape[1]
         self_mask = None
@@ -444,6 +485,7 @@ class TransformerDecoder(nn.Module):
             cross_mask = encoder_padding_mask[:, None, None, :]
 
         new_cache: Optional[Dict[str, Any]] = {} if cache is not None else None
+        dpr = np.linspace(0.0, self.cfg.decode_drop_path_rate, self.n_layers)
         for i in range(self.n_layers):
             self_bias = None
             if self_bias_spec is not None:
@@ -453,10 +495,13 @@ class TransformerDecoder(nn.Module):
             if cb is not None and cache is not None:
                 start = max(0, min(cache_index, cb.shape[2] - Tt))
                 cb = cb[:, :, start:start + Tt]
-            x, layer_cache = getattr(self, f"layers_{i}")(
+            y, layer_cache = getattr(self, f"layers_{i}")(
                 x, encoder_out, self_mask, self_bias, cross_mask, cb,
                 None if cache is None else cache[f"layers_{i}"], full_context,
+                generator, float(dpr[i]),
             )
+            # LayerDrop (never during incremental decoding)
+            x = y if cache is not None else layer_drop(y, x, self.cfg.decoder.layerdrop, generator)
             if cache is not None:
                 new_cache[f"layers_{i}"] = layer_cache
         if self.layer_norm is not None:

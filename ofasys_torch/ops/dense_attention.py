@@ -1,10 +1,14 @@
-"""Dense (whole-row) attention for short sequences: kernel B1 (counterpart
-of ofasys_tpu/ops/pallas_dense_attention.py, forward only).
+"""Dense (whole-row) attention for short sequences: kernels B1 (forward)
+and B2 (backward), the counterpart of ofasys_tpu/ops/pallas_dense_attention.py.
 
 ``dense_attention_fwd`` launches the CUDA kernel of
-``ofasys_torch/csrc/dense_attention_fwd.cu`` for CUDA tensors, and runs its
-plain version, :func:`dense_attention_fwd_reference`, for CPU tensors. There
-is no other route: on a CUDA tensor it launches the kernel or raises.
+``ofasys_torch/csrc/dense_attention_fwd.cu`` and ``dense_attention_bwd`` the
+one of ``ofasys_torch/csrc/dense_attention_bwd.cu`` for CUDA tensors; for
+CPU tensors each runs its plain version (:func:`dense_attention_fwd_reference`,
+:func:`dense_attention_bwd_reference`). There is no other route: on a CUDA
+tensor each launches its kernel or raises. :class:`DenseAttentionFunction`
+joins the two as one autograd function, as ``_dense_attention``'s custom
+vjp does in JAX.
 
 Conventions match ops/attention.dot_product_attention at the public entry
 ``dense_attention``: q (B, Tq, H, D), k/v (B, Tk, H, D), bias additive and
@@ -125,6 +129,145 @@ def dense_attention_fwd(
 dense_attention_fwd.launches = 0
 
 
+def dense_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
+    want_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch twin of the Pallas backward (``_bwd_kernel_t``), written
+    out in its arithmetic (not autograd of the forward): scores recomputed in
+    fp32, ``p = exp(s - lse)``, ``dv = round(p)^T do``, ``dp = do v^T``,
+    ``dd = rowsum(dp * p)``, ``ds = p (dp - dd)`` in fp32, ``dbias`` the fp32
+    batch sum of ``ds``, ``dq = round(ds) k`` and ``dk = round(ds)^T q``, with
+    round() to q's dtype. q/do (B, Tq, E), k/v (B, Tk, E), lse (B, H, Tq),
+    bias (H, Tq, Tk), mask (B, 1, Tk) -> dq, dk, dv in q's dtype and dbias
+    (H, Tq, Tk) fp32, or None without a bias or when ``want_dbias`` is False."""
+    B, Tq, E = q.shape
+    Tk = k.shape[1]
+    H = num_heads
+    D = E // H
+    dt = q.dtype
+
+    def heads(t, T):
+        return t.reshape(B, T, H, D).permute(0, 2, 1, 3).float()    # (B, H, T, D)
+
+    qh, kh, vh, doh = heads(q, Tq), heads(k, Tk), heads(v, Tk), heads(do, Tq)
+    s = torch.matmul(qh, kh.transpose(-1, -2))
+    if bias is not None:
+        s = s + bias[None].float()
+    if mask is not None:
+        s = torch.where(mask[:, None] != 0, s, torch.full((), MASK_VALUE, device=s.device))
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    dd = (dp * p).sum(-1, keepdim=True)
+    ds = p * (dp - dd)
+    dbias = ds.sum(0) if bias is not None and want_dbias else None
+    dsb = ds.to(dt).float()
+    dq = torch.matmul(dsb, kh)
+    dk = torch.matmul(dsb.transpose(-1, -2), qh)
+
+    def back(t, T):
+        return t.permute(0, 2, 1, 3).reshape(B, T, E).to(dt)
+
+    return back(dq, Tq), back(dk, Tk), back(dv, Tk), dbias
+
+
+def _bind_bwd():
+    from ofasys_torch.ops.cuda_build import load
+
+    lib = load("dense_attention_bwd")
+    fn = lib.dense_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _batch_chunks(B: int, Tq: int, H: int, device: torch.device) -> int:
+    """How many chunks of the batch pass 1 of kernel B2 splits into: enough
+    blocks for about four per SM, each chunk's dbias partial summed after."""
+    tiles = -(-Tq // 16) * H
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(B, -(-4 * sms // tiles)))
+
+
+def dense_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
+    want_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel B2: the gradients of kernel B1 for the output cotangent ``do``
+    (B, Tq, E) in q's dtype, given B1's inputs and its lse -> dq, dk, dv in
+    q's dtype and the batch-summed dbias (H, Tq, Tk) fp32 (None without a
+    bias or when ``want_dbias`` is False).
+
+    CUDA tensors launch the kernel (counted in ``dense_attention_bwd.launches``,
+    one per call; the call runs the kernel's two passes and, when the batch
+    was split, the dbias reduction); CPU tensors run
+    :func:`dense_attention_bwd_reference`."""
+    _check(q, k, v, bias, mask, num_heads)
+    B, Tq, E = q.shape
+    Tk = k.shape[1]
+    H = num_heads
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous():
+        raise ValueError("dense_attention_bwd: do must be contiguous, shaped and typed as q")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Tq) or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise ValueError("dense_attention_bwd: lse must be contiguous fp32 (B, H, Tq)")
+    if not q.is_cuda:
+        return dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H, want_dbias)
+    fn = _bind_bwd()
+    want_dbias = want_dbias and bias is not None
+    with torch.cuda.device(q.device):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dd = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+        chunks = _batch_chunks(B, Tq, H, q.device)
+        dbias = part = None
+        if want_dbias:
+            dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
+            if chunks > 1:
+                part = torch.empty((chunks, H, Tq, Tk), dtype=torch.float32, device=q.device)
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(bias), _ptr(mask),
+                 _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(dd), _ptr(part),
+                 B, H, Tq, Tk, E // H, chunks, _DTYPE_CODE[q.dtype],
+                 ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"dense_attention_bwd: CUDA launch failed with error {err}")
+    dense_attention_bwd.launches += 1
+    return dq, dk, dv, dbias
+
+
+dense_attention_bwd.launches = 0
+
+
+class DenseAttentionFunction(torch.autograd.Function):
+    """Kernel B1 forward, kernel B2 backward (the custom vjp of
+    ``_dense_attention``): q (B, Tq, E) pre-scaled, k/v (B, Tk, E), bias bf16
+    (H, Tq, Tk) or None, mask int8 (B, 1, Tk) or None -> out (B, Tq, E). The
+    bias gradient comes back in the bias's dtype, as ``_vjp_bwd`` returns
+    ``dbias.astype(bias.dtype)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, num_heads):
+        out, lse = dense_attention_fwd(q, k, v, bias, mask, num_heads)
+        ctx.save_for_backward(q, k, v, bias, mask, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, mask, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = dense_attention_bwd(
+            q, k, v, do.contiguous(), lse, bias, mask, ctx.num_heads,
+            want_dbias=ctx.needs_input_grad[3],
+        )
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, dbias, None, None
+
+
 def dense_attention(
     q: torch.Tensor,                       # (B, Tq, H, D)
     k: torch.Tensor,                       # (B, Tk, H, D)
@@ -135,10 +278,12 @@ def dense_attention(
     scale: float = 1.0,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Short-sequence attention through kernel B1; the prep matches
-    ofasys_tpu's ``dense_attention``: q is pre-scaled in fp32 and cast back,
-    the causal mask is folded into the bias as -1e9, and the bias is
-    broadcast to (H, Tq, Tk) and rounded to bf16."""
+    """Short-sequence attention through kernels B1 and B2; the prep matches
+    ofasys_tpu's ``dense_attention`` and stays visible to autograd: q is
+    pre-scaled in fp32 and cast back (so dq picks up the scale outside the
+    kernel), the causal mask is folded into the bias as -1e9, and the bias
+    is broadcast to (H, Tq, Tk) and rounded to bf16 (so dbias reaches an
+    fp32 bias through that cast)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     q = (q.float() * scale).to(q.dtype)
@@ -160,7 +305,7 @@ def dense_attention(
     mf = None
     if mask is not None:
         mf = mask.to(torch.int8).expand(B, 1, 1, Tk).reshape(B, 1, Tk).contiguous()
-    out, _ = dense_attention_fwd(
+    out = DenseAttentionFunction.apply(
         q.reshape(B, Tq, H * D).contiguous(), k.reshape(B, Tk, H * D).contiguous(),
         v.reshape(B, Tk, H * D).contiguous(), bf, mf, H,
     )

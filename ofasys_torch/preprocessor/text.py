@@ -1,13 +1,15 @@
-"""Text preprocessor, inference path (counterpart of
-ofasys_tpu/preprocessor/text.py).
+"""Text preprocessor (counterpart of ofasys_tpu/preprocessor/text.py).
 
-Per slot: tokenize (byte id + namespace offset), loss masking for no-loss
-decoder spans (which become forced prefix tokens at inference).
-group_map merges adjacent text slots and wraps them with bos/eos; collate
-builds prev_output_tokens = inputs[:-1] and target = target[1:].
+Per slot: tokenize (byte id + namespace offset), span masking
+(``mask_ratio`` on the train split, from a numpy rng seeded by
+``cfg.seed``), loss masking for no-loss decoder spans (which become forced
+prefix tokens at inference). group_map merges adjacent text slots and wraps
+them with bos/eos; collate builds prev_output_tokens = inputs[:-1] and
+target = target[1:].
 
-Span masking (``mask_ratio`` on the train split) and the closed-set
-ans2label trie wait for the training slice.
+Closed-set constraint masks need the ans2label trie (``ans2label_file``),
+which is not ported yet (ROADMAP Queue A item 3); without it ofasys_tpu
+makes none either.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 from ofasys_torch.preprocessor.base import BasePreprocess, CollateOutput, PreprocessConfig
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.instruction import Slot
+from ofasys_torch.preprocessor.mask_utils import add_span_mask
 from ofasys_torch.preprocessor.tokenizer import build_tokenizer
 from ofasys_torch.preprocessor.utils import collate_tokens
 
@@ -35,6 +38,10 @@ class TextPreprocessConfig(PreprocessConfig):
     max_tgt_length: int = 256
     # pad every batch to max_src/tgt_length instead of longest-in-batch
     pad_to_fixed: bool = False
+    poisson_lambda: float = 3.0
+    random_ratio: float = 0.0
+    replace_length: int = 1
+    seed: int = 1
 
 
 class TextPreprocess(BasePreprocess):
@@ -43,6 +50,7 @@ class TextPreprocess(BasePreprocess):
         self.bpe = build_tokenizer(cfg.bpe)
         self.text_start, self.text_end = global_dict.add_namespace("<text>", self.bpe.vocab_size)
         self.mask_idx = global_dict.add_symbol("<mask>")
+        self.rng = np.random.default_rng(cfg.seed)
 
     # ------------------------------------------------------------- encoding
     def encode(self, text: str) -> np.ndarray:
@@ -91,10 +99,18 @@ class TextPreprocess(BasePreprocess):
         if max_length:
             tokens = tokens[:max_length]
 
-        if slot.get_attr("mask_ratio", float) and slot.split == "train":
-            raise NotImplementedError(
-                "span masking (mask_ratio on the train split) is not ported yet "
-                "(ROADMAP Queue A item 2)"
+        inputs = tokens
+        mask_ratio = slot.get_attr("mask_ratio", float)
+        if mask_ratio and slot.split == "train":
+            inputs = add_span_mask(
+                tokens,
+                mask_ratio,
+                self.mask_idx,
+                self.rng,
+                poisson_lambda=self.cfg.poisson_lambda,
+                random_ratio=self.cfg.random_ratio,
+                replace_length=self.cfg.replace_length,
+                random_token_range=(self.text_start, self.text_end),
             )
 
         if not slot.is_src:
@@ -106,7 +122,7 @@ class TextPreprocess(BasePreprocess):
             prefix_tokens = None
 
         slot.value = {
-            "inputs": tokens,
+            "inputs": inputs,
             "target": target,
             "constraint_masks": None,
             "raw_tokens": tokens,

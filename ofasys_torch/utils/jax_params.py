@@ -11,12 +11,13 @@ as follows:
     ``type_embedding``, ...)       -> the parameter of the same name
 
 Every parameter of the net must be filled and every leaf of the tree used;
-anything else raises.
+anything else raises. ``export_params`` goes the other way, for the net's
+parameters or for any tensors named like them (their gradients).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,3 +59,27 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     if missing:
         raise KeyError(f"net parameters missing from the flax tree: {missing}")
     return net
+
+
+def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """The flax-shaped tree (nested dicts of fp32 numpy arrays) of the
+    net's parameters, or of ``tensors``, a dict from parameter name to a
+    tensor of the parameter's shape (``{n: p.grad for n, p in
+    net.named_parameters()}``); the inverse of :func:`load_jax_params`."""
+    tree: Dict[str, Any] = {}
+    for name, p in net.named_parameters():
+        value = p if tensors is None else tensors[name]
+        path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        module = net.get_submodule(path) if path else net
+        arr = value.detach().float().cpu().numpy()
+        if leaf == "weight" and isinstance(module, nn.Linear):
+            leaf, arr = "kernel", arr.T
+        elif leaf == "weight" and isinstance(module, nn.LayerNorm):
+            leaf = "scale"
+        elif leaf == "weight" and isinstance(module, nn.Embedding):
+            leaf = "embedding"
+        node = tree
+        for k in path.split(".") if path else ():
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

@@ -68,3 +68,18 @@ def slots_to_device(slots: List[SlotBatch], device) -> List[SlotBatch]:
         return v
 
     return [dataclasses.replace(s, value={k: conv(v) for k, v in s.value.items()}) for s in slots]
+
+
+def sample_to_device(sample: dict, device) -> dict:
+    """A copy of a collated sample whose slots, ``target`` and
+    ``constraint_masks`` are tensors on ``device`` (the form the criterion
+    and the train step take)."""
+    out = dict(sample)
+    out["net_input"] = {**sample["net_input"],
+                        "slots": slots_to_device(sample["net_input"]["slots"], device)}
+    for key in ("target", "constraint_masks"):
+        v = sample.get(key)
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[key] = (t if t.dtype == torch.bool else t.long()).to(device)
+    return out

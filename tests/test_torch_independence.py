@@ -60,7 +60,10 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     expected = {"ofasys_torch.serve", "ofasys_torch.hub_interface", "ofasys_torch.ops.dense_attention",
                 "ofasys_torch.model.ofa", "ofasys_torch.generator.sequence_generator",
-                "ofasys_torch.utils.jax_params"}
+                "ofasys_torch.utils.jax_params", "ofasys_torch.engine.train_step",
+                "ofasys_torch.engine.optim", "ofasys_torch.engine.criterion.base",
+                "ofasys_torch.engine.criterion.label_smoothed_cross_entropy",
+                "ofasys_torch.configure.configs", "ofasys_torch.preprocessor.mask_utils"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
     if "raised" in out:
