@@ -20,18 +20,37 @@ Phases, in order; any failure exits non-zero:
      of that run, a falling loss, and one update's gradients under the
      kernels against the plain attention path
   7. profile: one training update under torch.profiler
-Prints a ``{"kernels": [...]}`` line, then, last,
+  8. serve_long: the text lengths raised to 1,000 (a second hub on the same
+     model): 16 summarization requests with sources of 600-960 bytes
+     (encoder T up to about 1,000), kernel B3 in every dispatch's encoder
+  9. serve_truncated: one dispatch of 8 requests under the default
+     max_src_length = 256 with 300-400 byte sources, cut to 257 tokens
+ 10. train_long: 5 summed two-task updates at long lengths
+     (text_infilling_long B=16 with documents of 480-520 bytes,
+     gigaword_long B=16 with articles of 880-960 bytes): kernels B3, B4
+     (dq, dk/dv) and B5 on every long attention, B1/B2 on the short
+     decoder, a falling loss and one update's gradients against the plain
+     attention path (4 samples per task), also with the flash backward's
+     dd taken from the unrounded output
+ 11. profile_long: one long update under torch.profiler
+The kernel phase also holds kernels B3, B4 and B5 against their plain
+versions at every shape of the long paths, a per-(b, h) bias, a causal and
+a ragged shape. Prints a ``{"kernels": [...]}`` line, then, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX or ofasys_tpu. Exits non-zero without CUDA.
 
-The train phase can be rehearsed on the CPU at a tiny arch, where the
-kernels' plain versions stand in and no launch is counted:
+The serve and train phases can be rehearsed on the CPU at a tiny arch,
+where the kernels' plain versions stand in and no launch is counted:
 ``train_and_check(build_train_model(d, "cpu", arch="tiny"), gp, "cpu",
-tasks=TINY_TRAIN_TASKS)``.
+tasks=TINY_TRAIN_TASKS)``; the long paths the same way with
+``long_preprocess(d)``, ``TINY_LONG_TRAIN_TASKS`` and
+``ofasys_torch.model.transformer.flash_available`` patched to return True
+(see the README).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -50,6 +69,7 @@ PEAK_BF16_FLOPS = 989e12
 
 SEED = 0
 TPL = "[TEXT:src] -> [TEXT:tgt]"
+SERVE_SRC = (40, 200)         # source bytes of the serving run
 N_BEAM_REQUESTS = 12          # the hub's TEXT defaults: beam 5, no-repeat 3-grams
 N_GREEDY_REQUESTS = 4         # beam_size=1
 MAX_LEN_B = 16
@@ -65,13 +85,6 @@ LSE_ATOL = 1e-3
 # outputs of order 1; a bf16 ulp at 4 is 0.03).
 ENC_REL_TOL = 2e-2
 ENC_ABS_TOL = 0.25
-# Kernel B2 vs its plain version (bf16): dq, dk, dv within 2e-2 of the
-# largest entry (bf16 outputs; p and ds are rounded to bf16 before their
-# products on both sides, and a value on a rounding boundary can round
-# either way after a reordered fp32 sum); dbias, an fp32 batch sum of
-# unrounded ds, within 1e-3 of its largest entry.
-BWD_REL_ATOL = 2e-2
-DBIAS_REL_ATOL = 1e-3
 
 # the training slice: ofasys_tpu's task zoo templates (task/tasks.py)
 INFILL_TPL = 'what is the complete text of " [TEXT:text,mask_ratio=0.3] "? -> [TEXT:text]'
@@ -88,22 +101,117 @@ TINY_TRAIN_TASKS = {
     "text_infilling": dict(template=INFILL_TPL, batch=4, text=(58, 62)),
     "gigaword": dict(template=SUMMARY_TPL, batch=2, src=(140, 150), tgt=(20, 24)),
 }
+# the long paths (sources and targets past 256 tokens: kernels B3, B4, B5):
+# the text preprocessor's max_src_length and max_tgt_length raised to 1,000
+# (examples/long_context.yaml), so every sequence with bos and eos fits the
+# base arch's 1,024 positions
+LONG = 1000
+LONG_SRC = (600, 960)         # serve_long sources: encoder T of about 640-1,000
+TRUNC_SRC = (300, 400)        # serve_truncated: cut to 257 tokens at the default 256
+LONG_TRAIN_TASKS = {
+    "text_infilling_long": dict(template=INFILL_TPL, batch=16, text=(480, 520)),
+    "gigaword_long": dict(template=SUMMARY_TPL, batch=16, src=(880, 960), tgt=(40, 60)),
+}
+TINY_LONG_TRAIN_TASKS = {n: dict(spec, batch=2) for n, spec in LONG_TRAIN_TASKS.items()}
+# samples per task of the long gradient check: the plain path it compares
+# with keeps (B, H, T, T) scores per layer for the backward
+GRAD_CHECK_BATCH = 4
+# Kernels B3-B5 vs their plain versions (bf16): B3 out atol 2e-2 (bf16
+# output; p is rounded to bf16 against its tile's running max in the
+# kernel, the row max in the plain version) and lse atol 1e-3 (fp32 sums in
+# another order).
+# Backward kernels B2, B4 and B5: each gradient is held to the reference's
+# own size, |got - ref|_F / |ref|_F and max|got - ref| / max|ref|. dq, dk,
+# dv are bf16 outputs that both sides round at the same points (p and ds
+# to bf16 before their products), so they differ only where a reordered
+# fp32 sum crosses a rounding boundary: Frobenius 1e-3, max 1e-2 (2.5 bf16
+# ulps of the largest entry). B2's dbias, B5's and the per-(b, h) ds are
+# fp32 sums of unrounded ds: 1e-3 on both measures. At the long shapes
+# (rms of dq, dk, dv 0.013-0.25, largest entries 0.65-6.8) a kernel that
+# dropped dd is off by 8e-2 or more and one that skipped a key tile by 0.26
+# or more (Frobenius): check_flash plants both faults at every training
+# shape and fails unless the limits catch them.
+GRAD_FROB_TOL = 1e-3
+GRAD_MAX_TOL = 1e-2
+DS_REL_ATOL = 1e-3
+FLASH_TIMING = dict(n=5, repeats=3)   # flash calls take milliseconds: fewer repeats
+
 N_UPDATES = 5
 TRAIN_LR = 1e-4
 # One update's gradients (dropout 0) under the kernels vs the plain
-# attention path: the plain path rounds the scores to bf16 before the
-# softmax (attn_logits='compute') and the kernels keep them fp32, so the two
-# differ by bf16 rounding carried through 12 layers forward and back. The
+# attention path differ by bf16 rounding carried through 12 layers forward
+# and back (the flash route also rounds the bias and its gradient to bf16):
+# the position leaves by up to 4e-2 even between the plain path with bf16
+# and with fp32 scores. The worst leaf (0.148) is the flash dd below. The
 # key-side biases (k_proj, pos_k_linear, cross_pos_k_linear) shift every
 # score of a softmax row alike: their gradient is 0 in exact arithmetic and
 # rounding noise on both paths, so the per-leaf check leaves them out.
 GRAD_REL_TOL = 5e-2
 LEAF_REL_TOL = 0.25
 NOISE_MODULES = ("k_proj", "pos_k_linear", "cross_pos_k_linear")
+# the plain path's score dtype (attn_logits) for the gradient comparison:
+# both are computed and logged, the check reads GRAD_REF_LOGITS (fp32
+# scores, as the kernels keep them)
+GRAD_PLAIN_LOGITS = ("compute", "fp32")
+GRAD_REF_LOGITS = "fp32"
+# The flash backward takes dd = rowsum(do * o) from the bf16 output o, as
+# ofasys_tpu's _flash_backward does, where the plain path's softmax
+# backward sums p * dp exactly: per row, ds then sums to a small nonzero
+# amount that dq carries along the mean key. Leaves that sum dq over every
+# query row (a cross attention's q_proj.bias, the LayerNorm before it) are
+# off by up to 0.15 on the long path. With dd from the unrounded output
+# (_dd_from_unrounded_output) every leaf must agree within DD_LEAF_TOL.
+DD_LEAF_TOL = 5e-2
+
+
+# every CUDA kernel of the port: the TPU kernel it replaces and its source
+KERNELS = {
+    "dense_attention_fwd": ("ofasys_tpu/ops/pallas_dense_attention.py:87",
+                            "ofasys_torch/csrc/dense_attention_fwd.cu"),
+    "dense_attention_bwd": ("ofasys_tpu/ops/pallas_dense_attention.py:180",
+                            "ofasys_torch/csrc/dense_attention_bwd.cu"),
+    "flash_attention_fwd": ("ofasys_tpu/ops/pallas_attention.py:58",
+                            "ofasys_torch/csrc/flash_attention_fwd.cu"),
+    "flash_attention_bwd_dq": ("ofasys_tpu/ops/pallas_attention.py:341",
+                               "ofasys_torch/csrc/flash_attention_bwd.cu"),
+    "flash_attention_bwd_dkv": ("ofasys_tpu/ops/pallas_attention.py:404",
+                                "ofasys_torch/csrc/flash_attention_bwd.cu"),
+    "flash_attention_bwd_dbias": ("ofasys_tpu/ops/pallas_attention.py:466",
+                                  "ofasys_torch/csrc/flash_attention_bwd.cu"),
+}
+FLASH_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_bwd_dbias")
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def _wrappers():
+    """Each kernel's wrapper, which counts its launches in ``.launches``."""
+    from ofasys_torch.ops import dense_attention, flash_attention
+
+    return {name: getattr(dense_attention if name.startswith("dense") else flash_attention, name)
+            for name in KERNELS}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _route(cfg, B, Tq, Tk, dropout_rate=0.0):
+    """Which attention the model runs on the card for a text-path call of
+    this shape (a bias shared by the batch, a padding mask): 'flash'
+    (B3-B5), 'dense' (B1/B2) or 'plain', by MultiheadAttention's own rule."""
+    from ofasys_torch.model.transformer import attention_route
+
+    H = cfg.encoder.attention_heads
+    return attention_route(cfg, "cuda", B, Tq, Tk, H, cfg.encoder.embed_dim // H, dropout_rate,
+                           bias_shape=(1, H, Tq, Tk), mask_shape=(B, 1, 1, Tk))
 
 
 def time_ms(fn, n: int = 50, repeats: int = 5) -> float:
@@ -179,8 +287,8 @@ def _fwd_bound(B, Tq, Tk, H, D):
 
 def _bwd_bound(B, Tq, Tk, H, D, with_bias=True):
     """Bytes (q, k, v, do, lse, bias, mask read once; dq, dk, dv, dbias
-    written once) and FLOPs (the TPU kernel's CostEstimate, 10 B Tq Tk E)
-    of kernel B2."""
+    written once) and FLOPs (five (Tq, Tk, D) products per head: q.k, do.v,
+    ds.k, ds.q, p.do; 10 B Tq Tk E) of kernel B2."""
     E = H * D
     n_bytes = 2 * (2 * B * Tq * E + 2 * B * Tk * E) + 2 * (B * Tq * E + 2 * B * Tk * E) \
         + 4 * B * H * Tq + B * Tk + (2 + 4) * H * Tq * Tk * with_bias
@@ -270,17 +378,9 @@ def check_bwd(label, shape, causal=False):
     got = dense_attention_bwd(q, k, v, do, lse, bias, mask, H)
     torch.cuda.synchronize()
     ref = dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H)
-    errs, ok = {}, True
-    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
-        err = (a.float() - b.float()).abs().max().item()
-        scale = max(1.0, b.float().abs().max().item())
-        errs[name] = err
-        tol = (DBIAS_REL_ATOL if name == "dbias" else BWD_REL_ATOL) * scale
-        ok = ok and bool(torch.isfinite(a.float()).all()) and err <= tol
+    errs, ok = grad_errors(got, ref, False)
     log(f"kernel dense_attention_bwd [{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D}]: "
-        + " ".join(f"max|{n}-plain|={e:.3e}" for n, e in errs.items())
-        + f" (dq/dk/dv atol {BWD_REL_ATOL} x max(1, |plain|), dbias {DBIAS_REL_ATOL} x) "
-        f"-> {'ok' if ok else 'FAIL'}")
+        f"{_grad_report(errs)} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"dense_attention_bwd disagrees with its plain version at {label}")
     q4, k4, v4, add = _sdpa_args(q, k, v, bias, mask, H, D, grad=True)
@@ -294,7 +394,8 @@ def check_bwd(label, shape, causal=False):
     log(f"  times [{label}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library (scaled_dot_product_attention backward) {lib}, bound {bound_ms:.5f} ms "
         f"({n_bytes} B, {flops} FLOP)")
-    return dict(shape=label, B=B, Tq=Tq, Tk=Tk, err=max(errs.values()), errs=errs,
+    return dict(shape=label, B=B, Tq=Tq, Tk=Tk, err=max(e["max"] for e in errs.values()),
+                errs={n: e["max"] for n, e in errs.items()},
                 kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -316,6 +417,229 @@ def phase_kernels(dispatch_shapes, train_shapes):
     return fwd, bwd
 
 
+def _flash_inputs(B, Tq, Tk, H, D, seed, per_bh=False):
+    """bf16 q, k, v, do (B, T, H*D) as the projections give them, a bias
+    (H, Tq, Tk) shared by the batch or (B*H, Tq, Tk), and an int8 keep-mask
+    (B, 1, Tk) with padding-style tails that keeps key 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H * D, device="cuda", generator=g).to(torch.bfloat16)
+                   for T in (Tq, Tk, Tk, Tq))
+    bias = torch.randn(B * H if per_bh else H, Tq, Tk, device="cuda", generator=g).to(torch.bfloat16)
+    keep = torch.rand(B, 1, Tk, device="cuda", generator=g) > 0.2
+    for b in range(1, B):
+        keep[b, :, max(1, Tk - 7 * b):] = False
+    keep[:, :, 0] = True
+    return q, k, v, bias, keep.to(torch.int8), do
+
+
+def _flash_bounds(B, Tq, Tk, H, D, nb, causal):
+    """(bytes, FLOP) of kernels B3, B4-dq, B4-dkv and B5 at one shape: each
+    input read once, each output written once; FLOP 2 B H Tq Tk D for each
+    (Tq, Tk, D) product the function needs: B3 two (q.k, p.v), B4-dq three
+    (q.k, do.v, ds.k), B4-dkv four (q.k, do.v, p.do, ds.q), B5 two (q.k,
+    do.v). Causal skips the tiles above the diagonal: half the FLOP and
+    half the bias."""
+    E = H * D
+    frac = 0.5 if causal else 1.0
+    bias = int(2 * nb * Tq * Tk * frac)
+    qkv = 2 * (B * Tq * E + 2 * B * Tk * E)
+    core = B * H * Tq * Tk * D * frac
+    reads = qkv + 2 * B * Tq * E + 8 * B * H * Tq + bias + B * Tk      # q, k, v, do, lse, dd
+    ds = 4 * B * H * Tq * Tk if nb == B * H else 0
+    return {
+        "flash_attention_fwd": (qkv + bias + B * Tk + 2 * B * Tq * E + 4 * B * H * Tq, int(4 * core)),
+        "flash_attention_bwd_dq": (reads + 2 * B * Tq * E + ds, int(6 * core)),
+        "flash_attention_bwd_dkv": (reads + 4 * B * Tk * E, int(8 * core)),
+        "flash_attention_bwd_dbias": (reads + 4 * H * Tq * Tk, int(4 * core)),
+    }
+
+
+def _flash_sdpa(q, k, v, bias, mask, H, D, causal, grad=False):
+    """The same function for one library call: (B, H, T, D) views and an
+    additive bf16 mask = bias + (-1e9 on masked keys and above the causal
+    diagonal). With ``grad`` the bias is a (1|B, H, Tq, Tk) leaf that needs
+    its gradient and the sum is taken inside the timed call."""
+    B, Tq, Tk = q.shape[0], q.shape[1], k.shape[1]
+    neg = torch.where(mask[:, :, None, :] != 0, 0.0, -1e9)
+    if causal:
+        neg = neg + torch.where(torch.ones(Tq, Tk, device="cuda").tril().bool(), 0.0, -1e9)
+    neg = neg.to(torch.bfloat16)
+    b4 = bias.view(-1, H, Tq, Tk)
+    q4, k4, v4 = (t.view(B, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v))
+    if grad:
+        q4, k4, v4, b4 = (t.detach().clone().requires_grad_() for t in (q4, k4, v4, b4))
+        return q4, k4, v4, b4, neg
+    return q4, k4, v4, (b4 + neg).to(torch.bfloat16)
+
+
+def _flash_sdpa_bwd_ms(q4, k4, v4, b4, neg, do4, scale):
+    """The library yardstick of B4 + B5: autograd through
+    scaled_dot_product_attention with the bias needing its gradient, minus
+    the forward."""
+    import torch.nn.functional as F
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4 + neg, scale=scale)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q4, k4, v4, b4), do4)
+
+    try:
+        both = time_ms(fwd_bwd, **FLASH_TIMING)
+    except RuntimeError as e:               # a yardstick only: the port never calls it
+        log(f"  library backward not timed: {str(e).splitlines()[0][:120]}")
+        return None
+    with torch.no_grad():
+        return both - time_ms(fwd, **FLASH_TIMING)
+
+
+def grad_errors(got, ref, per_bh):
+    """dq, dk, dv and the bias gradient (ds for a per-(b, h) bias) against
+    the plain version's: max abs error, that over max|ref|, the relative
+    Frobenius error, the reference's largest entry and rms, and whether
+    the error is within the limits. Returns ({name: errors}, all ok)."""
+    out = {}
+    for name, a, b in zip(("dq", "dk", "dv", "ds" if per_bh else "dbias"), got, ref):
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        ref_max, ref_norm = b.abs().max().item(), b.norm().item()
+        frob = (a - b).norm().item() / ref_norm
+        tol_frob, tol_max = (GRAD_FROB_TOL, GRAD_MAX_TOL) if name in ("dq", "dk", "dv") \
+            else (DS_REL_ATOL, DS_REL_ATOL)
+        out[name] = dict(max=err, max_rel=err / ref_max, frob=frob, ref_max=ref_max,
+                         ref_rms=ref_norm / b.numel() ** 0.5,
+                         ok=bool(torch.isfinite(a).all()) and frob <= tol_frob
+                         and err <= tol_max * ref_max)
+    return out, all(e["ok"] for e in out.values())
+
+
+def _grad_report(errs):
+    return " ".join(f"{n}: max {e['max']:.3e} ({e['max_rel']:.2e} of max|plain| {e['ref_max']:.3e}, "
+                    f"rms {e['ref_rms']:.3e}) frob {e['frob']:.2e}" for n, e in errs.items()) \
+        + f" (dq/dk/dv limits frob {GRAD_FROB_TOL}, max {GRAD_MAX_TOL}; dbias/ds {DS_REL_ATOL})"
+
+
+def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_faults=False):
+    """Kernels B3 (and, with ``backward``, B4-dq, B4-dkv and B5, or the dq
+    kernel's ds for a per-(b, h) bias) against their plain versions at one
+    shape, with their times; with ``plant_faults`` also shows that the
+    gradient limits fail the kernels run on wrong inputs. Returns one row
+    per kernel."""
+    import torch.nn.functional as F
+
+    from ofasys_torch.ops import flash_attention as fl
+
+    B, Tq, Tk, H, D = shape
+    scale = (2 * D) ** -0.5                   # the model's (head_dim * attn_scale_factor) ** -0.5
+    q, k, v, bias, mask, do = _flash_inputs(B, Tq, Tk, H, D, SEED, per_bh)
+    nb = bias.shape[0]
+    tag = f"[{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D}{' causal' if causal else ''}" \
+          f"{' per-(b,h) bias' if per_bh else ''}]"
+    out, lse = fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fl.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal)
+    err_out = (out.float() - ref.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok = bool(torch.isfinite(out.float()).all()) and err_out <= OUT_ATOL and err_lse <= LSE_ATOL
+    log(f"kernel flash_attention_fwd {tag}: max|out-plain|={err_out:.3e} (atol {OUT_ATOL}) "
+        f"max|lse-plain|={err_lse:.3e} (atol {LSE_ATOL}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"flash_attention_fwd disagrees with its plain version at {label}")
+    bounds = _flash_bounds(B, Tq, Tk, H, D, nb, causal)
+    rows = {}
+
+    def row(name, err, kernel_ms, plain_ms, library_ms):
+        bound_ms, bound_by = _bound(*bounds[name])
+        rows[name] = dict(shape=label, B=B, Tq=Tq, Tk=Tk, causal=causal, per_bh=per_bh, err=err,
+                          kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        lib = "not timed" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"  times {name} {tag}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib}, bound {bound_ms:.5f} ms ({bound_by}; {bounds[name][0]} B, {bounds[name][1]} FLOP)")
+
+    q4, k4, v4, add = _flash_sdpa(q, k, v, bias, mask, H, D, causal)
+    row("flash_attention_fwd", err_out,
+        time_ms(lambda: fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal), **FLASH_TIMING),
+        time_ms(lambda: fl.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal),
+                **FLASH_TIMING),
+        time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add, scale=scale),
+                **FLASH_TIMING))
+    rows["flash_attention_fwd"]["err_lse"] = err_lse
+    del q4, k4, v4, add
+    if not backward:
+        return rows
+
+    dd = (do.float() * out.float()).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, dd, bias, mask, H, scale, causal)
+    ref_grads = fl.flash_attention_bwd_reference(*args)
+
+    def backward(a):
+        dq, ds = fl.flash_attention_bwd_dq(*a, want_ds=per_bh)
+        dk, dv = fl.flash_attention_bwd_dkv(*a)
+        return dq, dk, dv, ds if per_bh else fl.flash_attention_bwd_dbias(*a)
+
+    errs, ok = grad_errors(backward(args), ref_grads, per_bh)
+    log(f"kernels flash_attention_bwd_dq/dkv/{'dq ds' if per_bh else 'dbias'} {tag}: "
+        f"{_grad_report(errs)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the flash backward kernels disagree with their plain version at {label}")
+    if plant_faults:
+        # the same kernels on wrong inputs must fail the same limits: dd
+        # zeroed (a kernel that dropped it) moves dq, dk and the bias
+        # gradient; keys 64-127 masked (a kernel that skipped that key
+        # tile) moves all four
+        hidden = mask.clone()
+        hidden[:, :, 64:128] = 0
+        faults = {"dd=0": ((q, k, v, do, lse, torch.zeros_like(dd), bias, mask, H, scale, causal),
+                           ("dq", "dk", "ds" if per_bh else "dbias")),
+                  "key tile 64-127 skipped": ((q, k, v, do, lse, dd, bias, hidden, H, scale, causal),
+                                              tuple(errs))}
+        for fault, (fargs, moved) in faults.items():
+            ferrs, _ = grad_errors(backward(fargs), ref_grads, per_bh)
+            caught = [n for n in moved if not ferrs[n]["ok"]]
+            log(f"  planted fault {fault}: "
+                + " ".join(f"{n} frob {ferrs[n]['frob']:.2e} max {ferrs[n]['max_rel']:.2e}"
+                           for n in moved)
+                + f" -> fails the limits for {caught} of {list(moved)}")
+            if caught != list(moved):
+                raise SystemExit(f"{label}: the gradient limits pass a kernel with {fault}")
+        del hidden
+    plain_ms = time_ms(lambda: fl.flash_attention_bwd_reference(*args), **FLASH_TIMING)
+    q4, k4, v4, b4, neg = _flash_sdpa(q, k, v, bias, mask, H, D, causal, grad=True)
+    library_ms = _flash_sdpa_bwd_ms(q4, k4, v4, b4, neg, do.view(B, Tq, H, D).transpose(1, 2), scale)
+    del q4, k4, v4, b4, neg
+    row("flash_attention_bwd_dq", max(e["max"] for n, e in errs.items() if n in ("dq", "ds")),
+        time_ms(lambda: fl.flash_attention_bwd_dq(*args, want_ds=per_bh), **FLASH_TIMING),
+        plain_ms, library_ms)
+    row("flash_attention_bwd_dkv", max(errs["dk"]["max"], errs["dv"]["max"]),
+        time_ms(lambda: fl.flash_attention_bwd_dkv(*args), **FLASH_TIMING), plain_ms, library_ms)
+    if not per_bh:
+        row("flash_attention_bwd_dbias", errs["dbias"]["max"],
+            time_ms(lambda: fl.flash_attention_bwd_dbias(*args), **FLASH_TIMING), plain_ms, library_ms)
+    return rows
+
+
+def phase_flash_kernels(serve_shapes, train_shapes):
+    """Kernel B3 at every serving shape of the long paths (``serve_shapes``:
+    [(label, (B, T))]); B3, B4 and B5 at every flash call of the long
+    training update (``train_shapes``: [(label, (B, Tq, Tk), causal)]), at
+    a per-(b, h) bias (the dq kernel's ds) and at a ragged shape whose keys
+    are not a multiple of the 64-key tile. Base arch H=12, D=64. Returns
+    {kernel name: [rows]}."""
+    rows = {name: [] for name in KERNELS if name.startswith("flash")}
+
+    def add(r):
+        for name, v in r.items():
+            rows[name].append(v)
+
+    for label, (B, T) in serve_shapes:
+        add(check_flash(label, (B, T, T, 12, 64), backward=False))
+    extra = [("per_bh_causal", (2, 300, 300), True, True), ("ragged", (2, 300, 333), False, False)]
+    for label, (B, Tq, Tk), causal, per_bh in [s + (False,) for s in train_shapes] + extra:
+        add(check_flash(label, (B, Tq, Tk, 12, 64), causal, per_bh, plant_faults=True))
+    return rows
+
+
 class RecordingHub:
     """Passes ``inference`` through to the hub and records each dispatch the
     server makes, so the same batches can be replayed directly."""
@@ -331,41 +655,61 @@ class RecordingHub:
         return out
 
 
-def _requests():
-    """The 16 requests of the serving run: (data, generation overrides)."""
-    srcs = _sources(np.random.default_rng(SEED), N_BEAM_REQUESTS + N_GREEDY_REQUESTS)
+def _requests(tpl=TPL, lengths=SERVE_SRC, seed=SEED, fixed=None):
+    """The 16 requests of a serving run: (data, generation overrides), 12
+    with the hub's TEXT defaults and 4 greedy, sources of ``lengths`` bytes
+    (``fixed``: {request index: bytes} set after the draw)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lengths[0], lengths[1] + 1, size=N_BEAM_REQUESTS + N_GREEDY_REQUESTS)
+    for i, n in (fixed or {}).items():
+        sizes[i] = n
+    srcs = _sources(rng, sizes)
     reqs = [({"src": s}, {"max_len_b": MAX_LEN_B}) for s in srcs[:N_BEAM_REQUESTS]]
     reqs += [({"src": s}, {"max_len_b": MAX_LEN_B, "beam_size": 1}) for s in srcs[N_BEAM_REQUESTS:]]
     return reqs
 
 
-def _encoder_shape(gp, recs):
+def _serve_requests():
+    """serve: sources of 40-200 bytes; the first request of the 2nd and 3rd
+    dispatch (4 records each) has 160, so every dispatch has B*T >= 256
+    and meets kernel B1's gate."""
+    return _requests(fixed={N_BEAM_REQUESTS - 4: 160, N_BEAM_REQUESTS: 160})
+
+
+def _long_requests():
+    """serve_long: summarization requests with sources of 600-960 bytes."""
+    return _requests(SUMMARY_TPL, LONG_SRC, SEED + 2)
+
+
+def _truncated_requests():
+    """serve_truncated: one dispatch of 8 requests with sources of 300-400
+    bytes, cut to 257 tokens under the default max_src_length of 256."""
+    return _requests(SUMMARY_TPL, TRUNC_SRC, SEED + 3)[:8]
+
+
+def _encoder_shape(gp, recs, tpl=TPL):
     from ofasys_torch.preprocessor.instruction import Instruction
 
-    sample = gp.collate([gp(Instruction(TPL, split="test").format(**r)) for r in recs])
+    sample = gp.collate([gp(Instruction(tpl, split="test").format(**r)) for r in recs])
     return tuple(sample["net_input"]["slots"][0].value["inputs"].shape)
 
 
-def planned_dispatch_shapes():
+def planned_dispatch_shapes(gp=None, reqs=None, tpl=TPL):
     """(B, T) of the encoder in each dispatch the server will make: the
     first 8 beam requests, the other 4 beam requests, the 4 greedy ones."""
     from ofasys_torch.preprocessor.dictionary import Dictionary
     from ofasys_torch.preprocessor.general import GeneralPreprocess
 
-    gp = GeneralPreprocess(Dictionary(), active=["text"])
-    recs = [r for r, _ in _requests()]
+    gp = gp or GeneralPreprocess(Dictionary(), active=["text"])
+    recs = [r for r, _ in (reqs or _serve_requests())]
     groups = (recs[:8], recs[8:N_BEAM_REQUESTS], recs[N_BEAM_REQUESTS:])
-    return [_encoder_shape(gp, g) for g in groups]
+    return [_encoder_shape(gp, g, tpl) for g in groups if g]
 
 
-def _sources(rng, n):
+def _sources(rng, lengths):
     words = ["the", "model", "serves", "a", "batch", "of", "text", "requests", "on", "one", "card",
              "with", "beam", "search", "and", "greedy", "decoding", "over", "fifty", "thousand",
              "symbols", "quick", "brown", "fox", "jumps", "lazy", "dog", "12", "345", "north"]
-    lengths = rng.integers(40, 201, size=n)
-    # the first request of the 2nd and 3rd dispatch (4 records each) is long,
-    # so every dispatch has B*T >= 256 and meets kernel B1's gate
-    lengths[N_BEAM_REQUESTS - 4] = lengths[N_BEAM_REQUESTS] = 160
     out = []
     for L in lengths:
         s = ""
@@ -375,14 +719,18 @@ def _sources(rng, n):
     return out
 
 
-def _expected_launches(gp, calls, n_layers):
-    """Kernel-B1 launches the dispatches should make: one per encoder layer
-    when the batch meets the gate (B*T >= 256, T <= 256)."""
-    total = []
+def _expected_launches(gp, calls, cfg, tpl=TPL):
+    """Per dispatch (B, T, route) and the encoder-kernel launches the
+    dispatches should make: one per encoder layer of kernel B3 (flash,
+    T >= 256) or B1 (dense gate), none on the plain path."""
+    shapes, expected = [], dict.fromkeys(KERNELS, 0)
     for _, data, _, _ in calls:
-        B, T = _encoder_shape(gp, data if isinstance(data, list) else [data])
-        total.append((B, T, n_layers if B * T >= 256 and T <= 256 else 0))
-    return total
+        B, T = _encoder_shape(gp, data if isinstance(data, list) else [data], tpl)
+        route = _route(cfg, B, T, T)
+        shapes.append((B, T, route))
+        if route != "plain":
+            expected[f"{route}_attention_fwd"] += cfg.encoder.layers
+    return shapes, expected
 
 
 def build_base_hub():
@@ -416,48 +764,48 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve_and_check(hub, card):
-    """Drive the serving path with the 16 requests and check what comes out;
-    returns the kernel launch counts of that run."""
-    from ofasys_torch.ops.dense_attention import dense_attention_fwd
+def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve"):
+    """Drive the serving path with the requests (default: the serve run's 16) and
+    check what comes out; returns the kernel launch counts of that run."""
     from ofasys_torch.preprocessor.instruction import Instruction
     from ofasys_torch.serve import InferenceServer
     from ofasys_torch.utils.pytree import slots_to_device
 
     gp, model = hub.general_preprocess, hub.model
     cfg = model.cfg
-    reqs = _requests()
+    reqs = reqs or _serve_requests()
+    on_card = hub.device.type == "cuda"
 
     # warm-up (cuBLAS handles, allocator) outside the measured run
-    hub.inference(TPL, [r for r, _ in reqs[:8]], max_len_b=4)
-    hub.inference(TPL, [r for r, _ in reqs[:4]], max_len_b=4, beam_size=1)
+    hub.inference(tpl, [r for r, _ in reqs[:8]], max_len_b=4)
+    hub.inference(tpl, [r for r, _ in reqs[:4]], max_len_b=4, beam_size=1)
     _sync(hub.device)
 
     rec = RecordingHub(hub)
     srv = InferenceServer(rec, max_batch=8, max_wait_ms=50.0, device=hub.device)
     try:
-        dense_attention_fwd.launches = 0
+        reset_counts()
         t_start = time.perf_counter()
-        futs = [srv.submit(TPL, data, **opts) for data, opts in reqs]
+        futs = [srv.submit(tpl, data, **opts) for data, opts in reqs]
         outs = [f.result(timeout=600) for f in futs]
         _sync(hub.device)
         wall = time.perf_counter() - t_start
-        launches = dense_attention_fwd.launches
+        launches = read_counts()
     finally:
         srv.close()
     stats = srv.stats()
 
     for i, o in enumerate(outs):
         if not (np.isfinite(o.score) and isinstance(o.text, str) and o.tokens.size > 0):
-            raise SystemExit(f"request {i}: bad answer {o!r}")
+            raise SystemExit(f"{label} request {i}: bad answer {o!r}")
     n_tokens = int(sum(o.tokens.size for o in outs))
-    shapes = _expected_launches(gp, rec.calls, cfg.encoder.layers)
-    expected = sum(s[2] for s in shapes)
-    log(f"  dispatches (B, T, expected B1 launches): {shapes}")
-    log(f"  B1 launches in the serving run: {launches} (expected {expected})")
-    if launches != expected or any(s[2] < cfg.encoder.layers for s in shapes):
-        raise SystemExit("kernel B1 did not run once per encoder layer in every dispatch")
-    log(f"  served {stats['requests']} requests in {stats['batches']} batches, "
+    shapes, expected = _expected_launches(gp, rec.calls, cfg, tpl)
+    launched = {n: c for n, c in launches.items() if c or expected[n]}
+    log(f"  {label} dispatches (B, T, encoder route): {shapes}")
+    log(f"  {label} launches: {launched} (expected {({n: c for n, c in expected.items() if c})})")
+    if on_card and (launches != expected or any(route == "plain" for *_, route in shapes)):
+        raise SystemExit(f"{label}: an encoder kernel did not run once per layer in every dispatch")
+    log(f"  {label}: served {stats['requests']} requests in {stats['batches']} batches, "
         f"p50 latency {stats['p50_latency_ms']} ms, {n_tokens} tokens in {wall:.3f} s = "
         f"{n_tokens / wall:.1f} tokens/s [{card}]")
     log(f"  sample answer: {outs[0].text[:60]!r} score {outs[0].score:.4f}")
@@ -478,30 +826,67 @@ def serve_and_check(hub, card):
     log(f"  served vs direct hub.inference on the same batches: {mismatches} mismatches, "
         f"{misrouted} answers routed to the wrong request")
     if mismatches or misrouted:
-        raise SystemExit("served answers differ from direct inference")
+        raise SystemExit(f"{label}: served answers differ from direct inference")
 
-    # encoder output, kernel B1 vs plain attention
+    # encoder output of the first dispatch's records, kernel vs plain attention
     recs = [r for r, _ in reqs[:8]]
-    sample = gp.collate([gp(Instruction(TPL, split="test").format(**r)) for r in recs])
+    sample = gp.collate([gp(Instruction(tpl, split="test").format(**r)) for r in recs])
     src = slots_to_device([s for s in sample["net_input"]["slots"] if s.is_src], hub.device)
-    mode = cfg.attn_kernel
+    kernel = f"{shapes[0][2]}_attention_fwd"
+    saved = cfg.attn_kernel, cfg.use_flash_attention
     with torch.no_grad():
-        before = dense_attention_fwd.launches
+        before = read_counts().get(kernel, 0)
         enc_kernel = model.net.encode(src).x.float()
-        used = dense_attention_fwd.launches - before
-        cfg.attn_kernel = "xla"
+        used = read_counts().get(kernel, 0) - before
+        cfg.attn_kernel, cfg.use_flash_attention = "xla", False
         try:
             enc_plain = model.net.encode(src).x.float()
         finally:
-            cfg.attn_kernel = mode
+            cfg.attn_kernel, cfg.use_flash_attention = saved
     rel = ((enc_kernel - enc_plain).norm() / enc_plain.norm()).item()
     mx = (enc_kernel - enc_plain).abs().max().item()
-    log(f"  encoder output kernel vs plain attention {tuple(enc_kernel.shape)}: "
+    log(f"  encoder output {kernel} vs plain attention {tuple(enc_kernel.shape)}: "
         f"rel {rel:.3e} (tol {ENC_REL_TOL}), max abs {mx:.3e} (tol {ENC_ABS_TOL}), "
         f"kernel launches {used}")
-    if used != cfg.encoder.layers or not rel <= ENC_REL_TOL or not mx <= ENC_ABS_TOL:
-        raise SystemExit("encoder output under kernel B1 disagrees with plain attention")
-    return {"dense_attention_fwd": launches}
+    if (on_card and used != cfg.encoder.layers) or not rel <= ENC_REL_TOL or not mx <= ENC_ABS_TOL:
+        raise SystemExit(f"{label}: encoder output under {kernel} disagrees with plain attention")
+    return launches
+
+
+def long_preprocess(d):
+    """The text preprocessor with max_src_length and max_tgt_length raised
+    to LONG, on the same dictionary."""
+    from ofasys_torch.preprocessor.general import GeneralPreprocess
+    from ofasys_torch.preprocessor.text import TextPreprocessConfig
+
+    return GeneralPreprocess(d, active=["text"],
+                             text_cfg=TextPreprocessConfig(max_src_length=LONG, max_tgt_length=LONG))
+
+
+def serve_long_and_check(hub, card):
+    """serve_long: a hub on the same model whose text lengths are raised to
+    LONG, 16 summarization requests with sources of 600-960 bytes."""
+    from ofasys_torch import OFASys
+
+    long_hub = OFASys(hub.model, None, hub.global_dict, long_preprocess(hub.global_dict),
+                      device=hub.device)
+    return serve_and_check(long_hub, card, SUMMARY_TPL, _long_requests(), "serve_long")
+
+
+def serve_truncated_and_check(hub, card):
+    """serve_truncated: one dispatch of 8 requests under the default
+    max_src_length = 256: the 300-400 byte sources are cut to 257 tokens."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    reqs = _truncated_requests()
+    gp = hub.general_preprocess
+    src = gp.collate([gp(Instruction(SUMMARY_TPL, split="test").format(**r)) for r, _ in reqs])
+    tokens = src["net_input"]["slots"][0].value["inputs"]
+    n_tok = int((tokens != hub.global_dict.pad()).sum(1).max())
+    log(f"  serve_truncated: encoder input {tokens.shape}, longest {n_tok} tokens")
+    if n_tok != gp.name2pre["text"].cfg.max_src_length + 1:
+        raise SystemExit("serve_truncated: the sources were not cut to max_src_length + 1")
+    return serve_and_check(hub, card, SUMMARY_TPL, reqs, "serve_truncated")
 
 
 def _report_profile(prof, wall_ms, what, card):
@@ -521,7 +906,7 @@ def phase_profile(hub, card):
     launches, and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    recs = [r for r, _ in _requests()[:8]]
+    recs = [r for r, _ in _serve_requests()[:8]]
     _sync(hub.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -584,18 +969,24 @@ def train_shapes(batches):
 
 
 def _expected_train_launches(batches, cfg):
-    """B1 (and B2) launches one update should make: one per attention call
-    that meets the dense gate (ofasys_torch.ops.dense_attention.dense_supported,
-    as MultiheadAttention asks it)."""
-    from ofasys_torch.ops.dense_attention import dense_supported
-
-    H = cfg.encoder.attention_heads
-    D = cfg.encoder.embed_dim // H
-    n = 0
+    """Launches of each kernel one update should make: every attention call
+    (encoder self, decoder self, cross) on the flash route runs B3, B4-dq,
+    B4-dkv and, for its batch-shared bias, B5 (a batch of one gets the
+    bias gradient from the dq kernel instead); on the dense route B1 and B2
+    (``_route``, as MultiheadAttention decides)."""
+    n = dict.fromkeys(KERNELS, 0)
     for b in batches.values():
         B, Ts, Tt = _task_shapes(b)
-        gate = lambda Tq, Tk: int(dense_supported(B, Tq, Tk, D, H, cfg.attention_dropout))
-        n += cfg.encoder.layers * gate(Ts, Ts) + cfg.decoder.layers * (gate(Tt, Tt) + gate(Tt, Ts))
+        calls = [(Ts, Ts, cfg.encoder.layers), (Tt, Tt, cfg.decoder.layers),
+                 (Tt, Ts, cfg.decoder.layers)]
+        for Tq, Tk, layers in calls:
+            route = _route(cfg, B, Tq, Tk, cfg.attention_dropout)
+            if route == "dense":
+                n["dense_attention_fwd"] += layers
+                n["dense_attention_bwd"] += layers
+            elif route == "flash":
+                for name in ("flash_attention_fwd",) + FLASH_BWD:
+                    n[name] += layers if (name != "flash_attention_bwd_dbias" or B > 1) else 0
     return n
 
 
@@ -625,10 +1016,63 @@ def _grads(model, crit, params, step, batches):
     return total
 
 
-def train_and_check(model, gp, card, tasks=None, batches=None):
+def _grad_diff(names, got, ref):
+    """|got - ref| / |ref| over all leaves, the relative error of the global
+    norm, and {leaf: relative error} for every leaf but the key-side biases
+    (NOISE_MODULES)."""
+    diff = torch.sqrt(sum(((a - b).float() ** 2).sum() for a, b in zip(got, ref)))
+    ref_n = torch.sqrt(sum((b.float() ** 2).sum() for b in ref))
+    got_n = torch.sqrt(sum((a.float() ** 2).sum() for a in got))
+    leaves = {}
+    for name, a, b in zip(names, got, ref):
+        path = name.rsplit(".", 2)
+        if name.endswith(".bias") and len(path) > 1 and path[-2] in NOISE_MODULES:
+            continue
+        nb = b.float().norm().item()
+        if nb > 0:
+            leaves[name] = ((a - b).float().norm() / nb).item()
+    return (diff / ref_n).item(), (abs(got_n - ref_n) / ref_n).item(), leaves
+
+
+def _top_leaves(leaves, n=3):
+    return ", ".join(f"{k} {r:.3e}" for k, r in sorted(leaves.items(), key=lambda kv: -kv[1])[:n])
+
+
+@contextlib.contextmanager
+def _dd_from_unrounded_output():
+    """Diagnostic: FlashAttentionFunction's backward with dd = rowsum(do * o)
+    taken from the output recomputed unrounded (the plain B3 version on the
+    same inputs in fp32) instead of the kernel's bf16 output. The change
+    enters as an lse cotangent (dd - g_lse), so the kernels run as they are."""
+    from ofasys_torch.ops import flash_attention as fl
+
+    cls = fl.FlashAttentionFunction
+    orig = cls.__dict__["backward"]
+
+    def backward(ctx, g_out, g_lse):
+        q, k, v, bias, mask, out, _ = ctx.saved_tensors
+        H, scale, causal = ctx.args
+        if g_out is not None:
+            o32, _ = fl.flash_attention_fwd_reference(q.float(), k.float(), v.float(), bias, mask, H,
+                                                      scale, causal)
+            B, Tq, E = q.shape
+            corr = (g_out.float() * (o32 - out.float())).reshape(B, Tq, H, E // H).sum(-1)
+            corr = corr.permute(0, 2, 1)
+            g_lse = -corr if g_lse is None else g_lse.float() - corr
+        return orig.__func__(ctx, g_out, g_lse)
+
+    cls.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        cls.backward = orig
+
+
+def train_and_check(model, gp, card, tasks=None, batches=None, label="train", grad_batches=None):
     """Drive the training path: N_UPDATES summed two-task updates through
-    make_multitask_train_step, then check what came out. Returns the
-    kernel launch counts of that run, the step and the batches."""
+    make_multitask_train_step, then check what came out; the gradient check
+    runs on ``grad_batches`` when given. Returns the kernel launch counts of
+    that run, its results, and the step, state and batches."""
     from ofasys_torch.configure.configs import OptimizationConfig
     from ofasys_torch.engine.criterion import (
         LabelSmoothedCrossEntropyCriterion,
@@ -636,7 +1080,6 @@ def train_and_check(model, gp, card, tasks=None, batches=None):
     )
     from ofasys_torch.engine.optim import build_optimizer
     from ofasys_torch.engine.train_step import TrainState, make_multitask_train_step
-    from ofasys_torch.ops.dense_attention import dense_attention_bwd, dense_attention_fwd
     from ofasys_torch.utils.pytree import sample_to_device
 
     device, cfg = model.net.device, model.cfg
@@ -656,7 +1099,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None):
     state, _ = step(state, dev, SEED)
     _sync(device)
 
-    dense_attention_fwd.launches = dense_attention_bwd.launches = 0
+    reset_counts()
     outs, times = [], []
     for _ in range(N_UPDATES):
         t0 = time.perf_counter()
@@ -664,8 +1107,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None):
         _sync(device)
         times.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = {"dense_attention_fwd": dense_attention_fwd.launches,
-                "dense_attention_bwd": dense_attention_bwd.launches}
+    launches = read_counts()
 
     losses, gnorms = [], []
     for out in outs:
@@ -675,60 +1117,82 @@ def train_and_check(model, gp, card, tasks=None, batches=None):
         gnorms.append(float(out["gnorm"]))
     per_task = {n: [round(float(o["tasks"][n]["loss"]) / float(o["tasks"][n]["sample_size"]), 4)
                     for o in outs] for n in dev}
-    log(f"  loss per token over the {N_UPDATES} updates: {[round(x, 5) for x in losses]}; "
+    log(f"  {label}: loss per token over the {N_UPDATES} updates: {[round(x, 5) for x in losses]}; "
         f"per task {per_task}; gnorm {[round(x, 4) for x in gnorms]}")
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
         raise SystemExit("a training loss or gnorm is not finite")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"the loss did not fall over {N_UPDATES} updates on repeated batches")
     step_ms = statistics.median(times) * 1e3
-    log(f"  step time {step_ms:.2f} ms (median of {N_UPDATES}; all {[round(t * 1e3, 2) for t in times]}), "
-        f"{n_samples} samples per update = {n_samples / (step_ms / 1e3):.1f} samples/s [{card}]")
+    n_tokens = sum(int(b["ntokens"]) + int(b["net_input"]["slots"][0].value["inputs"].size)
+                   for b in batches.values())
+    log(f"  {label}: step time {step_ms:.2f} ms (median of {N_UPDATES}; all "
+        f"{[round(t * 1e3, 2) for t in times]}), {n_samples} samples per update = "
+        f"{n_samples / (step_ms / 1e3):.1f} samples/s, {n_tokens} source+target tokens per "
+        f"update [{card}]")
 
-    expected = N_UPDATES * _expected_train_launches(batches, cfg)
-    log(f"  launches in the training run: {launches} (expected {expected} each)")
+    per_update = _expected_train_launches(batches, cfg)
+    expected = {n: N_UPDATES * c for n, c in per_update.items()}
+    log(f"  {label}: launches {launches} (expected {expected}; per update {per_update})")
     if device.type == "cuda":
-        if any(n != expected for n in launches.values()) or expected == 0:
-            raise SystemExit("kernels B1/B2 did not run once per gated attention call")
+        if launches != expected or not any(expected.values()):
+            raise SystemExit(f"{label}: a kernel did not run once per attention call of its route")
     else:
         log("  (CPU rehearsal: the plain versions stand in, no launch is counted)")
 
     # one update's gradients, kernels vs plain attention, dropout 0
     names = [n for n, _ in model.net.named_parameters()]
-    saved = cfg.dropout, cfg.attn_kernel
+    gdev = dev if grad_batches is None else {n: sample_to_device(b, device)
+                                             for n, b in grad_batches.items()}
+    saved = cfg.dropout, cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
     cfg.dropout = 0.0
+    g_plain, g_exact_dd = {}, None
     try:
-        g_kernel = _grads(model, crit, state.params, state.step, dev)
-        cfg.attn_kernel = "xla"
-        g_plain = _grads(model, crit, state.params, state.step, dev)
+        g_kernel = _grads(model, crit, state.params, state.step, gdev)
+        if any(per_update[k] for k in FLASH_BWD):
+            with _dd_from_unrounded_output():
+                g_exact_dd = _grads(model, crit, state.params, state.step, gdev)
+        cfg.attn_kernel, cfg.use_flash_attention = "xla", False
+        for logits in GRAD_PLAIN_LOGITS:
+            cfg.attn_logits = logits
+            g_plain[logits] = _grads(model, crit, state.params, state.step, gdev)
     finally:
-        cfg.dropout, cfg.attn_kernel = saved
-    diff = torch.sqrt(sum(((a - b).float() ** 2).sum() for a, b in zip(g_kernel, g_plain)))
-    ref = torch.sqrt(sum((b.float() ** 2).sum() for b in g_plain))
-    kern = torch.sqrt(sum((a.float() ** 2).sum() for a in g_kernel))
-    rel = (diff / ref).item()            # bounds the global norm's relative error
-    norm_rel = (abs(kern - ref) / ref).item()
-    worst, worst_name = 0.0, None
-    for name, a, b in zip(names, g_kernel, g_plain):
-        path = name.rsplit(".", 2)
-        if name.endswith(".bias") and len(path) > 1 and path[-2] in NOISE_MODULES:
-            continue
-        nb = b.float().norm().item()
-        if nb > 0:
-            r = ((a - b).float().norm() / nb).item()
-            if r > worst:
-                worst, worst_name = r, name
-    log(f"  gradients of one update, kernels vs plain attention (dropout 0): |g_kernel - g_plain| "
-        f"/ |g_plain| {rel:.3e} (tol {GRAD_REL_TOL}), global norm rel err {norm_rel:.3e}, "
-        f"worst leaf {worst_name} rel {worst:.3e} (tol {LEAF_REL_TOL}), |g| {ref.item():.4e}")
+        cfg.dropout, cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
+    n_grad = sum(b['nsentences'] for b in (grad_batches or batches).values())
+    cmp = {logits: _grad_diff(names, g_kernel, g) for logits, g in g_plain.items()}
+    for logits, (rel_l, norm_l, leaves) in cmp.items():
+        log(f"  {label}: gradients of one update on {n_grad} samples, kernels vs plain attention "
+            f"with attn_logits={logits!r} (dropout 0): |g_kernel - g_plain| / |g_plain| {rel_l:.3e}, "
+            f"global norm rel err {norm_l:.3e}, worst leaves {_top_leaves(leaves)}")
+    worst_c = max(cmp["compute"][2], key=cmp["compute"][2].get)
+    _, _, own = _grad_diff(names, g_plain["compute"], g_plain["fp32"])
+    log(f"  {label}: plain 'compute' vs plain 'fp32' logits: at {worst_c} {own[worst_c]:.3e}; "
+        f"worst leaves {_top_leaves(own)}")
+    if g_exact_dd is not None:
+        rel_d, _, dleaves = _grad_diff(names, g_exact_dd, g_plain[GRAD_REF_LOGITS])
+        log(f"  {label}: the kernels with dd from the unrounded (fp32) output vs plain "
+            f"attn_logits={GRAD_REF_LOGITS!r}: rel {rel_d:.3e}, at {worst_c} {dleaves[worst_c]:.3e}, "
+            f"worst leaves {_top_leaves(dleaves)} (tol {DD_LEAF_TOL})")
+        if not max(dleaves.values()) <= DD_LEAF_TOL:
+            raise SystemExit(f"{label}: with dd from the unrounded output a gradient leaf still "
+                             "disagrees with the plain attention path")
+    rel, norm_rel, leaves = cmp[GRAD_REF_LOGITS]
+    worst_name = max(leaves, key=leaves.get)
+    worst = leaves[worst_name]
+    log(f"  {label}: checked against attn_logits={GRAD_REF_LOGITS!r}: rel {rel:.3e} "
+        f"(tol {GRAD_REL_TOL}), worst leaf {worst_name} {worst:.3e} (tol {LEAF_REL_TOL})")
     if not rel <= GRAD_REL_TOL or not worst <= LEAF_REL_TOL:
-        raise SystemExit("gradients under kernels B1/B2 disagree with the plain attention path")
+        raise SystemExit(f"{label}: gradients under the kernels disagree with the plain attention path")
     return launches, dict(step_ms=step_ms, samples_per_s=n_samples / (step_ms / 1e3),
                           losses=losses, grad_rel=rel, grad_norm_rel=norm_rel,
-                          grad_worst_leaf=worst), (step, state, dev)
+                          grad_worst_leaf=worst, grad_worst_leaf_name=worst_name,
+                          grad_by_logits={lg: dict(rel=r, worst=max(lv.values()),
+                                                   worst_leaf=max(lv, key=lv.get))
+                                          for lg, (r, _, lv) in cmp.items()}), (step, state, dev)
 
 
-def phase_profile_train(step, state, batches, card):
+def phase_profile_train(step, state, batches, card,
+                        what="one training update (text_infilling B=128 + gigaword B=64)"):
     """One training update under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -738,18 +1202,22 @@ def phase_profile_train(step, state, batches, card):
         step(state, batches, SEED)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_profile(prof, wall_ms, "one training update (text_infilling B=128 + gigaword B=64)", card)
+    _report_profile(prof, wall_ms, what, card)
 
 
-def _kernel_entry(name, replaces, launches, rows, err_key, nominal, card, **extra):
+def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
+    """One kernel's entry of the ``{"kernels": [...]}`` line: ``launches`` by
+    path (the counts of each path's run), the error over every checked
+    shape, and the times at the ``nominal`` shape."""
+    replaces, source = KERNELS[name]
     row = next(r for r in rows if r["shape"] == nominal)
     return {
         "name": name,
         "route": "cuda",
-        "source": f"ofasys_torch/csrc/{name}.cu",
+        "source": source,
         "replaces": replaces,
-        "launches": launches["train"],
-        "launches_by_path": launches,
+        "launches": launches[main_path],
+        "launches_by_path": {p: c for p, c in launches.items() if c},
         "max_abs_err": max(r[err_key] for r in rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
@@ -775,25 +1243,61 @@ def main() -> int:
     name, card = phase_device()
     phase_build()
     hub = build_base_hub()
+    cfg, d = hub.model.cfg, hub.global_dict
     train_batches = make_train_batches(hub.general_preprocess)
-    fres, bres = phase_kernels(planned_dispatch_shapes(), train_shapes(train_batches))
-    serve_counts = serve_and_check(hub, card)
+    long_gp = long_preprocess(d)
+    long_batches = make_train_batches(long_gp, LONG_TRAIN_TASKS)
+    long_calls = train_shapes(long_batches)
+    routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in long_calls}
+    log(f"train_long attention routes: {routes}")
+    fres, bres = phase_kernels(planned_dispatch_shapes(), train_shapes(train_batches)
+                               + [c for c in long_calls if routes[c[0]] == "dense"])
+    long_serve = planned_dispatch_shapes(long_gp, _long_requests(), SUMMARY_TPL)
+    flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
+    flash_serve.append(("serve_truncated", planned_dispatch_shapes(
+        hub.general_preprocess, _truncated_requests(), SUMMARY_TPL)[0]))
+    flash_rows = phase_flash_kernels(flash_serve, [c for c in long_calls if routes[c[0]] == "flash"])
+
+    counts = {"serve": serve_and_check(hub, card)}
     phase_profile(hub, card)
-    model = build_train_model(hub.global_dict, "cuda")
-    train_counts, train_res, (step, state, dev) = train_and_check(
+    counts["serve_long"] = serve_long_and_check(hub, card)
+    counts["serve_truncated"] = serve_truncated_and_check(hub, card)
+
+    model = build_train_model(d, "cuda")
+    counts["train"], train_res, (step, state, dev) = train_and_check(
         model, hub.general_preprocess, card, batches=train_batches)
     phase_profile_train(step, state, dev, card)
+    del model, step, state, dev
+    torch.cuda.empty_cache()
+
+    model = build_train_model(d, "cuda")
+    grad_batches = make_train_batches(long_gp, {n: dict(spec, batch=GRAD_CHECK_BATCH)
+                                                for n, spec in LONG_TRAIN_TASKS.items()})
+    counts["train_long"], long_res, (step, state, dev) = train_and_check(
+        model, long_gp, card, batches=long_batches, label="train_long", grad_batches=grad_batches)
+    phase_profile_train(step, state, dev, card,
+                        "one long training update (text_infilling_long B=16 + gigaword_long B=16)")
+
+    def by_path(kernel):
+        return {path: c[kernel] for path, c in counts.items()}
+
     kernels = [
-        _kernel_entry("dense_attention_fwd", "ofasys_tpu/ops/pallas_dense_attention.py:87",
-                      {"serve": serve_counts["dense_attention_fwd"],
-                       "train": train_counts["dense_attention_fwd"]},
-                      fres, "err_out", "text_infilling_encoder", card,
+        _kernel_entry("dense_attention_fwd", by_path("dense_attention_fwd"), "train", fres, "err_out",
+                      "text_infilling_encoder", card,
                       max_abs_err_lse=max(r["err_lse"] for r in fres)),
-        _kernel_entry("dense_attention_bwd", "ofasys_tpu/ops/pallas_dense_attention.py:180",
-                      {"train": train_counts["dense_attention_bwd"]},
-                      bres, "err", "text_infilling_encoder", card),
+        _kernel_entry("dense_attention_bwd", by_path("dense_attention_bwd"), "train", bres, "err",
+                      "text_infilling_encoder", card),
+        _kernel_entry("flash_attention_fwd", by_path("flash_attention_fwd"), "train_long",
+                      flash_rows["flash_attention_fwd"], "err", "gigaword_long_encoder", card,
+                      max_abs_err_lse=max(r["err_lse"] for r in flash_rows["flash_attention_fwd"])),
+    ] + [
+        _kernel_entry(k, by_path(k), "train_long", flash_rows[k], "err", "gigaword_long_encoder", card,
+                      plain_covers="the whole backward (dq, dk, dv, bias gradient)",
+                      library_covers="the whole backward (dq, dk, dv, bias gradient)")
+        for k in FLASH_BWD
     ]
     log(f"train: {json.dumps(train_res)}")
+    log(f"train_long: {json.dumps(long_res)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

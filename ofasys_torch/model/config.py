@@ -57,8 +57,8 @@ class GeneralistModelConfig:
     encode_drop_path_rate: float = 0.0
     decode_drop_path_rate: float = 0.0
 
-    # blocked flash attention (kernel B3) for Tk >= 256; on CUDA such a call
-    # raises until B3 is ported
+    # blocked flash attention (kernels B3-B5, ops/flash_attention.py) for
+    # Tk >= 256 on CUDA tensors; the CPU takes the plain path
     use_flash_attention: bool = True
     ln_impl: str = "xla"
     # dtype of the materialized (B,H,Tq,Tk) scores on the plain path:

@@ -35,15 +35,9 @@ from torch import nn
 from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.ops.attention import causal_mask, combine_masks, dot_product_attention, dropout
 from ofasys_torch.ops.dense_attention import dense_attention, dense_supported
+from ofasys_torch.ops.flash_attention import flash_attention, flash_available, flash_supported
 
 LN_EPS = 1e-5
-
-
-def flash_supported(Tq: int, Tk: int, D: int, dropout_rate: float) -> bool:
-    """Shapes that ofasys_tpu sends to its flash kernel (B3)."""
-    if dropout_rate > 0.0 or D > 256:
-        return False
-    return Tq >= 16 and Tk >= 256
 
 
 class Dense(nn.Linear):
@@ -152,6 +146,33 @@ class BiasSpec:
         return out
 
 
+def attention_route(
+    cfg: GeneralistModelConfig, device, B: int, Tq: int, Tk: int, num_heads: int,
+    head_dim: int, dropout_rate: float, *, bias_shape: Optional[Tuple[int, ...]] = None,
+    mask_shape: Optional[Tuple[int, ...]] = None, cached: bool = False,
+) -> str:
+    """Which attention a call of these shapes takes: 'flash' (kernels B3-B5),
+    'dense' (B1/B2) or 'plain'. Flash is tried before the dense kernel, as
+    in ofasys_tpu (T = 256 goes to flash); a KV-cached decode step, a mask
+    that is not padding-only and attention dropout take neither kernel.
+    ``bias_shape`` is (B|1, H, Tq, Tk), ``mask_shape`` (B|1, 1|H, Tq|1, Tk)."""
+    padding_only = mask_shape is None or (len(mask_shape) == 4 and mask_shape[1] == 1
+                                          and mask_shape[2] == 1)
+    if (cfg.use_flash_attention and not cached and flash_available(device)
+            and flash_supported(Tq, Tk, head_dim, dropout_rate) and padding_only):
+        return "flash"
+    if (cfg.attn_kernel in ("auto", "pallas") and not cached
+            and (torch.device(device).type == "cuda" or cfg.attn_kernel == "pallas")
+            and dense_supported(B, Tq, Tk, head_dim, num_heads, dropout_rate)
+            and (bias_shape is None
+                 or (len(bias_shape) == 4 and bias_shape[0] == 1
+                     and tuple(bias_shape[2:]) == (Tq, Tk)))
+            and (mask_shape is None
+                 or (padding_only and mask_shape[0] in (1, B) and mask_shape[3] == Tk))):
+        return "dense"
+    return "plain"
+
+
 class MultiheadAttention(nn.Module):
     """QKV attention with additive bias, per-head output scaling and an
     explicit KV cache. Reads ``attn_kernel``, ``attn_logits``, ``fuse_qkv``
@@ -239,28 +260,16 @@ class MultiheadAttention(nn.Module):
         # kernel gates refuse a nonzero rate
         p_drop = cfg.attention_dropout if generator is not None else 0.0
         Tq_, Tk_ = q.shape[1], k.shape[1]
-        padding_only = mask is None or (mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1)
-        if (cfg.use_flash_attention and cache is None and q.is_cuda
-                and flash_supported(Tq_, Tk_, head_dim, p_drop) and padding_only):
-            raise NotImplementedError(
-                f"attention with Tq={Tq_}, Tk={Tk_} belongs to the flash kernel B3 "
-                "(ofasys_tpu/ops/pallas_attention.py), which is not ported to CUDA yet; "
-                "keep sequences below 256 tokens"
-            )
-        dense_ok = (
-            cfg.attn_kernel in ("auto", "pallas")
-            and cache is None
-            and (q.is_cuda or cfg.attn_kernel == "pallas")
-            and dense_supported(B, Tq_, Tk_, head_dim, H, p_drop)
-            and (bias is None
-                 or (bias.dim() == 4 and bias.shape[0] == 1
-                     and bias.shape[2] == Tq_ and bias.shape[3] == Tk_))
-            and (mask is None
-                 or (mask.dim() == 4 and mask.shape[0] in (1, B)
-                     and mask.shape[1] == 1 and mask.shape[2] == 1
-                     and mask.shape[3] == Tk_))
+        route = attention_route(
+            cfg, q.device, B, Tq_, Tk_, H, head_dim, p_drop,
+            bias_shape=None if bias is None else tuple(bias.shape),
+            mask_shape=None if mask is None else tuple(mask.shape),
+            cached=cache is not None,
         )
-        if dense_ok:
+        if route == "flash":
+            x = flash_attention(q, k, v, bias=bias, mask=mask, scale=scaling,
+                                causal=causal).to(self.dtype)
+        elif route == "dense":
             x = dense_attention(q, k, v, bias=bias, mask=mask, scale=scaling,
                                 causal=causal).to(self.dtype)
         else:

@@ -6,11 +6,14 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 Tolerances (bf16), for q scaled as the model scales it:
   * B1: out atol 2e-2 (p is rounded to bf16 before p.V at a different
     point), lse atol 1e-3 (fp32 sums in another order);
-  * B2: dq, dk, dv within 2e-2 of the largest entry (bf16 outputs; p and ds
-    are rounded to bf16 before their products on both sides, and a value on
-    a rounding boundary can round either way after a reordered fp32 sum);
-    dbias, an fp32 batch sum of unrounded ds, within 1e-3 of its largest
-    entry.
+  * B2, B4 and B5 (the backward kernels): each gradient held to the
+    reference's own size, relative Frobenius error and max error over
+    max|ref|. dq, dk, dv are bf16 outputs that both sides round at the same
+    points (p and ds to bf16 before their products), so they differ only
+    where a reordered fp32 sum crosses a rounding boundary: GRAD_TOL, 1e-3
+    Frobenius and 1e-2 max (2.5 bf16 ulps of the largest entry). dbias and
+    ds are fp32 sums of unrounded ds: DS_TOL, 1e-3 on both;
+  * B3 (flash attention): as B1.
 """
 
 import pytest
@@ -33,6 +36,18 @@ def _inputs(B, Tq, Tk, H, D):
     mask[:, :, 0] = 1
     do = torch.randn(B, Tq, H * D, device="cuda", generator=g).to(torch.bfloat16)
     return q, k, v, bias, mask, do
+
+
+def _grad_close(got, ref, tol):
+    """Relative Frobenius error and max error over max|ref|, both <= tol."""
+    got, ref = got.float(), ref.float()
+    frob = ((got - ref).norm() / ref.norm()).item()
+    rel_max = ((got - ref).abs().max() / ref.abs().max()).item()
+    return bool(torch.isfinite(got).all()) and frob <= tol[0] and rel_max <= tol[1], (frob, rel_max)
+
+
+GRAD_TOL = (1e-3, 1e-2)
+DS_TOL = (1e-3, 1e-3)
 
 
 def _need_card():
@@ -71,11 +86,11 @@ def test_bwd_kernel_matches_plain_version_on_card(shape, with_bias):
     ref = tdense.dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H)
     for name, a, b in zip(("dq", "dk", "dv"), got[:3], ref[:3]):
         assert a.dtype == torch.bfloat16
-        err = (a.float() - b.float()).abs().max().item()
-        assert err <= 2e-2 * max(1.0, b.float().abs().max().item()), (name, err)
+        ok, errs = _grad_close(a, b, GRAD_TOL)
+        assert ok, (name, errs)
     if with_bias:
-        err = (got[3] - ref[3]).abs().max().item()
-        assert err <= 1e-3 * max(1.0, ref[3].abs().max().item()), ("dbias", err)
+        ok, errs = _grad_close(got[3], ref[3], DS_TOL)
+        assert ok, ("dbias", errs)
     else:
         assert got[3] is None
 
@@ -95,3 +110,118 @@ def test_autograd_function_runs_both_kernels_on_card():
     assert tdense.dense_attention_fwd.launches == f0 + 1
     assert tdense.dense_attention_bwd.launches == b0 + 1
     assert all(torch.isfinite(t.grad.float()).all() for t in (q4, k4, v4, bias))
+
+
+# ------------------------------------------------- flash attention (B3-B5)
+# (B, Tq, Tk, H, D, bias, causal): a ragged key tail (333 keys, tiles of 64),
+# the causal tile skip, a short query tile against 1,000 keys (the decoder's
+# cross attention), a per-(b, h) bias (ds from the dq kernel), and head dims
+# that take the kernels' other instantiations (80 -> tiles for D <= 128,
+# 160 -> D <= 256).
+FLASH_SHAPES = {
+    "ragged": (2, 300, 333, 12, 64, "shared", False),
+    "causal": (2, 320, 320, 12, 64, "shared", True),
+    "cross": (3, 62, 1000, 12, 64, "shared", False),
+    "per_bh_causal": (2, 257, 257, 4, 64, "per_bh", True),
+    "no_bias": (2, 300, 300, 4, 64, None, False),
+    "d80": (2, 260, 270, 4, 80, "shared", False),
+    "d160": (1, 290, 290, 2, 160, "shared", True),
+}
+
+
+def _flash_inputs(B, Tq, Tk, H, D, bias_kind):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(B, T, H * D, device="cuda", generator=g).to(torch.bfloat16)
+                   for T in (Tq, Tk, Tk, Tq))
+    nb = {"shared": H, "per_bh": B * H, None: 0}[bias_kind]
+    bias = torch.randn(nb, Tq, Tk, device="cuda", generator=g).to(torch.bfloat16) if nb else None
+    mask = (torch.rand(B, 1, Tk, device="cuda", generator=g) > 0.25).to(torch.int8)
+    mask[:, :, 0] = 1
+    return q, k, v, do, bias, mask
+
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_SHAPES))
+def test_flash_kernels_match_plain_versions_on_card(case):
+    """B3: out atol 2e-2 (bf16 output; p is rounded to bf16 against the
+    running max of its tile in the kernel, the row max in the plain
+    version), lse atol 1e-3 (fp32 sums in another order). B4: dq, dk, dv
+    (bf16 outputs of sums of rounded p and ds) within GRAD_TOL of the
+    reference. B5 and the per-(b, h) ds (fp32 sums of unrounded ds) within
+    DS_TOL. The same kernels fed dd = 0 (a kernel that dropped it) must
+    fail those limits on dq, dk and the bias gradient."""
+    _need_card()
+    from ofasys_torch.ops import flash_attention as tflash
+
+    B, Tq, Tk, H, D, bias_kind, causal = FLASH_SHAPES[case]
+    q, k, v, do, bias, mask = _flash_inputs(B, Tq, Tk, H, D, bias_kind)
+    scale = (2 * D) ** -0.5
+    counts = [f.launches for f in (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+                                   tflash.flash_attention_bwd_dkv, tflash.flash_attention_bwd_dbias)]
+    out, lse = tflash.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = tflash.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+    dd = (do.float() * out.float()).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, dd, bias, mask, H, scale, causal)
+    rq, rk, rv, rbias = tflash.flash_attention_bwd_reference(*args)
+
+    def backward(a):
+        dq, ds = tflash.flash_attention_bwd_dq(*a, want_ds=bias_kind == "per_bh")
+        dk, dv = tflash.flash_attention_bwd_dkv(*a)
+        return dq, dk, dv, tflash.flash_attention_bwd_dbias(*a) if bias_kind == "shared" else ds
+
+    dq, dk, dv, dbias = backward(args)
+    torch.cuda.synchronize()
+    wanted = [1, 1, 1, int(bias_kind == "shared")]
+    now = [f.launches for f in (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+                                tflash.flash_attention_bwd_dkv, tflash.flash_attention_bwd_dbias)]
+    assert [n - c for n, c in zip(now, counts)] == wanted
+    for name, a, b in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert a.dtype == torch.bfloat16
+        ok, errs = _grad_close(a, b, GRAD_TOL)
+        assert ok, (name, errs)
+    if bias_kind is not None:
+        ok, errs = _grad_close(dbias, rbias, DS_TOL)
+        assert ok, ("dbias", errs)
+
+    # a planted fault: dd = 0
+    fq, fk, _, fbias = backward(args[:5] + (torch.zeros_like(dd),) + args[6:])
+    assert not _grad_close(fq, rq, GRAD_TOL)[0] and not _grad_close(fk, rk, GRAD_TOL)[0]
+    if bias_kind is not None:
+        assert not _grad_close(fbias, rbias, DS_TOL)[0]
+
+
+@pytest.mark.cuda
+def test_flash_kernels_take_bf16_only_on_card():
+    _need_card()
+    from ofasys_torch.ops import flash_attention as tflash
+
+    q, k, v, _, bias, mask = _flash_inputs(1, 64, 256, 2, 64, "shared")
+    with pytest.raises(TypeError):
+        tflash.flash_attention_fwd(q.float(), k.float(), v.float(), bias, mask, 2, 0.1, False)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_runs_every_kernel_on_card():
+    _need_card()
+    from ofasys_torch.ops import flash_attention as tflash
+
+    B, T, H, D = 2, 300, 12, 64
+    q, k, v, do, _, mask = _flash_inputs(B, T, T, H, D, None)
+    q4, k4, v4 = (t.view(B, T, H, D).clone().requires_grad_() for t in (q, k, v))
+    bias = torch.randn(1, H, T, T, device="cuda", requires_grad=True)
+    fns = (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+           tflash.flash_attention_bwd_dkv, tflash.flash_attention_bwd_dbias)
+    before = [f.launches for f in fns]
+    out = tflash.flash_attention(q4, k4, v4, bias=bias, mask=mask.bool()[:, :, None, :],
+                                 scale=(2 * D) ** -0.5, causal=True)
+    out.backward(do.view(B, T, H, D))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q4, k4, v4, bias))
+    assert bias.grad.dtype == torch.float32
