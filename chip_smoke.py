@@ -33,9 +33,21 @@ Phases, in order; any failure exits non-zero:
      attention path (4 samples per task), also with the flash backward's
      dd taken from the unrounded output
  11. profile_long: one long update under torch.profiler
+ 12. serve_int8: the serve phase's 16 requests on a deep copy of the serve
+     model after ``OFASys.quantize()`` (w8a8): kernel B7 on every
+     projection and the tied logits, 48 + 49 S launches per dispatch of S
+     decode steps, tokens equal to the same hub with B7's plain version,
+     parameter bytes before and after, one dispatch profiled
+ 13. serve_ln: one dispatch of the serve mix on a second model from the
+     same seed with ln_impl='pallas' (kernel B6-fwd, 25 + 37 S launches per
+     dispatch), first-step logits against ln_impl='xla'
+ 14. train_ln: the train phase's 5 updates with ln_impl='pallas' (124
+     B6-fwd and 124 B6-bwd per update), gradients against ln_impl='xla';
+     then one ln_impl='hybrid' update (124 B6-bwd, no B6-fwd)
 The kernel phase also holds kernels B3, B4 and B5 against their plain
 versions at every shape of the long paths, a per-(b, h) bias, a causal and
-a ragged shape. Prints a ``{"kernels": [...]}`` line, then, last,
+a ragged shape, B7 at serve_int8's shapes and B6 at the train mix's.
+Prints a ``{"kernels": [...]}`` line, then, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX or ofasys_tpu. Exits non-zero without CUDA.
 
@@ -45,7 +57,10 @@ where the kernels' plain versions stand in and no launch is counted:
 tasks=TINY_TRAIN_TASKS)``; the long paths the same way with
 ``long_preprocess(d)``, ``TINY_LONG_TRAIN_TASKS`` and
 ``ofasys_torch.model.transformer.flash_available`` patched to return True
-(see the README).
+(see the README); serve_int8 and serve_ln with
+``serve_int8_and_check(hub, "cpu")`` and ``serve_ln_and_check(hub, "cpu")``,
+train_ln with ``train_ln_and_check(d, gp, "cpu", arch="tiny",
+tasks=TINY_TRAIN_TASKS)``.
 """
 
 from __future__ import annotations
@@ -63,9 +78,12 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 FLOP/s
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16
+# FLOP/s, int8 OP/s (tensor cores), fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_FP32_FLOPS = 67e12
 
 SEED = 0
 TPL = "[TEXT:src] -> [TEXT:tgt]"
@@ -162,6 +180,19 @@ GRAD_REF_LOGITS = "fp32"
 # off by up to 0.15 on the long path. With dd from the unrounded output
 # (_dd_from_unrounded_output) every leaf must agree within DD_LEAF_TOL.
 DD_LEAF_TOL = 5e-2
+# Kernel B6 vs its plain version (same inputs on the card): y (bf16) within
+# one bf16 ulp, |y - ref| <= 2^-7 |ref| + 1e-3 (a reordered fp32 row sum can
+# move the value before rounding across a rounding boundary); mu and rstd
+# rtol 1e-5; dx (bf16) as GRAD_FROB_TOL / GRAD_MAX_TOL; dg and db, fp32 sums
+# over up to 12,288 rows in another order, LN_SUM_TOL on both measures. A dg
+# that skipped one row is off by about 1/sqrt(N) (Frobenius), 9e-3 at
+# N = 12,288: the planted fault must fail LN_SUM_TOL.
+LN_SUM_TOL = 1e-4
+# serve_ln: first-step logits under B6 (fast-variance stats) vs the default
+# LayerNorm (two-pass variance): both fp32 stats of the same bf16 inputs, so
+# only single bf16 roundings differ, carried through 12 layers as in
+# ENC_REL_TOL: relative Frobenius error <= LN_LOGIT_REL_TOL.
+LN_LOGIT_REL_TOL = 2e-2
 
 
 # every CUDA kernel of the port: the TPU kernel it replaces and its source
@@ -178,8 +209,14 @@ KERNELS = {
                                 "ofasys_torch/csrc/flash_attention_bwd.cu"),
     "flash_attention_bwd_dbias": ("ofasys_tpu/ops/pallas_attention.py:466",
                                   "ofasys_torch/csrc/flash_attention_bwd.cu"),
+    "int8_matmul_fwd": ("ofasys_tpu/ops/pallas_int8.py:44", "ofasys_torch/csrc/int8_matmul.cu"),
+    "layer_norm_fwd": ("ofasys_tpu/ops/pallas_layernorm.py:45", "ofasys_torch/csrc/layer_norm.cu"),
+    "layer_norm_bwd": ("ofasys_tpu/ops/pallas_layernorm.py:59", "ofasys_torch/csrc/layer_norm.cu"),
 }
 FLASH_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_bwd_dbias")
+# the module of each kernel's wrapper, under ofasys_torch.ops
+_WRAPPER_MODULE = {"dense": "dense_attention", "flash": "flash_attention", "int8": "int8_matmul",
+                   "layer": "layer_norm"}
 
 
 def log(msg: str):
@@ -188,10 +225,10 @@ def log(msg: str):
 
 def _wrappers():
     """Each kernel's wrapper, which counts its launches in ``.launches``."""
-    from ofasys_torch.ops import dense_attention, flash_attention
+    import importlib
 
-    return {name: getattr(dense_attention if name.startswith("dense") else flash_attention, name)
-            for name in KERNELS}
+    return {name: getattr(importlib.import_module(
+        f"ofasys_torch.ops.{_WRAPPER_MODULE[name.split('_')[0]]}"), name) for name in KERNELS}
 
 
 def reset_counts():
@@ -295,8 +332,10 @@ def _bwd_bound(B, Tq, Tk, H, D, with_bias=True):
     return n_bytes, 10 * B * Tq * Tk * E
 
 
-def _bound(n_bytes, flops):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def _bound(n_bytes, ops, peak_ops=PEAK_BF16_FLOPS):
+    """The least time in ms: the larger of the bytes over the memory rate
+    and the operations over ``peak_ops``, and which of the two it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -640,18 +679,215 @@ def phase_flash_kernels(serve_shapes, train_shapes):
     return rows
 
 
+def _int_mm_ms(xq, sx, q, scale):
+    """The library yardstick of B7: ``torch._int_mm`` (cuBLASLt int8, int32
+    out) plus the same epilogue, where its shape rules allow (M > 16, K and
+    N multiples of 8); else None."""
+    M, K = xq.shape
+    N = q.shape[0]
+    if M <= 16 or K % 8 or N % 8:
+        return None
+    qt = q.t()
+    try:
+        return time_ms(lambda: ((torch._int_mm(xq, qt).float() * sx) * scale).to(torch.bfloat16))
+    except RuntimeError as e:               # a yardstick only: the port never calls it
+        log(f"  library int8 product not timed: {str(e).splitlines()[0][:120]}")
+        return None
+
+
+def check_int8(label, M, K, N):
+    """Kernel B7 against its plain version at one (M, K, N), bit for bit,
+    with its times: the kernel, the plain version, the library's int8
+    product with the same epilogue, and (for context) the bf16 ``F.linear``
+    of the same product."""
+    import torch.nn.functional as F
+
+    from ofasys_torch.ops.int8_matmul import int8_matmul_fwd, int8_matmul_reference
+    from ofasys_torch.ops.quant import _quantize_rows, quantize_weight
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(N, K, device="cuda", generator=g) * K ** -0.5
+    xq, sx = _quantize_rows(x)
+    q, scale = quantize_weight(w)
+    out = int8_matmul_fwd(xq, sx, q, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = int8_matmul_reference(xq, sx, q, scale, torch.bfloat16)
+    err = (out.float() - ref.float()).abs().max().item()
+    equal = torch.equal(out, ref)
+    log(f"kernel int8_matmul_fwd [{label} M={M} K={K} N={N}]: bit-equal to its plain version: "
+        f"{equal} (max |out-plain| {err:.3e}) -> {'ok' if equal else 'FAIL'}")
+    if not equal:
+        raise SystemExit(f"int8_matmul_fwd differs from its plain version at {label}")
+    wb = w.to(torch.bfloat16)
+    kernel_ms = time_ms(lambda: int8_matmul_fwd(xq, sx, q, scale, torch.bfloat16))
+    plain_ms = time_ms(lambda: int8_matmul_reference(xq, sx, q, scale, torch.bfloat16), n=10)
+    library_ms = _int_mm_ms(xq, sx, q, scale)
+    bf16_ms = time_ms(lambda: F.linear(x, wb))
+    n_bytes = M * K + N * K + 4 * M + 4 * N + 2 * M * N
+    ops = 2 * M * N * K
+    bound_ms, bound_by = _bound(n_bytes, ops, PEAK_INT8_OPS)
+    lib = "not timed (shape rules)" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"  times [{label}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"(torch._int_mm + epilogue) {lib}, bf16 F.linear {bf16_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {ops} int8 OP)")
+    return dict(shape=label, M=M, K=K, N=N, err=err, bit_equal=equal, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bf16_linear_ms=bf16_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_int8_kernels(encoder_rows, vocab):
+    """Kernel B7 at serve_int8's shapes: the tied logits of a beam-5 and a
+    greedy decode step over ``vocab`` symbols, a decode step's fc1 and fc2
+    (8 requests x beam 5 = 40 rows), the encoder's fc1 at the largest
+    dispatch's B*T rows, and a ragged shape."""
+    shapes = [("decode_logits", 40, 768, vocab), ("greedy_logits", 4, 768, vocab),
+              ("decode_fc1", 40, 768, 3072), ("decode_fc2", 40, 3072, 768),
+              ("encoder_fc1", encoder_rows, 768, 3072), ("ragged", 300, 200, 333)]
+    return [check_int8(*s) for s in shapes]
+
+
+def _rel_errors(a, r):
+    """max |a - r|, that over max |r|, and the relative Frobenius error."""
+    a, r = a.float(), r.float()
+    e = (a - r).abs().max().item()
+    return dict(max=e, max_rel=e / r.abs().max().item(), frob=((a - r).norm() / r.norm()).item())
+
+
+def _ln_library_ms(x, w, b, dy):
+    """The library yardsticks of B6: ``F.layer_norm`` forward, and autograd
+    of it minus its forward. PyTorch's CUDA LayerNorm takes g and b in x's
+    dtype only, so they are rounded to it outside the timed calls (its
+    statistics are fp32 all the same)."""
+    import torch.nn.functional as F
+
+    E = x.shape[1]
+    xs, ws, bs = (t.detach().to(x.dtype).requires_grad_() for t in (x, w, b))
+
+    def fwd():
+        return F.layer_norm(xs, (E,), ws, bs, 1e-5)
+
+    try:
+        with torch.no_grad():
+            f_ms = time_ms(fwd)
+        both = time_ms(lambda: torch.autograd.grad(fwd(), (xs, ws, bs), dy))
+    except RuntimeError as e:               # a yardstick only: the port never calls it
+        log(f"  library LayerNorm not timed: {str(e).splitlines()[0][:120]}")
+        return None, None
+    return f_ms, both - f_ms
+
+
+def check_ln(label, N, E):
+    """Kernels B6-fwd and B6-bwd against their plain versions at one (N, E)
+    in bf16, with their times, and a planted fault: dg summed over all rows
+    but one must fail LN_SUM_TOL. Returns (forward row, backward row)."""
+    from ofasys_torch.ops import layer_norm as tln
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = (torch.randn(N, E, device="cuda", generator=g) * 2.0 + 0.5).to(torch.bfloat16)
+    dy = torch.randn(N, E, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(E, device="cuda", generator=g) * 0.3 + 1.0
+    b = torch.randn(E, device="cuda", generator=g) * 0.1
+    y, mu, rstd = tln.layer_norm_fwd(x, w, b, 1e-5)
+    dx, dg, db = tln.layer_norm_bwd(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    ry, rmu, rrstd = tln.layer_norm_fwd_reference(x, w, b, 1e-5)
+    rdx, rdg, rdb = tln.layer_norm_bwd_reference(x, w, mu, rstd, dy)
+    dy_err = (y.float() - ry.float()).abs()
+    y_ok = bool((dy_err <= 2.0 ** -7 * ry.float().abs() + 1e-3).all())
+    stat_err = max(((mu - rmu).abs() / rmu.abs().clamp(min=1e-6)).max().item(),
+                   ((rstd - rrstd).abs() / rrstd.abs()).max().item())
+    errs = {n: _rel_errors(a, r) for n, a, r in (("dx", dx, rdx), ("dg", dg, rdg), ("db", db, rdb))}
+    ok_dx = errs["dx"]["frob"] <= GRAD_FROB_TOL and errs["dx"]["max_rel"] <= GRAD_MAX_TOL \
+        and bool(torch.isfinite(dx.float()).all())
+    ok_sums = all(errs[n]["frob"] <= LN_SUM_TOL and errs[n]["max_rel"] <= LN_SUM_TOL
+                  for n in ("dg", "db"))
+    ok = y_ok and stat_err <= 1e-5 and ok_dx and ok_sums
+    tag = f"[{label} N={N} E={E} bf16]"
+    log(f"kernels layer_norm_fwd/bwd {tag}: max|y-plain| {dy_err.max().item():.3e} (one bf16 ulp), "
+        f"mu/rstd rel {stat_err:.2e} (1e-5); "
+        + " ".join(f"{n} frob {v['frob']:.2e} max {v['max_rel']:.2e}" for n, v in errs.items())
+        + f" (dx {GRAD_FROB_TOL}/{GRAD_MAX_TOL}, dg/db {LN_SUM_TOL}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"layer_norm kernels disagree with their plain versions at {label}")
+    skip = dy.clone()
+    skip[N // 2] = 0
+    _, fdg, _ = tln.layer_norm_bwd(x, w, mu, rstd, skip)
+    fault = _rel_errors(fdg, rdg)
+    caught = fault["frob"] > LN_SUM_TOL or fault["max_rel"] > LN_SUM_TOL
+    log(f"  planted fault dg without row {N // 2}: frob {fault['frob']:.2e} max "
+        f"{fault['max_rel']:.2e} -> {'caught' if caught else 'NOT caught'}")
+    if not caught:
+        raise SystemExit(f"{label}: LN_SUM_TOL passes a dg that skipped a row")
+    lib_f, lib_b = _ln_library_ms(x, w, b, dy)
+    sz = x.element_size()
+    fwd_bytes, fwd_ops = 2 * N * E * sz + 8 * E + 8 * N, 8 * N * E
+    bwd_bytes, bwd_ops = 3 * N * E * sz + 8 * N + 12 * E, 12 * N * E
+    rows = []
+    for name, kernel, plain, lib, n_bytes, ops, err in (
+            ("layer_norm_fwd", lambda: tln.layer_norm_fwd(x, w, b, 1e-5),
+             lambda: tln.layer_norm_fwd_reference(x, w, b, 1e-5), lib_f, fwd_bytes, fwd_ops,
+             dy_err.max().item()),
+            ("layer_norm_bwd", lambda: tln.layer_norm_bwd(x, w, mu, rstd, dy),
+             lambda: tln.layer_norm_bwd_reference(x, w, mu, rstd, dy), lib_b, bwd_bytes, bwd_ops,
+             max(e["max"] for e in errs.values()))):
+        bound_ms, bound_by = _bound(n_bytes, ops, PEAK_FP32_FLOPS)
+        k_ms, p_ms = time_ms(kernel), time_ms(plain)
+        lib_s = "not timed" if lib is None else f"{lib:.4f} ms"
+        log(f"  times {name} {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"(F.layer_norm{'' if name.endswith('fwd') else ' backward'}) {lib_s}, bound "
+            f"{bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {ops} FLOP)")
+        rows.append(dict(shape=label, N=N, E=E, err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                         library_ms=lib, bound_ms=bound_ms, bound_by=bound_by))
+    return rows
+
+
+def phase_ln_kernels(batches):
+    """Kernels B6-fwd and B6-bwd at the train mix's LayerNorm shapes (each
+    task's encoder and decoder rows at E = 768, the encoder rows of the
+    first task at fc2_ln's 3,072), a decode step and a ragged N. Returns
+    {kernel name: [rows]}."""
+    shapes = []
+    for i, (name, b) in enumerate(batches.items()):
+        B, Ts, Tt = _task_shapes(b)
+        shapes += [(f"{name}_encoder", B * Ts, 768), (f"{name}_decoder", B * Tt, 768)]
+        if i == 0:
+            shapes.append((f"{name}_encoder_fc2_ln", B * Ts, 3072))
+    shapes += [("decode_step", 40, 768), ("ragged", 1001, 768)]
+    rows = {"layer_norm_fwd": [], "layer_norm_bwd": []}
+    for label, N, E in shapes:
+        f, bw = check_ln(label, N, E)
+        rows["layer_norm_fwd"].append(f)
+        rows["layer_norm_bwd"].append(bw)
+    return rows
+
+
 class RecordingHub:
     """Passes ``inference`` through to the hub and records each dispatch the
-    server makes, so the same batches can be replayed directly."""
+    server makes, so the same batches can be replayed directly, and the
+    decode steps each dispatch ran (``steps``)."""
 
     def __init__(self, hub):
         self.hub = hub
         self.device = hub.device
         self.calls = []
+        self.steps = []
 
     def inference(self, instruction, data=None, **kw):
-        out = self.hub.inference(instruction, data, **kw)
+        net = self.hub.model.net
+        orig, n = net.decode_step, [0]
+
+        def counted(*a, **k):
+            n[0] += 1
+            return orig(*a, **k)
+
+        net.decode_step = counted
+        try:
+            out = self.hub.inference(instruction, data, **kw)
+        finally:
+            del net.decode_step
         self.calls.append((instruction, data, kw, out))
+        self.steps.append(n[0])
         return out
 
 
@@ -719,17 +955,51 @@ def _sources(rng, lengths):
     return out
 
 
-def _expected_launches(gp, calls, cfg, tpl=TPL):
-    """Per dispatch (B, T, route) and the encoder-kernel launches the
-    dispatches should make: one per encoder layer of kernel B3 (flash,
-    T >= 256) or B1 (dense gate), none on the plain path."""
+def _per_dispatch(net):
+    """Launches of B7 and B6-fwd in one serving dispatch of S decode steps,
+    as (once, per step), counted from the net's modules: B7 on every int8
+    projection of the encoder and on the decoder's cross k/v (projected
+    once, in decode_prepare), then on the other decoder projections and the
+    tied logits at every step; B6-fwd on every fused LayerNorm of the
+    encoder, then of the decoder at every step."""
+    from ofasys_torch.ops.layer_norm import FusedLayerNorm
+    from ofasys_torch.ops.quant import is_quantized
+
+    def count(prefix, pred):
+        return sum(1 for n, m in net.named_modules() if n.startswith(prefix) and pred(n, m))
+
+    def int8(n, m):
+        return is_quantized(m)
+
+    def cross_kv(n, m):
+        return is_quantized(m) and n.endswith(("encoder_attn.k_proj", "encoder_attn.v_proj"))
+
+    def fused(n, m):
+        return isinstance(m, FusedLayerNorm) and m.mode == "fused"
+
+    cross = count("decoder.", cross_kv)
+    logits = int(is_quantized(net.embed_tokens))
+    return {"int8_matmul_fwd": (count("encoder.", int8) + cross,
+                                count("decoder.", int8) - cross + logits),
+            "layer_norm_fwd": (count("encoder.", fused), count("decoder.", fused))}
+
+
+def _expected_launches(gp, calls, steps, net, tpl=TPL):
+    """Per dispatch (B, T, route) and the kernel launches the dispatches
+    should make: one per encoder layer of kernel B3 (flash, T >= 256) or B1
+    (dense gate), none on the plain path; B7 and B6-fwd by
+    :func:`_per_dispatch` for each dispatch's decode steps."""
+    cfg = net.cfg
     shapes, expected = [], dict.fromkeys(KERNELS, 0)
-    for _, data, _, _ in calls:
+    per = _per_dispatch(net)
+    for (_, data, _, _), S in zip(calls, steps, strict=True):
         B, T = _encoder_shape(gp, data if isinstance(data, list) else [data], tpl)
         route = _route(cfg, B, T, T)
         shapes.append((B, T, route))
         if route != "plain":
             expected[f"{route}_attention_fwd"] += cfg.encoder.layers
+        for name, (once, step) in per.items():
+            expected[name] += once + step * S
     return shapes, expected
 
 
@@ -764,9 +1034,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve"):
+def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=True):
     """Drive the serving path with the requests (default: the serve run's 16) and
-    check what comes out; returns the kernel launch counts of that run."""
+    check what comes out; returns the kernel launch counts of that run
+    (``launches``), its p50 latency, tokens/s, answers, and the dispatches
+    with their decode steps. ``check_encoder`` holds the encoder output
+    under the attention kernel against plain attention (ENC_REL_TOL)."""
     from ofasys_torch.preprocessor.instruction import Instruction
     from ofasys_torch.serve import InferenceServer
     from ofasys_torch.utils.pytree import slots_to_device
@@ -799,15 +1072,21 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve"):
         if not (np.isfinite(o.score) and isinstance(o.text, str) and o.tokens.size > 0):
             raise SystemExit(f"{label} request {i}: bad answer {o!r}")
     n_tokens = int(sum(o.tokens.size for o in outs))
-    shapes, expected = _expected_launches(gp, rec.calls, cfg, tpl)
+    shapes, expected = _expected_launches(gp, rec.calls, rec.steps, model.net, tpl)
     launched = {n: c for n, c in launches.items() if c or expected[n]}
-    log(f"  {label} dispatches (B, T, encoder route): {shapes}")
+    log(f"  {label} dispatches (B, T, encoder route): {shapes}, decode steps {rec.steps}")
+    for name, (once, step) in _per_dispatch(model.net).items():
+        if once or step:
+            log(f"  {label} {name} per dispatch: {once} + {step} * S = "
+                f"{[once + step * S for S in rec.steps]}")
     log(f"  {label} launches: {launched} (expected {({n: c for n, c in expected.items() if c})})")
     if on_card and (launches != expected or any(route == "plain" for *_, route in shapes)):
-        raise SystemExit(f"{label}: an encoder kernel did not run once per layer in every dispatch")
+        raise SystemExit(f"{label}: a kernel did not run as often as the path calls it")
     log(f"  {label}: served {stats['requests']} requests in {stats['batches']} batches, "
         f"p50 latency {stats['p50_latency_ms']} ms, {n_tokens} tokens in {wall:.3f} s = "
         f"{n_tokens / wall:.1f} tokens/s [{card}]")
+    res = dict(launches=launches, p50_ms=stats["p50_latency_ms"], tokens_per_s=n_tokens / wall,
+               outs=outs, calls=rec.calls, steps=rec.steps)
     log(f"  sample answer: {outs[0].text[:60]!r} score {outs[0].score:.4f}")
 
     # served answers equal direct hub.inference on the same batches, and
@@ -828,6 +1107,8 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve"):
     if mismatches or misrouted:
         raise SystemExit(f"{label}: served answers differ from direct inference")
 
+    if not check_encoder:
+        return res
     # encoder output of the first dispatch's records, kernel vs plain attention
     recs = [r for r, _ in reqs[:8]]
     sample = gp.collate([gp(Instruction(tpl, split="test").format(**r)) for r in recs])
@@ -850,7 +1131,7 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve"):
         f"kernel launches {used}")
     if (on_card and used != cfg.encoder.layers) or not rel <= ENC_REL_TOL or not mx <= ENC_ABS_TOL:
         raise SystemExit(f"{label}: encoder output under {kernel} disagrees with plain attention")
-    return launches
+    return res
 
 
 def long_preprocess(d):
@@ -889,7 +1170,10 @@ def serve_truncated_and_check(hub, card):
     return serve_and_check(hub, card, SUMMARY_TPL, reqs, "serve_truncated")
 
 
-def _report_profile(prof, wall_ms, what, card):
+def _report_profile(prof, wall_ms, what, card, share=None):
+    """Wall, device busy time and idle share, launches and the top kernels;
+    with ``share``, the share of device time of the kernels whose name holds
+    it."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -898,12 +1182,18 @@ def _report_profile(prof, wall_ms, what, card):
         f"idle {100 * (1 - busy_ms / wall_ms):.1f}%, {n_launch} kernel launches [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
+    if share:
+        own = [e for e in kernels if share in e.key]
+        own_ms = sum(e.self_device_time_total for e in own) / 1e3
+        log(f"  kernels named *{share}*: {own_ms:.3f} ms in {sum(e.count for e in own)} launches, "
+            f"{100 * own_ms / max(busy_ms, 1e-9):.1f}% of device time")
 
 
-def phase_profile(hub, card):
+def phase_profile(hub, card, share=None):
     """One dispatch of the serving path (the first 8 requests, beam 5) under
     torch.profiler: wall time, device busy time and idle share, kernel
-    launches, and the kernels that take the most device time."""
+    launches, and the kernels that take the most device time (with
+    ``share``, the share of the kernels whose name holds it)."""
     from torch.profiler import ProfilerActivity, profile
 
     recs = [r for r, _ in _serve_requests()[:8]]
@@ -913,7 +1203,120 @@ def phase_profile(hub, card):
         hub.inference(TPL, recs, max_len_b=MAX_LEN_B)
         _sync(hub.device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_profile(prof, wall_ms, "one dispatch (B=8, beam 5)", card)
+    _report_profile(prof, wall_ms, "one dispatch (B=8, beam 5)", card, share)
+
+
+def _param_bytes(net):
+    """Bytes of the net's parameters and buffers (the int8 tables and their
+    scales after quantize())."""
+    return sum(t.numel() * t.element_size() for t in list(net.parameters()) + list(net.buffers()))
+
+
+def serve_int8_and_check(hub, card, serve_res=None):
+    """serve_int8: the serve phase's requests on a deep copy of the hub's
+    model after ``OFASys.quantize()`` (w8a8). Beyond serve_and_check's
+    checks: the tokens of every dispatch equal those of the same quantized
+    hub with B7's wrapper replaced, here only, by its plain version (the
+    integer product is exact, so only the epilogue could differ); prints the
+    parameter bytes before and after, p50 and tokens/s beside serve's
+    (``serve_res``) and the share of answers equal to the bf16 hub's, then
+    profiles one dispatch."""
+    import copy
+
+    from ofasys_torch import OFASys
+    from ofasys_torch.ops import int8_matmul, quant
+
+    model = copy.deepcopy(hub.model)
+    before = _param_bytes(model.net)
+    qhub = OFASys(model, None, hub.global_dict, hub.general_preprocess, device=hub.device).quantize()
+    after = _param_bytes(model.net)
+    int8_bytes = sum(b.numel() for b in model.net.buffers() if b.dtype == torch.int8)
+    log(f"serve_int8: parameter bytes {before} before quantize(), {after} after "
+        f"({after / before:.3f}x; int8 tables {int8_bytes} B)")
+    # the encoder check against plain attention is left out: with int8
+    # projections a rounding difference of the attention moves whole int8
+    # steps, which later projections carry on (tests/test_torch_quant.py)
+    res = serve_and_check(qhub, card, label="serve_int8", check_encoder=False)
+
+    mismatches = 0
+    quant.int8_matmul_fwd = int8_matmul.int8_matmul_reference
+    try:
+        for instruction, data, kw, out in res["calls"]:
+            plain = qhub.inference(instruction, data, **kw)
+            for a, b in zip(out if isinstance(data, list) else [out],
+                            plain if isinstance(data, list) else [plain], strict=True):
+                mismatches += not np.array_equal(a.tokens, b.tokens)
+    finally:
+        quant.int8_matmul_fwd = int8_matmul.int8_matmul_fwd
+    log(f"  serve_int8: tokens under B7 vs its plain version on the card: {mismatches} mismatches")
+    if mismatches:
+        raise SystemExit("serve_int8: the tokens under B7 differ from those of its plain version")
+    if serve_res is not None:
+        same = sum(np.array_equal(a.tokens, b.tokens) for a, b in zip(res["outs"], serve_res["outs"]))
+        log(f"  serve_int8 vs serve: p50 {res['p50_ms']} vs {serve_res['p50_ms']} ms, "
+            f"{res['tokens_per_s']:.1f} vs {serve_res['tokens_per_s']:.1f} tokens/s; "
+            f"{same} of {len(res['outs'])} answers equal to the bf16 hub's (information) [{card}]")
+    if hub.device.type == "cuda":
+        phase_profile(qhub, card, share="int8_matmul")
+    del qhub, model
+    return res
+
+
+def _ln_hub(hub, impl):
+    """A second model of the hub's config with ``ln_impl=impl`` and the
+    hub's weights."""
+    from ofasys_torch import GeneralistModel, OFASys
+
+    model = GeneralistModel(hub.model.cfg, ln_impl=impl)
+    model.initialize(hub.global_dict, active_adaptors=("text",), dtype=hub.model.net.dtype,
+                     device=hub.device, seed=SEED)
+    model.net.load_state_dict(hub.model.net.state_dict())
+    return OFASys(model, None, hub.global_dict, hub.general_preprocess, device=hub.device)
+
+
+def serve_ln_and_check(hub, card):
+    """serve_ln: one dispatch of the serve mix (the first 8 beam requests)
+    with ln_impl='pallas' (kernel B6-fwd in every stack LayerNorm), and the
+    first decode step's logits against the hub's (ln_impl='xla') on the same
+    records."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+    from ofasys_torch.utils.pytree import slots_to_device
+
+    ln_hub = _ln_hub(hub, "pallas")
+    res = serve_and_check(ln_hub, card, reqs=_serve_requests()[:8], label="serve_ln")
+    gp = hub.general_preprocess
+    sample = gp.collate([gp(Instruction(TPL, split="test").format(**r))
+                         for r, _ in _serve_requests()[:8]])
+    slots = slots_to_device(sample["net_input"]["slots"], hub.device)
+    with torch.no_grad():
+        got = ln_hub.model.net(slots)[0][:, 0].float()
+        ref = hub.model.net(slots)[0][:, 0].float()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"  serve_ln: first-step logits {tuple(got.shape)}, B6 vs ln_impl='xla': rel {rel:.3e} "
+        f"(tol {LN_LOGIT_REL_TOL}), max abs {(got - ref).abs().max().item():.3e}")
+    if not rel <= LN_LOGIT_REL_TOL:
+        raise SystemExit("serve_ln: the logits under B6 disagree with the default LayerNorm")
+    del ln_hub
+    return res
+
+
+def train_ln_and_check(d, gp, card, arch="base", tasks=None, batches=None):
+    """train_ln: the train phase's updates with ln_impl='pallas', then one
+    ln_impl='hybrid' update; the gradients of each against a model with
+    ln_impl='xla' and the same parameters. Returns the launch counts and
+    results of both runs."""
+    device = "cuda" if card != "cpu" else "cpu"
+    ref = build_train_model(d, device, arch)
+    out = {}
+    for impl, label, n in (("pallas", "train_ln", N_UPDATES), ("hybrid", "train_ln_hybrid", 1)):
+        model = build_train_model(d, device, arch, ln_impl=impl)
+        counts, res, _ = train_and_check(model, gp, card, tasks=tasks, batches=batches, label=label,
+                                         grad_ref=ref, n_updates=n)
+        out[label] = (counts, res)
+        del model
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------- training
@@ -968,7 +1371,7 @@ def train_shapes(batches):
     return shapes
 
 
-def _expected_train_launches(batches, cfg):
+def _expected_train_launches(batches, cfg, net=None):
     """Launches of each kernel one update should make: every attention call
     (encoder self, decoder self, cross) on the flash route runs B3, B4-dq,
     B4-dkv and, for its batch-shared bias, B5 (a batch of one gets the
@@ -987,21 +1390,30 @@ def _expected_train_launches(batches, cfg):
             elif route == "flash":
                 for name in ("flash_attention_fwd",) + FLASH_BWD:
                     n[name] += layers if (name != "flash_attention_bwd_dbias" or B > 1) else 0
+    if net is not None:
+        # B6 (ln_impl): every stack LayerNorm once per task's forward and
+        # backward; B6-fwd only where the forward is fused
+        from ofasys_torch.ops.layer_norm import FusedLayerNorm
+
+        lns = [m for m in net.modules() if isinstance(m, FusedLayerNorm)]
+        n["layer_norm_fwd"] += len(batches) * sum(m.mode == "fused" for m in lns)
+        n["layer_norm_bwd"] += len(batches) * len(lns)
     return n
 
 
-def build_train_model(d, device, arch="base", dtype=torch.bfloat16):
+def build_train_model(d, device, arch="base", dtype=torch.bfloat16, ln_impl="xla"):
     """The arch at full width with random weights from SEED; dropout keeps
     its default of 0.1, attention dropout its default of 0."""
     from ofasys_torch import GeneralistModel
 
     t0 = time.perf_counter()
-    model = GeneralistModel(arch=arch)
+    model = GeneralistModel(arch=arch, ln_impl=ln_impl)
     model.initialize(d, active_adaptors=("text",), dtype=dtype, device=device, seed=SEED)
     cfg = model.cfg
     log(f"train: {arch} arch E={cfg.encoder.embed_dim} ffn={cfg.encoder.ffn_embed_dim} "
         f"heads={cfg.encoder.attention_heads} layers={cfg.encoder.layers}+{cfg.decoder.layers} "
-        f"vocab={len(d)} dropout={cfg.dropout} built in {time.perf_counter() - t0:.1f} s")
+        f"vocab={len(d)} dropout={cfg.dropout} ln_impl={cfg.ln_impl} "
+        f"built in {time.perf_counter() - t0:.1f} s")
     return model
 
 
@@ -1068,10 +1480,13 @@ def _dd_from_unrounded_output():
         cls.backward = orig
 
 
-def train_and_check(model, gp, card, tasks=None, batches=None, label="train", grad_batches=None):
-    """Drive the training path: N_UPDATES summed two-task updates through
-    make_multitask_train_step, then check what came out; the gradient check
-    runs on ``grad_batches`` when given. Returns the kernel launch counts of
+def train_and_check(model, gp, card, tasks=None, batches=None, label="train", grad_batches=None,
+                    grad_ref=None, n_updates=N_UPDATES):
+    """Drive the training path: ``n_updates`` summed two-task updates
+    through make_multitask_train_step, then check what came out; the
+    gradient check runs on ``grad_batches`` when given, against the plain
+    attention path or, with ``grad_ref``, against that model (another
+    ``ln_impl``) at the same parameters. Returns the kernel launch counts of
     that run, its results, and the step, state and batches."""
     from ofasys_torch.configure.configs import OptimizationConfig
     from ofasys_torch.engine.criterion import (
@@ -1101,7 +1516,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
 
     reset_counts()
     outs, times = [], []
-    for _ in range(N_UPDATES):
+    for _ in range(n_updates):
         t0 = time.perf_counter()
         state, out = step(state, dev, SEED)
         _sync(device)
@@ -1117,22 +1532,22 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
         gnorms.append(float(out["gnorm"]))
     per_task = {n: [round(float(o["tasks"][n]["loss"]) / float(o["tasks"][n]["sample_size"]), 4)
                     for o in outs] for n in dev}
-    log(f"  {label}: loss per token over the {N_UPDATES} updates: {[round(x, 5) for x in losses]}; "
+    log(f"  {label}: loss per token over the {n_updates} updates: {[round(x, 5) for x in losses]}; "
         f"per task {per_task}; gnorm {[round(x, 4) for x in gnorms]}")
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
         raise SystemExit("a training loss or gnorm is not finite")
-    if not losses[-1] < losses[0]:
-        raise SystemExit(f"the loss did not fall over {N_UPDATES} updates on repeated batches")
+    if n_updates > 1 and not losses[-1] < losses[0]:
+        raise SystemExit(f"the loss did not fall over {n_updates} updates on repeated batches")
     step_ms = statistics.median(times) * 1e3
     n_tokens = sum(int(b["ntokens"]) + int(b["net_input"]["slots"][0].value["inputs"].size)
                    for b in batches.values())
-    log(f"  {label}: step time {step_ms:.2f} ms (median of {N_UPDATES}; all "
+    log(f"  {label}: step time {step_ms:.2f} ms (median of {n_updates}; all "
         f"{[round(t * 1e3, 2) for t in times]}), {n_samples} samples per update = "
         f"{n_samples / (step_ms / 1e3):.1f} samples/s, {n_tokens} source+target tokens per "
         f"update [{card}]")
 
-    per_update = _expected_train_launches(batches, cfg)
-    expected = {n: N_UPDATES * c for n, c in per_update.items()}
+    per_update = _expected_train_launches(batches, cfg, model.net)
+    expected = {n: n_updates * c for n, c in per_update.items()}
     log(f"  {label}: launches {launches} (expected {expected}; per update {per_update})")
     if device.type == "cuda":
         if launches != expected or not any(expected.values()):
@@ -1144,6 +1559,10 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     names = [n for n, _ in model.net.named_parameters()]
     gdev = dev if grad_batches is None else {n: sample_to_device(b, device)
                                              for n, b in grad_batches.items()}
+    result = dict(step_ms=step_ms, samples_per_s=n_samples / (step_ms / 1e3), losses=losses)
+    if grad_ref is not None:
+        return launches, {**result, **_grads_vs(model, grad_ref, crit, state, gdev, label)}, \
+            (step, state, dev)
     saved = cfg.dropout, cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
     cfg.dropout = 0.0
     g_plain, g_exact_dd = {}, None
@@ -1183,12 +1602,38 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
         f"(tol {GRAD_REL_TOL}), worst leaf {worst_name} {worst:.3e} (tol {LEAF_REL_TOL})")
     if not rel <= GRAD_REL_TOL or not worst <= LEAF_REL_TOL:
         raise SystemExit(f"{label}: gradients under the kernels disagree with the plain attention path")
-    return launches, dict(step_ms=step_ms, samples_per_s=n_samples / (step_ms / 1e3),
-                          losses=losses, grad_rel=rel, grad_norm_rel=norm_rel,
+    return launches, dict(**result, grad_rel=rel, grad_norm_rel=norm_rel,
                           grad_worst_leaf=worst, grad_worst_leaf_name=worst_name,
                           grad_by_logits={lg: dict(rel=r, worst=max(lv.values()),
                                                    worst_leaf=max(lv, key=lv.get))
                                           for lg, (r, _, lv) in cmp.items()}), (step, state, dev)
+
+
+def _grads_vs(model, ref, crit, state, batches, label):
+    """One update's gradients (dropout 0) of ``model`` against ``ref``, a
+    model of another ln_impl given the same parameters, both with the
+    attention kernels: GRAD_REL_TOL over all leaves, LEAF_REL_TOL per leaf
+    (the key-side biases left out, as in the train phase)."""
+    names = [n for n, _ in model.net.named_parameters()]
+    with torch.no_grad():
+        for p, q in zip(ref.net.parameters(), state.params, strict=True):
+            p.copy_(q)
+    saved = model.cfg.dropout, ref.cfg.dropout
+    model.cfg.dropout = ref.cfg.dropout = 0.0
+    try:
+        got = _grads(model, crit, state.params, state.step, batches)
+        want = _grads(ref, crit, list(ref.net.parameters()), state.step, batches)
+    finally:
+        model.cfg.dropout, ref.cfg.dropout = saved
+    rel, norm_rel, leaves = _grad_diff(names, got, want)
+    worst_name = max(leaves, key=leaves.get)
+    log(f"  {label}: gradients of one update vs ln_impl={ref.cfg.ln_impl!r} at the same parameters "
+        f"(dropout 0): rel {rel:.3e} (tol {GRAD_REL_TOL}), global norm rel err {norm_rel:.3e}, "
+        f"worst leaves {_top_leaves(leaves)} (tol {LEAF_REL_TOL})")
+    if not rel <= GRAD_REL_TOL or not leaves[worst_name] <= LEAF_REL_TOL:
+        raise SystemExit(f"{label}: gradients disagree with ln_impl={ref.cfg.ln_impl!r}")
+    return dict(grad_rel=rel, grad_norm_rel=norm_rel, grad_worst_leaf=leaves[worst_name],
+                grad_worst_leaf_name=worst_name)
 
 
 def phase_profile_train(step, state, batches, card,
@@ -1240,6 +1685,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     name, card = phase_device()
     phase_build()
     hub = build_base_hub()
@@ -1257,11 +1703,16 @@ def main() -> int:
     flash_serve.append(("serve_truncated", planned_dispatch_shapes(
         hub.general_preprocess, _truncated_requests(), SUMMARY_TPL)[0]))
     flash_rows = phase_flash_kernels(flash_serve, [c for c in long_calls if routes[c[0]] == "flash"])
+    int8_rows = phase_int8_kernels(max(B * T for B, T in planned_dispatch_shapes()), len(d))
+    ln_rows = phase_ln_kernels(train_batches)
 
-    counts = {"serve": serve_and_check(hub, card)}
+    serve_res = serve_and_check(hub, card)
+    counts = {"serve": serve_res["launches"]}
     phase_profile(hub, card)
-    counts["serve_long"] = serve_long_and_check(hub, card)
-    counts["serve_truncated"] = serve_truncated_and_check(hub, card)
+    counts["serve_long"] = serve_long_and_check(hub, card)["launches"]
+    counts["serve_truncated"] = serve_truncated_and_check(hub, card)["launches"]
+    counts["serve_int8"] = serve_int8_and_check(hub, card, serve_res)["launches"]
+    counts["serve_ln"] = serve_ln_and_check(hub, card)["launches"]
 
     model = build_train_model(d, "cuda")
     counts["train"], train_res, (step, state, dev) = train_and_check(
@@ -1277,6 +1728,14 @@ def main() -> int:
         model, long_gp, card, batches=long_batches, label="train_long", grad_batches=grad_batches)
     phase_profile_train(step, state, dev, card,
                         "one long training update (text_infilling_long B=16 + gigaword_long B=16)")
+    del model, step, state, dev
+    torch.cuda.empty_cache()
+
+    ln = train_ln_and_check(d, hub.general_preprocess, card, batches=train_batches)
+    for label, (c, res) in ln.items():
+        counts[label] = c
+        log(f"{label}: step {res['step_ms']:.2f} ms, {res['samples_per_s']:.1f} samples/s "
+            f"(train: {train_res['step_ms']:.2f} ms, {train_res['samples_per_s']:.1f} samples/s) [{card}]")
 
     def by_path(kernel):
         return {path: c[kernel] for path, c in counts.items()}
@@ -1295,9 +1754,19 @@ def main() -> int:
                       plain_covers="the whole backward (dq, dk, dv, bias gradient)",
                       library_covers="the whole backward (dq, dk, dv, bias gradient)")
         for k in FLASH_BWD
+    ] + [
+        _kernel_entry("int8_matmul_fwd", by_path("int8_matmul_fwd"), "serve_int8", int8_rows, "err",
+                      "decode_logits", card, bit_equal=all(r["bit_equal"] for r in int8_rows),
+                      library_covers="torch._int_mm + the same epilogue"),
+    ] + [
+        _kernel_entry(k, by_path(k), "train_ln", ln_rows[k], "err", "text_infilling_encoder", card)
+        for k in ("layer_norm_fwd", "layer_norm_bwd")
     ]
     log(f"train: {json.dumps(train_res)}")
     log(f"train_long: {json.dumps(long_res)}")
+    for label, (_, res) in ln.items():
+        log(f"{label}: {json.dumps(res)}")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

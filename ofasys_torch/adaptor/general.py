@@ -83,8 +83,8 @@ class GeneralAdaptor(nn.Module):
         self.num_attention_heads = heads
         self.pos_scaling = float(embed_dim / heads * cfg.attn_scale_factor) ** -0.5
         if cfg.use_self_attn_bias and not cfg.entangle_position_embedding:
-            self.pos_q_linear = Dense(embed_dim, embed_dim, dtype)
-            self.pos_k_linear = Dense(embed_dim, embed_dim, dtype)
+            self.pos_q_linear = Dense(embed_dim, embed_dim, dtype, cfg)
+            self.pos_k_linear = Dense(embed_dim, embed_dim, dtype, cfg)
 
     def get_adaptor(self, slot: SlotBatch) -> BaseAdaptor:
         name = resolve_adaptor_name(slot, self.is_src)

@@ -4,8 +4,10 @@ ofasys_tpu/hub_interface.py).
     hub = OFASys(model, None, global_dict, GeneralPreprocess(global_dict))
     out = hub.inference("[TEXT:src] -> [TEXT:tgt]", data={"src": "..."})
 
-``from_pretrained`` (orbax checkpoints), ``quantize``, ``shard`` and
-``set_draft`` wait for later slices.
+    hub.quantize()        # int8 serving in place (ops/quant.py), kernel B7
+
+``from_pretrained`` (orbax checkpoints), ``shard`` and ``set_draft`` wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from ofasys_torch import ModalityType
 from ofasys_torch.generator import SequenceGenerator
 from ofasys_torch.model.ofa import GeneralistModel
+from ofasys_torch.ops.quant import is_quantized, quantize_for_serving
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.general import GeneralPreprocess
 from ofasys_torch.preprocessor.instruction import Instruction
@@ -65,6 +68,21 @@ class OFASys:
         self.global_dict = global_dict
         self.general_preprocess = general_preprocess
         self._generators: Dict[Any, SequenceGenerator] = {}
+
+    def quantize(self, mode: str = "w8a8", **kwargs) -> "OFASys":
+        """Switch to int8 serving IN PLACE (ops/quant.py): matched matmul
+        weights become int8 buffers with fp32 scales (their fp32 copies are
+        dropped), and ``mode`` selects 'w8a8' (int8 contraction, kernel B7)
+        or 'w8' (dequantize, plain matmul). ``kwargs`` go to
+        ``quantize_for_serving``. A net that is already quantized is not
+        quantized again. Quantize a copy of a model that is still to be
+        trained. Returns self."""
+        net = self.model.net
+        if not any(is_quantized(m) for m in net.modules()):
+            quantize_for_serving(net, **kwargs)
+        self.model.cfg.quant_mode = mode
+        self._generators.clear()
+        return self
 
     def inference(
         self,

@@ -2,11 +2,13 @@
 ofasys_tpu/model/config.py, every default kept).
 
 Plain dataclasses: the port has no config store. Fields that name
-execution features this slice does not run (MoE, scan-over-layers,
-pipeline and sequence parallelism, int8 training, the Pallas LayerNorm)
-stay so that a config carried over from ofasys_tpu keeps its shape;
+execution features the port does not run yet (MoE, scan-over-layers,
+pipeline and sequence parallelism, int8 quantized training, per-modality
+FFNs) stay so that a config carried over from ofasys_tpu keeps its shape;
 ``GeneralistModel.initialize`` raises when one is set away from its
-default.
+default. ``ln_impl`` is checked where the stacks build their LayerNorms
+(``model/transformer.make_ln``) and ``quant_mode`` where an int8 matmul
+runs (``ops/quant.int8_matmul``), as in ofasys_tpu.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ class GeneralistModelConfig:
     # blocked flash attention (kernels B3-B5, ops/flash_attention.py) for
     # Tk >= 256 on CUDA tensors; the CPU takes the plain path
     use_flash_attention: bool = True
+    # LayerNorm of the stacks (model/transformer.make_ln): 'xla' plain,
+    # 'hybrid' plain forward + kernel B6-bwd, 'pallas' kernels B6-fwd and
+    # B6-bwd (ops/layer_norm.py); the adaptor LayerNorms stay plain
     ln_impl: str = "xla"
     # dtype of the materialized (B,H,Tq,Tk) scores on the plain path:
     #   'compute' — scores rounded to the compute dtype, softmax in fp32
@@ -84,6 +89,8 @@ class GeneralistModelConfig:
     pipeline_stages: int = 1
     pipeline_microbatches: int = 0
     sequence_parallel: bool = False
+    # int8 serving after OFASys.quantize() (ops/quant.py): 'w8a8' (kernel B7)
+    # or 'w8' (dequantize, plain matmul)
     quant_mode: str = "w8a8"
     quant_training: str = "none"
 
@@ -137,6 +144,5 @@ UNPORTED_DEFAULTS = {
     "pipeline_stages": (1, "Queue A item 13"),
     "sequence_parallel": (False, "Queue A item 13"),
     "modal_ffn": (False, "Queue A item 7"),
-    "ln_impl": ("xla", "Queue B kernel B6"),
-    "quant_training": ("none", "Queue A item 2"),
+    "quant_training": ("none", "Queue A item 14"),
 }

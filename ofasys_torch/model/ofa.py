@@ -63,8 +63,8 @@ class GeneralistNet(nn.Module):
         self.decoder = TransformerDecoder(cfg, dtype)
         if cfg.use_self_attn_bias:
             # cross-attention absolute-position bias, shared across decoder layers
-            self.cross_pos_q_linear = Dense(E, E, dtype)
-            self.cross_pos_k_linear = Dense(E, E, dtype)
+            self.cross_pos_q_linear = Dense(E, E, dtype, cfg)
+            self.cross_pos_k_linear = Dense(E, E, dtype, cfg)
             self.cross_pos_scaling = float(E / cfg.decoder.attention_heads * cfg.attn_scale_factor) ** -0.5
 
     @property

@@ -18,8 +18,12 @@ Submodule and parameter names follow the flax tree of ofasys_tpu
 (``layers_0.self_attn.q_proj``, LayerNorm ``weight`` for flax ``scale``),
 so utils/jax_params.load_jax_params maps one onto the other.
 
-MoE, scan_layers, remat, ring attention and pipeline parallelism wait for
-later slices (GeneralistModel.initialize raises when a config asks for them).
+Int8 serving (``ops.quant.quantize_for_serving``: ``Dense`` and
+``Embed.attend`` through kernel B7) and ``cfg.ln_impl`` (``make_ln``: the
+LayerNorm kernels B6) follow ofasys_tpu's ``QuantDense``/``QuantEmbed`` and
+``make_ln``. MoE, scan_layers, remat, ring attention and pipeline
+parallelism wait for later slices (GeneralistModel.initialize raises when a
+config asks for them).
 """
 
 from __future__ import annotations
@@ -36,26 +40,39 @@ from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.ops.attention import causal_mask, combine_masks, dot_product_attention, dropout
 from ofasys_torch.ops.dense_attention import dense_attention, dense_supported
 from ofasys_torch.ops.flash_attention import flash_attention, flash_available, flash_supported
+from ofasys_torch.ops.quant import int8_matmul, is_quantized
 
 LN_EPS = 1e-5
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` with fp32 parameters that computes in ``dtype``."""
+    """``nn.Linear`` with fp32 parameters that computes in ``dtype``. After
+    ``ops.quant.quantize_for_serving`` it holds int8 buffers ``q`` (out, in)
+    and ``scale`` (out,) in place of its weight and runs ``int8_matmul`` in
+    ``cfg.quant_mode``, read at call time (ofasys_tpu's ``QuantDense``)."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
+                 cfg: GeneralistModelConfig):
         super().__init__(in_features, out_features)
         self.dtype = dtype
+        self.cfg = cfg
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_quantized(self):
+            y = int8_matmul(x, self.q, self.scale, mode=self.cfg.quant_mode, out_dtype=self.dtype)
+            return y + self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
 class Embed(nn.Embedding):
     """``nn.Embedding`` (fp32 table) whose ``attend`` is the tied output
-    projection: ``query @ weight.T`` in ``dtype``."""
+    projection: ``query @ weight.T`` in ``dtype``, or, with an int8 attend
+    table (``quantize_for_serving``), the w8a8 product through kernel B7
+    (ofasys_tpu's ``QuantEmbed.attend``, which takes w8a8 whatever the mode)."""
 
     def attend(self, query: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if is_quantized(self):
+            return int8_matmul(query, self.q, self.scale, mode="w8a8", out_dtype=query.dtype)
         return query.to(dtype) @ self.weight.to(dtype).t()
 
 
@@ -69,6 +86,21 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
                             self.eps).to(self.dtype)
+
+
+def make_ln(cfg: GeneralistModelConfig, dim: int, dtype: torch.dtype) -> LayerNorm:
+    """A LayerNorm of the stacks per ``cfg.ln_impl``: 'xla' the plain
+    :class:`LayerNorm`, 'hybrid' (plain forward, kernel B6-bwd) and 'pallas'
+    (kernels B6-fwd and B6-bwd) a ``FusedLayerNorm`` (ops/layer_norm.py). All
+    three share parameter names and init."""
+    impl = cfg.ln_impl
+    if impl in ("hybrid", "pallas"):
+        from ofasys_torch.ops.layer_norm import FusedLayerNorm
+
+        return FusedLayerNorm(dim, dtype, mode="hybrid" if impl == "hybrid" else "fused")
+    if impl != "xla":
+        raise ValueError(f"unknown ln_impl {impl!r}; expected 'xla', 'hybrid' or 'pallas'")
+    return LayerNorm(dim, dtype)
 
 
 def get_activation_fn(name: str) -> Callable:
@@ -185,17 +217,18 @@ class MultiheadAttention(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.dtype = dtype
-        self.q_proj = Dense(embed_dim, embed_dim, dtype)
-        self.k_proj = Dense(embed_dim, embed_dim, dtype)
-        self.v_proj = Dense(embed_dim, embed_dim, dtype)
-        self.out_proj = Dense(embed_dim, embed_dim, dtype)
+        self.q_proj = Dense(embed_dim, embed_dim, dtype, cfg)
+        self.k_proj = Dense(embed_dim, embed_dim, dtype, cfg)
+        self.v_proj = Dense(embed_dim, embed_dim, dtype, cfg)
+        self.out_proj = Dense(embed_dim, embed_dim, dtype, cfg)
         if cfg.scale_heads:
             self.c_attn = nn.Parameter(torch.ones(num_heads))
 
     def _proj(self, mods, x):
         """Projections of one input; with fuse_qkv they run as one GEMM over
-        the concatenated weights (parameter layout unchanged)."""
-        if len(mods) == 1 or not self.cfg.fuse_qkv:
+        the concatenated weights (parameter layout unchanged). Int8 serving
+        keeps per-projection scales and no fp32 weight: one call each."""
+        if len(mods) == 1 or not self.cfg.fuse_qkv or any(is_quantized(m) for m in mods):
             return [m(x) for m in mods]
         w = torch.cat([m.weight for m in mods], dim=0).to(self.dtype)
         b = torch.cat([m.bias for m in mods]).to(self.dtype)
@@ -309,9 +342,9 @@ class FeedForward(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.act = get_activation_fn(cfg.activation_fn)
-        self.fc1 = Dense(embed_dim, ffn_dim, dtype)
-        self.fc2 = Dense(ffn_dim, embed_dim, dtype)
-        self.fc2_ln = LayerNorm(ffn_dim, dtype) if cfg.scale_fc else None
+        self.fc1 = Dense(embed_dim, ffn_dim, dtype, cfg)
+        self.fc2 = Dense(ffn_dim, embed_dim, dtype, cfg)
+        self.fc2_ln = make_ln(cfg, ffn_dim, dtype) if cfg.scale_fc else None
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.act(self.fc1(x))
@@ -328,10 +361,10 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         E = cfg.encoder.embed_dim
-        self.self_attn_layer_norm = LayerNorm(E, dtype)
+        self.self_attn_layer_norm = make_ln(cfg, E, dtype)
         self.self_attn = MultiheadAttention(cfg, E, cfg.encoder.attention_heads, dtype)
-        self.attn_ln = LayerNorm(E, dtype) if cfg.scale_attn else None
-        self.final_layer_norm = LayerNorm(E, dtype)
+        self.attn_ln = make_ln(cfg, E, dtype) if cfg.scale_attn else None
+        self.final_layer_norm = make_ln(cfg, E, dtype)
         self.ffn = FeedForward(cfg, cfg.encoder.ffn_embed_dim, E, dtype)
         if cfg.scale_resids:
             self.w_resid = nn.Parameter(torch.ones(E))
@@ -370,13 +403,13 @@ class TransformerDecoderLayer(nn.Module):
         self.cfg = cfg
         E = cfg.decoder.embed_dim
         H = cfg.decoder.attention_heads
-        self.self_attn_layer_norm = LayerNorm(E, dtype)
+        self.self_attn_layer_norm = make_ln(cfg, E, dtype)
         self.self_attn = MultiheadAttention(cfg, E, H, dtype)
-        self.self_attn_ln = LayerNorm(E, dtype) if cfg.scale_attn else None
-        self.encoder_attn_layer_norm = LayerNorm(E, dtype)
+        self.self_attn_ln = make_ln(cfg, E, dtype) if cfg.scale_attn else None
+        self.encoder_attn_layer_norm = make_ln(cfg, E, dtype)
         self.encoder_attn = MultiheadAttention(cfg, E, H, dtype)
-        self.cross_attn_ln = LayerNorm(E, dtype) if cfg.scale_attn else None
-        self.final_layer_norm = LayerNorm(E, dtype)
+        self.cross_attn_ln = make_ln(cfg, E, dtype) if cfg.scale_attn else None
+        self.final_layer_norm = make_ln(cfg, E, dtype)
         self.ffn = FeedForward(cfg, cfg.decoder.ffn_embed_dim, E, dtype)
         if cfg.scale_resids:
             self.w_resid = nn.Parameter(torch.ones(E))
@@ -442,7 +475,7 @@ class TransformerEncoder(nn.Module):
         self.n_layers = cfg.encoder.layers
         for i in range(self.n_layers):
             self.add_module(f"layers_{i}", TransformerEncoderLayer(cfg, dtype))
-        self.layer_norm = LayerNorm(cfg.encoder.embed_dim, dtype) if cfg.encoder.normalize_before else None
+        self.layer_norm = make_ln(cfg, cfg.encoder.embed_dim, dtype) if cfg.encoder.normalize_before else None
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
                 bias_spec: Optional[BiasSpec] = None,
@@ -469,7 +502,7 @@ class TransformerDecoder(nn.Module):
         self.n_layers = cfg.decoder.layers
         for i in range(self.n_layers):
             self.add_module(f"layers_{i}", TransformerDecoderLayer(cfg, dtype))
-        self.layer_norm = LayerNorm(cfg.decoder.embed_dim, dtype) if cfg.decoder.normalize_before else None
+        self.layer_norm = make_ln(cfg, cfg.decoder.embed_dim, dtype) if cfg.decoder.normalize_before else None
 
     def forward(
         self,

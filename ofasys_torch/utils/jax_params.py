@@ -10,6 +10,13 @@ as follows:
   * any other leaf (``bias``, ``c_attn``, ``rel_pos_table``,
     ``type_embedding``, ...)       -> the parameter of the same name
 
+Int8 serving variables, ``{"params": <pruned>, "qkern": {...}}`` as
+``ofasys_tpu.ops.quant.quantize_for_serving`` returns them, are taken too:
+each ``qkern/<module>/{q, scale}`` goes into that module's int8 buffers
+(ops/quant.py; the module is made int8 first if it is not yet): a Dense's
+``q`` (in, out) transposed to (out, in), the embedding's (E, V) attend table
+transposed to (V, E).
+
 Every parameter of the net must be filled and every leaf of the tree used;
 anything else raises. ``export_params`` goes the other way, for the net's
 parameters or for any tensors named like them (their gradients).
@@ -23,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ofasys_torch.ops.quant import is_quantized, quantize_module
+
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
 
@@ -34,10 +43,36 @@ def _walk(tree: Dict[str, Any], path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tu
             yield path + (k,), v
 
 
+def _load_qkern(net: nn.Module, qkern: Dict[str, Any]):
+    """Each ``<module path>/{q, scale}`` of ``qkern`` into that module's int8
+    buffers, on the net's device; ``q`` transposed to (out, in)."""
+    groups: Dict[Tuple[str, ...], Dict[str, Any]] = {}
+    for path, value in _walk(qkern):
+        groups.setdefault(path[:-1], {})[path[-1]] = value
+    for path, leaves in groups.items():
+        if set(leaves) != {"q", "scale"}:
+            raise KeyError(f"qkern/{'/'.join(path)} must hold exactly q and scale, got {sorted(leaves)}")
+        module = net.get_submodule(".".join(path))
+        if not isinstance(module, (nn.Linear, nn.Embedding)):
+            raise KeyError(f"qkern/{'/'.join(path)} names no Dense or embedding of the net")
+        q = torch.from_numpy(np.ascontiguousarray(np.asarray(leaves["q"], dtype=np.int8).T))
+        scale = torch.from_numpy(np.asarray(leaves["scale"], dtype=np.float32).copy())
+        rows, cols = (module.out_features, module.in_features) if isinstance(module, nn.Linear) \
+            else tuple(module.weight.shape)
+        if tuple(q.shape) != (rows, cols) or tuple(scale.shape) != (rows,):
+            raise ValueError(f"qkern/{'/'.join(path)}: q {tuple(q.shape)} / scale "
+                             f"{tuple(scale.shape)} vs ({rows}, {cols})")
+        device = module.bias.device if isinstance(module, nn.Linear) else module.weight.device
+        quantize_module(module, q.to(device), scale.to(device))
+
+
 def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
-    """Copy ``params`` into ``net`` in place (dtype and device of the net's
-    parameters kept); returns ``net``."""
-    if "params" in params and isinstance(params["params"], dict) and len(params) == 1:
+    """Copy ``params`` (a param tree, ``{"params": tree}`` or int8 serving
+    variables ``{"params": tree, "qkern": ...}``) into ``net`` in place
+    (dtype and device of the net's parameters kept); returns ``net``."""
+    if isinstance(params.get("params"), dict) and set(params) <= {"params", "qkern"}:
+        if "qkern" in params:
+            _load_qkern(net, params["qkern"])
         params = params["params"]
     own = dict(net.named_parameters())
     seen = set()
@@ -61,11 +96,20 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     return net
 
 
+def _set(tree: Dict[str, Any], path: str, leaf: str, arr: np.ndarray):
+    node = tree
+    for k in path.split(".") if path else ():
+        node = node.setdefault(k, {})
+    node[leaf] = np.ascontiguousarray(arr)
+
+
 def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
     """The flax-shaped tree (nested dicts of fp32 numpy arrays) of the
     net's parameters, or of ``tensors``, a dict from parameter name to a
     tensor of the parameter's shape (``{n: p.grad for n, p in
-    net.named_parameters()}``); the inverse of :func:`load_jax_params`."""
+    net.named_parameters()}``); the inverse of :func:`load_jax_params`. For
+    a net with int8 modules and no ``tensors``, the serving variables
+    ``{"params": tree, "qkern": {<module>: {"q", "scale"}}}``."""
     tree: Dict[str, Any] = {}
     for name, p in net.named_parameters():
         value = p if tensors is None else tensors[name]
@@ -78,8 +122,12 @@ def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = N
             leaf = "scale"
         elif leaf == "weight" and isinstance(module, nn.Embedding):
             leaf = "embedding"
-        node = tree
-        for k in path.split(".") if path else ():
-            node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(arr)
-    return tree
+        _set(tree, path, leaf, arr)
+    quantized = [(n, m) for n, m in net.named_modules() if is_quantized(m)]
+    if tensors is not None or not quantized:
+        return tree
+    qkern: Dict[str, Any] = {}
+    for path, module in quantized:
+        _set(qkern, path, "q", module.q.cpu().numpy().T)
+        _set(qkern, path, "scale", module.scale.cpu().numpy())
+    return {"params": tree, "qkern": qkern}

@@ -13,7 +13,14 @@ Tolerances (bf16), for q scaled as the model scales it:
     where a reordered fp32 sum crosses a rounding boundary: GRAD_TOL, 1e-3
     Frobenius and 1e-2 max (2.5 bf16 ulps of the largest entry). dbias and
     ds are fp32 sums of unrounded ds: DS_TOL, 1e-3 on both;
-  * B3 (flash attention): as B1.
+  * B3 (flash attention): as B1;
+  * B7 (int8 GEMM): equal to its plain version bit for bit (an exact
+    integer product and the same two fp32 products);
+  * B6 (LayerNorm), bf16: y within one bf16 ulp (|y - ref| <= 2^-7 |ref| +
+    1e-3), mu and rstd rtol 1e-5 (fp32 row sums in another order); dx as
+    GRAD_TOL; dg and db, fp32 sums over the rows in another order, within
+    LN_SUM_TOL (1e-4 on both measures), which a dg that skipped one row of
+    the chunk fails.
 """
 
 import pytest
@@ -141,7 +148,6 @@ def _flash_inputs(B, Tq, Tk, H, D, bias_kind):
 
 
 
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(FLASH_SHAPES))
 def test_flash_kernels_match_plain_versions_on_card(case):
@@ -225,3 +231,124 @@ def test_flash_autograd_function_runs_every_kernel_on_card():
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
     assert all(torch.isfinite(t.grad.float()).all() for t in (q4, k4, v4, bias))
     assert bias.grad.dtype == torch.float32
+
+
+# --------------------------------------------------------- int8 GEMM (B7)
+# (M, K, N): a decode step's fc1 (40 rows: batch 8 x beam 5), greedy logits
+# over a 50,048-symbol vocabulary, an encoder fc2, ragged M/N/K (K a multiple
+# of 4 but not 16: the byte path), and K = 50 (not a multiple of 4)
+INT8_SHAPES = {"decode_fc1": (40, 768, 3072), "greedy_logits": (4, 768, 50048),
+               "encoder_fc2": (1472, 3072, 768), "ragged": (300, 200, 333), "k50": (7, 50, 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", list(INT8_SHAPES))
+def test_int8_kernel_equals_plain_version_on_card(case, out_dtype):
+    _need_card()
+    from ofasys_torch.ops import int8_matmul as ti8
+    from ofasys_torch.ops.quant import _quantize_rows, quantize_weight
+
+    M, K, N = INT8_SHAPES[case]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(N, K, device="cuda", generator=g) * 0.05
+    xq, sx = _quantize_rows(x)
+    q, scale = quantize_weight(w)
+    before = ti8.int8_matmul_fwd.launches
+    out = ti8.int8_matmul_fwd(xq, sx, q, scale, out_dtype)
+    torch.cuda.synchronize()
+    assert ti8.int8_matmul_fwd.launches == before + 1
+    ref = ti8.int8_matmul_reference(xq, sx, q, scale, out_dtype)
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_quantized_dense_runs_the_int8_kernel_on_card():
+    _need_card()
+    from ofasys_torch.model.config import GeneralistModelConfig
+    from ofasys_torch.model.transformer import Dense
+    from ofasys_torch.ops import int8_matmul as ti8
+    from ofasys_torch.ops.quant import quantize_for_serving
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = Dense(64, 96, torch.bfloat16, GeneralistModelConfig())
+
+    net = quantize_for_serving(Net()).cuda()
+    assert net.fc1.q.dtype == torch.int8 and net.fc1.q.is_cuda and not hasattr(net.fc1, "weight")
+    before = ti8.int8_matmul_fwd.launches
+    y = net.fc1(torch.randn(2, 5, 64, device="cuda"))
+    torch.cuda.synchronize()
+    assert ti8.int8_matmul_fwd.launches == before + 1
+    assert y.shape == (2, 5, 96) and y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+
+
+# ------------------------------------------------------- LayerNorm (B6)
+# (N, E): the train mix's rows (12,288 = 128 x 96), fc2_ln's width, a
+# decode step, a ragged N, and an E that takes the one-element path
+LN_SHAPES = {"train_E768": (12288, 768), "fc2_ln_E3072": (2048, 3072), "decode": (40, 768),
+             "ragged": (1001, 768), "e100": (33, 100)}
+LN_SUM_TOL = (1e-4, 1e-4)
+
+
+def _ln_inputs(N, E, dtype):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(N, E, device="cuda", generator=g) * 2.0 + 0.5).to(dtype)
+    dy = torch.randn(N, E, device="cuda", generator=g).to(dtype)
+    w = torch.randn(E, device="cuda", generator=g) * 0.3 + 1.0
+    b = torch.randn(E, device="cuda", generator=g) * 0.1
+    return x, w, b, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", list(LN_SHAPES))
+def test_layer_norm_kernels_match_plain_versions_on_card(case, dtype):
+    _need_card()
+    from ofasys_torch.ops import layer_norm as tln
+
+    N, E = LN_SHAPES[case]
+    x, w, b, dy = _ln_inputs(N, E, dtype)
+    f0, b0 = tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches
+    y, mu, rstd = tln.layer_norm_fwd(x, w, b, 1e-5)
+    dx, dg, db = tln.layer_norm_bwd(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert (tln.layer_norm_fwd.launches - f0, tln.layer_norm_bwd.launches - b0) == (1, 1)
+    ry, rmu, rrstd = tln.layer_norm_fwd_reference(x, w, b, 1e-5)
+    assert y.dtype == dtype and dx.dtype == dtype and dg.dtype == torch.float32
+    assert ((y.float() - ry.float()).abs() <= 2.0 ** -7 * ry.float().abs() + 1e-3).all()
+    torch.testing.assert_close(mu, rmu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-6)
+    rdx, rdg, rdb = tln.layer_norm_bwd_reference(x, w, mu, rstd, dy)
+    ok, errs = _grad_close(dx, rdx, GRAD_TOL)
+    assert ok, ("dx", errs)
+    for name, a, r in (("dg", dg, rdg), ("db", db, rdb)):
+        ok, errs = _grad_close(a, r, LN_SUM_TOL)
+        assert ok, (name, errs)
+    # the same run twice gives the same bits (no atomics)
+    dx2, dg2, db2 = tln.layer_norm_bwd(x, w, mu, rstd, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2) and torch.equal(db, db2)
+    # a planted fault: dg summed over all rows but one
+    skip = dy.clone()
+    skip[N // 2] = 0
+    _, fdg, _ = tln.layer_norm_bwd(x, w, mu, rstd, skip)
+    assert not _grad_close(fdg, rdg, LN_SUM_TOL)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "hybrid"])
+def test_fused_layer_norm_module_runs_its_kernels_on_card(mode):
+    _need_card()
+    from ofasys_torch.ops import layer_norm as tln
+
+    ln = tln.FusedLayerNorm(768, torch.bfloat16, mode=mode).cuda()
+    x = torch.randn(4, 33, 768, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    f0, b0 = tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches
+    ln(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert tln.layer_norm_fwd.launches - f0 == (1 if mode == "fused" else 0)
+    assert tln.layer_norm_bwd.launches - b0 == 1
+    assert all(torch.isfinite(t.float()).all() for t in (x.grad, ln.weight.grad, ln.bias.grad))
