@@ -44,9 +44,26 @@ Phases, in order; any failure exits non-zero:
  14. train_ln: the train phase's 5 updates with ln_impl='pallas' (124
      B6-fwd and 124 B6-bwd per update), gradients against ln_impl='xla';
      then one ln_impl='hybrid' update (124 B6-bwd, no B6-fwd)
+ 15. serve_caption: image→text serving on the same model (adaptors text +
+     image_vit): 16 requests of "[IMAGE:img] what does the image describe?
+     -> [TEXT:cap]" with 224 x 224 images from a seeded generator (12 beam
+     5, 4 greedy), kernel B1 in every dispatch's encoder (196 patches + the
+     prompt's tokens), p50 and tokens/s beside serve's
+ 16. train_mm: 5 summed three-task updates (caption B=64 with 224 x 224
+     images, text_infilling B=128, vqa B=48 with an image and a question):
+     B1 and B2 once per attention call, a falling loss, one update's
+     gradients against the plain attention path; one update profiled
+ 17. train_rowmajor: the same three-task step with OFASYS_DENSE_BWD=rowmajor
+     set for the phase and restored after: kernel B2r once per dense
+     attention and B2 not at all, one update's gradients against the plain
+     attention path and against B2's from the same weights and batches
+     (GRAD_FROB_TOL), the step time beside train_mm's
 The kernel phase also holds kernels B3, B4 and B5 against their plain
 versions at every shape of the long paths, a per-(b, h) bias, a causal and
-a ragged shape, B7 at serve_int8's shapes and B6 at the train mix's.
+a ragged shape, B7 at serve_int8's shapes and B6 at the train mix's; B2r
+beside B2 at every training shape, and B1 and B2r (and B2) with the scale
+and the causal mask inside the kernel at a decoder shape and at a shape
+with Tq < Tk (the causal offset), with two planted faults.
 Prints a ``{"kernels": [...]}`` line, then, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX or ofasys_tpu. Exits non-zero without CUDA.
@@ -60,7 +77,11 @@ tasks=TINY_TRAIN_TASKS)``; the long paths the same way with
 (see the README); serve_int8 and serve_ln with
 ``serve_int8_and_check(hub, "cpu")`` and ``serve_ln_and_check(hub, "cpu")``,
 train_ln with ``train_ln_and_check(d, gp, "cpu", arch="tiny",
-tasks=TINY_TRAIN_TASKS)``.
+tasks=TINY_TRAIN_TASKS)``; the image phases with a ``GeneralPreprocess(d,
+active=["text", "image"])``: ``serve_caption_and_check(hub, "cpu")``,
+``train_and_check(m, gp, "cpu", tasks=TINY_MM_TRAIN_TASKS, label="train_mm")``
+and ``train_rowmajor_and_check(d, gp, "cpu", arch="tiny",
+tasks=TINY_MM_TRAIN_TASKS)``.
 """
 
 from __future__ import annotations
@@ -154,6 +175,31 @@ GRAD_MAX_TOL = 1e-2
 DS_REL_ATOL = 1e-3
 FLASH_TIMING = dict(n=5, repeats=3)   # flash calls take milliseconds: fewer repeats
 
+# the image slice: ofasys_tpu's caption template (task/tasks.py:78, the hub's
+# first example) and the VQA template (task/tasks.py:485), 224 x 224 images
+# (196 patches of 16 pixels); batch sizes and lengths follow bench.py's
+# caption (B=64, target about 24) and grounding/VQA (B=48, question about
+# 16, answer about 8) tasks
+ACTIVE_ADAPTORS = ("text", "image_vit")
+CAPTION_TPL = "[IMAGE:img] what does the image describe? -> [TEXT:cap]"
+VQA_TPL = "[IMAGE:img] [TEXT:question] -> [TEXT:answer]"
+IMAGE_SIZE = 224
+MM_TRAIN_TASKS = {
+    "caption": dict(template=CAPTION_TPL, batch=64, image=IMAGE_SIZE, cap=(20, 24)),
+    "text_infilling": TRAIN_TASKS["text_infilling"],
+    "vqa": dict(template=VQA_TPL, batch=48, image=IMAGE_SIZE, question=(14, 16), answer=(6, 8)),
+}
+TINY_MM_TRAIN_TASKS = {
+    "caption": dict(MM_TRAIN_TASKS["caption"], batch=4),
+    "text_infilling": TINY_TRAIN_TASKS["text_infilling"],
+    "vqa": dict(MM_TRAIN_TASKS["vqa"], batch=2),
+}
+# B1 and B2r with the scale and the causal mask inside the kernel, as a
+# direct ``_dense_attention(..., scale, causal=True, H)`` call runs them:
+# the caption decoder's shape and one with Tq < Tk (the causal offset)
+INSIDE_SHAPES = [("caption_decoder_inside", (64, 32, 32)), ("causal_offset_inside", (5, 40, 72))]
+INSIDE_SCALE = 0.125          # (2 * D) ** -0.5 at D = 32; exact in bf16
+
 N_UPDATES = 5
 TRAIN_LR = 1e-4
 # One update's gradients (dropout 0) under the kernels vs the plain
@@ -201,6 +247,8 @@ KERNELS = {
                             "ofasys_torch/csrc/dense_attention_fwd.cu"),
     "dense_attention_bwd": ("ofasys_tpu/ops/pallas_dense_attention.py:180",
                             "ofasys_torch/csrc/dense_attention_bwd.cu"),
+    "dense_attention_bwd_rowmajor": ("ofasys_tpu/ops/pallas_dense_attention.py:116",
+                                     "ofasys_torch/csrc/dense_attention_bwd_rowmajor.cu"),
     "flash_attention_fwd": ("ofasys_tpu/ops/pallas_attention.py:58",
                             "ofasys_torch/csrc/flash_attention_fwd.cu"),
     "flash_attention_bwd_dq": ("ofasys_tpu/ops/pallas_attention.py:341",
@@ -297,13 +345,16 @@ def phase_build():
     return names
 
 
-def _dense_inputs(B, Tq, Tk, H, D, seed, causal=False):
+def _dense_inputs(B, Tq, Tk, H, D, seed, causal=False, fold=True):
+    """bf16 q (pre-scaled by 0.125), k, v, do, a bf16 bias and an int8
+    keep-mask. ``causal`` is folded into the bias as the public wrapper does
+    it, or, with ``fold=False``, left to the kernel."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = (torch.randn(B, Tq, H * D, device="cuda", generator=g) * 0.125).to(torch.bfloat16)
     k = torch.randn(B, Tk, H * D, device="cuda", generator=g).to(torch.bfloat16)
     v = torch.randn(B, Tk, H * D, device="cuda", generator=g).to(torch.bfloat16)
     bias = torch.randn(H, Tq, Tk, device="cuda", generator=g)
-    if causal:                                # folded into the bias, as the wrapper does
+    if causal and fold:                       # folded into the bias, as the wrapper does
         cm = torch.ones(Tq, Tk, device="cuda").tril(Tk - Tq).bool()
         bias = torch.where(cm, bias, torch.full((), -1e9, device="cuda"))
     bias = bias.to(torch.bfloat16)
@@ -404,56 +455,197 @@ def _sdpa_bwd_ms(q4, k4, v4, add, do4):
 
 
 def check_bwd(label, shape, causal=False):
-    """Kernel B2 against its plain version at one shape, with its times."""
+    """Kernels B2 and B2r against their plain version at one shape as the
+    model's path gives it (scale 1, causal folded into the bias), with their
+    times side by side. Returns (B2's row, B2r's row)."""
     from ofasys_torch.ops.dense_attention import (
         dense_attention_bwd,
         dense_attention_bwd_reference,
+        dense_attention_bwd_rowmajor,
         dense_attention_fwd,
     )
 
     B, Tq, Tk, H, D = shape
     q, k, v, bias, mask, do = _dense_inputs(B, Tq, Tk, H, D, SEED, causal)
     _, lse = dense_attention_fwd(q, k, v, bias, mask, H)
-    got = dense_attention_bwd(q, k, v, do, lse, bias, mask, H)
-    torch.cuda.synchronize()
+    kernels = {
+        "dense_attention_bwd": lambda: dense_attention_bwd(q, k, v, do, lse, bias, mask, H),
+        "dense_attention_bwd_rowmajor": lambda: dense_attention_bwd_rowmajor(
+            q, k, v, do, lse, bias, mask, H, 1.0, False),
+    }
     ref = dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H)
-    errs, ok = grad_errors(got, ref, False)
-    log(f"kernel dense_attention_bwd [{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D}]: "
-        f"{_grad_report(errs)} -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit(f"dense_attention_bwd disagrees with its plain version at {label}")
+    errs = {}
+    for name, fn in kernels.items():
+        got = fn()
+        torch.cuda.synchronize()
+        errs[name], ok = grad_errors(got, ref, False)
+        log(f"kernel {name} [{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D}]: "
+            f"{_grad_report(errs[name])} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version at {label}")
     q4, k4, v4, add = _sdpa_args(q, k, v, bias, mask, H, D, grad=True)
     do4 = do.view(B, Tq, H, D).transpose(1, 2)
-    kernel_ms = time_ms(lambda: dense_attention_bwd(q, k, v, do, lse, bias, mask, H), n=20)
+    kernel_ms = {name: time_ms(fn, n=20) for name, fn in kernels.items()}
     plain_ms = time_ms(lambda: dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H), n=20)
     library_ms = _sdpa_bwd_ms(q4, k4, v4, add, do4)
     n_bytes, flops = _bwd_bound(B, Tq, Tk, H, D)
     bound_ms, bound_by = _bound(n_bytes, flops)
     lib = "not timed" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"  times [{label}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  times [{label}]: B2 {kernel_ms['dense_attention_bwd']:.4f} ms, B2r "
+        f"{kernel_ms['dense_attention_bwd_rowmajor']:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library (scaled_dot_product_attention backward) {lib}, bound {bound_ms:.5f} ms "
         f"({n_bytes} B, {flops} FLOP)")
-    return dict(shape=label, B=B, Tq=Tq, Tk=Tk, err=max(e["max"] for e in errs.values()),
-                errs={n: e["max"] for n, e in errs.items()},
-                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return tuple(dict(shape=label, B=B, Tq=Tq, Tk=Tk, err=max(e["max"] for e in errs[name].values()),
+                      errs={n: e["max"] for n, e in errs[name].items()},
+                      kernel_ms=kernel_ms[name], plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by) for name in kernels)
+
+
+def check_inside(label, shape):
+    """Kernels B1, B2r and B2 with the scale inside, and B1 and B2r with the
+    causal mask inside too (``j <= i + Tk - Tq``), as a direct
+    ``_dense_attention(q, k, v, bias, mask, scale, True, H)`` call runs them:
+    q unscaled, the bias without the causal fold. Each against its plain
+    version, and the causal pair timed beside the folded form of the same
+    function. Two planted faults must fail the limits: the causal offset
+    dropped (keys ``j <= i`` visible instead), and the scale left out of dq.
+    Returns (B1's row, B2r's row)."""
+    from ofasys_torch.ops import dense_attention as da
+
+    B, Tq, Tk, H, D = shape
+    scale = INSIDE_SCALE
+    q, k, v, bias, mask, do = _dense_inputs(B, Tq, Tk, H, D, SEED + 4, causal=True, fold=False)
+    q_raw = (q.float() / scale).to(torch.bfloat16)        # exact: a power of two
+    tag = f"[{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D} scale={scale} causal inside]"
+    out, lse = da.dense_attention_fwd(q_raw, k, v, bias, mask, H, scale, True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = da.dense_attention_fwd_reference(q_raw, k, v, bias, mask, H, scale, True)
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok = bool(torch.isfinite(out.float()).all()) and err_out <= OUT_ATOL and err_lse <= LSE_ATOL
+    log(f"kernel dense_attention_fwd {tag}: max|out-plain|={err_out:.3e} (atol {OUT_ATOL}) "
+        f"max|lse-plain|={err_lse:.3e} (atol {LSE_ATOL}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"dense_attention_fwd with scale and causal inside disagrees at {label}")
+    got = da.dense_attention_bwd_rowmajor(q_raw, k, v, do, lse, bias, mask, H, scale, True)
+    torch.cuda.synchronize()
+    ref = da.dense_attention_bwd_rowmajor_reference(q_raw, k, v, do, lse, bias, mask, H, scale, True)
+    errs, ok = grad_errors(got, ref, False)
+    log(f"kernel dense_attention_bwd_rowmajor {tag}: {_grad_report(errs)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"dense_attention_bwd_rowmajor with scale and causal inside disagrees at {label}")
+    again = da.dense_attention_bwd_rowmajor(q_raw, k, v, do, lse, bias, mask, H, scale, True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"dense_attention_bwd_rowmajor: two runs differ at {label}")
+    # the entry itself: autograd through _dense_attention(causal=True) runs B1
+    # and B2r (not B2) and hands back the same gradients, dbias in the bias's bf16
+    leaves = [t.clone().requires_grad_() for t in (q_raw, k, v, bias)]
+    before = da.dense_attention_bwd.launches, da.dense_attention_bwd_rowmajor.launches
+    da._dense_attention(*leaves[:3], leaves[3], mask, scale, True, H).backward(do)
+    torch.cuda.synchronize()
+    ran = (da.dense_attention_bwd.launches - before[0],
+           da.dense_attention_bwd_rowmajor.launches - before[1])
+    same = all(torch.equal(t.grad, g.to(t.dtype)) for t, g in zip(leaves, got))
+    log(f"  _dense_attention(scale={scale}, causal=True) {tag}: backward launches (B2, B2r) {ran}, "
+        f"gradients equal to the direct B2r call: {same}")
+    if ran != (0, 1) or not same:
+        raise SystemExit(f"_dense_attention(causal=True) did not take B2r at {label}")
+
+    # the scale inside B2 and B2r without causal (a non-causal _dense_attention call)
+    _, lse_nc = da.dense_attention_fwd(q_raw, k, v, bias, mask, H, scale)
+    ref_nc = da.dense_attention_bwd_reference(q_raw, k, v, do, lse_nc, bias, mask, H, scale=scale)
+    for name, g in (("dense_attention_bwd", da.dense_attention_bwd(
+            q_raw, k, v, do, lse_nc, bias, mask, H, scale=scale)),
+                    ("dense_attention_bwd_rowmajor", da.dense_attention_bwd_rowmajor(
+                        q_raw, k, v, do, lse_nc, bias, mask, H, scale, False))):
+        e, ok = grad_errors(g, ref_nc, False)
+        log(f"kernel {name} [{label} scale={scale} inside, not causal]: {_grad_report(e)} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} with the scale inside disagrees with its plain version at {label}")
+
+    # planted faults: the same kernel on wrong inputs must fail the limits
+    wrong = torch.ones(Tq, Tk, device="cuda").tril().bool()          # j <= i: the offset dropped
+    folded = torch.where(wrong, bias.float(), torch.full((), -1e9, device="cuda")).to(torch.bfloat16)
+    faults = {}
+    if Tk != Tq:
+        _, lse_w = da.dense_attention_fwd(q_raw, k, v, folded, mask, H, scale)
+        faults["causal offset dropped"] = (
+            da.dense_attention_bwd_rowmajor(q_raw, k, v, do, lse_w, folded, mask, H, scale, False),
+            ("dq", "dk", "dv", "dbias"))
+    # a pre-scaled q with scale 1 gives the same scores and the dq of a
+    # kernel that forgot the scale: round(ds) k instead of round(ds * scale) k
+    faults["scale left out of dq"] = (
+        da.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, 1.0, True), ("dq",))
+    for fault, (fgot, moved) in faults.items():
+        ferrs, _ = grad_errors(fgot, ref, False)
+        caught = [n for n in moved if not ferrs[n]["ok"]]
+        log(f"  planted fault {fault}: "
+            + " ".join(f"{n} frob {ferrs[n]['frob']:.2e} max {ferrs[n]['max_rel']:.2e}" for n in moved)
+            + f" -> fails the limits for {caught} of {list(moved)}")
+        if caught != list(moved):
+            raise SystemExit(f"{label}: the gradient limits pass a kernel with {fault}")
+
+    # times: inside (tiles above the diagonal skipped) beside the folded form
+    fb = torch.where(torch.ones(Tq, Tk, device="cuda").tril(Tk - Tq).bool(), bias.float(),
+                     torch.full((), -1e9, device="cuda")).to(torch.bfloat16)
+    _, lse_f = da.dense_attention_fwd(q, k, v, fb, mask, H)
+    fwd_ms = time_ms(lambda: da.dense_attention_fwd(q_raw, k, v, bias, mask, H, scale, True))
+    fwd_folded_ms = time_ms(lambda: da.dense_attention_fwd(q, k, v, fb, mask, H))
+    fwd_plain_ms = time_ms(lambda: da.dense_attention_fwd_reference(q_raw, k, v, bias, mask, H, scale, True))
+    bwd_ms = time_ms(lambda: da.dense_attention_bwd_rowmajor(
+        q_raw, k, v, do, lse, bias, mask, H, scale, True), n=20)
+    bwd_folded_ms = time_ms(lambda: da.dense_attention_bwd_rowmajor(
+        q, k, v, do, lse_f, fb, mask, H, 1.0, False), n=20)
+    b2_folded_ms = time_ms(lambda: da.dense_attention_bwd(q, k, v, do, lse_f, fb, mask, H), n=20)
+    bwd_plain_ms = time_ms(lambda: da.dense_attention_bwd_rowmajor_reference(
+        q_raw, k, v, do, lse, bias, mask, H, scale, True), n=20)
+    import torch.nn.functional as F
+
+    q4, k4, v4, add = _sdpa_args(q, k, v, fb, mask, H, D, grad=True)
+    with torch.no_grad():
+        fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add, scale=1.0))
+    bwd_lib_ms = _sdpa_bwd_ms(q4, k4, v4, add, do.view(B, Tq, H, D).transpose(1, 2))
+    fb_ms, fb_by = _bound(*_fwd_bound(B, Tq, Tk, H, D))
+    bb_ms, bb_by = _bound(*_bwd_bound(B, Tq, Tk, H, D))
+    lib = "not timed" if bwd_lib_ms is None else f"{bwd_lib_ms:.4f} ms"
+    log(f"  times {tag}: B1 {fwd_ms:.4f} ms (causal folded into the bias {fwd_folded_ms:.4f}, plain "
+        f"{fwd_plain_ms:.4f}, library {fwd_lib_ms:.4f}, bound {fb_ms:.5f}); B2r {bwd_ms:.4f} ms "
+        f"(folded {bwd_folded_ms:.4f}, B2 folded {b2_folded_ms:.4f}, plain {bwd_plain_ms:.4f}, "
+        f"library {lib}, bound {bb_ms:.5f})")
+    common = dict(shape=label, B=B, Tq=Tq, Tk=Tk, scale=scale, causal_inside=True)
+    return (dict(common, err_out=err_out, err_lse=err_lse, kernel_ms=fwd_ms, folded_ms=fwd_folded_ms,
+                 plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms, bound_ms=fb_ms, bound_by=fb_by),
+            dict(common, err=max(e["max"] for e in errs.values()),
+                 errs={n: e["max"] for n, e in errs.items()}, kernel_ms=bwd_ms,
+                 folded_ms=bwd_folded_ms, b2_folded_ms=b2_folded_ms, plain_ms=bwd_plain_ms,
+                 library_ms=bwd_lib_ms, bound_ms=bb_ms, bound_by=bb_by))
 
 
 def phase_kernels(dispatch_shapes, train_shapes):
-    """Kernel B1 at the serving path's encoder shapes (one per planned
-    dispatch), the nominal serving shape B=8 T=128 and every training
-    shape; kernel B2 at every training shape; both at a ragged cross shape
-    and at B=1. Base arch H=12, D=64. ``train_shapes`` is
-    [(label, (B, Tq, Tk), causal)]."""
-    fwd, bwd = [], []
-    for i, (B, T) in enumerate(dispatch_shapes):
-        fwd.append(check_fwd(f"dispatch{i}", (B, T, T, 12, 64)))
+    """Kernel B1 at the serving paths' encoder shapes (``dispatch_shapes``:
+    [(label, (B, T))], one per planned dispatch), the nominal serving shape
+    B=8 T=128 and every training shape; kernels B2 and B2r at every training
+    shape; all three at a ragged cross shape, at B=1 and at the image tasks'
+    nominal 196 patches; B1 and B2r with the scale and the causal mask inside
+    at INSIDE_SHAPES. Base arch H=12, D=64. ``train_shapes`` is
+    [(label, (B, Tq, Tk), causal)]. Returns the rows of B1, B2 and B2r."""
+    fwd, bwd, row = [], [], []
+    for label, (B, T) in dispatch_shapes:
+        fwd.append(check_fwd(label, (B, T, T, 12, 64)))
     fwd.append(check_fwd("serving", (8, 128, 128, 12, 64)))
-    extra = [("ragged_cross", (3, 24, 200), False), ("B1", (1, 64, 64), False)]
+    extra = [("ragged_cross", (3, 24, 200), False), ("B1", (1, 64, 64), False),
+             ("patches_196", (64, 196, 196), False)]
     for label, (B, Tq, Tk), causal in list(train_shapes) + extra:
         fwd.append(check_fwd(label, (B, Tq, Tk, 12, 64), causal))
-        bwd.append(check_bwd(label, (B, Tq, Tk, 12, 64), causal))
-    return fwd, bwd
+        b2, b2r = check_bwd(label, (B, Tq, Tk, 12, 64), causal)
+        bwd.append(b2)
+        row.append(b2r)
+    for label, (B, Tq, Tk) in INSIDE_SHAPES:
+        f, r = check_inside(label, (B, Tq, Tk, 12, 64))
+        fwd.append(f)
+        row.append(r)
+    return fwd, bwd, row
 
 
 def _flash_inputs(B, Tq, Tk, H, D, seed, per_bh=False):
@@ -681,12 +873,17 @@ def phase_flash_kernels(serve_shapes, train_shapes):
 
 def _int_mm_ms(xq, sx, q, scale):
     """The library yardstick of B7: ``torch._int_mm`` (cuBLASLt int8, int32
-    out) plus the same epilogue, where its shape rules allow (M > 16, K and
-    N multiples of 8); else None."""
+    out) plus the same epilogue, where its shape rules allow (K and N
+    multiples of 8; else None). It refuses M <= 16, so such a product is
+    timed padded with zero rows to M = 32 (the least work it accepts for
+    the same function)."""
     M, K = xq.shape
     N = q.shape[0]
-    if M <= 16 or K % 8 or N % 8:
+    if K % 8 or N % 8:
         return None
+    if M <= 16:
+        xq = torch.cat([xq, xq.new_zeros(32 - M, K)])
+        sx = torch.cat([sx, sx.new_zeros(32 - M, 1)])
     qt = q.t()
     try:
         return time_ms(lambda: ((torch._int_mm(xq, qt).float() * sx) * scale).to(torch.bfloat16))
@@ -727,7 +924,8 @@ def check_int8(label, M, K, N):
     n_bytes = M * K + N * K + 4 * M + 4 * N + 2 * M * N
     ops = 2 * M * N * K
     bound_ms, bound_by = _bound(n_bytes, ops, PEAK_INT8_OPS)
-    lib = "not timed (shape rules)" if library_ms is None else f"{library_ms:.4f} ms"
+    lib = "not timed (shape rules)" if library_ms is None else \
+        f"{library_ms:.4f} ms{' (padded to M = 32)' if M <= 16 else ''}"
     log(f"  times [{label}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"(torch._int_mm + epilogue) {lib}, bf16 F.linear {bf16_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {ops} int8 OP)")
@@ -923,11 +1121,46 @@ def _truncated_requests():
     return _requests(SUMMARY_TPL, TRUNC_SRC, SEED + 3)[:8]
 
 
+def _encoder_tokens(slots):
+    """(B, T) of the encoder's input: a text slot counts its tokens, an
+    image slot its patches."""
+    from ofasys_torch.adaptor.image import PATCH_SIZE
+
+    B = T = 0
+    for s in slots:
+        if s.is_src:
+            a = s.value["inputs"]
+            B = a.shape[0]
+            T += a.shape[1] if a.ndim == 2 else (a.shape[1] // PATCH_SIZE) * (a.shape[2] // PATCH_SIZE)
+    return B, T
+
+
 def _encoder_shape(gp, recs, tpl=TPL):
     from ofasys_torch.preprocessor.instruction import Instruction
 
     sample = gp.collate([gp(Instruction(tpl, split="test").format(**r)) for r in recs])
-    return tuple(sample["net_input"]["slots"][0].value["inputs"].shape)
+    return _encoder_tokens(sample["net_input"]["slots"])
+
+
+def _images(rng, n, size=IMAGE_SIZE):
+    """``n`` uint8-valued float32 (size, size, 3) arrays: at the
+    preprocessor's size, so they need no resize."""
+    return [rng.integers(0, 256, (size, size, 3)).astype(np.float32) for _ in range(n)]
+
+
+def _caption_requests():
+    """serve_caption: 16 images, 12 with the hub's TEXT defaults (beam 5) and
+    4 greedy."""
+    imgs = _images(np.random.default_rng(SEED + 5), N_BEAM_REQUESTS + N_GREEDY_REQUESTS)
+    reqs = [({"img": a}, {"max_len_b": MAX_LEN_B}) for a in imgs[:N_BEAM_REQUESTS]]
+    reqs += [({"img": a}, {"max_len_b": MAX_LEN_B, "beam_size": 1}) for a in imgs[N_BEAM_REQUESTS:]]
+    return reqs
+
+
+def _same_record(a, b):
+    """Two request records hold the same values (arrays by identity)."""
+    return a is not None and a.keys() == b.keys() and all(
+        a[k] is b[k] or (not isinstance(a[k], np.ndarray) and a[k] == b[k]) for k in a)
 
 
 def planned_dispatch_shapes(gp=None, reqs=None, tpl=TPL):
@@ -936,7 +1169,7 @@ def planned_dispatch_shapes(gp=None, reqs=None, tpl=TPL):
     from ofasys_torch.preprocessor.dictionary import Dictionary
     from ofasys_torch.preprocessor.general import GeneralPreprocess
 
-    gp = gp or GeneralPreprocess(Dictionary(), active=["text"])
+    gp = gp or GeneralPreprocess(Dictionary(), active=["text", "image"])
     recs = [r for r, _ in (reqs or _serve_requests())]
     groups = (recs[:8], recs[8:N_BEAM_REQUESTS], recs[N_BEAM_REQUESTS:])
     return [_encoder_shape(gp, g, tpl) for g in groups if g]
@@ -1013,19 +1246,20 @@ def build_base_hub():
 
     t0 = time.perf_counter()
     d = Dictionary()
-    gp = GeneralPreprocess(d, active=["text"])       # registers <text>_0..255 and <mask>
+    gp = GeneralPreprocess(d, active=["text", "image"])   # registers <text>_0..255 and <mask>
     for i in range(256, 50000):                       # GPT-2-scale text vocabulary
         d.add_symbol(f"<text>_{i}")
     d.pad_to_multiple_(128)
     model = GeneralistModel(arch="base")
     model.cfg.dropout = 0.0
-    model.initialize(d, active_adaptors=("text",), dtype=torch.bfloat16, device="cuda", seed=SEED)
+    model.initialize(d, active_adaptors=ACTIVE_ADAPTORS, dtype=torch.bfloat16, device="cuda", seed=SEED)
     hub = OFASys(model, None, d, gp)
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.net.parameters())
     log(f"slice: base arch E={cfg.encoder.embed_dim} ffn={cfg.encoder.ffn_embed_dim} "
         f"heads={cfg.encoder.attention_heads} layers={cfg.encoder.layers}+{cfg.decoder.layers} "
-        f"vocab={len(d)} params={n_params} built in {time.perf_counter() - t0:.1f} s")
+        f"vocab={len(d)} adaptors={ACTIVE_ADAPTORS} params={n_params} "
+        f"built in {time.perf_counter() - t0:.1f} s")
     return hub
 
 
@@ -1101,7 +1335,7 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=
         for j, (o, r) in enumerate(zip(served, direct, strict=True)):
             mismatches += not np.array_equal(o.tokens, r.tokens)
             where[id(o)] = batch[j]
-    misrouted = sum(where.get(id(o)) != data for o, (data, _) in zip(outs, reqs))
+    misrouted = sum(not _same_record(where.get(id(o)), data) for o, (data, _) in zip(outs, reqs))
     log(f"  served vs direct hub.inference on the same batches: {mismatches} mismatches, "
         f"{misrouted} answers routed to the wrong request")
     if mismatches or misrouted:
@@ -1140,7 +1374,7 @@ def long_preprocess(d):
     from ofasys_torch.preprocessor.general import GeneralPreprocess
     from ofasys_torch.preprocessor.text import TextPreprocessConfig
 
-    return GeneralPreprocess(d, active=["text"],
+    return GeneralPreprocess(d, active=["text", "image"],
                              text_cfg=TextPreprocessConfig(max_src_length=LONG, max_tgt_length=LONG))
 
 
@@ -1189,21 +1423,32 @@ def _report_profile(prof, wall_ms, what, card, share=None):
             f"{100 * own_ms / max(busy_ms, 1e-9):.1f}% of device time")
 
 
-def phase_profile(hub, card, share=None):
+def phase_profile(hub, card, share=None, tpl=TPL, reqs=None, what="one dispatch (B=8, beam 5)"):
     """One dispatch of the serving path (the first 8 requests, beam 5) under
     torch.profiler: wall time, device busy time and idle share, kernel
     launches, and the kernels that take the most device time (with
     ``share``, the share of the kernels whose name holds it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    recs = [r for r, _ in _serve_requests()[:8]]
+    recs = [r for r, _ in (reqs or _serve_requests())[:8]]
     _sync(hub.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        hub.inference(TPL, recs, max_len_b=MAX_LEN_B)
+        hub.inference(tpl, recs, max_len_b=MAX_LEN_B)
         _sync(hub.device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_profile(prof, wall_ms, "one dispatch (B=8, beam 5)", card, share)
+    _report_profile(prof, wall_ms, what, card, share)
+
+
+def serve_caption_and_check(hub, card, serve_res=None):
+    """serve_caption: 16 image→text requests through the server; kernel B1 in
+    every dispatch's encoder, the encoder output against plain attention;
+    p50 and tokens/s beside serve's (``serve_res``)."""
+    res = serve_and_check(hub, card, CAPTION_TPL, _caption_requests(), "serve_caption")
+    if serve_res is not None:
+        log(f"  serve_caption vs serve: p50 {res['p50_ms']} vs {serve_res['p50_ms']} ms, "
+            f"{res['tokens_per_s']:.1f} vs {serve_res['tokens_per_s']:.1f} tokens/s [{card}]")
+    return res
 
 
 def _param_bytes(net):
@@ -1268,7 +1513,7 @@ def _ln_hub(hub, impl):
     from ofasys_torch import GeneralistModel, OFASys
 
     model = GeneralistModel(hub.model.cfg, ln_impl=impl)
-    model.initialize(hub.global_dict, active_adaptors=("text",), dtype=hub.model.net.dtype,
+    model.initialize(hub.global_dict, active_adaptors=ACTIVE_ADAPTORS, dtype=hub.model.net.dtype,
                      device=hub.device, seed=SEED)
     model.net.load_state_dict(hub.model.net.state_dict())
     return OFASys(model, None, hub.global_dict, hub.general_preprocess, device=hub.device)
@@ -1319,6 +1564,78 @@ def train_ln_and_check(d, gp, card, arch="base", tasks=None, batches=None):
     return out
 
 
+@contextlib.contextmanager
+def _dense_bwd_switch(value):
+    """OFASYS_DENSE_BWD set to ``value`` (None: unset) inside, restored after."""
+    saved = os.environ.get("OFASYS_DENSE_BWD")
+    try:
+        if value is None:
+            os.environ.pop("OFASYS_DENSE_BWD", None)
+        else:
+            os.environ["OFASYS_DENSE_BWD"] = value
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("OFASYS_DENSE_BWD", None)
+        else:
+            os.environ["OFASYS_DENSE_BWD"] = saved
+
+
+def train_rowmajor_and_check(d, gp, card, arch="base", tasks=None, batches=None, mm_res=None):
+    """train_rowmajor: train_mm's updates on a model from the same seed with
+    OFASYS_DENSE_BWD=rowmajor set for the phase and restored after: kernel
+    B2r once per dense attention and B2 not at all (train_and_check's launch
+    check reads the switch), a falling loss, one update's gradients against
+    the plain attention path; then the same update's gradients under B2r
+    against B2's, from the same weights and batches (GRAD_FROB_TOL over all
+    leaves: the two kernels round at the same points and differ only in the
+    order of their fp32 sums). Prints the step time beside train_mm's
+    (``mm_res``). Returns the launch counts and the results."""
+    from ofasys_torch.engine.criterion import (
+        LabelSmoothedCrossEntropyCriterion,
+        LabelSmoothedCrossEntropyCriterionConfig,
+    )
+
+    device = "cuda" if card != "cpu" else "cpu"
+    model = build_train_model(d, device, arch)
+    with _dense_bwd_switch("rowmajor"):
+        counts, res, (_, state, dev) = train_and_check(model, gp, card, tasks=tasks, batches=batches,
+                                                       label="train_rowmajor")
+    crit = LabelSmoothedCrossEntropyCriterion(LabelSmoothedCrossEntropyCriterionConfig(),
+                                              pad_id=model.global_dict.pad())
+    names = [n for n, _ in model.net.named_parameters()]
+    saved = model.cfg.dropout
+    model.cfg.dropout = 0.0
+    try:
+        reset_counts()
+        with _dense_bwd_switch("rowmajor"):
+            g_row = _grads(model, crit, state.params, state.step, dev)
+        n_row = read_counts()
+        reset_counts()
+        with _dense_bwd_switch(None):
+            g_t = _grads(model, crit, state.params, state.step, dev)
+        n_t = read_counts()
+    finally:
+        model.cfg.dropout = saved
+    rel, norm_rel, leaves = _grad_diff(names, g_row, g_t)
+    log(f"  train_rowmajor: gradients of one update under B2r ({n_row['dense_attention_bwd_rowmajor']} "
+        f"launches, {n_row['dense_attention_bwd']} of B2) vs under B2 ({n_t['dense_attention_bwd']} "
+        f"launches, {n_t['dense_attention_bwd_rowmajor']} of B2r), same weights and batches, dropout 0: "
+        f"rel {rel:.3e} (tol {GRAD_FROB_TOL}), global norm rel err {norm_rel:.3e}, worst leaves "
+        f"{_top_leaves(leaves)}")
+    if device == "cuda" and (n_row["dense_attention_bwd"] or n_t["dense_attention_bwd_rowmajor"]
+                             or n_row["dense_attention_bwd_rowmajor"] != n_t["dense_attention_bwd"]
+                             or not n_row["dense_attention_bwd_rowmajor"]):
+        raise SystemExit("train_rowmajor: the switch did not move every dense backward to B2r")
+    if not rel <= GRAD_FROB_TOL:
+        raise SystemExit("train_rowmajor: gradients under B2r disagree with those under B2")
+    res = dict(res, vs_b2_rel=rel, vs_b2_norm_rel=norm_rel)
+    if mm_res is not None:
+        log(f"train_rowmajor: step {res['step_ms']:.2f} ms, {res['samples_per_s']:.1f} samples/s "
+            f"(train_mm: {mm_res['step_ms']:.2f} ms, {mm_res['samples_per_s']:.1f} samples/s) [{card}]")
+    return counts, res
+
+
 # ------------------------------------------------------------- training
 _WORDS = ["the", "storm", "moved", "north", "over", "the", "coast", "on", "monday", "and",
           "officials", "said", "that", "schools", "would", "stay", "closed", "for", "two",
@@ -1334,27 +1651,30 @@ def _text(rng, lo, hi):
 
 
 def make_train_batches(gp, tasks=None):
-    """One collated batch (numpy) per task, from seeded text, through
-    Instruction(template, split="train") -> GeneralPreprocess -> collate:
-    span masking runs on the text_infilling source."""
+    """One collated batch (numpy) per task, from seeded text and images,
+    through Instruction(template, split="train") -> GeneralPreprocess ->
+    collate: span masking runs on the text_infilling source. A task's spec
+    names its text columns with their lengths in bytes and, under ``image``,
+    the side of the ``img`` column's square images."""
     from ofasys_torch.preprocessor.instruction import Instruction
 
     rng = np.random.default_rng(SEED + 1)
     out = {}
     for name, spec in (tasks or TRAIN_TASKS).items():
-        if "text" in spec:
-            recs = [{"text": _text(rng, *spec["text"])} for _ in range(spec["batch"])]
-        else:
-            recs = [{"src": _text(rng, *spec["src"]), "tgt": _text(rng, *spec["tgt"])}
-                    for _ in range(spec["batch"])]
+        columns = [c for c in spec if c not in ("template", "batch", "image")]
+        recs = [{c: _text(rng, *spec[c]) for c in columns} for _ in range(spec["batch"])]
+        if "image" in spec:
+            for r, a in zip(recs, _images(rng, len(recs), spec["image"])):
+                r["img"] = a
         out[name] = gp.collate([gp(Instruction(spec["template"], split="train").format(**r))
                                 for r in recs])
     return out
 
 
 def _task_shapes(batch):
+    """(B, encoder tokens, decoder tokens) of a collated batch."""
     slots = batch["net_input"]["slots"]
-    B, Ts = [s for s in slots if s.is_src][0].value["inputs"].shape
+    B, Ts = _encoder_tokens(slots)
     Tt = [s for s in slots if not s.is_src][-1].value["inputs"].shape[1]
     return B, Ts, Tt
 
@@ -1376,8 +1696,11 @@ def _expected_train_launches(batches, cfg, net=None):
     (encoder self, decoder self, cross) on the flash route runs B3, B4-dq,
     B4-dkv and, for its batch-shared bias, B5 (a batch of one gets the
     bias gradient from the dq kernel instead); on the dense route B1 and B2
-    (``_route``, as MultiheadAttention decides)."""
+    (``_route``, as MultiheadAttention decides), or B1 and B2r while
+    OFASYS_DENSE_BWD=rowmajor is set."""
     n = dict.fromkeys(KERNELS, 0)
+    dense_bwd = "dense_attention_bwd_rowmajor" if os.environ.get("OFASYS_DENSE_BWD") == "rowmajor" \
+        else "dense_attention_bwd"
     for b in batches.values():
         B, Ts, Tt = _task_shapes(b)
         calls = [(Ts, Ts, cfg.encoder.layers), (Tt, Tt, cfg.decoder.layers),
@@ -1386,7 +1709,7 @@ def _expected_train_launches(batches, cfg, net=None):
             route = _route(cfg, B, Tq, Tk, cfg.attention_dropout)
             if route == "dense":
                 n["dense_attention_fwd"] += layers
-                n["dense_attention_bwd"] += layers
+                n[dense_bwd] += layers
             elif route == "flash":
                 for name in ("flash_attention_fwd",) + FLASH_BWD:
                     n[name] += layers if (name != "flash_attention_bwd_dbias" or B > 1) else 0
@@ -1408,7 +1731,7 @@ def build_train_model(d, device, arch="base", dtype=torch.bfloat16, ln_impl="xla
 
     t0 = time.perf_counter()
     model = GeneralistModel(arch=arch, ln_impl=ln_impl)
-    model.initialize(d, active_adaptors=("text",), dtype=dtype, device=device, seed=SEED)
+    model.initialize(d, active_adaptors=ACTIVE_ADAPTORS, dtype=dtype, device=device, seed=SEED)
     cfg = model.cfg
     log(f"train: {arch} arch E={cfg.encoder.embed_dim} ffn={cfg.encoder.ffn_embed_dim} "
         f"heads={cfg.encoder.attention_heads} layers={cfg.encoder.layers}+{cfg.decoder.layers} "
@@ -1482,7 +1805,7 @@ def _dd_from_unrounded_output():
 
 def train_and_check(model, gp, card, tasks=None, batches=None, label="train", grad_batches=None,
                     grad_ref=None, n_updates=N_UPDATES):
-    """Drive the training path: ``n_updates`` summed two-task updates
+    """Drive the training path: ``n_updates`` summed multi-task updates
     through make_multitask_train_step, then check what came out; the
     gradient check runs on ``grad_batches`` when given, against the plain
     attention path or, with ``grad_ref``, against that model (another
@@ -1539,7 +1862,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     if n_updates > 1 and not losses[-1] < losses[0]:
         raise SystemExit(f"the loss did not fall over {n_updates} updates on repeated batches")
     step_ms = statistics.median(times) * 1e3
-    n_tokens = sum(int(b["ntokens"]) + int(b["net_input"]["slots"][0].value["inputs"].size)
+    n_tokens = sum(int(b["ntokens"]) + _task_shapes(b)[0] * _task_shapes(b)[1]
                    for b in batches.values())
     log(f"  {label}: step time {step_ms:.2f} ms (median of {n_updates}; all "
         f"{[round(t * 1e3, 2) for t in times]}), {n_samples} samples per update = "
@@ -1696,8 +2019,16 @@ def main() -> int:
     long_calls = train_shapes(long_batches)
     routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in long_calls}
     log(f"train_long attention routes: {routes}")
-    fres, bres = phase_kernels(planned_dispatch_shapes(), train_shapes(train_batches)
-                               + [c for c in long_calls if routes[c[0]] == "dense"])
+    mm_batches = make_train_batches(hub.general_preprocess, MM_TRAIN_TASKS)
+    mm_calls = [c for c in train_shapes(mm_batches) if not c[0].startswith("text_infilling")]
+    mm_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in mm_calls}
+    log(f"train_mm attention routes (caption, vqa): {mm_routes}")
+    caption_serve = planned_dispatch_shapes(hub.general_preprocess, _caption_requests(), CAPTION_TPL)
+    dispatches = [(f"dispatch{i}", s) for i, s in enumerate(planned_dispatch_shapes())] \
+        + [(f"serve_caption_dispatch{i}", s) for i, s in enumerate(caption_serve)]
+    fres, bres, rres = phase_kernels(
+        dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
+        + [c for c in mm_calls if mm_routes[c[0]] == "dense"])
     long_serve = planned_dispatch_shapes(long_gp, _long_requests(), SUMMARY_TPL)
     flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
     flash_serve.append(("serve_truncated", planned_dispatch_shapes(
@@ -1713,6 +2044,9 @@ def main() -> int:
     counts["serve_truncated"] = serve_truncated_and_check(hub, card)["launches"]
     counts["serve_int8"] = serve_int8_and_check(hub, card, serve_res)["launches"]
     counts["serve_ln"] = serve_ln_and_check(hub, card)["launches"]
+    counts["serve_caption"] = serve_caption_and_check(hub, card, serve_res)["launches"]
+    phase_profile(hub, card, tpl=CAPTION_TPL, reqs=_caption_requests(),
+                  what="one caption dispatch (B=8, beam 5)")
 
     model = build_train_model(d, "cuda")
     counts["train"], train_res, (step, state, dev) = train_and_check(
@@ -1737,6 +2071,17 @@ def main() -> int:
         log(f"{label}: step {res['step_ms']:.2f} ms, {res['samples_per_s']:.1f} samples/s "
             f"(train: {train_res['step_ms']:.2f} ms, {train_res['samples_per_s']:.1f} samples/s) [{card}]")
 
+    model = build_train_model(d, "cuda")
+    counts["train_mm"], mm_res, (step, state, dev) = train_and_check(
+        model, hub.general_preprocess, card, batches=mm_batches, label="train_mm")
+    phase_profile_train(step, state, dev, card,
+                        "one three-task update (caption B=64 + text_infilling B=128 + vqa B=48)")
+    del model, step, state, dev
+    torch.cuda.empty_cache()
+    counts["train_rowmajor"], row_res = train_rowmajor_and_check(
+        d, hub.general_preprocess, card, batches=mm_batches, mm_res=mm_res)
+    torch.cuda.empty_cache()
+
     def by_path(kernel):
         return {path: c[kernel] for path, c in counts.items()}
 
@@ -1746,6 +2091,8 @@ def main() -> int:
                       max_abs_err_lse=max(r["err_lse"] for r in fres)),
         _kernel_entry("dense_attention_bwd", by_path("dense_attention_bwd"), "train", bres, "err",
                       "text_infilling_encoder", card),
+        _kernel_entry("dense_attention_bwd_rowmajor", by_path("dense_attention_bwd_rowmajor"),
+                      "train_rowmajor", rres, "err", "caption_encoder", card),
         _kernel_entry("flash_attention_fwd", by_path("flash_attention_fwd"), "train_long",
                       flash_rows["flash_attention_fwd"], "err", "gigaword_long_encoder", card,
                       max_abs_err_lse=max(r["err_lse"] for r in flash_rows["flash_attention_fwd"])),
@@ -1764,6 +2111,8 @@ def main() -> int:
     ]
     log(f"train: {json.dumps(train_res)}")
     log(f"train_long: {json.dumps(long_res)}")
+    log(f"train_mm: {json.dumps(mm_res)}")
+    log(f"train_rowmajor: {json.dumps(row_res)}")
     for label, (_, res) in ln.items():
         log(f"{label}: {json.dumps(res)}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

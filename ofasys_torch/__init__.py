@@ -7,10 +7,11 @@ Mirrors ``ofasys_tpu``'s module paths: the counterpart of
 hand here (``ofasys_torch/csrc``), each beside a plain PyTorch version that
 the CPU tests run.
 
-It serves text→text (``OFASys.inference`` and ``InferenceServer`` over a
-``GeneralistModel``) and trains it (``engine/train_step.py``: the summed
-multi-task step). Attention that meets the dense gate runs the
-hand-written dense-attention forward and backward kernels on the card.
+It serves text→text and image→text (``OFASys.inference`` and
+``InferenceServer`` over a ``GeneralistModel``) and trains them
+(``engine/train_step.py``: the summed multi-task step). Attention that
+meets the dense gate runs the hand-written dense-attention forward and
+backward kernels on the card.
 """
 
 import logging

@@ -32,6 +32,8 @@ class AdaptorOutput:
     pos_embed:    (1 or B, T, E) absolute position embeddings
     rel_bucket:   (T, T) int32 numpy or None
     rel_tables:   (n_tables, n_buckets, H) or None — per-layer bias tables
+    modal_id:     int (ModalityType.value - 1), for modal_ffn expert spans
+                  (modal_ffn itself waits for a later slice)
     """
 
     embed: torch.Tensor
@@ -39,6 +41,7 @@ class AdaptorOutput:
     pos_embed: torch.Tensor
     rel_bucket: Optional[np.ndarray] = None
     rel_tables: Optional[torch.Tensor] = None
+    modal_id: int = 0
 
     @property
     def seq_length(self) -> int:

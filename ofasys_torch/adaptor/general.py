@@ -6,6 +6,12 @@ bucket matrix (block-diagonal across slots) is computed host-side, and each
 layer's bias is one gather from a combined table. The absolute-position q/k
 bias is computed once per forward and shared by all layers, with batch dim 1
 when positions are sample-independent.
+
+flax creates an adaptor's parameters only on the side where a slot calls it,
+so a param tree of ofasys_tpu holds ``image_vit`` under ``encoder_adaptor``
+alone. Modules here are built eagerly: the source-only adaptors
+(``SOURCE_ONLY``) are built on the encoder side only, so that
+utils/jax_params.load_jax_params finds every parameter in the tree.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from torch import nn
 
 from ofasys_torch import ModalityType
 from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor
+from ofasys_torch.adaptor.image import ImagePatchEmbedAdaptor, ImageVitAdaptor
 from ofasys_torch.adaptor.text import TextAdaptor
 from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.model.positional import block_diag_buckets
@@ -50,12 +57,18 @@ def resolve_adaptor_name(slot: SlotBatch, is_src: bool) -> str:
     return DEFAULT_ADAPTOR_BY_MODALITY[slot.modality]
 
 
+ADAPTORS = {"text": TextAdaptor, "image_vit": ImageVitAdaptor,
+            "image_patch_embed": ImagePatchEmbedAdaptor}
+# input adaptors no target slot resolves to: built on the encoder side only
+SOURCE_ONLY = ("image_vit", "image_patch_embed")
+
+
 def build_adaptor(name: str, cfg, is_src, embed_tokens, pad_id, dtype) -> BaseAdaptor:
-    if name == "text":
-        return TextAdaptor(cfg, is_src, embed_tokens, pad_id, dtype)
+    if name in ADAPTORS:
+        return ADAPTORS[name](cfg, is_src, embed_tokens, pad_id, dtype)
     raise NotImplementedError(
         f"adaptor {name!r} is not ported to ofasys_torch yet (ROADMAP Queue A items 7 and 11); "
-        "this slice has the text adaptor only"
+        f"ported: {sorted(ADAPTORS)}"
     )
 
 
@@ -75,7 +88,7 @@ class GeneralAdaptor(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.is_src = is_src
-        self.active_adaptors = tuple(active_adaptors)
+        self.active_adaptors = tuple(n for n in active_adaptors if is_src or n not in SOURCE_ONLY)
         for name in self.active_adaptors:
             self.add_module(name, build_adaptor(name, cfg, is_src, embed_tokens, pad_id, dtype))
         heads = cfg.encoder.attention_heads if is_src else cfg.decoder.attention_heads

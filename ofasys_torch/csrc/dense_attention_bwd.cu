@@ -4,7 +4,8 @@
 // ofasys_tpu/ops/pallas_dense_attention.py (kernel B2; the G-blocking and
 // the transposed orientation there are Mosaic/VMEM workarounds). Same
 // function: for every sample b, head h, query row i and key j,
-//   s_ij  = q_i . k_j + bias[h, i, j]   (fp32; q arrives pre-scaled)
+//   s_ij  = (q_i . k_j) * scale + bias[h, i, j]   (fp32; the model's path passes
+//                                        a pre-scaled q and scale 1)
 //   s_ij  = -1e9 where mask[b, j] == 0
 //   p_ij  = exp(s_ij - lse_i)           (lse from the forward, B1)
 //   dv_j  = sum_i round(p_ij) do_i      (round() to the storage dtype)
@@ -13,7 +14,7 @@
 //                                        because o was made from a rounded p)
 //   ds_ij = p_ij (dp_ij - dd_i)         (fp32)
 //   dbias[h, i, j] = sum_b ds_ij        (fp32, unrounded ds)
-//   dq_i  = sum_j round(ds_ij) k_j,   dk_j = sum_i round(ds_ij) q_i
+//   dq_i  = sum_j round(ds_ij * scale) k_j,   dk_j = sum_i round(ds_ij * scale) q_i
 // with every sum in fp32 and dq, dk, dv stored in the storage dtype.
 // q, k, v, do, dq, dk, dv are (B, T, E) with E = H * D; heads are sliced here.
 //
@@ -125,7 +126,8 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const __nv_bfloat16* __restrict__ bias, const int8_t* __restrict__ mask,
                 T* __restrict__ dq, float* __restrict__ dd_out, float* __restrict__ dbias_part,
-                int B, int H, int Tq, int Tk, int D, int kc, int per_chunk) {
+                int B, int H, int Tq, int Tk, int D, int kc, int per_chunk,
+                float scale) {
   extern __shared__ float smem[];
   const int E = H * D;
   const int h = blockIdx.y;
@@ -177,7 +179,7 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       const float* pr = ps + r * Tk;
       float dd = 0.f;
       for (int j = lane; j < Tk; j += 32) {
-        float s = sr[j];
+        float s = sr[j] * scale;
         if (bias != nullptr) s += __bfloat162float(bias[((size_t)h * Tq + row) * Tk + j]);
         if (mask != nullptr && mask[(size_t)b * Tk + j] == 0) s = kMaskValue;
         const float p = expf(s - l);
@@ -188,7 +190,7 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int j = lane; j < Tk; j += 32) {
         const float ds = sr[j] * (pr[j] - dd);
         if (dbias_part != nullptr) acc[r * Tk + j] += ds;
-        sr[j] = round_to<T>(ds);
+        sr[j] = round_to<T>(ds * scale);
       }
       if (lane == 0) dd_out[((size_t)b * H + h) * Tq + row] = dd;
     }
@@ -223,7 +225,7 @@ bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ dd_in, const __nv_bfloat16* __restrict__ bias,
                 const int8_t* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv,
-                int H, int Tq, int Tk, int D, int kc) {
+                int H, int Tq, int Tk, int D, int kc, float scale) {
   extern __shared__ float smem[];
   const int E = H * D;
   const int b = blockIdx.z;
@@ -268,12 +270,12 @@ bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int i = tid; i < cols * Tq; i += kThreads) {
     const int c = i / Tq, r = i - c * Tq;
     const int col = col0 + c;
-    float s = pt[i];
+    float s = pt[i] * scale;
     if (bias != nullptr) s += __bfloat162float(bias[((size_t)h * Tq + r) * Tk + col]);
     if (mask != nullptr && mask[(size_t)b * Tk + col] == 0) s = kMaskValue;
     const float p = expf(s - ls[r]);
     pt[i] = round_to<T>(p);
-    dpt[i] = round_to<T>(p * (dpt[i] - dds[r]));
+    dpt[i] = round_to<T>(p * (dpt[i] - dds[r]) * scale);
   }
 
   // dv = round(p)^T . dO and dk = round(ds)^T . Q (ks, vs are free now)
@@ -318,7 +320,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* bias, const void* mask, void* dq, void* dk,
                    void* dv, void* dbias, void* dd, void* dbias_part, int B, int H, int Tq,
-                   int Tk, int D, int chunks, cudaStream_t stream) {
+                   int Tk, int D, int chunks, float scale, cudaStream_t stream) {
   const int kc = std::max(1, std::min(std::max(Tq, Tk), 4096 / (D + 1)));
   const bool want_dbias = dbias != nullptr && bias != nullptr;
   const int per_chunk = (B + chunks - 1) / chunks;
@@ -336,7 +338,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const int8_t*>(mask),
-      static_cast<T*>(dq), static_cast<float*>(dd), part, B, H, Tq, Tk, D, kc, per_chunk);
+      static_cast<T*>(dq), static_cast<float*>(dd), part, B, H, Tq, Tk, D, kc, per_chunk,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -350,7 +353,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<const __nv_bfloat16*>(bias),
       static_cast<const int8_t*>(mask), static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk,
-      D, kc);
+      D, kc, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -377,16 +380,16 @@ extern "C" int dense_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* bias,
                                    const void* mask, void* dq, void* dk, void* dv, void* dbias,
                                    void* dd, void* dbias_part, int B, int H, int Tq, int Tk,
-                                   int D, int chunks, int dtype, void* stream) {
+                                   int D, int chunks, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunks < 1 || chunks > B) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
     err = launch<__nv_bfloat16>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dd,
-                                dbias_part, B, H, Tq, Tk, D, chunks, s);
+                                dbias_part, B, H, Tq, Tk, D, chunks, scale, s);
   } else if (dtype == 1) {
     err = launch<float>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dd, dbias_part, B,
-                        H, Tq, Tk, D, chunks, s);
+                        H, Tq, Tk, D, chunks, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

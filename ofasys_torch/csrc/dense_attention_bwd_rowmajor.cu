@@ -1,0 +1,349 @@
+// Dense (whole-row) attention backward in one pass per (sample, head), with
+// the scale and the causal mask inside the kernel. Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `_bwd_kernel` of
+// ofasys_tpu/ops/pallas_dense_attention.py (kernel B2r, the row-major
+// variant behind OFASYS_DENSE_BWD=rowmajor and every causal=True call of
+// `_dense_attention`). Same function: for every sample b, head h, query row i
+// and key j,
+//   s_ij  = (q_i . k_j) * scale + bias[h, i, j]     (fp32)
+//   s_ij  = -1e9 where mask[b, j] == 0
+//   s_ij  = -1e9 where causal and j > i + (Tk - Tq)
+//   p_ij  = exp(s_ij - lse_i)            (lse from the forward, B1)
+//   dv_j  = sum_i round(p_ij) do_i       (round() to the storage dtype)
+//   dp_ij = do_i . v_j
+//   dd_i  = sum_j dp_ij p_ij
+//   ds_ij = p_ij (dp_ij - dd_i)          (fp32)
+//   dbias[h, i, j] = sum_b ds_ij         (fp32, unrounded, before the scale)
+//   dq_i  = sum_j round(ds_ij * scale) k_j
+//   dk_j  = sum_i round(ds_ij * scale) q_i          (q as given, not scaled)
+// with every sum in fp32 and dq, dk, dv stored in the storage dtype.
+// q, k, v, do, dq, dk, dv are (B, T, E) with E = H * D; heads are sliced here.
+//
+// What bounds it on the H100: the same bytes and operations as kernel B2
+// (dense_attention_bwd.cu). At the caption encoder's training shape B = 64,
+// T = 196, E = 768, H = 12 it must move about 138 MB (q, k, v, do, dq, dk,
+// dv in bf16, lse, bias, mask, fp32 dbias), 0.041 ms at 3.35 TB/s, and do
+// 18.9 GFLOP (10 B Tq Tk E), 0.019 ms at 989 TFLOP/s: bound by bytes. This
+// first version runs its products on the CUDA cores in fp32 and is bound by
+// shared-memory FMAs; tensor cores and TMA staging are later work.
+//
+// Design. The TPU kernel is one program per sample that walks the heads and
+// carries dbias in VMEM from one sample to the next. Hopper blocks run in no
+// order, and dk and dv of one (b, h) sum over every query row. So:
+//   * one block per (head, chunk of samples); it walks its samples in order.
+//   * for each sample it keeps the fp32 dk and dv sums of the whole (b, h),
+//     2 * Tk * D floats, in shared memory (128 KB at Tk = 256, D = 64: under
+//     the opt-in limit of 227 KB) while it walks the query-row tiles, so the
+//     scores of a (b, h) are recomputed once, where B2 recomputes them in two
+//     passes. A shape whose accumulators do not fit is refused (the wrapper
+//     asks dense_attention_bwd_rowmajor_smem and raises).
+//   * under causal, a row tile computes only the keys up to its last row's
+//     diagonal; the keys beyond are skipped, not computed and masked (their
+//     p is exactly 0 in the reference too), and their dbias is written as 0.
+//   * dbias without atomics: the block adds each sample's ds into its own
+//     (Tq, Tk) slice of a per-chunk partial in device memory (the first
+//     sample stores, the rest add; the slice stays in the 50 MB L2), and a
+//     second kernel sums the partials in chunk order. With one chunk the
+//     block writes dbias itself. Every sum has a fixed order: the same bits
+//     run to run.
+// Operand rows are staged in shared memory as fp32; K and V chunks with row
+// stride D + 1, so the threads of a warp walking down keys hit distinct banks.
+//
+// C interface, loaded with ctypes; returns cudaGetLastError() so the caller
+// can raise on a refused launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace {
+
+constexpr int kRows = 16;       // query rows per tile
+constexpr int kThreads = 512;   // 16 warps: one block per SM at the long shapes
+constexpr int kWarps = kThreads / 32;
+constexpr float kMaskValue = -1e9f;
+constexpr size_t kMaxSmem = 232448;   // 227 KB, the opt-in limit of a block
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to the storage dtype and back
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// dst[r * ld + d] = rows [0, n) of a head slice starting at src[base] in a
+// (rows, E) matrix, as fp32
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* __restrict__ src,
+                                           size_t base, int n, int D, int E) {
+  for (int i = threadIdx.x; i < n * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    dst[r * ld + d] = to_float(src[base + (size_t)r * E + d]);
+  }
+}
+
+// out[r * lo + off + j] = a_r . c_j for r < na rows of a (stride la) and the
+// j < nc staged rows of c (stride ld)
+__device__ __forceinline__ void dot_rows(float* out, int lo, int off, const float* a, int la,
+                                         int na, const float* c, int ld, int nc, int D) {
+  for (int i = threadIdx.x; i < na * nc; i += kThreads) {
+    const int r = i / nc, j = i - r * nc;
+    const float* ar = a + r * la;
+    const float* cr = c + j * ld;
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) acc = fmaf(ar[d], cr[d], acc);
+    out[r * lo + off + j] = acc;
+  }
+}
+
+// acc[r * D + d] += sum_j w[r * lw + off + j] * c[j * ld + d] over the nc
+// staged rows of c
+__device__ __forceinline__ void accumulate_rows(float* acc, const float* w, int lw, int off,
+                                                int na, const float* c, int ld, int nc, int D) {
+  for (int i = threadIdx.x; i < na * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    const float* wr = w + r * lw + off;
+    float a = acc[i];
+    for (int j = 0; j < nc; ++j) a = fmaf(wr[j], c[j * ld + d], a);
+    acc[i] = a;
+  }
+}
+
+// acc[j * D + d] += sum_r w[r * lw + j] * a[r * D + d] for j < nk keys: the
+// transposed products dk += ds^T q and dv += p^T do of one row tile
+__device__ __forceinline__ void accumulate_cols(float* acc, const float* w, int lw, int nk,
+                                                const float* a, int rows, int D) {
+  for (int i = threadIdx.x; i < nk * D; i += kThreads) {
+    const int j = i / D, d = i - j * D;
+    float s = acc[i];
+    for (int r = 0; r < rows; ++r) s = fmaf(w[r * lw + j], a[r * D + d], s);
+    acc[i] = s;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_rowmajor_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const __nv_bfloat16* __restrict__ bias, const int8_t* __restrict__ mask,
+                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ dbias_part, int B, int H, int Tq, int Tk, int D, int kc,
+                    int per_chunk, float scale, int causal) {
+  extern __shared__ float smem[];
+  const int E = H * D;
+  const int h = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int ld = D + 1;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+
+  float* dks = smem;                    // Tk x D: dk sums of this (b, h)
+  float* dvs = dks + Tk * D;            // Tk x D: dv sums
+  float* qs = dvs + Tk * D;             // kRows x D: q rows, then the dq sums
+  float* dos = qs + kRows * D;          // kRows x D: do rows
+  float* ss = dos + kRows * D;          // kRows x Tk: scores, p, then round(ds * scale)
+  float* ps = ss + kRows * Tk;          // kRows x Tk: dp, then round(p)
+  float* kv = ps + kRows * Tk;          // kc x (D + 1): one chunk of K or V rows
+
+  float* part = dbias_part == nullptr
+                    ? nullptr
+                    : dbias_part + ((size_t)chunk * H + h) * Tq * Tk;
+
+  const int b_begin = chunk * per_chunk;
+  const int b_end = min(B, b_begin + per_chunk);
+  for (int b = b_begin; b < b_end; ++b) {
+    const size_t kv_base = (size_t)b * Tk * E + (size_t)h * D;
+    __syncthreads();                    // the previous sample's dk, dv are stored
+    for (int i = tid; i < 2 * Tk * D; i += kThreads) dks[i] = 0.f;
+
+    for (int row0 = 0; row0 < Tq; row0 += kRows) {
+      const int rows = min(kRows, Tq - row0);
+      // keys this tile computes: all, or up to its last row's diagonal
+      const int nk = causal ? max(0, min(Tk, row0 + rows + (Tk - Tq))) : Tk;
+      const size_t q_base = ((size_t)b * Tq + row0) * E + (size_t)h * D;
+      __syncthreads();                  // the previous tile is done with qs, dos, ss, ps
+      stage_rows(qs, D, q, q_base, rows, D, E);
+      stage_rows(dos, D, dout, q_base, rows, D, E);
+
+      // raw scores and dp, one chunk of key (value) rows at a time
+      for (int j0 = 0; j0 < nk; j0 += kc) {
+        const int n = min(kc, nk - j0);
+        __syncthreads();
+        stage_rows(kv, ld, k, kv_base + (size_t)j0 * E, n, D, E);
+        __syncthreads();
+        dot_rows(ss, Tk, j0, qs, D, rows, kv, ld, n, D);
+        __syncthreads();
+        stage_rows(kv, ld, v, kv_base + (size_t)j0 * E, n, D, E);
+        __syncthreads();
+        dot_rows(ps, Tk, j0, dos, D, rows, kv, ld, n, D);
+      }
+      __syncthreads();
+
+      // p, dd, ds and the dbias partial: one warp per row
+      for (int r = warp; r < rows; r += kWarps) {
+        const int row = row0 + r;
+        const int limit = row + (Tk - Tq);          // last visible key under causal
+        const float l = lse[((size_t)b * H + h) * Tq + row];
+        float* sr = ss + r * Tk;
+        float* pr = ps + r * Tk;
+        float dd = 0.f;
+        for (int j = lane; j < nk; j += 32) {
+          float s = sr[j] * scale;
+          if (bias != nullptr) s += __bfloat162float(bias[((size_t)h * Tq + row) * Tk + j]);
+          if (mask != nullptr && mask[(size_t)b * Tk + j] == 0) s = kMaskValue;
+          if (causal && j > limit) s = kMaskValue;
+          const float p = expf(s - l);
+          sr[j] = p;
+          dd = fmaf(pr[j], p, dd);
+        }
+        dd = warp_sum(dd);
+        float* gr = part == nullptr ? nullptr : part + (size_t)row * Tk;
+        for (int j = lane; j < Tk; j += 32) {
+          float ds = 0.f;
+          if (j < nk) {
+            const float p = sr[j];
+            ds = p * (pr[j] - dd);
+            sr[j] = round_to<T>(ds * scale);
+            pr[j] = round_to<T>(p);
+          }
+          if (gr != nullptr) gr[j] = (b == b_begin) ? ds : gr[j] + ds;
+        }
+      }
+      __syncthreads();
+
+      // dk += round(ds * scale)^T q and dv += round(p)^T do over this tile's rows
+      accumulate_cols(dks, ss, Tk, nk, qs, rows, D);
+      accumulate_cols(dvs, ps, Tk, nk, dos, rows, D);
+      __syncthreads();
+
+      // dq = round(ds * scale) . K, one chunk of key rows at a time (qs is free now)
+      for (int i = tid; i < rows * D; i += kThreads) qs[i] = 0.f;
+      for (int j0 = 0; j0 < nk; j0 += kc) {
+        const int n = min(kc, nk - j0);
+        __syncthreads();
+        stage_rows(kv, ld, k, kv_base + (size_t)j0 * E, n, D, E);
+        __syncthreads();
+        accumulate_rows(qs, ss, Tk, j0, rows, kv, ld, n, D);
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * D; i += kThreads) {
+        const int r = i / D, d = i - r * D;
+        dq[q_base + (size_t)r * E + d] = from_float<T>(qs[i]);
+      }
+    }
+
+    __syncthreads();
+    for (int i = tid; i < Tk * D; i += kThreads) {
+      const int j = i / D, d = i - j * D;
+      dk[kv_base + (size_t)j * E + d] = from_float<T>(dks[i]);
+      dv[kv_base + (size_t)j * E + d] = from_float<T>(dvs[i]);
+    }
+  }
+}
+
+__global__ void dbias_reduce_kernel(const float* __restrict__ part, float* __restrict__ dbias,
+                                    size_t n, int chunks) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < chunks; ++c) s += part[(size_t)c * n + i];
+    dbias[i] = s;
+  }
+}
+
+int key_chunk(int Tk, int D) { return std::max(1, std::min(Tk, 4096 / (D + 1))); }
+
+size_t smem_bytes(int Tk, int D) {
+  return sizeof(float) * (2 * (size_t)Tk * D + 2 * (size_t)kRows * D + 2 * (size_t)kRows * Tk +
+                          (size_t)key_chunk(Tk, D) * (D + 1));
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* bias, const void* mask, void* dq, void* dk,
+                   void* dv, void* dbias, void* dbias_part, int B, int H, int Tq, int Tk, int D,
+                   int chunks, float scale, int causal, cudaStream_t stream) {
+  const bool want_dbias = dbias != nullptr && bias != nullptr;
+  const int per_chunk = (B + chunks - 1) / chunks;
+  chunks = (B + per_chunk - 1) / per_chunk;   // no empty chunk
+  float* part = nullptr;
+  if (want_dbias) part = static_cast<float*>(chunks > 1 ? dbias_part : dbias);
+
+  const size_t smem = smem_bytes(Tk, D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(bwd_rowmajor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, chunks);
+  bwd_rowmajor_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<const int8_t*>(mask),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), part, B, H, Tq, Tk, D,
+      key_chunk(Tk, D), per_chunk, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  if (want_dbias && chunks > 1) {
+    const size_t n = (size_t)H * Tq * Tk;
+    const int threads = 256;
+    const int blocks = (int)std::min<size_t>((n + threads - 1) / threads, 4096);
+    dbias_reduce_kernel<<<blocks, threads, 0, stream>>>(
+        static_cast<const float*>(dbias_part), static_cast<float*>(dbias), n, chunks);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+}  // namespace
+
+// Dynamic shared memory in bytes one block needs at (Tk, D); the kernel takes
+// shapes whose need is at most 232,448 (227 KB).
+extern "C" long long dense_attention_bwd_rowmajor_smem(int Tk, int D) {
+  return (long long)smem_bytes(Tk, D);
+}
+
+// dtype: 0 = bfloat16, 1 = float32 (q, k, v, dout, dq, dk, dv share it).
+// lse is fp32 (B, H, Tq); bias is bf16 (H, Tq, Tk) or null; mask is int8
+// (B, Tk) or null. dbias is fp32 (H, Tq, Tk), or null when it is not wanted.
+// Scratch from the caller: dbias_part fp32 (chunks, H, Tq, Tk) when dbias is
+// wanted and chunks > 1. `chunks` splits the batch over blocks (see the
+// design note). causal needs Tq <= Tk (no row without a visible key).
+extern "C" int dense_attention_bwd_rowmajor(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse, const void* bias,
+                                            const void* mask, void* dq, void* dk, void* dv,
+                                            void* dbias, void* dbias_part, int B, int H, int Tq,
+                                            int Tk, int D, int chunks, float scale, int causal,
+                                            int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunks < 1 || chunks > B || (causal && Tq > Tk)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch<__nv_bfloat16>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part, B,
+                                H, Tq, Tk, D, chunks, scale, causal, s);
+  } else if (dtype == 1) {
+    err = launch<float>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part, B, H, Tq,
+                        Tk, D, chunks, scale, causal, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}

@@ -3,10 +3,11 @@
 // Replaces the Pallas TPU kernels `_fwd_kernel` and `_fwd_kernel_g` of
 // ofasys_tpu/ops/pallas_dense_attention.py (kernel B1). Same function:
 // for every sample b, head h and query row i,
-//   s_j   = q_i . k_j  (fp32 sum of the storage-dtype products; q arrives
-//           pre-scaled, the scale inside the kernel is 1)
+//   s_j   = (q_i . k_j) * scale  (fp32 sum of the storage-dtype products; the
+//           model's path passes a pre-scaled q and scale 1)
 //         + bias[h, i, j]            (bf16, shared by the batch)
 //   s_j   = -1e9 where mask[b, j] == 0  (the row max includes these values)
+//   s_j   = -1e9 where causal and j > i + (Tk - Tq)
 //   m     = max_j s_j,  p_j = exp(s_j - m),  l = sum_j p_j  (all fp32)
 //   out_i = (sum_j round(p_j) v_j) / l   with round() to the storage dtype,
 //           the sum in fp32, the result stored in the storage dtype
@@ -23,7 +24,9 @@
 // stages its q rows and one chunk of K (then V) rows at a time in shared
 // memory as fp32 (row stride D + 1 floats, so the threads of a warp walking
 // down the keys hit distinct banks), keeps the tile's whole score rows
-// (Tk <= 256) in shared memory, and writes nothing but out and lse to device
+// (Tk <= 256) in shared memory (under causal only the keys up to the tile's
+// last diagonal: the key chunks beyond it are skipped, not computed and
+// masked), and writes nothing but out and lse to device
 // memory: scores and probabilities never leave the SM, and every input byte
 // is read from device memory once per query tile (the repeats of K and V
 // across the Tq / kRows tiles of one (b, h) hit the 50 MB L2). The score and
@@ -71,7 +74,8 @@ __global__ void __launch_bounds__(kThreads)
 dense_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const __nv_bfloat16* __restrict__ bias,
                            const int8_t* __restrict__ mask, T* __restrict__ out,
-                           float* __restrict__ lse, int H, int Tq, int Tk, int D, int kc) {
+                           float* __restrict__ lse, int H, int Tq, int Tk, int D, int kc,
+                           float scale, int causal) {
   extern __shared__ float smem[];
   const int E = H * D;
   const int b = blockIdx.z;
@@ -80,6 +84,8 @@ dense_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rows = min(kRows, Tq - row0);
   const int ld = D + 1;
   const int tid = threadIdx.x;
+  // keys this tile computes: all, or up to its last row's diagonal
+  const int nk = causal ? max(0, min(Tk, row0 + rows + (Tk - Tq))) : Tk;
 
   float* qs = smem;                   // kRows x D: q rows, later the p.V sums
   float* ss = qs + kRows * D;         // kRows x Tk: scores, then rounded p
@@ -95,8 +101,8 @@ dense_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // scores, one chunk of keys at a time
-  for (int j0 = 0; j0 < Tk; j0 += kc) {
-    const int n = min(kc, Tk - j0);
+  for (int j0 = 0; j0 < nk; j0 += kc) {
+    const int n = min(kc, nk - j0);
     __syncthreads();
     for (int i = tid; i < n * D; i += kThreads) {
       const int j = i / D, d = i - j * D;
@@ -109,7 +115,7 @@ dense_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float* kr = kv + j * ld;
       float acc = 0.f;
       for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      ss[r * Tk + j0 + j] = acc;
+      ss[r * Tk + j0 + j] = acc * scale;
     }
   }
   __syncthreads();
@@ -118,18 +124,20 @@ dense_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < rows; r += kWarps) {
     const int row = row0 + r;
+    const int limit = row + (Tk - Tq);            // last visible key under causal
     float* sr = ss + r * Tk;
     float m = -INFINITY;
-    for (int j = lane; j < Tk; j += 32) {
+    for (int j = lane; j < nk; j += 32) {
       float s = sr[j];
       if (bias != nullptr) s += __bfloat162float(bias[((size_t)h * Tq + row) * Tk + j]);
       if (mask != nullptr && mask[(size_t)b * Tk + j] == 0) s = kMaskValue;
+      if (causal && j > limit) s = kMaskValue;
       sr[j] = s;
       m = fmaxf(m, s);
     }
     m = warp_max(m);
     float l = 0.f;
-    for (int j = lane; j < Tk; j += 32) {
+    for (int j = lane; j < nk; j += 32) {
       const float p = expf(sr[j] - m);
       l += p;
       sr[j] = to_float(from_float<T>(p));
@@ -143,8 +151,8 @@ dense_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // p.V, one chunk of value rows at a time; thread i owns output i
   for (int i = tid; i < rows * D; i += kThreads) qs[i] = 0.f;
-  for (int j0 = 0; j0 < Tk; j0 += kc) {
-    const int n = min(kc, Tk - j0);
+  for (int j0 = 0; j0 < nk; j0 += kc) {
+    const int n = min(kc, nk - j0);
     __syncthreads();
     for (int i = tid; i < n * D; i += kThreads) {
       const int j = i / D, d = i - j * D;
@@ -169,7 +177,7 @@ dense_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* mask, void* out, void* lse, int B, int H, int Tq, int Tk,
-                   int D, cudaStream_t stream) {
+                   int D, float scale, int causal, cudaStream_t stream) {
   const int kc = std::max(1, std::min(Tk, 4096 / (D + 1)));
   const size_t smem = sizeof(float) * ((size_t)kRows * D + (size_t)kRows * Tk +
                                        (size_t)kc * (D + 1) + kRows);
@@ -183,7 +191,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   dense_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const int8_t*>(mask),
-      static_cast<T*>(out), static_cast<float*>(lse), H, Tq, Tk, D, kc);
+      static_cast<T*>(out), static_cast<float*>(lse), H, Tq, Tk, D, kc,
+      scale, causal);
   return cudaGetLastError();
 }
 
@@ -191,16 +200,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v and out share it). bias is bf16
 // (H, Tq, Tk) or null; mask is int8 (B, Tk) or null; lse is fp32 (B, H, Tq).
+// causal needs Tq <= Tk (no row without a visible key).
 extern "C" int dense_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, const void* mask, void* out, void* lse,
-                                   int B, int H, int Tq, int Tk, int D, int dtype,
-                                   void* stream) {
+                                   int B, int H, int Tq, int Tk, int D, float scale,
+                                   int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (causal && Tq > Tk) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<__nv_bfloat16>(q, k, v, bias, mask, out, lse, B, H, Tq, Tk, D, s);
+    err = launch<__nv_bfloat16>(q, k, v, bias, mask, out, lse, B, H, Tq, Tk, D, scale, causal, s);
   } else if (dtype == 1) {
-    err = launch<float>(q, k, v, bias, mask, out, lse, B, H, Tq, Tk, D, s);
+    err = launch<float>(q, k, v, bias, mask, out, lse, B, H, Tq, Tk, D, scale, causal, s);
   } else {
     err = cudaErrorInvalidValue;
   }

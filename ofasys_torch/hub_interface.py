@@ -3,6 +3,9 @@ ofasys_tpu/hub_interface.py).
 
     hub = OFASys(model, None, global_dict, GeneralPreprocess(global_dict))
     out = hub.inference("[TEXT:src] -> [TEXT:tgt]", data={"src": "..."})
+    out = hub.inference("[IMAGE:img] what does the image describe? -> [TEXT:cap]",
+                        data={"img": image})      # ndarray, path, bytes, base64 or PIL;
+                                                  # the model needs the image_vit adaptor
 
     hub.quantize()        # int8 serving in place (ops/quant.py), kernel B7
 

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ofasys_torch.adaptor.general import GeneralAdaptor
+from ofasys_torch.adaptor.image import PatchEmbed
 from ofasys_torch.model.config import UNPORTED_DEFAULTS, GeneralistModelConfig, apply_arch
 from ofasys_torch.model.transformer import (
     BiasSpec,
@@ -172,14 +173,20 @@ class GeneralistNet(nn.Module):
 
 
 def _init_parameters(net: GeneralistNet, generator: torch.Generator):
-    """flax's initializers: lecun-normal (truncated) Dense kernels with zero
-    bias, normal(0.02) embeddings and type embedding, unit LayerNorms and
+    """flax's initializers: lecun-normal (truncated) Dense and PatchEmbed
+    kernels with zero bias, normal(0.02) embeddings and type embedding, unit LayerNorms and
     head scales, zero relative-position tables."""
     with torch.no_grad():
         for module in net.modules():
             if isinstance(module, Dense):
                 std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                module.bias.zero_()
+            elif isinstance(module, PatchEmbed):
+                # lecun-normal over the patch's fan-in p * p * C
+                std = math.sqrt(1.0 / module.kernel[..., 0].numel()) / 0.87962566103423978
+                nn.init.trunc_normal_(module.kernel, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
                 module.bias.zero_()
             elif isinstance(module, nn.LayerNorm):
@@ -193,7 +200,7 @@ def _init_parameters(net: GeneralistNet, generator: torch.Generator):
                 p.normal_(0.0, 0.02, generator=generator)
             elif leaf == "c_attn":
                 p.fill_(1.0)
-            elif leaf == "rel_pos_table":
+            elif leaf in ("rel_pos_table", "image_rel_pos_table"):
                 p.zero_()
 
 

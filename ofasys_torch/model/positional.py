@@ -37,6 +37,31 @@ def token_bucket_count(bucket_size: int) -> int:
     return 2 * bucket_size - 1
 
 
+@functools.lru_cache(maxsize=8)
+def make_image_bucket_position(bucket_size: int, num_relative_distance: int) -> np.ndarray:
+    """(hw+1, hw+1) int32 bucket ids for 2-D patch grids plus a leading CLS
+    row/col with dedicated buckets (same scheme as reference
+    adaptor/image_resnet.py:25-41)."""
+    coords = np.stack(np.meshgrid(np.arange(bucket_size), np.arange(bucket_size), indexing="ij"))
+    flat = coords.reshape(2, -1)  # 2, HW
+    rel = flat[:, :, None] - flat[:, None, :]  # 2, HW, HW
+    rel = rel.transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += bucket_size - 1
+    rel[:, :, 1] += bucket_size - 1
+    rel[:, :, 0] *= 2 * bucket_size - 1
+    hw = bucket_size * bucket_size
+    idx = np.zeros((hw + 1, hw + 1), dtype=np.int64)
+    idx[1:, 1:] = rel.sum(-1)
+    idx[0, :] = num_relative_distance - 3
+    idx[:, 0] = num_relative_distance - 2
+    idx[0, 0] = num_relative_distance - 1
+    return idx.astype(np.int32)
+
+
+def image_bucket_count(bucket_size: int) -> int:
+    return (2 * bucket_size - 1) * (2 * bucket_size - 1) + 3
+
+
 def block_diag_buckets(slot_buckets, slot_table_sizes) -> np.ndarray:
     """Combine per-slot bucket matrices into one (T,T) matrix indexing a
     *concatenated* bias table.

@@ -1,14 +1,19 @@
-"""Dense (whole-row) attention for short sequences: kernels B1 (forward)
-and B2 (backward), the counterpart of ofasys_tpu/ops/pallas_dense_attention.py.
+"""Dense (whole-row) attention for short sequences: kernels B1 (forward),
+B2 (backward) and B2r (row-major backward), the counterpart of
+ofasys_tpu/ops/pallas_dense_attention.py.
 
 ``dense_attention_fwd`` launches the CUDA kernel of
-``ofasys_torch/csrc/dense_attention_fwd.cu`` and ``dense_attention_bwd`` the
-one of ``ofasys_torch/csrc/dense_attention_bwd.cu`` for CUDA tensors; for
+``ofasys_torch/csrc/dense_attention_fwd.cu``, ``dense_attention_bwd`` the one
+of ``ofasys_torch/csrc/dense_attention_bwd.cu`` and
+``dense_attention_bwd_rowmajor`` the one of
+``ofasys_torch/csrc/dense_attention_bwd_rowmajor.cu`` for CUDA tensors; for
 CPU tensors each runs its plain version (:func:`dense_attention_fwd_reference`,
-:func:`dense_attention_bwd_reference`). There is no other route: on a CUDA
-tensor each launches its kernel or raises. :class:`DenseAttentionFunction`
-joins the two as one autograd function, as ``_dense_attention``'s custom
-vjp does in JAX.
+:func:`dense_attention_bwd_reference`,
+:func:`dense_attention_bwd_rowmajor_reference`). There is no other route: on
+a CUDA tensor each launches its kernel or raises.
+:class:`DenseAttentionFunction` joins them as one autograd function, as
+``_dense_attention``'s custom vjp does in JAX: the backward is B2, or B2r
+for a causal call and whenever ``OFASYS_DENSE_BWD=rowmajor`` is set.
 
 Conventions match ops/attention.dot_product_attention at the public entry
 ``dense_attention``: q (B, Tq, H, D), k/v (B, Tk, H, D), bias additive and
@@ -18,6 +23,7 @@ batch-shared (1, H, Tq, Tk), mask bool/int8 (B, 1, 1, Tk) keep-mask.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -31,32 +37,49 @@ MAX_T = 256
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
+def _scores(qh, kh, bias, mask, scale, causal):
+    """fp32 (B, H, Tq, Tk) logits of the kernels (``_scores`` in the JAX
+    file): ``q.k * scale + bias``, -1e9 on masked keys and, under ``causal``,
+    on keys ``j > i + (Tk - Tq)``. qh (B, H, Tq, D) and kh (B, H, Tk, D) fp32."""
+    s = torch.matmul(qh, kh.transpose(-1, -2))
+    if scale != 1.0:
+        s = s * scale
+    if bias is not None:
+        s = s + bias[None].float()
+    neg = torch.full((), MASK_VALUE, device=s.device)
+    if mask is not None:
+        s = torch.where(mask[:, None] != 0, s, neg)
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        i = torch.arange(Tq, device=s.device)[:, None]
+        j = torch.arange(Tk, device=s.device)[None, :]
+        s = torch.where(j <= i + (Tk - Tq), s, neg)
+    return s
+
+
 def dense_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
+    scale: float = 1.0, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of ``_xla_reference`` (scale 1, causal folded into
-    the bias), plus the lse. q (B, Tq, E), k/v (B, Tk, E), bias (H, Tq, Tk),
-    mask (B, 1, Tk) -> out (B, Tq, E) in q's dtype, lse (B, H, Tq) fp32."""
+    """Plain PyTorch twin of ``_xla_reference``, plus the lse. q (B, Tq, E),
+    k/v (B, Tk, E), bias (H, Tq, Tk), mask (B, 1, Tk) -> out (B, Tq, E) in
+    q's dtype, lse (B, H, Tq) fp32."""
     B, Tq, E = q.shape
     Tk = k.shape[1]
     H = num_heads
     D = E // H
     qh = q.reshape(B, Tq, H, D).permute(0, 2, 1, 3).float()
-    kh = k.reshape(B, Tk, H, D).permute(0, 2, 3, 1).float()
+    kh = k.reshape(B, Tk, H, D).permute(0, 2, 1, 3).float()
     vh = v.reshape(B, Tk, H, D).permute(0, 2, 1, 3)
-    s = torch.matmul(qh, kh)
-    if bias is not None:
-        s = s + bias[None].float()
-    if mask is not None:
-        s = torch.where(mask[:, None] != 0, s, torch.full((), MASK_VALUE, device=s.device))
+    s = _scores(qh, kh, bias, mask, scale, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(q.dtype), vh)
     lse = torch.logsumexp(s, dim=-1)
     return o.permute(0, 2, 1, 3).reshape(B, Tq, E), lse
 
 
-def _check(q, k, v, bias, mask, num_heads):
+def _check(q, k, v, bias, mask, num_heads, causal=False):
     tensors = [t for t in (q, k, v, bias, mask) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("dense_attention_fwd: all tensors must be on one device")
@@ -81,6 +104,9 @@ def _check(q, k, v, bias, mask, num_heads):
         raise ValueError("dense_attention_fwd: mask must be int8 (B, 1, Tk)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("dense_attention_fwd: inputs must be contiguous")
+    if causal and Tq > Tk:
+        raise ValueError(f"dense_attention: causal needs Tq <= Tk (a row with no visible key), "
+                         f"got Tq={Tq} Tk={Tk}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -93,7 +119,8 @@ def _bind():
     lib = load("dense_attention_fwd")
     fn = lib.dense_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -101,16 +128,19 @@ def _bind():
 def dense_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
+    scale: float = 1.0, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B1: q (B, Tq, E) pre-scaled, k/v (B, Tk, E), bias bf16
-    (H, Tq, Tk) or None, mask int8 (B, 1, Tk) or None -> out (B, Tq, E) in
-    q's dtype and lse (B, H, Tq) fp32.
+    """Kernel B1: q (B, Tq, E), k/v (B, Tk, E), bias bf16 (H, Tq, Tk) or
+    None, mask int8 (B, 1, Tk) or None -> out (B, Tq, E) in q's dtype and
+    lse (B, H, Tq) fp32. ``scale`` multiplies q.k and ``causal`` hides keys
+    ``j > i + (Tk - Tq)`` inside the kernel (the model's path pre-scales q
+    and folds the causal mask into the bias: scale 1, causal False).
 
     CUDA tensors launch the kernel (counted in ``dense_attention_fwd.launches``);
     CPU tensors run :func:`dense_attention_fwd_reference`."""
-    _check(q, k, v, bias, mask, num_heads)
+    _check(q, k, v, bias, mask, num_heads, causal)
     if not q.is_cuda:
-        return dense_attention_fwd_reference(q, k, v, bias, mask, num_heads)
+        return dense_attention_fwd_reference(q, k, v, bias, mask, num_heads, scale, causal)
     fn = _bind()
     B, Tq, E = q.shape
     Tk = k.shape[1]
@@ -118,7 +148,8 @@ def dense_attention_fwd(
         out = torch.empty_like(q)
         lse = torch.empty((B, num_heads, Tq), dtype=torch.float32, device=q.device)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(mask), _ptr(out), _ptr(lse),
-                 B, num_heads, Tq, Tk, E // num_heads, _DTYPE_CODE[q.dtype],
+                 B, num_heads, Tq, Tk, E // num_heads, float(scale), int(causal),
+                 _DTYPE_CODE[q.dtype],
                  ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"dense_attention_fwd: CUDA launch failed with error {err}")
@@ -129,19 +160,21 @@ def dense_attention_fwd(
 dense_attention_fwd.launches = 0
 
 
-def dense_attention_bwd_reference(
+def dense_attention_bwd_rowmajor_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
-    want_dbias: bool = True,
+    scale: float, causal: bool, want_dbias: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch twin of the Pallas backward (``_bwd_kernel_t``), written
-    out in its arithmetic (not autograd of the forward): scores recomputed in
-    fp32, ``p = exp(s - lse)``, ``dv = round(p)^T do``, ``dp = do v^T``,
+    """Plain PyTorch twin of the Pallas row-major backward (``_bwd_kernel``),
+    written out in its arithmetic (not autograd of the forward): scores
+    recomputed in fp32 with ``scale`` and the causal mask inside,
+    ``p = exp(s - lse)``, ``dv = round(p)^T do``, ``dp = do v^T``,
     ``dd = rowsum(dp * p)``, ``ds = p (dp - dd)`` in fp32, ``dbias`` the fp32
-    batch sum of ``ds``, ``dq = round(ds) k`` and ``dk = round(ds)^T q``, with
-    round() to q's dtype. q/do (B, Tq, E), k/v (B, Tk, E), lse (B, H, Tq),
-    bias (H, Tq, Tk), mask (B, 1, Tk) -> dq, dk, dv in q's dtype and dbias
-    (H, Tq, Tk) fp32, or None without a bias or when ``want_dbias`` is False."""
+    batch sum of ``ds`` (before the scale), ``dq = round(ds * scale) k`` and
+    ``dk = round(ds * scale)^T q`` with q as given, round() to q's dtype.
+    q/do (B, Tq, E), k/v (B, Tk, E), lse (B, H, Tq), bias (H, Tq, Tk), mask
+    (B, 1, Tk) -> dq, dk, dv in q's dtype and dbias (H, Tq, Tk) fp32, or None
+    without a bias or when ``want_dbias`` is False."""
     B, Tq, E = q.shape
     Tk = k.shape[1]
     H = num_heads
@@ -152,18 +185,14 @@ def dense_attention_bwd_reference(
         return t.reshape(B, T, H, D).permute(0, 2, 1, 3).float()    # (B, H, T, D)
 
     qh, kh, vh, doh = heads(q, Tq), heads(k, Tk), heads(v, Tk), heads(do, Tq)
-    s = torch.matmul(qh, kh.transpose(-1, -2))
-    if bias is not None:
-        s = s + bias[None].float()
-    if mask is not None:
-        s = torch.where(mask[:, None] != 0, s, torch.full((), MASK_VALUE, device=s.device))
+    s = _scores(qh, kh, bias, mask, scale, causal)
     p = torch.exp(s - lse[..., None])
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     dd = (dp * p).sum(-1, keepdim=True)
     ds = p * (dp - dd)
     dbias = ds.sum(0) if bias is not None and want_dbias else None
-    dsb = ds.to(dt).float()
+    dsb = (ds * scale if scale != 1.0 else ds).to(dt).float()
     dq = torch.matmul(dsb, kh)
     dk = torch.matmul(dsb.transpose(-1, -2), qh)
 
@@ -173,13 +202,27 @@ def dense_attention_bwd_reference(
     return back(dq, Tq), back(dk, Tk), back(dv, Tk), dbias
 
 
+def dense_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
+    want_dbias: bool = True, scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch twin of the Pallas backward ``_bwd_kernel_t``: the same
+    arithmetic as :func:`dense_attention_bwd_rowmajor_reference` without the
+    causal mask (the TPU kernels differ in orientation, not in what they
+    compute)."""
+    return dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias, mask, num_heads,
+                                                  scale, False, want_dbias)
+
+
 def _bind_bwd():
     from ofasys_torch.ops.cuda_build import load
 
     lib = load("dense_attention_bwd")
     fn = lib.dense_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -192,32 +235,37 @@ def _batch_chunks(B: int, Tq: int, H: int, device: torch.device) -> int:
     return max(1, min(B, -(-4 * sms // tiles)))
 
 
+def _check_bwd(q, k, v, do, lse, bias, mask, num_heads, causal=False):
+    _check(q, k, v, bias, mask, num_heads, causal)
+    B, Tq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous():
+        raise ValueError("dense_attention_bwd: do must be contiguous, shaped and typed as q")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, num_heads, Tq) \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("dense_attention_bwd: lse must be contiguous fp32 (B, H, Tq)")
+
+
 def dense_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
-    want_dbias: bool = True,
+    want_dbias: bool = True, scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel B2: the gradients of kernel B1 for the output cotangent ``do``
-    (B, Tq, E) in q's dtype, given B1's inputs and its lse -> dq, dk, dv in
-    q's dtype and the batch-summed dbias (H, Tq, Tk) fp32 (None without a
-    bias or when ``want_dbias`` is False).
+    """Kernel B2: the gradients of kernel B1 (without causal) for the output
+    cotangent ``do`` (B, Tq, E) in q's dtype, given B1's inputs and its lse
+    -> dq, dk, dv in q's dtype and the batch-summed dbias (H, Tq, Tk) fp32
+    (None without a bias or when ``want_dbias`` is False).
 
     CUDA tensors launch the kernel (counted in ``dense_attention_bwd.launches``,
     one per call; the call runs the kernel's two passes and, when the batch
     was split, the dbias reduction); CPU tensors run
     :func:`dense_attention_bwd_reference`."""
-    _check(q, k, v, bias, mask, num_heads)
+    _check_bwd(q, k, v, do, lse, bias, mask, num_heads)
     B, Tq, E = q.shape
     Tk = k.shape[1]
     H = num_heads
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
-            or not do.is_contiguous():
-        raise ValueError("dense_attention_bwd: do must be contiguous, shaped and typed as q")
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Tq) or lse.device != q.device \
-            or not lse.is_contiguous():
-        raise ValueError("dense_attention_bwd: lse must be contiguous fp32 (B, H, Tq)")
     if not q.is_cuda:
-        return dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H, want_dbias)
+        return dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H, want_dbias, scale)
     fn = _bind_bwd()
     want_dbias = want_dbias and bias is not None
     with torch.cuda.device(q.device):
@@ -231,7 +279,7 @@ def dense_attention_bwd(
                 part = torch.empty((chunks, H, Tq, Tk), dtype=torch.float32, device=q.device)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(bias), _ptr(mask),
                  _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(dd), _ptr(part),
-                 B, H, Tq, Tk, E // H, chunks, _DTYPE_CODE[q.dtype],
+                 B, H, Tq, Tk, E // H, chunks, float(scale), _DTYPE_CODE[q.dtype],
                  ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"dense_attention_bwd: CUDA launch failed with error {err}")
@@ -241,31 +289,115 @@ def dense_attention_bwd(
 
 dense_attention_bwd.launches = 0
 
+# dynamic shared memory a block may opt in to on the H100 (227 KB)
+_MAX_BLOCK_SMEM = 232448
+
+
+def _bind_bwd_rowmajor():
+    from ofasys_torch.ops.cuda_build import load
+
+    lib = load("dense_attention_bwd_rowmajor")
+    fn, smem = lib.dense_attention_bwd_rowmajor, lib.dense_attention_bwd_rowmajor_smem
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_longlong
+    return fn, smem
+
+
+def dense_attention_bwd_rowmajor(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    bias: Optional[torch.Tensor], mask: Optional[torch.Tensor], num_heads: int,
+    scale: float, causal: bool, want_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel B2r: the gradients of kernel B1 called with the same ``scale``
+    and ``causal``, in one pass per (sample, head): dq, dk, dv in q's dtype
+    and the batch-summed dbias (H, Tq, Tk) fp32 (None without a bias or when
+    ``want_dbias`` is False).
+
+    CUDA tensors launch the kernel (counted in
+    ``dense_attention_bwd_rowmajor.launches``, one per call; the call runs
+    the kernel and, when the batch was split, the dbias reduction) or raise
+    where the dk and dv sums of one (sample, head) do not fit a block's
+    shared memory; CPU tensors run
+    :func:`dense_attention_bwd_rowmajor_reference`."""
+    _check_bwd(q, k, v, do, lse, bias, mask, num_heads, causal)
+    B, Tq, E = q.shape
+    Tk = k.shape[1]
+    H = num_heads
+    if not q.is_cuda:
+        return dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias, mask, H, scale,
+                                                      causal, want_dbias)
+    fn, smem = _bind_bwd_rowmajor()
+    need = smem(Tk, E // H)
+    if need > _MAX_BLOCK_SMEM:
+        raise ValueError(f"dense_attention_bwd_rowmajor: Tk={Tk} D={E // H} needs {need} bytes of "
+                         f"shared memory a block, over the {_MAX_BLOCK_SMEM} the card allows")
+    want_dbias = want_dbias and bias is not None
+    with torch.cuda.device(q.device):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        # one block per (head, chunk of samples): enough chunks to fill the
+        # SMs with as many blocks as their shared memory holds (at most 4)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        chunks = max(1, min(B, min(4, _MAX_BLOCK_SMEM // need) * sms // H))
+        dbias = part = None
+        if want_dbias:
+            dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
+            if chunks > 1:
+                part = torch.empty((chunks, H, Tq, Tk), dtype=torch.float32, device=q.device)
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(bias), _ptr(mask),
+                 _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(part),
+                 B, H, Tq, Tk, E // H, chunks, float(scale), int(causal), _DTYPE_CODE[q.dtype],
+                 ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"dense_attention_bwd_rowmajor: CUDA launch failed with error {err}")
+    dense_attention_bwd_rowmajor.launches += 1
+    return dq, dk, dv, dbias
+
+
+dense_attention_bwd_rowmajor.launches = 0
+
 
 class DenseAttentionFunction(torch.autograd.Function):
-    """Kernel B1 forward, kernel B2 backward (the custom vjp of
-    ``_dense_attention``): q (B, Tq, E) pre-scaled, k/v (B, Tk, E), bias bf16
+    """Kernel B1 forward, kernel B2 or B2r backward (the custom vjp of
+    ``_dense_attention``): q (B, Tq, E), k/v (B, Tk, E), bias bf16
     (H, Tq, Tk) or None, mask int8 (B, 1, Tk) or None -> out (B, Tq, E). The
-    bias gradient comes back in the bias's dtype, as ``_vjp_bwd`` returns
+    backward chooses as ``_vjp_bwd`` does: B2r for a causal call and when
+    ``OFASYS_DENSE_BWD=rowmajor`` (read at backward time), else B2. The bias
+    gradient comes back in the bias's dtype, as ``_vjp_bwd`` returns
     ``dbias.astype(bias.dtype)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, num_heads):
-        out, lse = dense_attention_fwd(q, k, v, bias, mask, num_heads)
+    def forward(ctx, q, k, v, bias, mask, num_heads, scale=1.0, causal=False):
+        out, lse = dense_attention_fwd(q, k, v, bias, mask, num_heads, scale, causal)
         ctx.save_for_backward(q, k, v, bias, mask, lse)
-        ctx.num_heads = num_heads
+        ctx.args = num_heads, scale, causal
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, mask, lse = ctx.saved_tensors
-        dq, dk, dv, dbias = dense_attention_bwd(
-            q, k, v, do.contiguous(), lse, bias, mask, ctx.num_heads,
-            want_dbias=ctx.needs_input_grad[3],
-        )
+        num_heads, scale, causal = ctx.args
+        want_dbias = ctx.needs_input_grad[3]
+        if causal or os.environ.get("OFASYS_DENSE_BWD") == "rowmajor":
+            dq, dk, dv, dbias = dense_attention_bwd_rowmajor(
+                q, k, v, do.contiguous(), lse, bias, mask, num_heads, scale, causal, want_dbias)
+        else:
+            dq, dk, dv, dbias = dense_attention_bwd(
+                q, k, v, do.contiguous(), lse, bias, mask, num_heads, want_dbias, scale)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
-        return dq, dk, dv, dbias, None, None
+        return dq, dk, dv, dbias, None, None, None, None
+
+
+def _dense_attention(q, k, v, bias, mask, scale: float, causal: bool, num_heads: int):
+    """The counterpart of the JAX custom-vjp entry ``_dense_attention``: q
+    (B, Tq, E), k/v (B, Tk, E), bias bf16 (H, Tq, Tk) or None, mask int8
+    (B, 1, Tk) or None, with ``scale`` and ``causal`` applied inside the
+    kernels -> out (B, Tq, E)."""
+    return DenseAttentionFunction.apply(q, k, v, bias, mask, num_heads, scale, causal)
 
 
 def dense_attention(
@@ -305,9 +437,9 @@ def dense_attention(
     mf = None
     if mask is not None:
         mf = mask.to(torch.int8).expand(B, 1, 1, Tk).reshape(B, 1, Tk).contiguous()
-    out = DenseAttentionFunction.apply(
+    out = _dense_attention(
         q.reshape(B, Tq, H * D).contiguous(), k.reshape(B, Tk, H * D).contiguous(),
-        v.reshape(B, Tk, H * D).contiguous(), bf, mf, H,
+        v.reshape(B, Tk, H * D).contiguous(), bf, mf, 1.0, False, H,
     )
     return out.reshape(B, Tq, H, D)
 

@@ -5,8 +5,10 @@ Sample path (pure numpy):
   instruction_map -> map per slot -> merge adjacent same-group slots
   -> per-position collate into SlotBatch arrays.
 
-This slice ports the TEXT preprocessor only; a slot of any other modality
-raises ``NotImplementedError`` naming the ROADMAP Queue A item that ports it.
+The TEXT and IMAGE preprocessors are ported (text-like modalities share the
+TEXT group and concatenate into one token run; an IMAGE slot is a group of
+its own); a slot of any other modality raises ``NotImplementedError`` naming
+the ROADMAP Queue A item that ports it.
 """
 
 from __future__ import annotations
@@ -16,8 +18,24 @@ from typing import Any, Dict, List, Optional
 from ofasys_torch import ModalityType
 from ofasys_torch.preprocessor.base import BasePreprocess, PreprocessSkipException
 from ofasys_torch.preprocessor.dictionary import Dictionary
+from ofasys_torch.preprocessor.image import (
+    ImagenetPreprocess,
+    ImagenetPreprocessConfig,
+    ImagePreprocess,
+    ImagePreprocessConfig,
+    ImagepretrainPreprocess,
+    ImagepretrainPreprocessConfig,
+)
 from ofasys_torch.preprocessor.instruction import Instruction, Slot
 from ofasys_torch.preprocessor.text import TextPreprocess, TextPreprocessConfig
+
+# the ported preprocessors by registered name: (class, config class)
+PREPROCESSORS = {
+    "text": (TextPreprocess, TextPreprocessConfig),
+    "image": (ImagePreprocess, ImagePreprocessConfig),
+    "imagenet": (ImagenetPreprocess, ImagenetPreprocessConfig),
+    "imagepretrain": (ImagepretrainPreprocess, ImagepretrainPreprocessConfig),
+}
 
 # default preprocessor per modality
 DEFAULT_PREPROCESS = {
@@ -34,7 +52,7 @@ DEFAULT_PREPROCESS = {
 
 # ROADMAP Queue A item that ports each preprocessor this slice lacks
 _PENDING = {
-    "image": 7, "box": 7, "audio": 7, "motion_6d": 7,
+    "box": 7, "audio": 7, "motion_6d": 7,
     "phone": 11, "video": 11, "struct": 11, "category": 11,
 }
 
@@ -49,14 +67,26 @@ TEXT_GROUP = {
 
 
 class GeneralPreprocess:
+    """Each preprocessor starts from its config class's defaults (``text_cfg``
+    replaces the text preprocessor's); tune another through
+    ``name2pre[name].cfg``, as in ofasys_tpu. A ported preprocessor that a
+    slot names and ``active`` left out is built at first use."""
+
     def __init__(self, global_dict: Dictionary, active: Optional[List[str]] = None,
                  text_cfg: Optional[TextPreprocessConfig] = None):
         self.global_dict = global_dict
+        self.text_cfg = text_cfg
         self.name2pre: Dict[str, BasePreprocess] = {}
         for name in active or ["text"]:
-            if name != "text":
-                self._raise_pending(name)
-            self.name2pre[name] = TextPreprocess(global_dict, text_cfg or TextPreprocessConfig())
+            self._build(name)
+
+    def _build(self, name: str) -> BasePreprocess:
+        if name not in PREPROCESSORS:
+            self._raise_pending(name)
+        cls, cfg_cls = PREPROCESSORS[name]
+        cfg = self.text_cfg if name == "text" and self.text_cfg is not None else cfg_cls()
+        self.name2pre[name] = cls(self.global_dict, cfg)
+        return self.name2pre[name]
 
     @staticmethod
     def _raise_pending(name: str):
@@ -64,7 +94,7 @@ class GeneralPreprocess:
         where = f"ROADMAP Queue A item {item}" if item else "a later slice"
         raise NotImplementedError(
             f"preprocessor {name!r} is not ported to ofasys_torch yet ({where}); "
-            "this slice serves TEXT only"
+            f"ported: {sorted(PREPROCESSORS)}"
         )
 
     # ------------------------------------------------------------- helpers
@@ -75,7 +105,7 @@ class GeneralPreprocess:
     def get_preprocess(self, slot: Slot) -> BasePreprocess:
         name = slot.get_attr("preprocess") or slot.preprocess or DEFAULT_PREPROCESS[slot.modality]
         if name not in self.name2pre:
-            self._raise_pending(name)
+            return self._build(name)
         return self.name2pre[name]
 
     def group_key(self, slot: Slot):

@@ -7,6 +7,8 @@ as follows:
   * Dense ``kernel`` (in, out)     -> ``weight`` (out, in), transposed
   * LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
   * Embed ``embedding``            -> ``weight``
+  * PatchEmbed ``kernel`` (p, p, C, E) -> ``kernel``, as it is (the module
+    keeps flax's name and layout)
   * any other leaf (``bias``, ``c_attn``, ``rel_pos_table``,
     ``type_embedding``, ...)       -> the parameter of the same name
 
@@ -79,12 +81,14 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     with torch.no_grad():
         for path, value in _walk(params):
             leaf = path[-1]
-            name = ".".join(path[:-1] + (_RENAME.get(leaf, leaf),))
-            if name not in own:
-                raise KeyError(f"flax param {'/'.join(path)} has no counterpart ({name}) in the net")
             arr = np.asarray(value)
-            if leaf == "kernel":
-                arr = arr.T
+            name = ".".join(path)
+            if name not in own:         # else a parameter under flax's own name, as it is
+                name = ".".join(path[:-1] + (_RENAME.get(leaf, leaf),))
+                if name not in own:
+                    raise KeyError(f"flax param {'/'.join(path)} has no counterpart ({name}) in the net")
+                if leaf == "kernel":
+                    arr = arr.T
             p = own[name]
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {arr.shape} vs {name} {tuple(p.shape)}")

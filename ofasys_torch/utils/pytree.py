@@ -55,8 +55,9 @@ class SlotBatch:
 
 
 def slots_to_device(slots: List[SlotBatch], device) -> List[SlotBatch]:
-    """Copies of ``slots`` whose array values are tensors on ``device``
-    (integer arrays become int64 token tensors)."""
+    """Copies of ``slots`` whose array values are tensors on ``device``:
+    integer arrays become int64 token tensors, float arrays (images, fp32
+    NHWC) keep their dtype and are cast to the compute dtype in the adaptor."""
     def conv(v):
         if isinstance(v, np.ndarray):
             t = torch.from_numpy(np.ascontiguousarray(v))

@@ -64,7 +64,8 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
                 "ofasys_torch.engine.optim", "ofasys_torch.engine.criterion.base",
                 "ofasys_torch.engine.criterion.label_smoothed_cross_entropy",
                 "ofasys_torch.configure.configs", "ofasys_torch.preprocessor.mask_utils",
-                "ofasys_torch.ops.quant", "ofasys_torch.ops.int8_matmul", "ofasys_torch.ops.layer_norm"}
+                "ofasys_torch.ops.quant", "ofasys_torch.ops.int8_matmul", "ofasys_torch.ops.layer_norm",
+                "ofasys_torch.adaptor.image", "ofasys_torch.preprocessor.image"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
     if "raised" in out:

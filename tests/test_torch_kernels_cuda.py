@@ -13,6 +13,9 @@ Tolerances (bf16), for q scaled as the model scales it:
     where a reordered fp32 sum crosses a rounding boundary: GRAD_TOL, 1e-3
     Frobenius and 1e-2 max (2.5 bf16 ulps of the largest entry). dbias and
     ds are fp32 sums of unrounded ds: DS_TOL, 1e-3 on both;
+  * B2r (row-major backward) and B1 with ``scale`` and ``causal`` inside:
+    as B2 and B1, q unscaled and the scale given to the kernel; dbias of B2r
+    is the same bits run to run (partial sums reduced in a fixed order);
   * B3 (flash attention): as B1;
   * B7 (int8 GEMM): equal to its plain version bit for bit (an exact
     integer product and the same two fp32 products);
@@ -117,6 +120,126 @@ def test_autograd_function_runs_both_kernels_on_card():
     assert tdense.dense_attention_fwd.launches == f0 + 1
     assert tdense.dense_attention_bwd.launches == b0 + 1
     assert all(torch.isfinite(t.grad.float()).all() for t in (q4, k4, v4, bias))
+
+
+# ----------------------------- B2r and B1 with scale and causal inside
+# (B, Tq, Tk, H, D, causal): the caption encoder, its causal decoder and its
+# cross attention, the vqa encoder, a causal call with Tq < Tk (the causal
+# offset), a batch of one and a head dim that is no multiple of 32
+ROWMAJOR_CASES = [(64, 196, 196, 12, 64, False), (64, 24, 24, 12, 64, True),
+                  (64, 24, 196, 12, 64, False), (48, 214, 214, 12, 64, False),
+                  (5, 40, 72, 4, 64, True), (1, 64, 64, 12, 64, True), (3, 50, 50, 4, 40, True)]
+ROWMAJOR_IDS = ["caption_encoder", "caption_decoder_causal", "caption_cross", "vqa_encoder",
+                "causal_offset", "B1_causal", "D40_causal"]
+
+
+def _rowmajor_inputs(B, Tq, Tk, H, D):
+    q, k, v, bias, mask, do = _inputs(B, Tq, Tk, H, D)
+    return (q.float() * D ** 0.5).to(torch.bfloat16), k, v, bias, mask, do, D ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROWMAJOR_CASES, ids=ROWMAJOR_IDS)
+def test_fwd_kernel_with_scale_and_causal_on_card(case):
+    _need_card()
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, bias, mask, _, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
+    out, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = tdense.dense_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("case", ROWMAJOR_CASES, ids=ROWMAJOR_IDS)
+def test_rowmajor_bwd_kernel_matches_plain_version_on_card(case, with_bias):
+    _need_card()
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
+    bias = bias if with_bias else None
+    _, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    before = tdense.dense_attention_bwd_rowmajor.launches
+    got = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    assert tdense.dense_attention_bwd_rowmajor.launches == before + 1
+    ref = tdense.dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias, mask, H, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], ref[:3]):
+        assert a.dtype == torch.bfloat16
+        ok, errs = _grad_close(a, b, GRAD_TOL)
+        assert ok, (name, errs)
+    if with_bias:
+        ok, errs = _grad_close(got[3], ref[3], DS_TOL)
+        assert ok, ("dbias", errs)
+        again = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))     # the same bits run to run
+    else:
+        assert got[3] is None
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_with_scale_inside_on_card():
+    """B2 with the scale inside (a non-causal ``_dense_attention`` call with
+    scale != 1) against its plain version and against B2r."""
+    _need_card()
+    B, Tq, Tk, H, D = 4, 96, 130, 12, 64
+    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
+    _, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale)
+    got = tdense.dense_attention_bwd(q, k, v, do, lse, bias, mask, H, scale=scale)
+    row = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, False)
+    ref = tdense.dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H, scale=scale)
+    for name, a, r, b in zip(("dq", "dk", "dv", "dbias"), got, row, ref):
+        tol = DS_TOL if name == "dbias" else GRAD_TOL
+        for which, x in (("B2", a), ("B2r", r)):
+            ok, errs = _grad_close(x, b, tol)
+            assert ok, (which, name, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rowmajor", [False, True], ids=["default", "OFASYS_DENSE_BWD=rowmajor"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_dense_attention_entry_chooses_its_backward_on_card(monkeypatch, causal, rowmajor):
+    """``_dense_attention``: B2r for a causal call and under the switch, else B2."""
+    _need_card()
+    if rowmajor:
+        monkeypatch.setenv("OFASYS_DENSE_BWD", "rowmajor")
+    else:
+        monkeypatch.delenv("OFASYS_DENSE_BWD", raising=False)
+    B, Tq, Tk, H, D = 4, 48, 80, 12, 64
+    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    bias = bias.clone().requires_grad_()
+    counts = [f.launches for f in (tdense.dense_attention_fwd, tdense.dense_attention_bwd,
+                                   tdense.dense_attention_bwd_rowmajor)]
+    out = tdense._dense_attention(*leaves, bias, mask, scale, causal, H)
+    out.backward(do)
+    torch.cuda.synchronize()
+    now = [f.launches for f in (tdense.dense_attention_fwd, tdense.dense_attention_bwd,
+                                tdense.dense_attention_bwd_rowmajor)]
+    use_row = causal or rowmajor
+    assert [b - a for a, b in zip(counts, now)] == [1, int(not use_row), int(use_row)]
+    _, lse = tdense.dense_attention_fwd_reference(q, k, v, bias.detach(), mask, H, scale, causal)
+    ref = tdense.dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias.detach(), mask, H,
+                                                       scale, causal)
+    for name, t, b in zip(("dq", "dk", "dv"), leaves, ref[:3]):
+        ok, errs = _grad_close(t.grad, b, GRAD_TOL)
+        assert ok, (name, errs)
+    assert bias.grad.dtype == torch.bfloat16
+    ok, errs = _grad_close(bias.grad, ref[3], (2.0 ** -8, 2.0 ** -7))     # rounded to the bias's bf16
+    assert ok, ("dbias", errs)
+
+
+@pytest.mark.cuda
+def test_rowmajor_refuses_accumulators_that_do_not_fit():
+    """Tk = 256 at D = 128 needs 2 * 256 * 128 fp32 of dk and dv sums, over
+    the 227 KB a block can hold: the wrapper raises on the card."""
+    _need_card()
+    B, T, H, D = 2, 256, 2, 128
+    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, T, T, H, D)
+    _, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, False)
 
 
 # ------------------------------------------------- flash attention (B3-B5)
