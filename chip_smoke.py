@@ -61,9 +61,12 @@ Phases, in order; any failure exits non-zero:
 The kernel phase also holds kernels B3, B4 and B5 against their plain
 versions at every shape of the long paths, a per-(b, h) bias, a causal and
 a ragged shape, B7 at serve_int8's shapes and B6 at the train mix's; B2r
-beside B2 at every training shape, and B1 and B2r (and B2) with the scale
-and the causal mask inside the kernel at a decoder shape and at a shape
-with Tq < Tk (the causal offset), with two planted faults.
+beside B2 at every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1,
+head dims 88, 128 and 256), B2 run twice for equal bits and with a planted
+key-tile fault, and B1 and B2r (and B2) with the scale and the causal mask
+inside the kernel at a decoder shape and at a shape with Tq < Tk (the
+causal offset), with two planted faults. The build phase logs ptxas's
+registers and spills of every kernel.
 Prints a ``{"kernels": [...]}`` line, then, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX or ofasys_tpu. Exits non-zero without CUDA.
@@ -199,6 +202,14 @@ TINY_MM_TRAIN_TASKS = {
 # the caption decoder's shape and one with Tq < Tk (the causal offset)
 INSIDE_SHAPES = [("caption_decoder_inside", (64, 32, 32)), ("causal_offset_inside", (5, 40, 72))]
 INSIDE_SCALE = 0.125          # (2 * D) ** -0.5 at D = 32; exact in bf16
+# the kernel phase's shapes beyond the paths' own (B, Tq, Tk, H, D): ragged
+# Tq != Tk, a batch of one, the image tasks' nominal 196 patches, and head
+# dims where the tensor-core kernels pad D (88, the 10b arch's) or split
+# B2's keys into ranges (128 at Tk = 256, 256), with H * D <= 4096
+EDGE_SHAPES = [("ragged_cross", (3, 24, 200, 12, 64), False), ("ragged_40_200", (3, 40, 200, 12, 64), False),
+               ("B1", (1, 64, 64, 12, 64), False), ("patches_196", (64, 196, 196, 12, 64), False),
+               ("D88", (8, 96, 96, 32, 88), False), ("D128_T256", (4, 256, 256, 8, 128), False),
+               ("D256", (4, 64, 100, 16, 256), False)]
 
 N_UPDATES = 5
 TRAIN_LR = 1e-4
@@ -479,10 +490,25 @@ def check_bwd(label, shape, causal=False):
         got = fn()
         torch.cuda.synchronize()
         errs[name], ok = grad_errors(got, ref, False)
+        same = all(torch.equal(a, b) for a, b in zip(got, fn()))
         log(f"kernel {name} [{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D}]: "
-            f"{_grad_report(errs[name])} -> {'ok' if ok else 'FAIL'}")
-        if not ok:
+            f"{_grad_report(errs[name])}, the same bits twice: {same} -> "
+            f"{'ok' if ok and same else 'FAIL'}")
+        if not ok or not same:
             raise SystemExit(f"{name} disagrees with its plain version at {label}")
+    # planted fault: B2 with one key tile's p and dS left out (those keys
+    # masked, the lse of the full forward kept) must fail the limits on dq,
+    # dk, dv and dbias
+    lo, hi = min(64, Tk // 2), min(128, Tk)
+    hidden = mask.clone()
+    hidden[:, :, lo:hi] = 0
+    ferrs, _ = grad_errors(dense_attention_bwd(q, k, v, do, lse, bias, hidden, H), ref, False)
+    caught = [n for n, e in ferrs.items() if not e["ok"]]
+    log(f"  planted fault B2 with keys {lo}-{hi - 1} left out: "
+        + " ".join(f"{n} frob {e['frob']:.2e} max {e['max_rel']:.2e}" for n, e in ferrs.items())
+        + f" -> fails the limits for {caught} of {list(ferrs)}")
+    if caught != list(ferrs):
+        raise SystemExit(f"{label}: the gradient limits pass B2 with a key tile left out")
     q4, k4, v4, add = _sdpa_args(q, k, v, bias, mask, H, D, grad=True)
     do4 = do.view(B, Tq, H, D).transpose(1, 2)
     kernel_ms = {name: time_ms(fn, n=20) for name, fn in kernels.items()}
@@ -626,19 +652,19 @@ def phase_kernels(dispatch_shapes, train_shapes):
     """Kernel B1 at the serving paths' encoder shapes (``dispatch_shapes``:
     [(label, (B, T))], one per planned dispatch), the nominal serving shape
     B=8 T=128 and every training shape; kernels B2 and B2r at every training
-    shape; all three at a ragged cross shape, at B=1 and at the image tasks'
-    nominal 196 patches; B1 and B2r with the scale and the causal mask inside
-    at INSIDE_SHAPES. Base arch H=12, D=64. ``train_shapes`` is
-    [(label, (B, Tq, Tk), causal)]. Returns the rows of B1, B2 and B2r."""
+    shape (B2 also the same bits twice, and with a key tile left out, which
+    the limits must catch); all three at EDGE_SHAPES; B1 and B2r with the
+    scale and the causal mask inside at INSIDE_SHAPES. The paths' shapes are
+    at the base arch, H=12, D=64. ``train_shapes`` is [(label, (B, Tq, Tk),
+    causal)]. Returns the rows of B1, B2 and B2r."""
     fwd, bwd, row = [], [], []
     for label, (B, T) in dispatch_shapes:
         fwd.append(check_fwd(label, (B, T, T, 12, 64)))
     fwd.append(check_fwd("serving", (8, 128, 128, 12, 64)))
-    extra = [("ragged_cross", (3, 24, 200), False), ("B1", (1, 64, 64), False),
-             ("patches_196", (64, 196, 196), False)]
-    for label, (B, Tq, Tk), causal in list(train_shapes) + extra:
-        fwd.append(check_fwd(label, (B, Tq, Tk, 12, 64), causal))
-        b2, b2r = check_bwd(label, (B, Tq, Tk, 12, 64), causal)
+    calls = [(label, (B, Tq, Tk, 12, 64), causal) for label, (B, Tq, Tk), causal in train_shapes]
+    for label, shape, causal in calls + EDGE_SHAPES:
+        fwd.append(check_fwd(label, shape, causal))
+        b2, b2r = check_bwd(label, shape, causal)
         bwd.append(b2)
         row.append(b2r)
     for label, (B, Tq, Tk) in INSIDE_SHAPES:

@@ -32,12 +32,19 @@
 // carries dbias in VMEM from one sample to the next. Hopper blocks run in no
 // order, and dk and dv of one (b, h) sum over every query row. So:
 //   * one block per (head, chunk of samples); it walks its samples in order.
-//   * for each sample it keeps the fp32 dk and dv sums of the whole (b, h),
+//   * for each sample it keeps the fp32 dk and dv sums of its keys,
 //     2 * Tk * D floats, in shared memory (128 KB at Tk = 256, D = 64: under
 //     the opt-in limit of 227 KB) while it walks the query-row tiles, so the
-//     scores of a (b, h) are recomputed once, where B2 recomputes them in two
-//     passes. A shape whose accumulators do not fit is refused (the wrapper
-//     asks dense_attention_bwd_rowmajor_smem and raises).
+//     scores of a (b, h) are recomputed once, where B2's fp32 kernel
+//     recomputes them in two passes.
+//   * where the sums of every key do not fit (D = 88 from Tk = 247, D = 128
+//     from Tk = 174, D = 256 from Tk = 85), the keys are split into ranges of KR keys (a multiple
+//     of 16; dense_attention_bwd_rowmajor_key_range), one block per (range,
+//     head, chunk of samples). dd, a sum over every key, then takes a first
+//     pass that writes each range's part of it; the second pass sums the
+//     parts in range order, each range writes a partial dq (fp32, device
+//     memory), and a last kernel sums the partials in range order and
+//     rounds once.
 //   * under causal, a row tile computes only the keys up to its last row's
 //     diagonal; the keys beyond are skipped, not computed and masked (their
 //     p is exactly 0 in the reference too), and their dbias is written as 0.
@@ -143,55 +150,62 @@ bwd_rowmajor_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const __nv_bfloat16* __restrict__ bias, const int8_t* __restrict__ mask,
                     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-                    float* __restrict__ dbias_part, int B, int H, int Tq, int Tk, int D, int kc,
-                    int per_chunk, float scale, int causal) {
+                    float* __restrict__ dbias_part, float* __restrict__ dq_part, int B, int H,
+                    int Tq, int Tk, int D, int KR, int kc, int per_chunk, float scale,
+                    int causal, int pass) {
+  // pass 0: every key in one range. With several ranges, pass 1 only writes
+  // each range's part of dd (dd_part, after the dq partials in dq_part) and
+  // pass 2 does the rest with dd = the parts summed in range order.
   extern __shared__ float smem[];
   const int E = H * D;
   const int h = blockIdx.x;
   const int chunk = blockIdx.y;
+  const int j0 = blockIdx.z * KR;            // this block's keys: [j0, j0 + nr)
+  const int nr = min(KR, Tk - j0);
   const int ld = D + 1;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
-  float* dks = smem;                    // Tk x D: dk sums of this (b, h)
-  float* dvs = dks + Tk * D;            // Tk x D: dv sums
-  float* qs = dvs + Tk * D;             // kRows x D: q rows, then the dq sums
+  float* dks = smem;                    // KR x D: dk sums of this block's keys
+  float* dvs = dks + KR * D;            // KR x D: dv sums
+  float* qs = dvs + KR * D;             // kRows x D: q rows, then the dq sums
   float* dos = qs + kRows * D;          // kRows x D: do rows
-  float* ss = dos + kRows * D;          // kRows x Tk: scores, p, then round(ds * scale)
-  float* ps = ss + kRows * Tk;          // kRows x Tk: dp, then round(p)
-  float* kv = ps + kRows * Tk;          // kc x (D + 1): one chunk of K or V rows
+  float* ss = dos + kRows * D;          // kRows x KR: scores, p, then round(ds * scale)
+  float* ps = ss + kRows * KR;          // kRows x KR: dp, then round(p)
+  float* kv = ps + kRows * KR;          // kc x (D + 1): one chunk of K or V rows
 
   float* part = dbias_part == nullptr
                     ? nullptr
                     : dbias_part + ((size_t)chunk * H + h) * Tq * Tk;
+  float* dd_part = dq_part == nullptr ? nullptr : dq_part + (size_t)gridDim.z * B * Tq * E;
 
   const int b_begin = chunk * per_chunk;
   const int b_end = min(B, b_begin + per_chunk);
   for (int b = b_begin; b < b_end; ++b) {
-    const size_t kv_base = (size_t)b * Tk * E + (size_t)h * D;
+    const size_t kv_base = ((size_t)b * Tk + j0) * E + (size_t)h * D;
     __syncthreads();                    // the previous sample's dk, dv are stored
-    for (int i = tid; i < 2 * Tk * D; i += kThreads) dks[i] = 0.f;
+    for (int i = tid; i < 2 * KR * D; i += kThreads) dks[i] = 0.f;
 
     for (int row0 = 0; row0 < Tq; row0 += kRows) {
       const int rows = min(kRows, Tq - row0);
-      // keys this tile computes: all, or up to its last row's diagonal
-      const int nk = causal ? max(0, min(Tk, row0 + rows + (Tk - Tq))) : Tk;
+      // keys of the range this tile computes: all, or up to its last row's diagonal
+      const int nk = min(nr, max(0, (causal ? min(Tk, row0 + rows + (Tk - Tq)) : Tk) - j0));
       const size_t q_base = ((size_t)b * Tq + row0) * E + (size_t)h * D;
       __syncthreads();                  // the previous tile is done with qs, dos, ss, ps
       stage_rows(qs, D, q, q_base, rows, D, E);
       stage_rows(dos, D, dout, q_base, rows, D, E);
 
       // raw scores and dp, one chunk of key (value) rows at a time
-      for (int j0 = 0; j0 < nk; j0 += kc) {
-        const int n = min(kc, nk - j0);
+      for (int c0 = 0; c0 < nk; c0 += kc) {
+        const int n = min(kc, nk - c0);
         __syncthreads();
-        stage_rows(kv, ld, k, kv_base + (size_t)j0 * E, n, D, E);
+        stage_rows(kv, ld, k, kv_base + (size_t)c0 * E, n, D, E);
         __syncthreads();
-        dot_rows(ss, Tk, j0, qs, D, rows, kv, ld, n, D);
+        dot_rows(ss, KR, c0, qs, D, rows, kv, ld, n, D);
         __syncthreads();
-        stage_rows(kv, ld, v, kv_base + (size_t)j0 * E, n, D, E);
+        stage_rows(kv, ld, v, kv_base + (size_t)c0 * E, n, D, E);
         __syncthreads();
-        dot_rows(ps, Tk, j0, dos, D, rows, kv, ld, n, D);
+        dot_rows(ps, KR, c0, dos, D, rows, kv, ld, n, D);
       }
       __syncthreads();
 
@@ -200,56 +214,71 @@ bwd_rowmajor_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int row = row0 + r;
         const int limit = row + (Tk - Tq);          // last visible key under causal
         const float l = lse[((size_t)b * H + h) * Tq + row];
-        float* sr = ss + r * Tk;
-        float* pr = ps + r * Tk;
+        float* sr = ss + r * KR;
+        float* pr = ps + r * KR;
         float dd = 0.f;
-        for (int j = lane; j < nk; j += 32) {
-          float s = sr[j] * scale;
+        for (int jj = lane; jj < nk; jj += 32) {
+          const int j = j0 + jj;
+          float s = sr[jj] * scale;
           if (bias != nullptr) s += __bfloat162float(bias[((size_t)h * Tq + row) * Tk + j]);
           if (mask != nullptr && mask[(size_t)b * Tk + j] == 0) s = kMaskValue;
           if (causal && j > limit) s = kMaskValue;
           const float p = expf(s - l);
-          sr[j] = p;
-          dd = fmaf(pr[j], p, dd);
+          sr[jj] = p;
+          dd = fmaf(pr[jj], p, dd);
         }
         dd = warp_sum(dd);
-        float* gr = part == nullptr ? nullptr : part + (size_t)row * Tk;
-        for (int j = lane; j < Tk; j += 32) {
+        const size_t dd_row = ((size_t)b * H + h) * Tq + row;
+        if (pass == 1) {
+          if (lane == 0) dd_part[(size_t)blockIdx.z * B * H * Tq + dd_row] = dd;
+          continue;
+        }
+        if (pass == 2) {
+          dd = 0.f;
+          for (int c = 0; c < (int)gridDim.z; ++c) dd += dd_part[(size_t)c * B * H * Tq + dd_row];
+        }
+        float* gr = part == nullptr ? nullptr : part + (size_t)row * Tk + j0;
+        for (int jj = lane; jj < nr; jj += 32) {
           float ds = 0.f;
-          if (j < nk) {
-            const float p = sr[j];
-            ds = p * (pr[j] - dd);
-            sr[j] = round_to<T>(ds * scale);
-            pr[j] = round_to<T>(p);
+          if (jj < nk) {
+            const float p = sr[jj];
+            ds = p * (pr[jj] - dd);
+            sr[jj] = round_to<T>(ds * scale);
+            pr[jj] = round_to<T>(p);
           }
-          if (gr != nullptr) gr[j] = (b == b_begin) ? ds : gr[j] + ds;
+          if (gr != nullptr) gr[jj] = (b == b_begin) ? ds : gr[jj] + ds;
         }
       }
       __syncthreads();
+      if (pass == 1) continue;
 
       // dk += round(ds * scale)^T q and dv += round(p)^T do over this tile's rows
-      accumulate_cols(dks, ss, Tk, nk, qs, rows, D);
-      accumulate_cols(dvs, ps, Tk, nk, dos, rows, D);
+      accumulate_cols(dks, ss, KR, nk, qs, rows, D);
+      accumulate_cols(dvs, ps, KR, nk, dos, rows, D);
       __syncthreads();
 
       // dq = round(ds * scale) . K, one chunk of key rows at a time (qs is free now)
       for (int i = tid; i < rows * D; i += kThreads) qs[i] = 0.f;
-      for (int j0 = 0; j0 < nk; j0 += kc) {
-        const int n = min(kc, nk - j0);
+      for (int c0 = 0; c0 < nk; c0 += kc) {
+        const int n = min(kc, nk - c0);
         __syncthreads();
-        stage_rows(kv, ld, k, kv_base + (size_t)j0 * E, n, D, E);
+        stage_rows(kv, ld, k, kv_base + (size_t)c0 * E, n, D, E);
         __syncthreads();
-        accumulate_rows(qs, ss, Tk, j0, rows, kv, ld, n, D);
+        accumulate_rows(qs, ss, KR, c0, rows, kv, ld, n, D);
       }
       __syncthreads();
       for (int i = tid; i < rows * D; i += kThreads) {
         const int r = i / D, d = i - r * D;
-        dq[q_base + (size_t)r * E + d] = from_float<T>(qs[i]);
+        if (dq_part != nullptr)
+          dq_part[(size_t)blockIdx.z * B * Tq * E + q_base + (size_t)r * E + d] = qs[i];
+        else
+          dq[q_base + (size_t)r * E + d] = from_float<T>(qs[i]);
       }
     }
 
     __syncthreads();
-    for (int i = tid; i < Tk * D; i += kThreads) {
+    if (pass == 1) continue;
+    for (int i = tid; i < nr * D; i += kThreads) {
       const int j = i / D, d = i - j * D;
       dk[kv_base + (size_t)j * E + d] = from_float<T>(dks[i]);
       dv[kv_base + (size_t)j * E + d] = from_float<T>(dvs[i]);
@@ -267,44 +296,80 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ part, float* __res
   }
 }
 
-int key_chunk(int Tk, int D) { return std::max(1, std::min(Tk, 4096 / (D + 1))); }
+// dq = the key ranges' partial sums in range order, rounded once
+template <typename T>
+__global__ void dq_reduce_kernel(const float* __restrict__ part, T* __restrict__ dq, size_t n,
+                                 int ranges) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < ranges; ++c) s += part[(size_t)c * n + i];
+    dq[i] = from_float<T>(s);
+  }
+}
 
-size_t smem_bytes(int Tk, int D) {
-  return sizeof(float) * (2 * (size_t)Tk * D + 2 * (size_t)kRows * D + 2 * (size_t)kRows * Tk +
-                          (size_t)key_chunk(Tk, D) * (D + 1));
+int key_chunk(int KR, int D) { return std::max(1, std::min(KR, 4096 / (D + 1))); }
+
+// shared memory of a block whose range holds KR keys
+size_t smem_bytes(int KR, int D) {
+  return sizeof(float) * (2 * (size_t)KR * D + 2 * (size_t)kRows * D + 2 * (size_t)kRows * KR +
+                          (size_t)key_chunk(KR, D) * (D + 1));
+}
+
+// keys per range: Tk when the sums of every key fit a block, else the
+// largest multiple of 16 that fits
+int key_range(int Tk, int D) {
+  if (smem_bytes(Tk, D) <= kMaxSmem) return Tk;
+  for (int KR = (Tk - 1) / 16 * 16; KR > 0; KR -= 16)
+    if (smem_bytes(KR, D) <= kMaxSmem) return KR;
+  return 0;
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* bias, const void* mask, void* dq, void* dk,
-                   void* dv, void* dbias, void* dbias_part, int B, int H, int Tq, int Tk, int D,
-                   int chunks, float scale, int causal, cudaStream_t stream) {
+                   void* dv, void* dbias, void* dbias_part, void* dq_part, int B, int H, int Tq,
+                   int Tk, int D, int chunks, float scale, int causal, cudaStream_t stream) {
   const bool want_dbias = dbias != nullptr && bias != nullptr;
   const int per_chunk = (B + chunks - 1) / chunks;
   chunks = (B + per_chunk - 1) / per_chunk;   // no empty chunk
   float* part = nullptr;
   if (want_dbias) part = static_cast<float*>(chunks > 1 ? dbias_part : dbias);
+  const int KR = key_range(Tk, D);
+  if (KR == 0) return cudaErrorInvalidValue;
+  const int ranges = (Tk + KR - 1) / KR;
+  if (ranges > 1 && dq_part == nullptr) return cudaErrorInvalidValue;
 
-  const size_t smem = smem_bytes(Tk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(KR, D);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(bwd_rowmajor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, chunks);
-  bwd_rowmajor_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<const int8_t*>(mask),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), part, B, H, Tq, Tk, D,
-      key_chunk(Tk, D), per_chunk, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const dim3 grid(H, chunks, ranges);
+  for (int pass = ranges > 1 ? 1 : 0; pass <= (ranges > 1 ? 2 : 0); ++pass) {
+    bwd_rowmajor_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const __nv_bfloat16*>(bias), static_cast<const int8_t*>(mask),
+        static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), pass == 1 ? nullptr : part,
+        ranges > 1 ? static_cast<float*>(dq_part) : nullptr, B, H, Tq, Tk, D, KR,
+        key_chunk(KR, D), per_chunk, scale, causal, pass);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
+  const int threads = 256;
+  if (ranges > 1) {
+    const size_t n = (size_t)B * Tq * H * D;
+    const int blocks = (int)std::min<size_t>((n + threads - 1) / threads, 4096);
+    dq_reduce_kernel<T><<<blocks, threads, 0, stream>>>(static_cast<const float*>(dq_part),
+                                                       static_cast<T*>(dq), n, ranges);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   if (want_dbias && chunks > 1) {
     const size_t n = (size_t)H * Tq * Tk;
-    const int threads = 256;
     const int blocks = (int)std::min<size_t>((n + threads - 1) / threads, 4096);
     dbias_reduce_kernel<<<blocks, threads, 0, stream>>>(
         static_cast<const float*>(dbias_part), static_cast<float*>(dbias), n, chunks);
@@ -315,33 +380,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// Dynamic shared memory in bytes one block needs at (Tk, D); the kernel takes
-// shapes whose need is at most 232,448 (227 KB).
-extern "C" long long dense_attention_bwd_rowmajor_smem(int Tk, int D) {
-  return (long long)smem_bytes(Tk, D);
+// Keys per block range at (Tk, D): Tk where the fp32 dk/dv sums of every key
+// fit a block's 227 KB, else fewer; the caller then allocates the ranges'
+// fp32 scratch (see dense_attention_bwd_rowmajor). Shared
+// memory of such a block: dense_attention_bwd_rowmajor_smem(range, D).
+extern "C" int dense_attention_bwd_rowmajor_key_range(int Tk, int D) { return key_range(Tk, D); }
+
+extern "C" long long dense_attention_bwd_rowmajor_smem(int KR, int D) {
+  return (long long)smem_bytes(KR, D);
 }
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v, dout, dq, dk, dv share it).
 // lse is fp32 (B, H, Tq); bias is bf16 (H, Tq, Tk) or null; mask is int8
 // (B, Tk) or null. dbias is fp32 (H, Tq, Tk), or null when it is not wanted.
 // Scratch from the caller: dbias_part fp32 (chunks, H, Tq, Tk) when dbias is
-// wanted and chunks > 1. `chunks` splits the batch over blocks (see the
-// design note). causal needs Tq <= Tk (no row without a visible key).
+// wanted and chunks > 1; dq_part fp32 (ranges * (B * Tq * E + B * H * Tq))
+// when the keys are split into ranges: their dq partials, then their parts
+// of dd. `chunks` splits the batch over blocks (see the design
+// note). causal needs Tq <= Tk (no row without a visible key).
 extern "C" int dense_attention_bwd_rowmajor(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* bias,
                                             const void* mask, void* dq, void* dk, void* dv,
-                                            void* dbias, void* dbias_part, int B, int H, int Tq,
-                                            int Tk, int D, int chunks, float scale, int causal,
-                                            int dtype, void* stream) {
+                                            void* dbias, void* dbias_part, void* dq_part, int B,
+                                            int H, int Tq, int Tk, int D, int chunks, float scale,
+                                            int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunks < 1 || chunks > B || (causal && Tq > Tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<__nv_bfloat16>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part, B,
-                                H, Tq, Tk, D, chunks, scale, causal, s);
+    err = launch<__nv_bfloat16>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part,
+                                dq_part, B, H, Tq, Tk, D, chunks, scale, causal, s);
   } else if (dtype == 1) {
-    err = launch<float>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part, B, H, Tq,
-                        Tk, D, chunks, scale, causal, s);
+    err = launch<float>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part, dq_part, B,
+                        H, Tq, Tk, D, chunks, scale, causal, s);
   } else {
     err = cudaErrorInvalidValue;
   }

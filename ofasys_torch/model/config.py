@@ -145,4 +145,7 @@ UNPORTED_DEFAULTS = {
     "sequence_parallel": (False, "Queue A item 13"),
     "modal_ffn": (False, "Queue A item 7"),
     "quant_training": ("none", "Queue A item 14"),
+    # per-layer activation checkpointing; torch.utils.checkpoint with the
+    # step's generator draws replayed comes with the parallelism item
+    "remat": ("none", "Queue A item 13"),
 }

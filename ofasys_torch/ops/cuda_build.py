@@ -3,7 +3,8 @@
 Each ``ofasys_torch/csrc/<name>.cu`` has a plain C interface. It is compiled
 with ``nvcc`` for ``sm_90a`` into ``ofasys_torch/_build/lib<name>.so`` at first
 use (or ahead of it, all sources in parallel, by :func:`build`) and loaded
-with ``ctypes``. A library newer than its source is reused.
+with ``ctypes``. A library newer than its source and the shared headers
+(``csrc/*.cuh``) is reused.
 """
 
 from __future__ import annotations
@@ -36,8 +37,13 @@ def _paths(name: str):
 
 
 def _fresh(name: str) -> bool:
+    """The library exists and is newer than its source and than every
+    shared header of ``csrc/`` (a changed ``.cuh`` rebuilds its users)."""
     src, lib = _paths(name)
-    return lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime
+    if not lib.exists():
+        return False
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return lib.stat().st_mtime >= newest
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

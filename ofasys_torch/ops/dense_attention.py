@@ -219,17 +219,20 @@ def _bind_bwd():
     from ofasys_torch.ops.cuda_build import load
 
     lib = load("dense_attention_bwd")
-    fn = lib.dense_attention_bwd
+    fn, key_range = lib.dense_attention_bwd, lib.dense_attention_bwd_key_range
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        key_range.argtypes = [ctypes.c_int, ctypes.c_int]
+        key_range.restype = ctypes.c_int
+    return fn, key_range
 
 
 def _batch_chunks(B: int, Tq: int, H: int, device: torch.device) -> int:
-    """How many chunks of the batch pass 1 of kernel B2 splits into: enough
-    blocks for about four per SM, each chunk's dbias partial summed after."""
+    """How many chunks of the batch pass 1 of B2's fp32 kernel splits into:
+    enough blocks for about four per SM, each chunk's dbias partial summed
+    after."""
     tiles = -(-Tq // 16) * H
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(B, -(-4 * sms // tiles)))
@@ -257,29 +260,42 @@ def dense_attention_bwd(
     (None without a bias or when ``want_dbias`` is False).
 
     CUDA tensors launch the kernel (counted in ``dense_attention_bwd.launches``,
-    one per call; the call runs the kernel's two passes and, when the batch
-    was split, the dbias reduction); CPU tensors run
-    :func:`dense_attention_bwd_reference`."""
+    one per call): bf16 the one-pass tensor-core kernel and, where they were
+    split, the reductions of the dq range partials and of the dbias chunk
+    partials; fp32 the two CUDA-core passes and the dbias reduction. CPU
+    tensors run :func:`dense_attention_bwd_reference`."""
     _check_bwd(q, k, v, do, lse, bias, mask, num_heads)
     B, Tq, E = q.shape
     Tk = k.shape[1]
     H = num_heads
     if not q.is_cuda:
         return dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H, want_dbias, scale)
-    fn = _bind_bwd()
+    fn, key_range = _bind_bwd()
     want_dbias = want_dbias and bias is not None
+    D = E // H
     with torch.cuda.device(q.device):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dd = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-        chunks = _batch_chunks(B, Tq, H, q.device)
+        dd = dq_part = None
+        if q.dtype == torch.bfloat16:
+            # one block of the tensor-core kernel per (key range, head, chunk
+            # of samples): enough chunks for one block on each SM
+            ranges = -(-Tk // key_range(Tk, D))
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            chunks = max(1, min(B, -(-sms // (H * ranges))))
+            if ranges > 1:      # the ranges' dq partials, then their parts of dd
+                dq_part = torch.empty(ranges * B * Tq * (E + H), dtype=torch.float32,
+                                      device=q.device)
+        else:
+            dd = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+            chunks = _batch_chunks(B, Tq, H, q.device)
         dbias = part = None
         if want_dbias:
             dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
             if chunks > 1:
                 part = torch.empty((chunks, H, Tq, Tk), dtype=torch.float32, device=q.device)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(bias), _ptr(mask),
-                 _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(dd), _ptr(part),
-                 B, H, Tq, Tk, E // H, chunks, float(scale), _DTYPE_CODE[q.dtype],
+                 _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(dd), _ptr(part), _ptr(dq_part),
+                 B, H, Tq, Tk, D, chunks, float(scale), _DTYPE_CODE[q.dtype],
                  ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"dense_attention_bwd: CUDA launch failed with error {err}")
@@ -297,14 +313,16 @@ def _bind_bwd_rowmajor():
     from ofasys_torch.ops.cuda_build import load
 
     lib = load("dense_attention_bwd_rowmajor")
-    fn, smem = lib.dense_attention_bwd_rowmajor, lib.dense_attention_bwd_rowmajor_smem
+    fn = lib.dense_attention_bwd_rowmajor
+    key_range, smem = lib.dense_attention_bwd_rowmajor_key_range, lib.dense_attention_bwd_rowmajor_smem
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        key_range.argtypes = smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        key_range.restype = ctypes.c_int
         smem.restype = ctypes.c_longlong
-    return fn, smem
+    return fn, key_range, smem
 
 
 def dense_attention_bwd_rowmajor(
@@ -319,10 +337,9 @@ def dense_attention_bwd_rowmajor(
 
     CUDA tensors launch the kernel (counted in
     ``dense_attention_bwd_rowmajor.launches``, one per call; the call runs
-    the kernel and, when the batch was split, the dbias reduction) or raise
-    where the dk and dv sums of one (sample, head) do not fit a block's
-    shared memory; CPU tensors run
-    :func:`dense_attention_bwd_rowmajor_reference`."""
+    the kernel and, where they were split, the reductions of the dq partials
+    of the key ranges and of the dbias partials of the batch chunks); CPU
+    tensors run :func:`dense_attention_bwd_rowmajor_reference`."""
     _check_bwd(q, k, v, do, lse, bias, mask, num_heads, causal)
     B, Tq, E = q.shape
     Tk = k.shape[1]
@@ -330,26 +347,28 @@ def dense_attention_bwd_rowmajor(
     if not q.is_cuda:
         return dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias, mask, H, scale,
                                                       causal, want_dbias)
-    fn, smem = _bind_bwd_rowmajor()
-    need = smem(Tk, E // H)
-    if need > _MAX_BLOCK_SMEM:
-        raise ValueError(f"dense_attention_bwd_rowmajor: Tk={Tk} D={E // H} needs {need} bytes of "
-                         f"shared memory a block, over the {_MAX_BLOCK_SMEM} the card allows")
+    fn, key_range, smem = _bind_bwd_rowmajor()
+    D = E // H
+    kr = key_range(Tk, D)
+    ranges = -(-Tk // kr)
     want_dbias = want_dbias and bias is not None
     with torch.cuda.device(q.device):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        # one block per (head, chunk of samples): enough chunks to fill the
-        # SMs with as many blocks as their shared memory holds (at most 4)
+        # one block per (head, chunk of samples, range of keys): enough chunks
+        # to fill the SMs with as many blocks as their shared memory holds (at most 4)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        chunks = max(1, min(B, min(4, _MAX_BLOCK_SMEM // need) * sms // H))
-        dbias = part = None
+        per_sm = min(4, _MAX_BLOCK_SMEM // smem(kr, D))
+        chunks = max(1, min(B, per_sm * sms // (H * ranges)))
+        dbias = part = dq_part = None
         if want_dbias:
             dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
             if chunks > 1:
                 part = torch.empty((chunks, H, Tq, Tk), dtype=torch.float32, device=q.device)
+        if ranges > 1:          # the ranges' dq partials, then their parts of dd
+            dq_part = torch.empty(ranges * B * Tq * (E + H), dtype=torch.float32, device=q.device)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(bias), _ptr(mask),
-                 _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(part),
-                 B, H, Tq, Tk, E // H, chunks, float(scale), int(causal), _DTYPE_CODE[q.dtype],
+                 _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(part), _ptr(dq_part),
+                 B, H, Tq, Tk, D, chunks, float(scale), int(causal), _DTYPE_CODE[q.dtype],
                  ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"dense_attention_bwd_rowmajor: CUDA launch failed with error {err}")

@@ -141,3 +141,34 @@ def test_wrapper_rejects_bad_inputs(bad):
         q = torch.zeros(B, H * D, T).transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
         tdense.dense_attention_fwd(q, k, k.clone(), bias, mask, H)
+
+
+# the head dims and ragged shapes the tensor-core kernel's edge logic exists
+# for: D = 88 (the 10b arch; not a multiple of 16), D = 128, Tq != Tk with
+# neither a multiple of 16, and a batch of one
+WIDE_CASES = [(2, 40, 40, 2, 88), (1, 24, 72, 2, 128), (3, 40, 200, 2, 64), (2, 21, 37, 3, 88)]
+WIDE_IDS = ["D88", "D128_cross", "ragged_cross", "D88_ragged"]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=WIDE_IDS)
+def test_fwd_at_wide_heads_and_ragged_shapes_matches_fwd_call(dtype, causal, case):
+    """B1's plain version against the Pallas forward in interpret mode at the
+    shapes above, with a bias, a mask and scale 0.125 inside. Tolerances as
+    the module's: out 1e-5 (fp32) or 2e-2 (bf16, p rounded at another
+    point), lse 1e-5 (fp32) or 1e-4 (bf16)."""
+    B, Tq, Tk, H, D = case
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, bias, mask = _inputs(B, Tq, Tk, H, D, True, True, seed=2)
+    E = H * D
+    q3, k3, v3 = (a.reshape(a.shape[0], a.shape[1], E) for a in (q, k, v))
+    mf = mask.reshape(B, 1, Tk).astype(np.int8)
+    jout, jlse = jdense._fwd_call(_jax(q3, jdt), _jax(k3, jdt), _jax(v3, jdt),
+                                  jnp.asarray(bias[0]).astype(jnp.bfloat16), jnp.asarray(mf),
+                                  0.125, causal, H)
+    tout, tlse = tdense.dense_attention_fwd(_torch(q3, tdt), _torch(k3, tdt), _torch(v3, tdt),
+                                            torch.from_numpy(bias[0]).to(torch.bfloat16),
+                                            torch.from_numpy(mf), H, 0.125, causal)
+    np.testing.assert_allclose(_f32(tout), _f32(jout), rtol=0, atol=OUT_ATOL[dtype])
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[..., 0], rtol=0, atol=LSE_ATOL[dtype])

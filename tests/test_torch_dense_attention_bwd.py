@@ -190,3 +190,41 @@ def test_bwd_wrapper_rejects_bad_inputs(bad):
         lse = lse.double()
     with pytest.raises((TypeError, ValueError)):
         tdense.dense_attention_bwd(q, q.clone(), q.clone(), do, lse, None, None, H)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", [(2, 40, 40, 2, 88), (1, 24, 72, 2, 128), (3, 40, 200, 2, 64),
+                                  (2, 21, 37, 3, 88)],
+                         ids=["D88", "D128_cross", "ragged_cross", "D88_ragged"])
+def test_bwd_at_wide_heads_and_ragged_shapes_matches_pallas(dtype, case):
+    """B2's plain version against ``_backward_t`` in interpret mode at the
+    head dims and ragged shapes the tensor-core kernel's edge logic exists
+    for (D = 88 and 128, Tq != Tk, no multiple of 16), with a bias and a
+    mask. Tolerances as RTOL: fp32 1e-5 of max|ref|; bf16 dq, dk, dv 1e-2,
+    dbias 1e-4."""
+    B, Tq, Tk, h, d = case
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(3)
+    E = h * d
+    q = (0.2 * rng.standard_normal((B, Tq, E))).astype(np.float32)
+    k, v = (rng.standard_normal((B, Tk, E)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((B, Tq, E)).astype(np.float32)
+    bias = (0.5 * rng.standard_normal((h, Tq, Tk))).astype(np.float32)
+    keep = rng.random((B, Tk)) > 0.25
+    keep[:, 0] = True
+    mask = keep[:, None, :].astype(np.int8)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jdt) for a in (q, k, v, do))
+    jbias = jnp.asarray(bias).astype(jnp.bfloat16)
+    _, lse = jdense._fwd_call(jq, jk, jv, jbias, jnp.asarray(mask), 1.0, False, h)
+    ref = jdense._backward_t(jq, jk, jv, jnp.swapaxes(jbias, 1, 2), jnp.asarray(mask), lse, jdo,
+                             1.0, h)
+
+    def t(a, dt=tdt):
+        return torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32))).to(dt)
+
+    got = tdense.dense_attention_bwd(t(jq), t(jk), t(jv), t(jdo),
+                                     torch.from_numpy(np.array(lse)[..., 0]),
+                                     t(jbias, torch.bfloat16), torch.from_numpy(mask), h)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert g.shape == r.shape
+        _assert_close(name, g, r, RTOL[dtype][name])

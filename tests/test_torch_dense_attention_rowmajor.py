@@ -221,3 +221,37 @@ def test_causal_needs_a_visible_key_in_every_row():
     with pytest.raises(ValueError, match="causal"):
         tdense.dense_attention_bwd_rowmajor(q, k, k.clone(), q.clone(), torch.zeros(1, H, 8),
                                             None, None, H, 1.0, True)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_rowmajor_bwd_at_wide_heads_matches_pallas_backward(dtype, causal):
+    """D = 128 at Tk = 256 (B = 1, H = 1): the shape whose dk/dv sums do not
+    fit one block on the card, so the kernel splits the keys into ranges.
+    B2r's plain version against ``_backward`` in interpret mode, with a
+    bias, a mask and the scale inside; tolerances as RTOL (bf16: one bf16
+    ulp of max|ref| for dq, dk, dv, 1e-3 for dbias; fp32 1e-5)."""
+    rng = np.random.default_rng(6)
+    B, T, h, d, scale = 1, 256, 1, 128, 128 ** -0.5
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, do = (rng.standard_normal((B, T, h * d)).astype(np.float32) for _ in range(4))
+    q = q * (0.2 / scale)
+    bias = (0.5 * rng.standard_normal((h, T, T))).astype(np.float32)
+    keep = rng.random((B, T)) > 0.25
+    keep[:, 0] = True
+    mask = keep[:, None, :].astype(np.int8)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jdt) for a in (q, k, v, do))
+    jbias = jnp.asarray(bias).astype(jnp.bfloat16)
+    _, lse = jdense._fwd_call(jq, jk, jv, jbias, jnp.asarray(mask), scale, causal, h)
+    ref = jdense._backward(jq, jk, jv, jbias, jnp.asarray(mask), lse, jdo, scale, causal, h)
+
+    def t(a, dt=tdt):
+        return torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32))).to(dt)
+
+    got = tdense.dense_attention_bwd_rowmajor(t(jq), t(jk), t(jv), t(jdo),
+                                              torch.from_numpy(np.array(lse)[..., 0]),
+                                              t(jbias, torch.bfloat16), torch.from_numpy(mask), h,
+                                              scale, causal)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert g.shape == r.shape
+        _assert_close(name, g, r, RTOL[dtype][name])

@@ -14,8 +14,9 @@ Tolerances (bf16), for q scaled as the model scales it:
     Frobenius and 1e-2 max (2.5 bf16 ulps of the largest entry). dbias and
     ds are fp32 sums of unrounded ds: DS_TOL, 1e-3 on both;
   * B2r (row-major backward) and B1 with ``scale`` and ``causal`` inside:
-    as B2 and B1, q unscaled and the scale given to the kernel; dbias of B2r
-    is the same bits run to run (partial sums reduced in a fixed order);
+    as B2 and B1, q unscaled and the scale given to the kernel; B2 and B2r
+    give the same bits run to run (partial sums reduced in a fixed order);
+  * fp32 tensors (B1's and B2's CUDA-core kernels): 1e-4 on every measure;
   * B3 (flash attention): as B1;
   * B7 (int8 GEMM): equal to its plain version bit for bit (an exact
     integer product and the same two fp32 products);
@@ -230,16 +231,99 @@ def test_dense_attention_entry_chooses_its_backward_on_card(monkeypatch, causal,
     assert ok, ("dbias", errs)
 
 
+# (B, Tq, Tk, H, D, causal): the head dims where the dk/dv sums of a whole
+# (b, h) do not fit a block, so the keys are split into ranges with dq
+# partials (D = 128 at Tk = 256; the 10b arch's D = 88 at Tk = 255)
+WIDE_ROWMAJOR = [(2, 256, 256, 2, 128, False), (2, 256, 256, 2, 128, True),
+                 (2, 255, 255, 2, 88, False), (2, 200, 255, 2, 88, True)]
+
+
 @pytest.mark.cuda
-def test_rowmajor_refuses_accumulators_that_do_not_fit():
-    """Tk = 256 at D = 128 needs 2 * 256 * 128 fp32 of dk and dv sums, over
-    the 227 KB a block can hold: the wrapper raises on the card."""
+@pytest.mark.parametrize("case", WIDE_ROWMAJOR, ids=["D128", "D128_causal", "D88_Tk255",
+                                                     "D88_Tk255_causal"])
+def test_rowmajor_splits_keys_at_wide_heads_on_card(case):
+    """B2r at shapes whose accumulators exceed one block's 227 KB: it runs
+    (key ranges, dq partials summed in order) and matches its plain version
+    within GRAD_TOL and DS_TOL, the same bits twice."""
     _need_card()
-    B, T, H, D = 2, 256, 2, 128
-    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, T, T, H, D)
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
+    _, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    got = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    ref = tdense.dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias, mask, H, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        ok, errs = _grad_close(a, b, DS_TOL if name == "dbias" else GRAD_TOL)
+        assert ok, (name, errs)
+    again = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ------------------------------------- B1 and B2 on the tensor cores (bf16)
+# (B, Tq, Tk, H, D): head dims that are no multiple of 16 (88) or take more
+# shared memory (128, 256: B2 splits the keys into ranges there), ragged
+# Tq != Tk, a batch of one and Tk = 256
+TC_SHAPES = [(4, 96, 96, 8, 88), (2, 150, 256, 4, 128), (2, 64, 100, 2, 256), (3, 40, 200, 12, 64),
+             (1, 64, 64, 12, 64), (2, 256, 256, 12, 64), (3, 21, 37, 4, 40)]
+TC_IDS = ["D88", "D128_Tk256", "D256", "ragged_cross", "B1", "T256", "D40_ragged"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=TC_IDS)
+def test_fwd_kernel_at_wide_heads_and_ragged_shapes_on_card(shape, causal):
+    """B1 (bf16, tensor cores) against its plain version: out atol 2e-2,
+    lse atol 1e-3, with the scale and (when asked) the causal mask inside."""
+    _need_card()
+    B, Tq, Tk, H, D = shape
+    q, k, v, bias, mask, _, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
+    out, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = tdense.dense_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=TC_IDS)
+def test_bwd_kernel_at_wide_heads_and_ragged_shapes_on_card(shape):
+    """B2 (bf16, tensor cores) against its plain version within GRAD_TOL and
+    DS_TOL, with the scale inside; the same bits twice (no atomics)."""
+    _need_card()
+    B, Tq, Tk, H, D = shape
+    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
     _, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale)
-    with pytest.raises(ValueError, match="shared memory"):
-        tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, False)
+    got = tdense.dense_attention_bwd(q, k, v, do, lse, bias, mask, H, scale=scale)
+    torch.cuda.synchronize()
+    ref = tdense.dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H, scale=scale)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        ok, errs = _grad_close(a, b, DS_TOL if name == "dbias" else GRAD_TOL)
+        assert ok, (name, errs)
+    again = tdense.dense_attention_bwd(q, k, v, do, lse, bias, mask, H, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_fp32_tensors_take_the_cuda_core_kernels_on_card():
+    """fp32 CUDA tensors (off the model's path) run B1's and B2's fp32
+    kernels, counted in the same launches, within fp32 tolerances."""
+    _need_card()
+    B, Tq, Tk, H, D = 3, 40, 72, 4, 64
+    q, k, v, bias, mask, do = (t.float() if t.dtype == torch.bfloat16 else t
+                               for t in _inputs(B, Tq, Tk, H, D))
+    bias = bias.to(torch.bfloat16)
+    f0, b0 = tdense.dense_attention_fwd.launches, tdense.dense_attention_bwd.launches
+    out, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H)
+    got = tdense.dense_attention_bwd(q, k, v, do, lse, bias, mask, H)
+    torch.cuda.synchronize()
+    assert (tdense.dense_attention_fwd.launches - f0, tdense.dense_attention_bwd.launches - b0) == (1, 1)
+    ref, ref_lse = tdense.dense_attention_fwd_reference(q, k, v, bias, mask, H)
+    assert out.dtype == torch.float32 and (out - ref).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got,
+                          tdense.dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H)):
+        ok, errs = _grad_close(a, b, (1e-4, 1e-4))
+        assert ok, (name, errs)
 
 
 # ------------------------------------------------- flash attention (B3-B5)

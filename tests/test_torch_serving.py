@@ -231,3 +231,13 @@ def test_vocab_growth_after_init_raises():
 def test_unported_generation_options_raise(env, opt):
     with pytest.raises(NotImplementedError):
         env["hub"].inference(TPL, {"src": "x"}, **opt)
+
+
+@pytest.mark.parametrize("mode", ["full", "dots"])
+def test_remat_is_refused_until_ported(mode):
+    """``remat`` (per-layer checkpointing in ofasys_tpu) changes memory, not
+    values; the port has no counterpart yet, so a non-default value raises
+    and names the item it waits for instead of being ignored."""
+    m = GeneralistModel(arch="tiny", remat=mode)
+    with pytest.raises(NotImplementedError, match=r"remat=.*Queue A item 13"):
+        m.initialize(Dictionary(), active_adaptors=("text",), device="cpu")
