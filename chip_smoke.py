@@ -60,13 +60,15 @@ Phases, in order; any failure exits non-zero:
      (GRAD_FROB_TOL), the step time beside train_mm's
 The kernel phase also holds kernels B3, B4 and B5 against their plain
 versions at every shape of the long paths, a per-(b, h) bias, a causal and
-a ragged shape, B7 at serve_int8's shapes and B6 at the train mix's; B2r
-beside B2 at every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1,
-head dims 88, 128 and 256), B2 run twice for equal bits and with a planted
-key-tile fault, and B1 and B2r (and B2) with the scale and the causal mask
-inside the kernel at a decoder shape and at a shape with Tq < Tk (the
-causal offset), with two planted faults. The build phase logs ptxas's
-registers and spills of every kernel.
+a ragged shape, B3 alone at FLASH_EDGE_SHAPES (head dims 88, 128 and 256, a
+batch of one, ragged Tq != Tk), B3 run twice for equal bits and with a
+planted key-tile fault at every shape, B7 at serve_int8's shapes and B6 at
+the train mix's; B2r beside B2 at every training shape and at EDGE_SHAPES
+(ragged Tq != Tk, B=1, head dims 88, 128 and 256), B2 and B2r each run
+twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
+B2) with the scale and the causal mask inside the kernel at a decoder shape
+and at a shape with Tq < Tk (the causal offset), with two planted faults.
+The build phase logs ptxas's registers and spills of every kernel.
 Prints a ``{"kernels": [...]}`` line, then, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX or ofasys_tpu. Exits non-zero without CUDA.
@@ -210,6 +212,15 @@ EDGE_SHAPES = [("ragged_cross", (3, 24, 200, 12, 64), False), ("ragged_40_200", 
                ("B1", (1, 64, 64, 12, 64), False), ("patches_196", (64, 196, 196, 12, 64), False),
                ("D88", (8, 96, 96, 32, 88), False), ("D128_T256", (4, 256, 256, 8, 128), False),
                ("D256", (4, 64, 100, 16, 256), False)]
+# kernel B3's shapes beyond the long paths' own (B, Tq, Tk, H, D), causal:
+# head dims where the tensor-core kernel pads D (88) or takes its other
+# tiles (128; 256 with 32-key tiles), with H * D <= 4096, a batch of one at
+# T = 1,000, and ragged Tq != Tk with Tk no multiple of the 64-key tile
+FLASH_EDGE_SHAPES = [("flash_D88", (2, 300, 333, 32, 88), False),
+                     ("flash_D128", (4, 300, 300, 16, 128), False),
+                     ("flash_D256_causal", (2, 290, 290, 16, 256), True),
+                     ("flash_B1", (1, 1000, 1000, 12, 64), False),
+                     ("flash_ragged", (3, 200, 333, 12, 64), False)]
 
 N_UPDATES = 5
 TRAIN_LR = 1e-4
@@ -496,19 +507,21 @@ def check_bwd(label, shape, causal=False):
             f"{'ok' if ok and same else 'FAIL'}")
         if not ok or not same:
             raise SystemExit(f"{name} disagrees with its plain version at {label}")
-    # planted fault: B2 with one key tile's p and dS left out (those keys
-    # masked, the lse of the full forward kept) must fail the limits on dq,
-    # dk, dv and dbias
+    # planted fault: each kernel with one key tile's p and dS left out
+    # (those keys masked, the lse of the full forward kept) must fail the
+    # limits on dq, dk, dv and dbias
     lo, hi = min(64, Tk // 2), min(128, Tk)
     hidden = mask.clone()
     hidden[:, :, lo:hi] = 0
-    ferrs, _ = grad_errors(dense_attention_bwd(q, k, v, do, lse, bias, hidden, H), ref, False)
-    caught = [n for n, e in ferrs.items() if not e["ok"]]
-    log(f"  planted fault B2 with keys {lo}-{hi - 1} left out: "
-        + " ".join(f"{n} frob {e['frob']:.2e} max {e['max_rel']:.2e}" for n, e in ferrs.items())
-        + f" -> fails the limits for {caught} of {list(ferrs)}")
-    if caught != list(ferrs):
-        raise SystemExit(f"{label}: the gradient limits pass B2 with a key tile left out")
+    for name, fn in (("B2", dense_attention_bwd), ("B2r", dense_attention_bwd_rowmajor)):
+        extra = () if name == "B2" else (1.0, False)
+        ferrs, _ = grad_errors(fn(q, k, v, do, lse, bias, hidden, H, *extra), ref, False)
+        caught = [n for n, e in ferrs.items() if not e["ok"]]
+        log(f"  planted fault {name} with keys {lo}-{hi - 1} left out: "
+            + " ".join(f"{n} frob {e['frob']:.2e} max {e['max_rel']:.2e}" for n, e in ferrs.items())
+            + f" -> fails the limits for {caught} of {list(ferrs)}")
+        if caught != list(ferrs):
+            raise SystemExit(f"{label}: the gradient limits pass {name} with a key tile left out")
     q4, k4, v4, add = _sdpa_args(q, k, v, bias, mask, H, D, grad=True)
     do4 = do.view(B, Tq, H, D).transpose(1, 2)
     kernel_ms = {name: time_ms(fn, n=20) for name, fn in kernels.items()}
@@ -798,10 +811,26 @@ def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_f
     err_out = (out.float() - ref.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     ok = bool(torch.isfinite(out.float()).all()) and err_out <= OUT_ATOL and err_lse <= LSE_ATOL
+    again = fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
     log(f"kernel flash_attention_fwd {tag}: max|out-plain|={err_out:.3e} (atol {OUT_ATOL}) "
-        f"max|lse-plain|={err_lse:.3e} (atol {LSE_ATOL}) -> {'ok' if ok else 'FAIL'}")
-    if not ok:
+        f"max|lse-plain|={err_lse:.3e} (atol {LSE_ATOL}), the same bits twice: {same} "
+        f"-> {'ok' if ok and same else 'FAIL'}")
+    if not ok or not same:
         raise SystemExit(f"flash_attention_fwd disagrees with its plain version at {label}")
+    # planted fault: the kernel with keys 64-127 left out (a skipped key
+    # tile) must fail the out or the lse limit
+    hidden = mask.clone()
+    hidden[:, :, 64:128] = 0
+    f_out, f_lse = fl.flash_attention_fwd(q, k, v, bias, hidden, H, scale, causal)
+    f_err_out = (f_out.float() - ref.float()).abs().max().item()
+    f_err_lse = (f_lse - ref_lse).abs().max().item()
+    caught = f_err_out > OUT_ATOL or f_err_lse > LSE_ATOL
+    log(f"  planted fault keys 64-127 left out: max|out-plain|={f_err_out:.3e} "
+        f"max|lse-plain|={f_err_lse:.3e} -> {'fails the limits' if caught else 'PASSES the limits'}")
+    if not caught:
+        raise SystemExit(f"{label}: the out/lse limits pass B3 with a key tile left out")
+    del again, hidden, f_out, f_lse
     bounds = _flash_bounds(B, Tq, Tk, H, D, nb, causal)
     rows = {}
 
@@ -881,8 +910,8 @@ def phase_flash_kernels(serve_shapes, train_shapes):
     [(label, (B, T))]); B3, B4 and B5 at every flash call of the long
     training update (``train_shapes``: [(label, (B, Tq, Tk), causal)]), at
     a per-(b, h) bias (the dq kernel's ds) and at a ragged shape whose keys
-    are not a multiple of the 64-key tile. Base arch H=12, D=64. Returns
-    {kernel name: [rows]}."""
+    are not a multiple of the 64-key tile, all at the base arch's H=12,
+    D=64; B3 alone at FLASH_EDGE_SHAPES. Returns {kernel name: [rows]}."""
     rows = {name: [] for name in KERNELS if name.startswith("flash")}
 
     def add(r):
@@ -894,6 +923,8 @@ def phase_flash_kernels(serve_shapes, train_shapes):
     extra = [("per_bh_causal", (2, 300, 300), True, True), ("ragged", (2, 300, 333), False, False)]
     for label, (B, Tq, Tk), causal, per_bh in [s + (False,) for s in train_shapes] + extra:
         add(check_flash(label, (B, Tq, Tk, 12, 64), causal, per_bh, plant_faults=True))
+    for label, shape, causal in FLASH_EDGE_SHAPES:
+        add(check_flash(label, shape, causal, backward=False))
     return rows
 
 

@@ -1,5 +1,5 @@
-// Dense (whole-row) attention backward in one pass per (sample, head), with
-// the scale and the causal mask inside the kernel. Hopper (sm_90a).
+// Dense (whole-row) attention backward with the scale and the causal mask
+// inside the kernel. Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of
 // ofasys_tpu/ops/pallas_dense_attention.py (kernel B2r, the row-major
@@ -22,38 +22,39 @@
 //
 // What bounds it on the H100: the same bytes and operations as kernel B2
 // (dense_attention_bwd.cu). At the caption encoder's training shape B = 64,
-// T = 196, E = 768, H = 12 it must move about 138 MB (q, k, v, do, dq, dk,
-// dv in bf16, lse, bias, mask, fp32 dbias), 0.041 ms at 3.35 TB/s, and do
-// 18.9 GFLOP (10 B Tq Tk E), 0.019 ms at 989 TFLOP/s: bound by bytes. This
-// first version runs its products on the CUDA cores in fp32 and is bound by
-// shared-memory FMAs; tensor cores and TMA staging are later work.
+// T = 228, E = 768, H = 12 it must move about 161 MB (q, k, v, do, dq, dk,
+// dv in bf16, lse, bias, mask, fp32 dbias), 0.048 ms at 3.35 TB/s, and do
+// 25.5 GFLOP (10 B Tq Tk E), 0.026 ms at 989 TFLOP/s: bound by bytes; under
+// causal about half the operations and bias.
 //
-// Design. The TPU kernel is one program per sample that walks the heads and
-// carries dbias in VMEM from one sample to the next. Hopper blocks run in no
-// order, and dk and dv of one (b, h) sum over every query row. So:
+// Design (bf16, the model's dtype): B2's tensor-core kernel
+// (dense_attention_bwd_mma.cuh) with the causal mask switched on where the
+// call asks for it. The TPU kernel is one program per sample that walks the
+// heads and carries dbias in VMEM; here one block of 8 warps per (range of
+// keys, head, chunk of samples) walks its samples in order, keeps the fp32
+// dK and dV sums of its keys in shared memory and walks the query rows 32
+// at a time: S and dP on the tensor cores, dd summed across warps in a fixed
+// order, round(p) and round(ds * scale) straight from the accumulators into
+// the dV, dK and dQ products, dbias through per-chunk partials summed in
+// chunk order. Under causal a (32 query rows, 16 keys) pair wholly above the
+// diagonal is neither computed nor read, and only tiles that cross a row's
+// diagonal mask element by element. Wide heads split the keys into ranges
+// with a dd pre-pass and ordered dq partials, at B2's thresholds (the bf16
+// shared-memory budget). No atomics: the same bits run to run.
+//
+// The fp32 instantiation (not on the model's path: the model runs bf16 on
+// the card) keeps the first CUDA-core design:
 //   * one block per (head, chunk of samples); it walks its samples in order.
 //   * for each sample it keeps the fp32 dk and dv sums of its keys,
-//     2 * Tk * D floats, in shared memory (128 KB at Tk = 256, D = 64: under
-//     the opt-in limit of 227 KB) while it walks the query-row tiles, so the
-//     scores of a (b, h) are recomputed once, where B2's fp32 kernel
-//     recomputes them in two passes.
+//     2 * Tk * D floats, in shared memory while it walks the query-row
+//     tiles of 16 rows, so the scores of a (b, h) are recomputed once.
 //   * where the sums of every key do not fit (D = 88 from Tk = 247, D = 128
-//     from Tk = 174, D = 256 from Tk = 85), the keys are split into ranges of KR keys (a multiple
-//     of 16; dense_attention_bwd_rowmajor_key_range), one block per (range,
-//     head, chunk of samples). dd, a sum over every key, then takes a first
-//     pass that writes each range's part of it; the second pass sums the
-//     parts in range order, each range writes a partial dq (fp32, device
-//     memory), and a last kernel sums the partials in range order and
-//     rounds once.
+//     from Tk = 174, D = 256 from Tk = 85), the keys are split into ranges
+//     of KR keys, one block per (range, head, chunk of samples), with a dd
+//     pre-pass and fp32 dq partials summed in range order.
 //   * under causal, a row tile computes only the keys up to its last row's
-//     diagonal; the keys beyond are skipped, not computed and masked (their
-//     p is exactly 0 in the reference too), and their dbias is written as 0.
-//   * dbias without atomics: the block adds each sample's ds into its own
-//     (Tq, Tk) slice of a per-chunk partial in device memory (the first
-//     sample stores, the rest add; the slice stays in the 50 MB L2), and a
-//     second kernel sums the partials in chunk order. With one chunk the
-//     block writes dbias itself. Every sum has a fixed order: the same bits
-//     run to run.
+//     diagonal and writes the dbias of the keys beyond as 0.
+//   * dbias through per-chunk partials, summed in chunk order.
 // Operand rows are staged in shared memory as fp32; K and V chunks with row
 // stride D + 1, so the threads of a warp walking down keys hit distinct banks.
 //
@@ -67,6 +68,8 @@
 
 #include <algorithm>
 
+#include "dense_attention_bwd_mma.cuh"
+
 namespace {
 
 constexpr int kRows = 16;       // query rows per tile
@@ -75,20 +78,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr float kMaskValue = -1e9f;
 constexpr size_t kMaxSmem = 232448;   // 227 KB, the opt-in limit of a block
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to the storage dtype and back
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
@@ -96,12 +85,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // dst[r * ld + d] = rows [0, n) of a head slice starting at src[base] in a
 // (rows, E) matrix, as fp32
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* __restrict__ src,
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
                                            size_t base, int n, int D, int E) {
   for (int i = threadIdx.x; i < n * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
-    dst[r * ld + d] = to_float(src[base + (size_t)r * E + d]);
+    dst[r * ld + d] = src[base + (size_t)r * E + d];
   }
 }
 
@@ -144,12 +132,12 @@ __device__ __forceinline__ void accumulate_cols(float* acc, const float* w, int 
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_rowmajor_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
+bwd_rowmajor_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse,
                     const __nv_bfloat16* __restrict__ bias, const int8_t* __restrict__ mask,
-                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                     float* __restrict__ dbias_part, float* __restrict__ dq_part, int B, int H,
                     int Tq, int Tk, int D, int KR, int kc, int per_chunk, float scale,
                     int causal, int pass) {
@@ -243,8 +231,8 @@ bwd_rowmajor_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           if (jj < nk) {
             const float p = sr[jj];
             ds = p * (pr[jj] - dd);
-            sr[jj] = round_to<T>(ds * scale);
-            pr[jj] = round_to<T>(p);
+            sr[jj] = ds * scale;
+            pr[jj] = p;
           }
           if (gr != nullptr) gr[jj] = (b == b_begin) ? ds : gr[jj] + ds;
         }
@@ -272,7 +260,7 @@ bwd_rowmajor_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (dq_part != nullptr)
           dq_part[(size_t)blockIdx.z * B * Tq * E + q_base + (size_t)r * E + d] = qs[i];
         else
-          dq[q_base + (size_t)r * E + d] = from_float<T>(qs[i]);
+          dq[q_base + (size_t)r * E + d] = qs[i];
       }
     }
 
@@ -280,31 +268,20 @@ bwd_rowmajor_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (pass == 1) continue;
     for (int i = tid; i < nr * D; i += kThreads) {
       const int j = i / D, d = i - j * D;
-      dk[kv_base + (size_t)j * E + d] = from_float<T>(dks[i]);
-      dv[kv_base + (size_t)j * E + d] = from_float<T>(dvs[i]);
+      dk[kv_base + (size_t)j * E + d] = dks[i];
+      dv[kv_base + (size_t)j * E + d] = dvs[i];
     }
   }
 }
 
-__global__ void dbias_reduce_kernel(const float* __restrict__ part, float* __restrict__ dbias,
-                                    size_t n, int chunks) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < chunks; ++c) s += part[(size_t)c * n + i];
-    dbias[i] = s;
-  }
-}
-
-// dq = the key ranges' partial sums in range order, rounded once
-template <typename T>
-__global__ void dq_reduce_kernel(const float* __restrict__ part, T* __restrict__ dq, size_t n,
+// dq = the key ranges' partial sums in range order (fp32 kernel)
+__global__ void dq_reduce_kernel(const float* __restrict__ part, float* __restrict__ dq, size_t n,
                                  int ranges) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int c = 0; c < ranges; ++c) s += part[(size_t)c * n + i];
-    dq[i] = from_float<T>(s);
+    dq[i] = s;
   }
 }
 
@@ -325,7 +302,6 @@ int key_range(int Tk, int D) {
   return 0;
 }
 
-template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* bias, const void* mask, void* dq, void* dk,
                    void* dv, void* dbias, void* dbias_part, void* dq_part, int B, int H, int Tq,
@@ -343,16 +319,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const size_t smem = smem_bytes(KR, D);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
-    err = cudaFuncSetAttribute(bwd_rowmajor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(bwd_rowmajor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, chunks, ranges);
   for (int pass = ranges > 1 ? 1 : 0; pass <= (ranges > 1 ? 2 : 0); ++pass) {
-    bwd_rowmajor_kernel<T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
+    bwd_rowmajor_kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
         static_cast<const __nv_bfloat16*>(bias), static_cast<const int8_t*>(mask),
-        static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), pass == 1 ? nullptr : part,
+        static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+        pass == 1 ? nullptr : part,
         ranges > 1 ? static_cast<float*>(dq_part) : nullptr, B, H, Tq, Tk, D, KR,
         key_chunk(KR, D), per_chunk, scale, causal, pass);
     err = cudaGetLastError();
@@ -363,15 +340,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if (ranges > 1) {
     const size_t n = (size_t)B * Tq * H * D;
     const int blocks = (int)std::min<size_t>((n + threads - 1) / threads, 4096);
-    dq_reduce_kernel<T><<<blocks, threads, 0, stream>>>(static_cast<const float*>(dq_part),
-                                                       static_cast<T*>(dq), n, ranges);
+    dq_reduce_kernel<<<blocks, threads, 0, stream>>>(static_cast<const float*>(dq_part),
+                                                    static_cast<float*>(dq), n, ranges);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (want_dbias && chunks > 1) {
     const size_t n = (size_t)H * Tq * Tk;
     const int blocks = (int)std::min<size_t>((n + threads - 1) / threads, 4096);
-    dbias_reduce_kernel<<<blocks, threads, 0, stream>>>(
+    dense_bwd_mma::dbias_reduce_kernel<<<blocks, threads, 0, stream>>>(
         static_cast<const float*>(dbias_part), static_cast<float*>(dbias), n, chunks);
     err = cudaGetLastError();
   }
@@ -380,24 +357,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// Keys per block range at (Tk, D): Tk where the fp32 dk/dv sums of every key
-// fit a block's 227 KB, else fewer; the caller then allocates the ranges'
-// fp32 scratch (see dense_attention_bwd_rowmajor). Shared
-// memory of such a block: dense_attention_bwd_rowmajor_smem(range, D).
-extern "C" int dense_attention_bwd_rowmajor_key_range(int Tk, int D) { return key_range(Tk, D); }
+// Keys per block range at (Tk, D) of the bf16 (dtype 0) or fp32 (dtype 1)
+// kernel: Tk where the fp32 dk/dv sums of every key fit a block's 227 KB,
+// else fewer; the caller then allocates the ranges' fp32 scratch (see
+// dense_attention_bwd_rowmajor). Shared memory of an fp32 block:
+// dense_attention_bwd_rowmajor_smem(range, D).
+extern "C" int dense_attention_bwd_rowmajor_key_range(int Tk, int D, int dtype) {
+  return dtype == 0 ? dense_bwd_mma::key_range(Tk, D) : key_range(Tk, D);
+}
 
 extern "C" long long dense_attention_bwd_rowmajor_smem(int KR, int D) {
   return (long long)smem_bytes(KR, D);
 }
 
-// dtype: 0 = bfloat16, 1 = float32 (q, k, v, dout, dq, dk, dv share it).
-// lse is fp32 (B, H, Tq); bias is bf16 (H, Tq, Tk) or null; mask is int8
-// (B, Tk) or null. dbias is fp32 (H, Tq, Tk), or null when it is not wanted.
-// Scratch from the caller: dbias_part fp32 (chunks, H, Tq, Tk) when dbias is
-// wanted and chunks > 1; dq_part fp32 (ranges * (B * Tq * E + B * H * Tq))
-// when the keys are split into ranges: their dq partials, then their parts
-// of dd. `chunks` splits the batch over blocks (see the design
-// note). causal needs Tq <= Tk (no row without a visible key).
+// dtype: 0 = bfloat16 (the tensor-core kernel), 1 = float32 (the CUDA-core
+// kernel); q, k, v, dout, dq, dk, dv share it. lse is fp32 (B, H, Tq); bias
+// is bf16 (H, Tq, Tk) or null; mask is int8 (B, Tk) or null. dbias is fp32
+// (H, Tq, Tk), or null when it is not wanted. Scratch from the caller:
+// dbias_part fp32 (chunks, H, Tq, Tk) when dbias is wanted and chunks > 1;
+// dq_part fp32 (ranges * (B * Tq * E + B * H * Tq)) when the keys are split
+// into ranges: their dq partials, then their parts of dd. `chunks` splits
+// the batch over blocks (see the design note). causal needs Tq <= Tk (no
+// row without a visible key).
 extern "C" int dense_attention_bwd_rowmajor(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* bias,
                                             const void* mask, void* dq, void* dk, void* dv,
@@ -408,10 +389,14 @@ extern "C" int dense_attention_bwd_rowmajor(const void* q, const void* k, const 
   if (chunks < 1 || chunks > B || (causal && Tq > Tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<__nv_bfloat16>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part,
-                                dq_part, B, H, Tq, Tk, D, chunks, scale, causal, s);
+    err = causal ? dense_bwd_mma::launch<true>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias,
+                                               dbias_part, dq_part, B, H, Tq, Tk, D, chunks,
+                                               scale, s)
+                 : dense_bwd_mma::launch<false>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias,
+                                                dbias_part, dq_part, B, H, Tq, Tk, D, chunks,
+                                                scale, s);
   } else if (dtype == 1) {
-    err = launch<float>(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part, dq_part, B,
+    err = launch(q, k, v, dout, lse, bias, mask, dq, dk, dv, dbias, dbias_part, dq_part, B,
                         H, Tq, Tk, D, chunks, scale, causal, s);
   } else {
     err = cudaErrorInvalidValue;

@@ -319,7 +319,8 @@ def _bind_bwd_rowmajor():
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        key_range.argtypes = smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        key_range.argtypes = [ctypes.c_int] * 3
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
         key_range.restype = ctypes.c_int
         smem.restype = ctypes.c_longlong
     return fn, key_range, smem
@@ -336,10 +337,12 @@ def dense_attention_bwd_rowmajor(
     ``want_dbias`` is False).
 
     CUDA tensors launch the kernel (counted in
-    ``dense_attention_bwd_rowmajor.launches``, one per call; the call runs
-    the kernel and, where they were split, the reductions of the dq partials
-    of the key ranges and of the dbias partials of the batch chunks); CPU
-    tensors run :func:`dense_attention_bwd_rowmajor_reference`."""
+    ``dense_attention_bwd_rowmajor.launches``, one per call): bf16 B2's
+    tensor-core kernel with the causal mask inside where ``causal`` asks for
+    it, fp32 the CUDA-core kernel; the call runs the kernel and, where they
+    were split, the reductions of the dq partials of the key ranges and of
+    the dbias partials of the batch chunks. CPU tensors run
+    :func:`dense_attention_bwd_rowmajor_reference`."""
     _check_bwd(q, k, v, do, lse, bias, mask, num_heads, causal)
     B, Tq, E = q.shape
     Tk = k.shape[1]
@@ -349,16 +352,21 @@ def dense_attention_bwd_rowmajor(
                                                       causal, want_dbias)
     fn, key_range, smem = _bind_bwd_rowmajor()
     D = E // H
-    kr = key_range(Tk, D)
+    dtype = _DTYPE_CODE[q.dtype]
+    kr = key_range(Tk, D, dtype)
     ranges = -(-Tk // kr)
     want_dbias = want_dbias and bias is not None
     with torch.cuda.device(q.device):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        # one block per (head, chunk of samples, range of keys): enough chunks
-        # to fill the SMs with as many blocks as their shared memory holds (at most 4)
+        # one block per (range of keys, head, chunk of samples): bf16 as B2,
+        # enough chunks for one block on each SM; fp32 enough to fill the SMs
+        # with as many blocks as their shared memory holds (at most 4)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        per_sm = min(4, _MAX_BLOCK_SMEM // smem(kr, D))
-        chunks = max(1, min(B, per_sm * sms // (H * ranges)))
+        if q.dtype == torch.bfloat16:
+            chunks = max(1, min(B, -(-sms // (H * ranges))))
+        else:
+            per_sm = min(4, _MAX_BLOCK_SMEM // smem(kr, D))
+            chunks = max(1, min(B, per_sm * sms // (H * ranges)))
         dbias = part = dq_part = None
         if want_dbias:
             dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
@@ -368,7 +376,7 @@ def dense_attention_bwd_rowmajor(
             dq_part = torch.empty(ranges * B * Tq * (E + H), dtype=torch.float32, device=q.device)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(bias), _ptr(mask),
                  _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(part), _ptr(dq_part),
-                 B, H, Tq, Tk, D, chunks, float(scale), int(causal), _DTYPE_CODE[q.dtype],
+                 B, H, Tq, Tk, D, chunks, float(scale), int(causal), dtype,
                  ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"dense_attention_bwd_rowmajor: CUDA launch failed with error {err}")

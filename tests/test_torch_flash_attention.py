@@ -56,16 +56,16 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(B, Tq, Tk, bias_kind, with_mask, seed=0):
-    """q, k, v, do (B, T, H*D) fp32; bias fp32 (H or B*H, Tq, Tk) or None;
+def _inputs(B, Tq, Tk, bias_kind, with_mask, seed=0, h=H, d=D):
+    """q, k, v, do (B, T, h*d) fp32; bias fp32 (h or B*h, Tq, Tk) or None;
     keep-mask int8 (B, 1, Tk) or None."""
     rng = np.random.default_rng(seed)
-    E = H * D
+    E = h * d
     q = rng.standard_normal((B, Tq, E)).astype(np.float32)
     k = rng.standard_normal((B, Tk, E)).astype(np.float32)
     v = rng.standard_normal((B, Tk, E)).astype(np.float32)
     do = rng.standard_normal((B, Tq, E)).astype(np.float32)
-    nb = {"none": 0, "shared": H, "per_bh": B * H}[bias_kind]
+    nb = {"none": 0, "shared": h, "per_bh": B * h}[bias_kind]
     bias = (0.5 * rng.standard_normal((nb, Tq, Tk))).astype(np.float32) if nb else None
     mask = None
     if with_mask:
@@ -75,17 +75,17 @@ def _inputs(B, Tq, Tk, bias_kind, with_mask, seed=0):
     return q, k, v, do, bias, mask
 
 
-def _flat(a, B):
-    """(B, T, H*D) -> JAX's (B*H, T, D)."""
+def _flat(a, B, h=H, d=D):
+    """(B, T, h*d) -> JAX's (B*h, T, d)."""
     T = a.shape[1]
-    return a.reshape(B, T, H, D).transpose(0, 2, 1, 3).reshape(B * H, T, D)
+    return a.reshape(B, T, h, d).transpose(0, 2, 1, 3).reshape(B * h, T, d)
 
 
-def _unflat(a, B):
-    """JAX's (B*H, T, D) -> (B, T, H*D)."""
+def _unflat(a, B, h=H, d=D):
+    """JAX's (B*h, T, d) -> (B, T, h*d)."""
     a = np.asarray(jnp.asarray(a).astype(jnp.float32))
     T = a.shape[1]
-    return a.reshape(B, H, T, D).transpose(0, 2, 1, 3).reshape(B, T, H * D)
+    return a.reshape(B, h, T, d).transpose(0, 2, 1, 3).reshape(B, T, h * d)
 
 
 def _f32(x):
@@ -100,10 +100,10 @@ def _assert_close(name, got, ref, tol):
     np.testing.assert_allclose(_f32(got), ref, rtol=0, atol=atol, err_msg=name)
 
 
-def _jax_args(q, k, v, do, bias, mask, B, jdt):
-    jq, jk, jv, jdo = (jnp.asarray(_flat(a, B)).astype(jdt) for a in (q, k, v, do))
+def _jax_args(q, k, v, do, bias, mask, B, jdt, h=H, d=D):
+    jq, jk, jv, jdo = (jnp.asarray(_flat(a, B, h, d)).astype(jdt) for a in (q, k, v, do))
     jbias = None if bias is None else jnp.asarray(bias).astype(jnp.bfloat16)
-    jmask = None if mask is None else jnp.asarray(np.repeat(mask, H, axis=0))
+    jmask = None if mask is None else jnp.asarray(np.repeat(mask, h, axis=0))
     return jq, jk, jv, jdo, jbias, jmask
 
 
@@ -186,6 +186,49 @@ def test_backward_matches_pallas_backward(dtype, case, with_g_lse):
         assert torch.equal(ds1, dbias)
     if bias_kind == "shared":
         assert torch.equal(tflash.flash_attention_bwd_dbias(*args), dbias)
+
+
+# Head dims that the H100 kernel pads to its 16-wide fragments (88 -> 96) or
+# takes with its other tiles (128), at key counts that are no multiple of the
+# Pallas key block (a ragged last tile): the plain versions the card holds
+# the kernels to, against the Pallas kernels at those widths.
+WIDE_CASES = {
+    # (B, Tq, Tk, H, D, bias, mask, causal, block_q, block_k)
+    "D88_ragged": (2, 40, 72, 2, 88, "shared", True, False, 16, 32),
+    "D128_ragged": (1, 24, 88, 2, 128, "per_bh", True, False, 16, 32),
+    "D88_causal": (2, 40, 40, 2, 88, "shared", True, True, 16, 16),
+}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_heads_match_pallas_forward_and_backward(dtype, case):
+    B, Tq, Tk, h, d, bias_kind, with_mask, causal, bq, bk = WIDE_CASES[case]
+    scale = d ** -0.5
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, do, bias, mask = _inputs(B, Tq, Tk, bias_kind, with_mask, seed=8, h=h, d=d)
+    jq, jk, jv, jdo, jbias, jmask = _jax_args(q, k, v, do, bias, mask, B, jdt, h, d)
+    ref_out, ref_lse = jflash._flash_forward(jq, jk, jv, jbias, jmask, scale, causal,
+                                             block_q=bq, block_k=bk, return_lse=True)
+    tq, tk, tv = (_torch(_unflat(a, B, h, d), tdt) for a in (jq, jk, jv))
+    tbias = None if jbias is None else _torch(jbias, torch.bfloat16)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out, lse = tflash.flash_attention_fwd(tq, tk, tv, tbias, tmask, h, scale, causal)
+    _assert_close("out", out, _unflat(ref_out, B, h, d), TOL[dtype])
+    lse_ref = np.array(ref_lse)[..., 0].reshape(B, h, Tq)
+    _assert_close("lse", lse, lse_ref, 1e-5)
+
+    ref = jflash._flash_backward(jq, jk, jv, jbias, jmask, ref_out, ref_lse, jdo, scale, causal,
+                                 block_q=bq, block_k=bk)
+    do_t, out_t = _torch(_unflat(jdo, B, h, d), tdt), _torch(_unflat(ref_out, B, h, d), tdt)
+    dd = (do_t.float() * out_t.float()).reshape(B, Tq, h, d).sum(-1).permute(0, 2, 1)
+    dq, dk, dv, dbias = tflash.flash_attention_bwd(
+        tq, tk, tv, do_t, torch.from_numpy(lse_ref).contiguous(), dd.contiguous(), tbias, tmask,
+        h, scale, causal)
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref[:3]):
+        assert g.dtype == tdt
+        _assert_close(name, g, _unflat(r, B, h, d), TOL[dtype])
+    _assert_close("dbias", dbias, ref[3], 1e-2)
 
 
 def test_per_bh_ds_in_fp32_matches_pallas_ds():

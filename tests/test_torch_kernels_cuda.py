@@ -16,8 +16,8 @@ Tolerances (bf16), for q scaled as the model scales it:
   * B2r (row-major backward) and B1 with ``scale`` and ``causal`` inside:
     as B2 and B1, q unscaled and the scale given to the kernel; B2 and B2r
     give the same bits run to run (partial sums reduced in a fixed order);
-  * fp32 tensors (B1's and B2's CUDA-core kernels): 1e-4 on every measure;
-  * B3 (flash attention): as B1;
+  * fp32 tensors (B1's, B2's and B2r's CUDA-core kernels): 1e-4 on every measure;
+  * B3 (flash attention): as B1, the same bits run to run;
   * B7 (int8 GEMM): equal to its plain version bit for bit (an exact
     integer product and the same two fp32 products);
   * B6 (LayerNorm), bf16: y within one bf16 ulp (|y - ref| <= 2^-7 |ref| +
@@ -259,6 +259,43 @@ def test_rowmajor_splits_keys_at_wide_heads_on_card(case):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# (B, Tq, Tk, H, D, causal): B2r (bf16, B2's tensor-core kernel with the
+# causal mask inside) at the caption and text_infilling encoders, the causal
+# offset (Tq < Tk) and a wide head whose keys are split into ranges
+ROWMAJOR_TC = [(64, 228, 228, 12, 64, False), (128, 96, 96, 12, 64, False), (5, 40, 72, 12, 64, True),
+               (2, 256, 256, 2, 128, False), (2, 256, 256, 2, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROWMAJOR_TC, ids=["caption_encoder", "infill_encoder", "causal_offset",
+                                                   "D128_ranges", "D128_ranges_causal"])
+def test_rowmajor_bwd_on_tensor_cores_on_card(case):
+    """B2r within GRAD_TOL and DS_TOL of its plain version, the same bits
+    twice, and with keys 64-127 left out (a skipped key tile) outside those
+    limits on every gradient. Without causal it is B2's kernel: the same
+    bits as B2."""
+    _need_card()
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, bias, mask, do, scale = _rowmajor_inputs(B, Tq, Tk, H, D)
+    _, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    got = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    ref = tdense.dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias, mask, H, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        ok, errs = _grad_close(a, b, DS_TOL if name == "dbias" else GRAD_TOL)
+        assert ok, (name, errs)
+    again = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, scale, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    hidden = mask.clone()
+    hidden[:, :, 64:128] = 0
+    fault = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, hidden, H, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), fault, ref):
+        assert not _grad_close(a, b, DS_TOL if name == "dbias" else GRAD_TOL)[0], name
+    if not causal:
+        b2 = tdense.dense_attention_bwd(q, k, v, do, lse, bias, mask, H, scale=scale)
+        assert all(torch.equal(a, b) for a, b in zip(got, b2))
+
+
 # ------------------------------------- B1 and B2 on the tensor cores (bf16)
 # (B, Tq, Tk, H, D): head dims that are no multiple of 16 (88) or take more
 # shared memory (128, 256: B2 splits the keys into ranges there), ragged
@@ -305,8 +342,8 @@ def test_bwd_kernel_at_wide_heads_and_ragged_shapes_on_card(shape):
 
 @pytest.mark.cuda
 def test_fp32_tensors_take_the_cuda_core_kernels_on_card():
-    """fp32 CUDA tensors (off the model's path) run B1's and B2's fp32
-    kernels, counted in the same launches, within fp32 tolerances."""
+    """fp32 CUDA tensors (off the model's path) run B1's, B2's and B2r's
+    fp32 kernels, counted in the same launches, within fp32 tolerances."""
     _need_card()
     B, Tq, Tk, H, D = 3, 40, 72, 4, 64
     q, k, v, bias, mask, do = (t.float() if t.dtype == torch.bfloat16 else t
@@ -324,6 +361,14 @@ def test_fp32_tensors_take_the_cuda_core_kernels_on_card():
                           tdense.dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H)):
         ok, errs = _grad_close(a, b, (1e-4, 1e-4))
         assert ok, (name, errs)
+    # B2r's fp32 kernel, with the scale and the causal mask inside
+    _, lse = tdense.dense_attention_fwd(q, k, v, bias, mask, H, 0.5, True)
+    got = tdense.dense_attention_bwd_rowmajor(q, k, v, do, lse, bias, mask, H, 0.5, True)
+    ref = tdense.dense_attention_bwd_rowmajor_reference(q, k, v, do, lse, bias, mask, H, 0.5, True)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert a.dtype == torch.float32
+        ok, errs = _grad_close(a, b, (1e-4, 1e-4))
+        assert ok, ("B2r", name, errs)
 
 
 # ------------------------------------------------- flash attention (B3-B5)
@@ -407,6 +452,45 @@ def test_flash_kernels_match_plain_versions_on_card(case):
     assert not _grad_close(fq, rq, GRAD_TOL)[0] and not _grad_close(fk, rk, GRAD_TOL)[0]
     if bias_kind is not None:
         assert not _grad_close(fbias, rbias, DS_TOL)[0]
+
+
+# (B, Tq, Tk, H, D, bias, causal): B3 (bf16, tensor cores) at head dims it
+# pads (88 -> 96) or takes with its other tiles (128; 256 with 32-key
+# tiles), a batch of one at T = 1,000, and ragged Tq != Tk with Tk no
+# multiple of the 64-key tile
+FLASH_EDGE = {
+    "D88_ragged": (2, 200, 333, 8, 88, "shared", False),
+    "D128_per_bh": (2, 300, 300, 8, 128, "per_bh", False),
+    "D256_causal": (2, 290, 290, 4, 256, "shared", True),
+    "B1": (1, 1000, 1000, 12, 64, "shared", False),
+    "ragged_no_bias": (3, 200, 333, 12, 64, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_EDGE))
+def test_flash_fwd_at_edge_shapes_on_card(case):
+    """B3 against its plain version (out atol 2e-2, lse atol 1e-3), the same
+    bits twice; with keys 64-127 left out (a skipped key tile) it fails
+    those limits."""
+    _need_card()
+    from ofasys_torch.ops import flash_attention as tflash
+
+    B, Tq, Tk, H, D, bias_kind, causal = FLASH_EDGE[case]
+    q, k, v, _, bias, mask = _flash_inputs(B, Tq, Tk, H, D, bias_kind)
+    scale = (2 * D) ** -0.5
+    out, lse = tflash.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = tflash.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    again = tflash.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    hidden = mask.clone()
+    hidden[:, :, 64:128] = 0
+    f_out, f_lse = tflash.flash_attention_fwd(q, k, v, bias, hidden, H, scale, causal)
+    assert (f_out.float() - ref.float()).abs().max().item() > 2e-2 \
+        or (f_lse - ref_lse).abs().max().item() > 1e-3
 
 
 @pytest.mark.cuda
