@@ -27,11 +27,11 @@ Phases, in order; any failure exits non-zero:
      max_src_length = 256 with 300-400 byte sources, cut to 257 tokens
  10. train_long: 5 summed two-task updates at long lengths
      (text_infilling_long B=16 with documents of 480-520 bytes,
-     gigaword_long B=16 with articles of 880-960 bytes): kernels B3, B4
-     (dq, dk/dv) and B5 on every long attention, B1/B2 on the short
-     decoder, a falling loss and one update's gradients against the plain
-     attention path (4 samples per task), also with the flash backward's
-     dd taken from the unrounded output
+     gigaword_long B=16 with articles of 880-960 bytes): kernel B3 and the
+     one backward pass (B4-dq, B4-dkv, B5) on every long attention, B1/B2
+     on the short decoder, a falling loss and one update's gradients
+     against the plain attention path (4 samples per task), also with the
+     flash backward's dd taken from the unrounded output
  11. profile_long: one long update under torch.profiler
  12. serve_int8: the serve phase's 16 requests on a deep copy of the serve
      model after ``OFASys.quantize()`` (w8a8): kernel B7 on every
@@ -58,11 +58,13 @@ Phases, in order; any failure exits non-zero:
      attention and B2 not at all, one update's gradients against the plain
      attention path and against B2's from the same weights and batches
      (GRAD_FROB_TOL), the step time beside train_mm's
-The kernel phase also holds kernels B3, B4 and B5 against their plain
-versions at every shape of the long paths, a per-(b, h) bias, a causal and
-a ragged shape, B3 alone at FLASH_EDGE_SHAPES (head dims 88, 128 and 256, a
-batch of one, ragged Tq != Tk), B3 run twice for equal bits and with a
-planted key-tile fault at every shape, B7 at serve_int8's shapes and B6 at
+The kernel phase also holds kernel B3 and the one flash backward pass (for
+B4-dq, B4-dkv and B5) against their plain versions at every shape of the
+long paths, a per-(b, h) bias, a causal and a ragged shape and at
+FLASH_EDGE_SHAPES (head dims 88, 128 and 256, a batch of one, ragged Tq !=
+Tk, T = 4,096 past the backward's scratch cap), each run twice for equal
+bits and with planted faults (a key tile left out; for the backward also
+dd = 0) at every shape, B7 at serve_int8's shapes and B6 at
 the train mix's; B2r beside B2 at every training shape and at EDGE_SHAPES
 (ragged Tq != Tk, B=1, head dims 88, 128 and 256), B2 and B2r each run
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
@@ -145,7 +147,8 @@ TINY_TRAIN_TASKS = {
     "text_infilling": dict(template=INFILL_TPL, batch=4, text=(58, 62)),
     "gigaword": dict(template=SUMMARY_TPL, batch=2, src=(140, 150), tgt=(20, 24)),
 }
-# the long paths (sources and targets past 256 tokens: kernels B3, B4, B5):
+# the long paths (sources and targets past 256 tokens: kernel B3 and the
+# one flash backward pass for B4 and B5):
 # the text preprocessor's max_src_length and max_tgt_length raised to 1,000
 # (examples/long_context.yaml), so every sequence with bos and eos fits the
 # base arch's 1,024 positions
@@ -164,8 +167,9 @@ GRAD_CHECK_BATCH = 4
 # output; p is rounded to bf16 against its tile's running max in the
 # kernel, the row max in the plain version) and lse atol 1e-3 (fp32 sums in
 # another order).
-# Backward kernels B2, B4 and B5: each gradient is held to the reference's
-# own size, |got - ref|_F / |ref|_F and max|got - ref| / max|ref|. dq, dk,
+# Backward kernels B2 and the flash backward (B4, B5): each gradient is
+# held to the reference's own size, |got - ref|_F / |ref|_F and
+# max|got - ref| / max|ref|. dq, dk,
 # dv are bf16 outputs that both sides round at the same points (p and ds
 # to bf16 before their products), so they differ only where a reordered
 # fp32 sum crosses a rounding boundary: Frobenius 1e-3, max 1e-2 (2.5 bf16
@@ -174,7 +178,7 @@ GRAD_CHECK_BATCH = 4
 # (rms of dq, dk, dv 0.013-0.25, largest entries 0.65-6.8) a kernel that
 # dropped dd is off by 8e-2 or more and one that skipped a key tile by 0.26
 # or more (Frobenius): check_flash plants both faults at every training
-# shape and fails unless the limits catch them.
+# and edge shape and fails unless the limits catch them.
 GRAD_FROB_TOL = 1e-3
 GRAD_MAX_TOL = 1e-2
 DS_REL_ATOL = 1e-3
@@ -212,15 +216,19 @@ EDGE_SHAPES = [("ragged_cross", (3, 24, 200, 12, 64), False), ("ragged_40_200", 
                ("B1", (1, 64, 64, 12, 64), False), ("patches_196", (64, 196, 196, 12, 64), False),
                ("D88", (8, 96, 96, 32, 88), False), ("D128_T256", (4, 256, 256, 8, 128), False),
                ("D256", (4, 64, 100, 16, 256), False)]
-# kernel B3's shapes beyond the long paths' own (B, Tq, Tk, H, D), causal:
-# head dims where the tensor-core kernel pads D (88) or takes its other
-# tiles (128; 256 with 32-key tiles), with H * D <= 4096, a batch of one at
-# T = 1,000, and ragged Tq != Tk with Tk no multiple of the 64-key tile
+# the flash kernels' shapes beyond the long paths' own (B, Tq, Tk, H, D),
+# causal: head dims where the tensor-core kernels pad D (88) or take their
+# other tiles (B3: 128; 256 with 32-key tiles; the backward: 112-, 112- and
+# 48-key ranges), with H * D <= 4096, a batch of one at T = 1,000 (the
+# backward's per-(b, h) ds), ragged Tq != Tk with Tk no multiple of the
+# 64-key tile, and T = 4,096, where the backward's dq partials (18 ranges)
+# pass fl.SCRATCH_CAP and its samples go one at a time
 FLASH_EDGE_SHAPES = [("flash_D88", (2, 300, 333, 32, 88), False),
                      ("flash_D128", (4, 300, 300, 16, 128), False),
                      ("flash_D256_causal", (2, 290, 290, 16, 256), True),
                      ("flash_B1", (1, 1000, 1000, 12, 64), False),
-                     ("flash_ragged", (3, 200, 333, 12, 64), False)]
+                     ("flash_ragged", (3, 200, 333, 12, 64), False),
+                     ("flash_long_T4096", (2, 4096, 4096, 12, 64), False)]
 
 N_UPDATES = 5
 TRAIN_LR = 1e-4
@@ -273,17 +281,20 @@ KERNELS = {
                                      "ofasys_torch/csrc/dense_attention_bwd_rowmajor.cu"),
     "flash_attention_fwd": ("ofasys_tpu/ops/pallas_attention.py:58",
                             "ofasys_torch/csrc/flash_attention_fwd.cu"),
-    "flash_attention_bwd_dq": ("ofasys_tpu/ops/pallas_attention.py:341",
-                               "ofasys_torch/csrc/flash_attention_bwd.cu"),
-    "flash_attention_bwd_dkv": ("ofasys_tpu/ops/pallas_attention.py:404",
-                                "ofasys_torch/csrc/flash_attention_bwd.cu"),
-    "flash_attention_bwd_dbias": ("ofasys_tpu/ops/pallas_attention.py:466",
-                                  "ofasys_torch/csrc/flash_attention_bwd.cu"),
+    "flash_attention_bwd": ("ofasys_tpu/ops/pallas_attention.py:341",
+                            "ofasys_torch/csrc/flash_attention_bwd.cu"),
     "int8_matmul_fwd": ("ofasys_tpu/ops/pallas_int8.py:44", "ofasys_torch/csrc/int8_matmul.cu"),
     "layer_norm_fwd": ("ofasys_tpu/ops/pallas_layernorm.py:45", "ofasys_torch/csrc/layer_norm.cu"),
     "layer_norm_bwd": ("ofasys_tpu/ops/pallas_layernorm.py:59", "ofasys_torch/csrc/layer_norm.cu"),
 }
-FLASH_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_bwd_dbias")
+# the three TPU kernels of the flash backward, each replaced by the one pass
+# flash_attention_bwd: one row each in the kernels line, with the error of
+# its part of the gradients
+FLASH_BWD_ROWS = {
+    "flash_attention_bwd_dq": ("ofasys_tpu/ops/pallas_attention.py:341", "err_dq"),
+    "flash_attention_bwd_dkv": ("ofasys_tpu/ops/pallas_attention.py:404", "err_dkv"),
+    "flash_attention_bwd_dbias": ("ofasys_tpu/ops/pallas_attention.py:466", "err_dbias"),
+}
 # the module of each kernel's wrapper, under ofasys_torch.ops
 _WRAPPER_MODULE = {"dense": "dense_attention", "flash": "flash_attention", "int8": "int8_matmul",
                    "layer": "layer_norm"}
@@ -703,24 +714,23 @@ def _flash_inputs(B, Tq, Tk, H, D, seed, per_bh=False):
 
 
 def _flash_bounds(B, Tq, Tk, H, D, nb, causal):
-    """(bytes, FLOP) of kernels B3, B4-dq, B4-dkv and B5 at one shape: each
-    input read once, each output written once; FLOP 2 B H Tq Tk D for each
-    (Tq, Tk, D) product the function needs: B3 two (q.k, p.v), B4-dq three
-    (q.k, do.v, ds.k), B4-dkv four (q.k, do.v, p.do, ds.q), B5 two (q.k,
-    do.v). Causal skips the tiles above the diagonal: half the FLOP and
-    half the bias."""
+    """(bytes, FLOP) of kernel B3 and of the whole backward (the one pass of
+    B4-dq, B4-dkv and B5) at one shape: each input read once, each output
+    written once (the bias gradient in full: (H, Tq, Tk) for a shared bias,
+    ds (B H, Tq, Tk) for one per (b, h)); FLOP 2 B H Tq Tk D for each (Tq,
+    Tk, D) product the function needs: B3 two (q.k, p.v), the backward five
+    (q.k, do.v, p.do, ds.q, ds.k). Causal skips the tiles above the
+    diagonal: half the FLOP and half the bias read."""
     E = H * D
     frac = 0.5 if causal else 1.0
     bias = int(2 * nb * Tq * Tk * frac)
     qkv = 2 * (B * Tq * E + 2 * B * Tk * E)
     core = B * H * Tq * Tk * D * frac
     reads = qkv + 2 * B * Tq * E + 8 * B * H * Tq + bias + B * Tk      # q, k, v, do, lse, dd
-    ds = 4 * B * H * Tq * Tk if nb == B * H else 0
+    writes = 2 * (B * Tq * E + 2 * B * Tk * E) + 4 * nb * Tq * Tk      # dq, dk, dv, bias gradient
     return {
         "flash_attention_fwd": (qkv + bias + B * Tk + 2 * B * Tq * E + 4 * B * H * Tq, int(4 * core)),
-        "flash_attention_bwd_dq": (reads + 2 * B * Tq * E + ds, int(6 * core)),
-        "flash_attention_bwd_dkv": (reads + 4 * B * Tk * E, int(8 * core)),
-        "flash_attention_bwd_dbias": (reads + 4 * H * Tq * Tk, int(4 * core)),
+        "flash_attention_bwd": (reads + writes, int(10 * core)),
     }
 
 
@@ -790,11 +800,12 @@ def _grad_report(errs):
 
 
 def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_faults=False):
-    """Kernels B3 (and, with ``backward``, B4-dq, B4-dkv and B5, or the dq
-    kernel's ds for a per-(b, h) bias) against their plain versions at one
-    shape, with their times; with ``plant_faults`` also shows that the
-    gradient limits fail the kernels run on wrong inputs. Returns one row
-    per kernel."""
+    """Kernel B3 and, with ``backward``, the one backward pass (dq, dk, dv
+    and the bias gradient: B4-dq, B4-dkv and B5, or ds for a per-(b, h)
+    bias) against their plain versions at one shape, each run twice for
+    equal bits, with their times; with ``plant_faults`` also shows that the
+    gradient limits fail the pass run on wrong inputs. Returns one row per
+    kernel."""
     import torch.nn.functional as F
 
     from ofasys_torch.ops import flash_attention as fl
@@ -858,19 +869,27 @@ def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_f
     dd = (do.float() * out.float()).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1).contiguous()
     args = (q, k, v, do, lse, dd, bias, mask, H, scale, causal)
     ref_grads = fl.flash_attention_bwd_reference(*args)
-
-    def backward(a):
-        dq, ds = fl.flash_attention_bwd_dq(*a, want_ds=per_bh)
-        dk, dv = fl.flash_attention_bwd_dkv(*a)
-        return dq, dk, dv, ds if per_bh else fl.flash_attention_bwd_dbias(*a)
-
-    errs, ok = grad_errors(backward(args), ref_grads, per_bh)
-    log(f"kernels flash_attention_bwd_dq/dkv/{'dq ds' if per_bh else 'dbias'} {tag}: "
-        f"{_grad_report(errs)} -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit(f"the flash backward kernels disagree with their plain version at {label}")
+    plan = fl.backward_plan(B, H, Tq, Tk, D, nb != B * H,
+                            torch.cuda.get_device_properties(0).multi_processor_count,
+                            fl.SCRATCH_CAP)
+    got = fl.flash_attention_bwd(*args)
+    errs, ok = grad_errors(got, ref_grads, per_bh)
+    again = fl.flash_attention_bwd(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    # each part wrapper returns its part of the one pass
+    dq1, ds1 = fl.flash_attention_bwd_dq(*args, want_ds=nb == B * H)
+    parts = [torch.equal(dq1, got[0]), *(torch.equal(a, b) for a, b in
+                                        zip(fl.flash_attention_bwd_dkv(*args), got[1:3]))]
+    parts.append(torch.equal(ds1 if nb == B * H else fl.flash_attention_bwd_dbias(*args), got[3]))
+    log(f"kernel flash_attention_bwd {tag}: {_grad_report(errs)}; plan {plan._asdict()} "
+        f"(scratch {4 * (plan.dq_scratch + plan.dbias_scratch) / 2 ** 20:.1f} MiB); the same "
+        f"bits twice: {same}; the part wrappers give its parts: {all(parts)} "
+        f"-> {'ok' if ok and same and all(parts) else 'FAIL'}")
+    if not ok or not same or not all(parts):
+        raise SystemExit(f"the flash backward disagrees with its plain version at {label}")
+    del again, dq1, ds1
     if plant_faults:
-        # the same kernels on wrong inputs must fail the same limits: dd
+        # the same kernel on wrong inputs must fail the same limits: dd
         # zeroed (a kernel that dropped it) moves dq, dk and the bias
         # gradient; keys 64-127 masked (a kernel that skipped that key
         # tile) moves all four
@@ -881,7 +900,7 @@ def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_f
                   "key tile 64-127 skipped": ((q, k, v, do, lse, dd, bias, hidden, H, scale, causal),
                                               tuple(errs))}
         for fault, (fargs, moved) in faults.items():
-            ferrs, _ = grad_errors(backward(fargs), ref_grads, per_bh)
+            ferrs, _ = grad_errors(fl.flash_attention_bwd(*fargs), ref_grads, per_bh)
             caught = [n for n in moved if not ferrs[n]["ok"]]
             log(f"  planted fault {fault}: "
                 + " ".join(f"{n} frob {ferrs[n]['frob']:.2e} max {ferrs[n]['max_rel']:.2e}"
@@ -894,24 +913,71 @@ def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_f
     q4, k4, v4, b4, neg = _flash_sdpa(q, k, v, bias, mask, H, D, causal, grad=True)
     library_ms = _flash_sdpa_bwd_ms(q4, k4, v4, b4, neg, do.view(B, Tq, H, D).transpose(1, 2), scale)
     del q4, k4, v4, b4, neg
-    row("flash_attention_bwd_dq", max(e["max"] for n, e in errs.items() if n in ("dq", "ds")),
-        time_ms(lambda: fl.flash_attention_bwd_dq(*args, want_ds=per_bh), **FLASH_TIMING),
-        plain_ms, library_ms)
-    row("flash_attention_bwd_dkv", max(errs["dk"]["max"], errs["dv"]["max"]),
-        time_ms(lambda: fl.flash_attention_bwd_dkv(*args), **FLASH_TIMING), plain_ms, library_ms)
-    if not per_bh:
-        row("flash_attention_bwd_dbias", errs["dbias"]["max"],
-            time_ms(lambda: fl.flash_attention_bwd_dbias(*args), **FLASH_TIMING), plain_ms, library_ms)
+    row("flash_attention_bwd", max(e["max"] for e in errs.values()),
+        time_ms(lambda: fl.flash_attention_bwd(*args), **FLASH_TIMING), plain_ms, library_ms)
+    bias_err = errs["ds" if per_bh else "dbias"]["max"]
+    rows["flash_attention_bwd"].update(
+        err_dq=max(errs["dq"]["max"], bias_err if nb == B * H else 0.0),
+        err_dkv=max(errs["dk"]["max"], errs["dv"]["max"]), err_dbias=bias_err, plan=plan._asdict())
     return rows
+
+
+def flash_bwd_breakdown(label, shape):
+    """Where the one flash backward pass spends its time at one shape, for
+    PERF.md (no check): with no bias, a bias that needs no gradient, a
+    per-(b, h) bias (ds written) and a shared one (its chunk partials read,
+    added and written back per sample); the shared case with one chunk and
+    with twice the plan's; and the pass's kernels by device time
+    (torch.profiler, per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ofasys_torch.ops import flash_attention as fl
+
+    B, Tq, Tk, H, D = shape
+    scale = (2 * D) ** -0.5
+    res = {}
+    for kind in ("no_bias", "bias_without_gradient", "per_bh_ds", "shared_dbias"):
+        q, k, v, bias, mask, do = _flash_inputs(B, Tq, Tk, H, D, SEED, kind == "per_bh_ds")
+        bias = None if kind == "no_bias" else bias
+        out, lse = fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, False)
+        dd = (do.float() * out.float()).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, do, lse, dd, bias, mask, H, scale, False)
+        want = kind != "bias_without_gradient"
+        res[kind] = time_ms(lambda: fl.flash_attention_bwd(*args, want_dbias=want), **FLASH_TIMING)
+    plan = fl.backward_plan(B, H, Tq, Tk, D, True,
+                            torch.cuda.get_device_properties(0).multi_processor_count,
+                            fl.SCRATCH_CAP)
+    orig = fl.backward_plan
+    for chunks in (1, 2 * plan.chunks):
+        alt = plan._replace(chunks=chunks, dbias_scratch=chunks * H * Tq * Tk if chunks > 1 else 0)
+        fl.backward_plan = lambda *a, _alt=alt, **kw: _alt
+        try:
+            res[f"shared_dbias_chunks_{chunks}"] = time_ms(lambda: fl.flash_attention_bwd(*args),
+                                                           **FLASH_TIMING)
+        finally:
+            fl.backward_plan = orig
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fl.flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+    res["kernels_ms"] = {e.key.split("(")[0][:60]: e.device_time_total / 1e3 / 5
+                         for e in prof.key_averages() if e.device_time_total > 0}
+    log(f"  flash_attention_bwd breakdown [{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D}, plan chunks "
+        f"{plan.chunks}]: " + ", ".join(f"{n} {v:.4f} ms" for n, v in res.items() if n != "kernels_ms")
+        + "; by kernel " + ", ".join(f"{n} {v:.4f} ms" for n, v in res["kernels_ms"].items()))
+    return res
 
 
 def phase_flash_kernels(serve_shapes, train_shapes):
     """Kernel B3 at every serving shape of the long paths (``serve_shapes``:
-    [(label, (B, T))]); B3, B4 and B5 at every flash call of the long
-    training update (``train_shapes``: [(label, (B, Tq, Tk), causal)]), at
-    a per-(b, h) bias (the dq kernel's ds) and at a ragged shape whose keys
+    [(label, (B, T))]); B3 and the one backward pass at every flash call of
+    the long training update (``train_shapes``: [(label, (B, Tq, Tk),
+    causal)]), at a per-(b, h) bias (ds) and at a ragged shape whose keys
     are not a multiple of the 64-key tile, all at the base arch's H=12,
-    D=64; B3 alone at FLASH_EDGE_SHAPES. Returns {kernel name: [rows]}."""
+    D=64, and at FLASH_EDGE_SHAPES; both planted faults at each of those;
+    the backward's breakdown (flash_bwd_breakdown) at the largest training
+    call. Returns {kernel name: [rows]}."""
     rows = {name: [] for name in KERNELS if name.startswith("flash")}
 
     def add(r):
@@ -924,7 +990,11 @@ def phase_flash_kernels(serve_shapes, train_shapes):
     for label, (B, Tq, Tk), causal, per_bh in [s + (False,) for s in train_shapes] + extra:
         add(check_flash(label, (B, Tq, Tk, 12, 64), causal, per_bh, plant_faults=True))
     for label, shape, causal in FLASH_EDGE_SHAPES:
-        add(check_flash(label, shape, causal, backward=False))
+        add(check_flash(label, shape, causal, plant_faults=True))
+    # the breakdown at the largest training call
+    label, (B, Tq, Tk), _ = max(train_shapes, key=lambda c: c[1][0] * c[1][1] * c[1][2])
+    row = next(r for r in rows["flash_attention_bwd"] if r["shape"] == label)
+    row["breakdown"] = flash_bwd_breakdown(label, (B, Tq, Tk, 12, 64))
     return rows
 
 
@@ -1750,9 +1820,10 @@ def train_shapes(batches):
 
 def _expected_train_launches(batches, cfg, net=None):
     """Launches of each kernel one update should make: every attention call
-    (encoder self, decoder self, cross) on the flash route runs B3, B4-dq,
-    B4-dkv and, for its batch-shared bias, B5 (a batch of one gets the
-    bias gradient from the dq kernel instead); on the dense route B1 and B2
+    (encoder self, decoder self, cross) on the flash route runs B3 and the
+    one backward pass that stands for B4-dq, B4-dkv and B5
+    (flash_attention_bwd; the part wrappers launch nothing of their own);
+    on the dense route B1 and B2
     (``_route``, as MultiheadAttention decides), or B1 and B2r while
     OFASYS_DENSE_BWD=rowmajor is set."""
     n = dict.fromkeys(KERNELS, 0)
@@ -1768,8 +1839,8 @@ def _expected_train_launches(batches, cfg, net=None):
                 n["dense_attention_fwd"] += layers
                 n[dense_bwd] += layers
             elif route == "flash":
-                for name in ("flash_attention_fwd",) + FLASH_BWD:
-                    n[name] += layers if (name != "flash_attention_bwd_dbias" or B > 1) else 0
+                n["flash_attention_fwd"] += layers
+                n["flash_attention_bwd"] += layers
     if net is not None:
         # B6 (ln_impl): every stack LayerNorm once per task's forward and
         # backward; B6-fwd only where the forward is fused
@@ -1948,7 +2019,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     g_plain, g_exact_dd = {}, None
     try:
         g_kernel = _grads(model, crit, state.params, state.step, gdev)
-        if any(per_update[k] for k in FLASH_BWD):
+        if per_update["flash_attention_bwd"]:
             with _dd_from_unrounded_output():
                 g_exact_dd = _grads(model, crit, state.params, state.step, gdev)
         cfg.attn_kernel, cfg.use_flash_attention = "xla", False
@@ -2117,6 +2188,14 @@ def main() -> int:
                                                 for n, spec in LONG_TRAIN_TASKS.items()})
     counts["train_long"], long_res, (step, state, dev) = train_and_check(
         model, long_gp, card, batches=long_batches, label="train_long", grad_batches=grad_batches)
+    from ofasys_torch.ops import flash_attention as fl
+
+    old = [n for n in FLASH_BWD_ROWS if hasattr(getattr(fl, n), "launches")]
+    log(f"train_long: {counts['train_long']['flash_attention_bwd'] // N_UPDATES} launches of the one "
+        f"flash backward pass per update; the part wrappers {list(FLASH_BWD_ROWS)} launch no kernel "
+        f"of their own (counted: {old})")
+    if old:
+        raise SystemExit(f"{old} count launches of their own: the one pass is counted once")
     phase_profile_train(step, state, dev, card,
                         "one long training update (text_infilling_long B=16 + gigaword_long B=16)")
     del model, step, state, dev
@@ -2154,10 +2233,14 @@ def main() -> int:
                       flash_rows["flash_attention_fwd"], "err", "gigaword_long_encoder", card,
                       max_abs_err_lse=max(r["err_lse"] for r in flash_rows["flash_attention_fwd"])),
     ] + [
-        _kernel_entry(k, by_path(k), "train_long", flash_rows[k], "err", "gigaword_long_encoder", card,
-                      plain_covers="the whole backward (dq, dk, dv, bias gradient)",
-                      library_covers="the whole backward (dq, dk, dv, bias gradient)")
-        for k in FLASH_BWD
+        dict(_kernel_entry("flash_attention_bwd", by_path("flash_attention_bwd"), "train_long",
+                           flash_rows["flash_attention_bwd"], err_key, "gigaword_long_encoder",
+                           card, port="flash_attention_bwd",
+                           ms_covers="the whole backward (dq, dk, dv, bias gradient) in one pass",
+                           plain_covers="the whole backward (dq, dk, dv, bias gradient)",
+                           library_covers="the whole backward (dq, dk, dv, bias gradient)"),
+             name=name, replaces=replaces)
+        for name, (replaces, err_key) in FLASH_BWD_ROWS.items()
     ] + [
         _kernel_entry("int8_matmul_fwd", by_path("int8_matmul_fwd"), "serve_int8", int8_rows, "err",
                       "decode_logits", card, bit_equal=all(r["bit_equal"] for r in int8_rows),

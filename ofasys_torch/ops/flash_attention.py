@@ -1,12 +1,15 @@
-"""Flash (blocked online-softmax) attention for long sequences: kernels B3
-(forward), B4 (dQ and dK/dV backward) and B5 (the gradient of a bias shared
-by the batch), the counterpart of ofasys_tpu/ops/pallas_attention.py.
+"""Flash (blocked online-softmax) attention for long sequences: kernel B3
+(forward) and the whole backward (kernels B4-dq, B4-dkv and B5 of
+ofasys_tpu/ops/pallas_attention.py: dQ, dK/dV and the gradient of a bias
+shared by the batch) as one pass, the counterpart of that file.
 
 For CUDA tensors ``flash_attention_fwd`` launches the kernel of
-``ofasys_torch/csrc/flash_attention_fwd.cu``, and ``flash_attention_bwd_dq``,
-``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dbias`` the three of
-``ofasys_torch/csrc/flash_attention_bwd.cu``; for CPU tensors each runs its
-plain version (:func:`flash_attention_fwd_reference`,
+``ofasys_torch/csrc/flash_attention_fwd.cu`` and ``flash_attention_bwd`` the
+one tensor-core pass of ``ofasys_torch/csrc/flash_attention_bwd.cu`` (dq,
+dk, dv and the bias gradient together; :func:`backward_plan` sizes its
+launch and scratch); ``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``
+and ``flash_attention_bwd_dbias`` return their parts of that pass. For CPU
+tensors each runs its plain version (:func:`flash_attention_fwd_reference`,
 :func:`flash_attention_bwd_reference`). There is no other route: on a CUDA
 tensor each launches its kernel or raises. :class:`FlashAttentionFunction`
 joins them as one autograd function, as ``flash_attention_flat``'s custom
@@ -30,7 +33,7 @@ ragged tails themselves and there is no fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +57,106 @@ def flash_supported(Tq: int, Tk: int, D: int, dropout_rate: float) -> bool:
     if D > 256:
         return False
     return Tq >= 16 and Tk >= 256
+
+
+# ------------------------------------------------------------ backward plan
+# The backward pass's fp32 scratch (the dq partials of its key ranges, and
+# the chunk partials of a shared bias's gradient) is held under this many
+# bytes each: past it the samples, and for one long sample the key ranges,
+# go in groups launched one after the other.
+SCRATCH_CAP = 256 << 20
+H100_SMS = 132
+
+# the block of the tensor-core backward (csrc/dense_attention_bwd_mma.cuh):
+# 32 query rows a step, at most 256 keys, 227 KB of shared memory
+_Q_TILE, _MAX_RANGE, _MAX_SMEM = 32, 256, 232448
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _smem_bytes(KR: int, D: int) -> int:
+    """Shared memory of a block whose range holds KR keys (``smem_bytes`` of
+    the header): K, V, q, do and ds^T tiles in bf16, the fp32 dK and dV sums,
+    lse, dd, the warps' dd parts and the keep-mask."""
+    krp, ld, dacc = _round_up(KR, 16), _round_up(D, 16) + 8, _round_up(D, 32)
+    return (2 * (2 * krp * ld + 2 * _Q_TILE * ld + krp * (_Q_TILE + 8)) + 4 * (2 * krp * dacc)
+            + 4 * (2 + 8) * _Q_TILE + krp)
+
+
+def max_key_range(Tk: int, D: int) -> int:
+    """Keys per block at most: all Tk when a block's sums fit, else the
+    largest multiple of 16 that fits (``key_range`` of the header; the C
+    entry ``flash_attention_bwd_max_key_range`` gives the same)."""
+    for KR in range(min(_round_up(Tk, 16), _MAX_RANGE), 0, -16):
+        if _smem_bytes(KR, D) <= _MAX_SMEM:
+            return min(KR, Tk)
+    return 0
+
+
+class BackwardPlan(NamedTuple):
+    """How one backward call is launched: ``key_range`` keys per block
+    (``ranges`` of them cover Tk), ``chunks`` blocks along the samples of a
+    group of ``group_samples`` samples, ``group_ranges`` ranges per launch,
+    and the fp32 scratch in elements (``dq_scratch``: the ranges' dq
+    partials, plus the running dq sum when the ranges come in groups;
+    ``dbias_scratch``: a shared bias's chunk partials)."""
+    key_range: int
+    ranges: int
+    chunks: int
+    group_samples: int
+    group_ranges: int
+    dq_scratch: int
+    dbias_scratch: int
+
+
+def backward_plan(B: int, H: int, Tq: int, Tk: int, D: int, shared_dbias: bool,
+                  sms: int = H100_SMS, cap: int = SCRATCH_CAP) -> BackwardPlan:
+    """The launch of :func:`flash_attention_bwd` for one shape.
+
+    Key ranges: as few as the shared memory allows, of equal size (a
+    multiple of 16), so the last range is not a sliver. Each range writes
+    an fp32 dq partial of its samples, Tq * E * 4 bytes each; past ``cap``
+    the samples go in groups of equal size (one sample at the least), and a
+    sample whose partials alone pass it has its ranges in groups too, with
+    one more slot for the running fp32 sum.
+
+    Chunks: one block takes a (range, head, chunk of samples) and one block
+    fills an SM (8 warps, about 220 registers each), so a group runs in
+    ceil(ranges * H * chunks / sms) waves of ceil(samples / chunks) samples
+    each; the fewest chunks that reach the least of that product. A shared
+    bias's gradient needs one fp32 (H, Tq, Tk) partial per chunk (none
+    with one chunk), held under ``cap`` as well."""
+    E = H * D
+    top = max_key_range(Tk, D)
+    if top == 0:
+        raise ValueError(f"flash_attention_bwd: no key range fits at D={D}")
+    ranges = -(-Tk // top)
+    key_range = Tk if ranges == 1 else _round_up(-(-Tk // ranges), 16)
+    ranges = -(-Tk // key_range)
+    group_samples, group_ranges, dq_scratch = B, ranges, 0
+    if ranges > 1:
+        per_sample = ranges * Tq * E * 4
+        if B * per_sample > cap:
+            groups = -(-B // max(1, cap // per_sample))
+            group_samples = -(-B // groups)
+        if per_sample > cap:
+            group_ranges = max(1, cap // (Tq * E * 4) - 1)
+        dq_scratch = (group_ranges + (group_ranges < ranges)) * group_samples * Tq * E
+    bias_part = H * Tq * Tk * 4
+
+    def waves(c):
+        return -(-(group_ranges * H * c) // sms) * -(-group_samples // c)
+
+    allowed = [c for c in range(1, group_samples + 1)
+               if c == 1 or not shared_dbias or c * bias_part <= cap]
+    # the fewest chunks of the least cost: no chunk is left empty, since the
+    # chunks that hold as many samples each and leave none empty cost no more
+    chunks = min(allowed, key=lambda c: (waves(c), c))
+    dbias_scratch = chunks * H * Tq * Tk if shared_dbias and chunks > 1 else 0
+    return BackwardPlan(key_range, ranges, chunks, group_samples, group_ranges, dq_scratch,
+                        dbias_scratch)
 
 
 # --------------------------------------------------------------- plain versions
@@ -232,128 +335,115 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd(
+    q, k, v, do, lse, dd, bias, mask, num_heads: int, scale: float, causal: bool,
+    want_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The whole backward (``_flash_backward``, kernels B4-dq, B4-dkv and
+    B5): the arguments of :func:`flash_attention_fwd` plus the output
+    cotangent ``do`` (B, Tq, E), the forward's lse and dd = rowsum(do * out)
+    minus the lse cotangent (both fp32 (B, H, Tq)) -> dq (B, Tq, E), dk, dv
+    (B, Tk, E) in q's dtype and the bias gradient: ds itself, fp32
+    (B * H, Tq, Tk), for a per-(b, h) bias and the fp32 batch sum of ds,
+    (H, Tq, Tk), for a shared one, as ofasys_tpu routes them (a batch of one
+    counts as per-(b, h)); None without a bias or when ``want_dbias`` is
+    False.
+
+    CUDA tensors launch the one tensor-core pass (counted in
+    ``flash_attention_bwd.launches``) as :func:`backward_plan` lays it out,
+    with fp32 scratch from ``torch.empty``: the key ranges' dq partials,
+    (group_ranges [+ 1]) * group_samples * Tq * E * 4 bytes, and a shared
+    bias's chunk partials, chunks * H * Tq * Tk * 4 bytes, each under
+    ``SCRATCH_CAP`` (256 MiB) but where one sample's single range partial
+    and running sum pass it. CPU tensors run
+    :func:`flash_attention_bwd_reference`."""
+    name = "flash_attention_bwd"
+    _check(q, k, v, bias, mask, num_heads, causal, name)
+    _check_bwd(q, do, lse, dd, num_heads, name)
+    if not q.is_cuda:
+        return flash_attention_bwd_reference(q, k, v, do, lse, dd, bias, mask, num_heads,
+                                             scale, causal, want_dbias)
+    B, H, Tq, Tk, D, per_bh = _dims(q, k, bias, num_heads)
+    want_dbias = want_dbias and bias is not None
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = backward_plan(B, H, Tq, Tk, D, want_dbias and not per_bh, sms, SCRATCH_CAP)
+    fn = _bind("flash_attention_bwd", name, 14, 11)
+    with torch.cuda.device(q.device):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dbias = torch.empty(tuple(bias.shape), dtype=torch.float32, device=q.device) \
+            if want_dbias else None
+        dq_part, part = (torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+                         for n in (plan.dq_scratch, plan.dbias_scratch))
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd), _ptr(bias), _ptr(mask),
+                 _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), _ptr(part), _ptr(dq_part),
+                 B, H, Tq, Tk, D, per_bh, int(causal), plan.key_range, plan.chunks,
+                 plan.group_samples, plan.group_ranges, scale, _stream(q))
+    _raise_on(err, name)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv, dbias
+
+
+flash_attention_bwd.launches = 0
+
+
 def flash_attention_bwd_dq(
     q, k, v, do, lse, dd, bias, mask, num_heads: int, scale: float, causal: bool,
     want_ds: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel B4, dQ: the arguments of :func:`flash_attention_fwd` plus the
-    output cotangent ``do`` (B, Tq, E), the forward's lse and dd =
-    rowsum(do * out) (both fp32 (B, H, Tq)) -> dq (B, Tq, E) in q's dtype,
-    and with ``want_ds`` (a per-(b, h) bias only) ds fp32 (B * H, Tq, Tk).
+    """Kernel B4-dq's part of the backward: arguments as
+    :func:`flash_attention_bwd` -> dq (B, Tq, E) in q's dtype, and with
+    ``want_ds`` (a per-(b, h) bias only) ds fp32 (B * H, Tq, Tk).
 
-    CUDA tensors launch the kernel (``flash_attention_bwd_dq.launches``); CPU
+    CUDA tensors run the one pass of :func:`flash_attention_bwd` (counted
+    there; this launches nothing of its own) and return its dq and ds; CPU
     tensors run the dq part of :func:`flash_attention_bwd_reference`."""
     name = "flash_attention_bwd_dq"
     _check(q, k, v, bias, mask, num_heads, causal, name)
     _check_bwd(q, do, lse, dd, num_heads, name)
-    B, H, Tq, Tk, D, per_bh = _dims(q, k, bias, num_heads)
-    if want_ds and not per_bh:
+    if want_ds and not _dims(q, k, bias, num_heads)[5]:
         raise ValueError(f"{name}: ds is the gradient of a per-(b, h) bias (B*H, Tq, Tk)")
-    if not q.is_cuda:
-        dq, _, _, ds = flash_attention_bwd_reference(q, k, v, do, lse, dd, bias, mask, H,
-                                                     scale, causal, want_dbias=want_ds)
-        return dq, ds
-    fn = _bind("flash_attention_bwd", name, 10, 7)
-    with torch.cuda.device(q.device):
-        dq = torch.empty_like(q)
-        ds = torch.empty((B * H, Tq, Tk), dtype=torch.float32, device=q.device) if want_ds else None
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd), _ptr(bias), _ptr(mask),
-                 _ptr(dq), _ptr(ds), B, H, Tq, Tk, D, per_bh, int(causal), scale, _stream(q))
-    _raise_on(err, name)
-    flash_attention_bwd_dq.launches += 1
+    dq, _, _, ds = flash_attention_bwd(q, k, v, do, lse, dd, bias, mask, num_heads, scale,
+                                       causal, want_dbias=want_ds)
     return dq, ds
-
-
-flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(
     q, k, v, do, lse, dd, bias, mask, num_heads: int, scale: float, causal: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B4, dK/dV: arguments as :func:`flash_attention_bwd_dq` -> dk,
-    dv (B, Tk, E) in k's dtype.
+    """Kernel B4-dkv's part of the backward: arguments as
+    :func:`flash_attention_bwd` -> dk, dv (B, Tk, E) in k's dtype.
 
-    CUDA tensors launch the kernel (``flash_attention_bwd_dkv.launches``);
-    CPU tensors run the dk/dv part of :func:`flash_attention_bwd_reference`."""
-    name = "flash_attention_bwd_dkv"
-    _check(q, k, v, bias, mask, num_heads, causal, name)
-    _check_bwd(q, do, lse, dd, num_heads, name)
-    B, H, Tq, Tk, D, per_bh = _dims(q, k, bias, num_heads)
-    if not q.is_cuda:
-        _, dk, dv, _ = flash_attention_bwd_reference(q, k, v, do, lse, dd, bias, mask, H,
-                                                     scale, causal, want_dbias=False)
-        return dk, dv
-    fn = _bind("flash_attention_bwd", name, 10, 7)
-    with torch.cuda.device(q.device):
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd), _ptr(bias), _ptr(mask),
-                 _ptr(dk), _ptr(dv), B, H, Tq, Tk, D, per_bh, int(causal), scale, _stream(q))
-    _raise_on(err, name)
-    flash_attention_bwd_dkv.launches += 1
+    CUDA tensors run the one pass of :func:`flash_attention_bwd` (counted
+    there) and return its dk and dv; CPU tensors run the dk/dv part of
+    :func:`flash_attention_bwd_reference`."""
+    _, dk, dv, _ = flash_attention_bwd(q, k, v, do, lse, dd, bias, mask, num_heads, scale,
+                                       causal, want_dbias=False)
     return dk, dv
-
-
-flash_attention_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd_dbias(
     q, k, v, do, lse, dd, bias, mask, num_heads: int, scale: float, causal: bool,
 ) -> torch.Tensor:
-    """Kernel B5: the gradient of a bias (H, Tq, Tk) shared by the batch,
-    sum_b p_b (dp_b - dd_b) in fp32 (H, Tq, Tk); arguments as
-    :func:`flash_attention_bwd_dq`.
+    """Kernel B5's part of the backward: the gradient of a bias (H, Tq, Tk)
+    shared by the batch, sum_b p_b (dp_b - dd_b) in fp32 (H, Tq, Tk);
+    arguments as :func:`flash_attention_bwd`.
 
-    CUDA tensors launch the kernel (``flash_attention_bwd_dbias.launches``);
-    CPU tensors run the dbias part of :func:`flash_attention_bwd_reference`."""
+    CUDA tensors run the one pass of :func:`flash_attention_bwd` (counted
+    there) and return its bias gradient; CPU tensors run the dbias part of
+    :func:`flash_attention_bwd_reference`."""
     name = "flash_attention_bwd_dbias"
     _check(q, k, v, bias, mask, num_heads, causal, name)
-    _check_bwd(q, do, lse, dd, num_heads, name)
     if bias is None or bias.shape[0] != num_heads:
         raise ValueError(f"{name}: needs a bias (H, Tq, Tk) shared by the batch")
-    B, H, Tq, Tk, D, _ = _dims(q, k, bias, num_heads)
-    if not q.is_cuda:
-        return flash_attention_bwd_reference(q, k, v, do, lse, dd, bias, mask, H, scale, causal)[3]
-    fn = _bind("flash_attention_bwd", name, 9, 6)
-    with torch.cuda.device(q.device):
-        dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd), _ptr(bias), _ptr(mask),
-                 _ptr(dbias), B, H, Tq, Tk, D, int(causal), scale, _stream(q))
-    _raise_on(err, name)
-    flash_attention_bwd_dbias.launches += 1
-    return dbias
-
-
-flash_attention_bwd_dbias.launches = 0
-
-
-def flash_attention_bwd(
-    q, k, v, do, lse, dd, bias, mask, num_heads: int, scale: float, causal: bool,
-    want_dbias: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The whole backward (``_flash_backward``): dq, dk, dv and the bias
-    gradient. A per-(b, h) bias gets ds from the dq kernel, a shared one
-    the batch sum from kernel B5, as ofasys_tpu routes them (a batch of one
-    counts as per-(b, h)). CPU tensors run :func:`flash_attention_bwd_reference`."""
-    if not q.is_cuda:
-        _check(q, k, v, bias, mask, num_heads, causal, "flash_attention_bwd")
-        _check_bwd(q, do, lse, dd, num_heads, "flash_attention_bwd")
-        return flash_attention_bwd_reference(q, k, v, do, lse, dd, bias, mask, num_heads,
-                                             scale, causal, want_dbias)
-    want_dbias = want_dbias and bias is not None
-    fuse_ds = want_dbias and bias.shape[0] == q.shape[0] * num_heads
-    args = (q, k, v, do, lse, dd, bias, mask, num_heads, scale, causal)
-    dq, dbias = flash_attention_bwd_dq(*args, want_ds=fuse_ds)
-    if want_dbias and not fuse_ds:
-        dbias = flash_attention_bwd_dbias(*args)
-    dk, dv = flash_attention_bwd_dkv(*args)
-    return dq, dk, dv, dbias
+    return flash_attention_bwd(q, k, v, do, lse, dd, bias, mask, num_heads, scale, causal)[3]
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Kernel B3 forward, kernels B4/B5 backward (the custom vjp of
-    ``flash_attention_flat`` and ``flash_attention_with_lse``): q (B, Tq, E),
-    k/v (B, Tk, E), bias bf16 (H or B*H, Tq, Tk) or None, mask int8
-    (B, 1, Tk) or None -> (out (B, Tq, E), lse (B, H, Tq) fp32). The lse
+    """Kernel B3 forward, the one backward pass of B4-dq, B4-dkv and B5
+    backward (the custom vjp of ``flash_attention_flat`` and
+    ``flash_attention_with_lse``): q (B, Tq, E), k/v (B, Tk, E), bias bf16
+    (H or B*H, Tq, Tk) or None, mask int8 (B, 1, Tk) or None -> (out
+    (B, Tq, E), lse (B, H, Tq) fp32). The lse
     cotangent folds into the backward as dd - g_lse; the bias gradient
     comes back in the bias's dtype, as ``_bwd`` returns it."""
 

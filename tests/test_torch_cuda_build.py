@@ -48,7 +48,9 @@ INCLUDES = [("flash_attention_fwd", "dense_mma.cuh"), ("dense_attention_fwd", "d
             ("dense_attention_bwd", "dense_attention_bwd_mma.cuh"),
             ("dense_attention_bwd", "dense_mma.cuh"),
             ("dense_attention_bwd_rowmajor", "dense_attention_bwd_mma.cuh"),
-            ("dense_attention_bwd_rowmajor", "dense_mma.cuh")]
+            ("dense_attention_bwd_rowmajor", "dense_mma.cuh"),
+            ("flash_attention_bwd", "dense_attention_bwd_mma.cuh"),
+            ("flash_attention_bwd", "dense_mma.cuh")]
 
 
 @pytest.mark.parametrize("name,header", INCLUDES, ids=[f"{n}-{h}" for n, h in INCLUDES])

@@ -6,7 +6,7 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 Tolerances (bf16), for q scaled as the model scales it:
   * B1: out atol 2e-2 (p is rounded to bf16 before p.V at a different
     point), lse atol 1e-3 (fp32 sums in another order);
-  * B2, B4 and B5 (the backward kernels): each gradient held to the
+  * B2 and the flash backward (the one pass for B4 and B5): each gradient held to the
     reference's own size, relative Frobenius error and max error over
     max|ref|. dq, dk, dv are bf16 outputs that both sides round at the same
     points (p and ds to bf16 before their products), so they differ only
@@ -385,6 +385,19 @@ FLASH_SHAPES = {
     "no_bias": (2, 300, 300, 4, 64, None, False),
     "d80": (2, 260, 270, 4, 80, "shared", False),
     "d160": (1, 290, 290, 2, 160, "shared", True),
+    # the long paths' flash calls (train_long, H = 12, D = 64)
+    "gigaword_long_encoder": (16, 1000, 1000, 12, 64, "shared", False),
+    "gigaword_long_cross": (16, 64, 1000, 12, 64, "shared", False),
+    "infill_long_encoder": (16, 488, 488, 12, 64, "shared", False),
+    "infill_long_decoder_causal": (16, 528, 528, 12, 64, "shared", True),
+    # head dims the backward takes in 112- and 48-key ranges, a batch of
+    # one (its bias counts as per-(b, h): ds), and T = 4,096, where the dq
+    # partials pass SCRATCH_CAP and the samples go one at a time
+    "D88": (2, 300, 333, 32, 88, "shared", False),
+    "D128_per_bh": (2, 300, 300, 8, 128, "per_bh", False),
+    "D256_causal": (2, 290, 290, 4, 256, "shared", True),
+    "B1": (1, 1000, 1000, 12, 64, "shared", False),
+    "long_T4096": (2, 4096, 4096, 12, 64, "shared", False),
 }
 
 
@@ -399,59 +412,152 @@ def _flash_inputs(B, Tq, Tk, H, D, bias_kind):
     return q, k, v, do, bias, mask
 
 
+def _flash_bwd_args(case, g_lse=False):
+    """The backward's arguments at one FLASH_SHAPES case: the forward's lse
+    and dd = rowsum(do * out) from its bf16 output, minus a random lse
+    cotangent with ``g_lse`` (as FlashAttentionFunction.backward forms it)."""
+    from ofasys_torch.ops import flash_attention as tflash
+
+    B, Tq, Tk, H, D, bias_kind, causal = FLASH_SHAPES[case]
+    q, k, v, do, bias, mask = _flash_inputs(B, Tq, Tk, H, D, bias_kind)
+    scale = (2 * D) ** -0.5
+    out, lse = tflash.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    dd = (do.float() * out.float()).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1)
+    if g_lse:
+        g = torch.Generator(device="cuda").manual_seed(4)
+        dd = dd - torch.randn(B, H, Tq, device="cuda", generator=g) * 0.5
+    return (q, k, v, do, lse, dd.contiguous(), bias, mask, H, scale, causal), out
+
+
+def _check_flash_grads(got, ref, bias_kind):
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], ref[:3]):
+        assert a.dtype == torch.bfloat16
+        ok, errs = _grad_close(a, b, GRAD_TOL)
+        assert ok, (name, errs)
+    if bias_kind is None:
+        assert got[3] is None and ref[3] is None
+    else:
+        assert got[3].dtype == torch.float32 and got[3].shape == ref[3].shape
+        ok, errs = _grad_close(got[3], ref[3], DS_TOL)
+        assert ok, ("dbias", errs)
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(FLASH_SHAPES))
 def test_flash_kernels_match_plain_versions_on_card(case):
     """B3: out atol 2e-2 (bf16 output; p is rounded to bf16 against the
     running max of its tile in the kernel, the row max in the plain
-    version), lse atol 1e-3 (fp32 sums in another order). B4: dq, dk, dv
-    (bf16 outputs of sums of rounded p and ds) within GRAD_TOL of the
-    reference. B5 and the per-(b, h) ds (fp32 sums of unrounded ds) within
-    DS_TOL. The same kernels fed dd = 0 (a kernel that dropped it) must
-    fail those limits on dq, dk and the bias gradient."""
+    version), lse atol 1e-3 (fp32 sums in another order). The one backward
+    pass: dq, dk, dv (bf16 outputs of sums of rounded p and ds) within
+    GRAD_TOL of the reference; the shared bias's gradient and the per-(b, h)
+    ds (fp32 sums of unrounded ds) within DS_TOL; the same bits twice; the
+    part wrappers (B4-dq, B4-dkv, B5) return its parts and launch nothing of
+    their own. The same pass fed dd = 0 (a kernel that dropped it) must fail
+    those limits on dq, dk and the bias gradient."""
     _need_card()
     from ofasys_torch.ops import flash_attention as tflash
 
     B, Tq, Tk, H, D, bias_kind, causal = FLASH_SHAPES[case]
-    q, k, v, do, bias, mask = _flash_inputs(B, Tq, Tk, H, D, bias_kind)
-    scale = (2 * D) ** -0.5
-    counts = [f.launches for f in (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
-                                   tflash.flash_attention_bwd_dkv, tflash.flash_attention_bwd_dbias)]
-    out, lse = tflash.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    counts = (tflash.flash_attention_fwd.launches, tflash.flash_attention_bwd.launches)
+    args, out = _flash_bwd_args(case)
+    q, k, v, do, lse, dd, bias, mask, _, scale, _ = args
     torch.cuda.synchronize()
     ref, ref_lse = tflash.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
-    dd = (do.float() * out.float()).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1).contiguous()
-    args = (q, k, v, do, lse, dd, bias, mask, H, scale, causal)
-    rq, rk, rv, rbias = tflash.flash_attention_bwd_reference(*args)
-
-    def backward(a):
-        dq, ds = tflash.flash_attention_bwd_dq(*a, want_ds=bias_kind == "per_bh")
-        dk, dv = tflash.flash_attention_bwd_dkv(*a)
-        return dq, dk, dv, tflash.flash_attention_bwd_dbias(*a) if bias_kind == "shared" else ds
-
-    dq, dk, dv, dbias = backward(args)
+    got = tflash.flash_attention_bwd(*args)
     torch.cuda.synchronize()
-    wanted = [1, 1, 1, int(bias_kind == "shared")]
-    now = [f.launches for f in (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
-                                tflash.flash_attention_bwd_dkv, tflash.flash_attention_bwd_dbias)]
-    assert [n - c for n, c in zip(now, counts)] == wanted
-    for name, a, b in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
-        assert a.dtype == torch.bfloat16
-        ok, errs = _grad_close(a, b, GRAD_TOL)
-        assert ok, (name, errs)
-    if bias_kind is not None:
-        ok, errs = _grad_close(dbias, rbias, DS_TOL)
-        assert ok, ("dbias", errs)
+    assert (tflash.flash_attention_fwd.launches - counts[0],
+            tflash.flash_attention_bwd.launches - counts[1]) == (1, 1)
+    ref = tflash.flash_attention_bwd_reference(*args)
+    _check_flash_grads(got, ref, bias_kind)
+    again = tflash.flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+    # the part wrappers: one pass each, counted under flash_attention_bwd
+    before = tflash.flash_attention_bwd.launches
+    dq1, ds1 = tflash.flash_attention_bwd_dq(*args, want_ds=bias_kind == "per_bh" or B == 1)
+    dk1, dv1 = tflash.flash_attention_bwd_dkv(*args)
+    assert torch.equal(dq1, got[0]) and torch.equal(dk1, got[1]) and torch.equal(dv1, got[2])
+    if bias_kind == "per_bh" or (bias_kind == "shared" and B == 1):
+        assert torch.equal(ds1, got[3])
+    elif bias_kind == "shared":
+        assert torch.equal(tflash.flash_attention_bwd_dbias(*args), got[3])
+    assert tflash.flash_attention_bwd.launches - before == 2 + (bias_kind == "shared" and B > 1)
 
     # a planted fault: dd = 0
-    fq, fk, _, fbias = backward(args[:5] + (torch.zeros_like(dd),) + args[6:])
-    assert not _grad_close(fq, rq, GRAD_TOL)[0] and not _grad_close(fk, rk, GRAD_TOL)[0]
+    fq, fk, _, fbias = tflash.flash_attention_bwd(*args[:5], torch.zeros_like(dd), *args[6:])
+    assert not _grad_close(fq, ref[0], GRAD_TOL)[0] and not _grad_close(fk, ref[1], GRAD_TOL)[0]
     if bias_kind is not None:
-        assert not _grad_close(fbias, rbias, DS_TOL)[0]
+        assert not _grad_close(fbias, ref[3], DS_TOL)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "causal", "per_bh_causal", "no_bias"])
+def test_flash_bwd_takes_the_lse_cotangent_on_card(case):
+    """dd passed in as rowsum(do * out) - g_lse (flash_attention_with_lse's
+    cotangent): the pass reads it and does not form its own."""
+    _need_card()
+    from ofasys_torch.ops import flash_attention as tflash
+
+    args, _ = _flash_bwd_args(case, g_lse=True)
+    _check_flash_grads(tflash.flash_attention_bwd(*args),
+                       tflash.flash_attention_bwd_reference(*args), FLASH_SHAPES[case][5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "causal", "per_bh_causal", "D256_causal"])
+def test_flash_bwd_scratch_groups_give_the_same_bits_on_card(case, monkeypatch):
+    """With SCRATCH_CAP cut so that the samples, and then also the key
+    ranges, go in groups, dq, dk, dv and a per-(b, h) ds keep their bits
+    (each range's dq partial is the same; the running sum adds them in the
+    same order), and a shared bias's gradient (chunk sums in another order)
+    stays within DS_TOL."""
+    _need_card()
+    from ofasys_torch.ops import flash_attention as tflash
+
+    B, Tq, Tk, H, D, bias_kind, causal = FLASH_SHAPES[case]
+    args, _ = _flash_bwd_args(case)
+    whole = tflash.flash_attention_bwd(*args)
+    ref = tflash.flash_attention_bwd_reference(*args)
+    plan = tflash.backward_plan(B, H, Tq, Tk, D, bias_kind == "shared")
+    assert plan.ranges > 1 and plan.group_samples == B
+    slot = Tq * H * D * 4                        # one sample's dq partial of one range
+    # one sample's partials; then under two slots: one range a launch
+    for cap, group_ranges in ((plan.ranges * slot, plan.ranges), (2 * slot - 4, 1)):
+        monkeypatch.setattr(tflash, "SCRATCH_CAP", cap)
+        small = tflash.backward_plan(B, H, Tq, Tk, D, bias_kind == "shared", cap=cap)
+        assert (small.group_samples, small.group_ranges) == (1, group_ranges)
+        got = tflash.flash_attention_bwd(*args)
+        for a, b in zip(got[:3], whole[:3]):
+            assert torch.equal(a, b)
+        if bias_kind == "per_bh":
+            assert torch.equal(got[3], whole[3])
+        _check_flash_grads(got, ref, bias_kind)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_key_range_rule_matches_the_kernel_on_card(monkeypatch):
+    """backward_plan's mirror of the kernel's shared-memory rule gives the
+    C entry's largest key range, and the kernel refuses a larger one."""
+    _need_card()
+    import ctypes
+
+    from ofasys_torch.ops import flash_attention as tflash
+    from ofasys_torch.ops.cuda_build import load
+
+    fn = load("flash_attention_bwd").flash_attention_bwd_max_key_range
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for Tk in (256, 257, 488, 1000, 4096):
+        for D in (16, 32, 64, 80, 88, 128, 160, 256):
+            assert tflash.max_key_range(Tk, D) == fn(Tk, D), (Tk, D)
+    args, _ = _flash_bwd_args("ragged")
+    plan = tflash.backward_plan(2, 12, 300, 333, 64, True)
+    wide = plan._replace(key_range=tflash.max_key_range(333, 64) + 16)
+    monkeypatch.setattr(tflash, "backward_plan", lambda *a, **kw: wide)
+    with pytest.raises(RuntimeError):
+        tflash.flash_attention_bwd(*args)
 
 
 # (B, Tq, Tk, H, D, bias, causal): B3 (bf16, tensor cores) at head dims it
@@ -512,14 +618,15 @@ def test_flash_autograd_function_runs_every_kernel_on_card():
     q, k, v, do, _, mask = _flash_inputs(B, T, T, H, D, None)
     q4, k4, v4 = (t.view(B, T, H, D).clone().requires_grad_() for t in (q, k, v))
     bias = torch.randn(1, H, T, T, device="cuda", requires_grad=True)
-    fns = (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
-           tflash.flash_attention_bwd_dkv, tflash.flash_attention_bwd_dbias)
+    fns = (tflash.flash_attention_fwd, tflash.flash_attention_bwd)
     before = [f.launches for f in fns]
     out = tflash.flash_attention(q4, k4, v4, bias=bias, mask=mask.bool()[:, :, None, :],
                                  scale=(2 * D) ** -0.5, causal=True)
     out.backward(do.view(B, T, H, D))
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_bwd_dbias"):
+        assert not hasattr(getattr(tflash, name), "launches")   # they launch no kernel of their own
     assert all(torch.isfinite(t.grad.float()).all() for t in (q4, k4, v4, bias))
     assert bias.grad.dtype == torch.float32
 
