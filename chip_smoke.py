@@ -64,9 +64,13 @@ long paths, a per-(b, h) bias, a causal and a ragged shape and at
 FLASH_EDGE_SHAPES (head dims 88, 128 and 256, a batch of one, ragged Tq !=
 Tk, T = 4,096 past the backward's scratch cap), each run twice for equal
 bits and with planted faults (a key tile left out; for the backward also
-dd = 0) at every shape, B7 at serve_int8's shapes and B6 at
-the train mix's; B2r beside B2 at every training shape and at EDGE_SHAPES
-(ragged Tq != Tk, B=1, head dims 88, 128 and 256), B2 and B2r each run
+dd = 0) at every shape; B7 at serve_int8's shapes (decode logits, fc1, fc2
+and q/k/v/out at 40 and 4 rows, the encoder's projections, a ragged K for
+the __dp4a kernel), bit for bit, each with its plan and a planted fault (a
+K slice left out: one cluster rank's share under a split); B6 at the train
+mix's shapes and at E = 1,024, 4,096 and an odd 1,001; B2r beside B2 at
+every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1, head dims
+88, 128 and 256), B2 and B2r each run
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
 B2) with the scale and the causal mask inside the kernel at a decoder shape
 and at a shape with Tq < Tk (the causal offset), with two planted faults.
@@ -295,6 +299,8 @@ FLASH_BWD_ROWS = {
     "flash_attention_bwd_dkv": ("ofasys_tpu/ops/pallas_attention.py:404", "err_dkv"),
     "flash_attention_bwd_dbias": ("ofasys_tpu/ops/pallas_attention.py:466", "err_dbias"),
 }
+# the device kernels of B7 (csrc/int8_matmul.cu), by name in a profile
+B7_KERNEL_NAMES = ("int8_mma_kernel", "int8_dp4a_kernel")
 # the module of each kernel's wrapper, under ofasys_torch.ops
 _WRAPPER_MODULE = {"dense": "dense_attention", "flash": "flash_attention", "int8": "int8_matmul",
                    "layer": "layer_norm"}
@@ -1021,12 +1027,15 @@ def _int_mm_ms(xq, sx, q, scale):
 
 def check_int8(label, M, K, N):
     """Kernel B7 against its plain version at one (M, K, N), bit for bit,
-    with its times: the kernel, the plain version, the library's int8
-    product with the same epilogue, and (for context) the bf16 ``F.linear``
-    of the same product."""
+    with its plan (``int8_plan``: kernel, tile, K split) and its times: the
+    kernel, the plain version, the library's int8 product with the same
+    epilogue, and (for context) the bf16 ``F.linear`` of the same product.
+    A planted fault, one K slice of xq left out (the last cluster rank's
+    share under a split, else the last 64 bytes), must change the bits."""
     import torch.nn.functional as F
 
-    from ofasys_torch.ops.int8_matmul import int8_matmul_fwd, int8_matmul_reference
+    from ofasys_torch.ops.int8_matmul import (int8_matmul_fwd, int8_matmul_reference, int8_plan,
+                                              split_ranges)
     from ofasys_torch.ops.quant import _quantize_rows, quantize_weight
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1034,15 +1043,27 @@ def check_int8(label, M, K, N):
     w = torch.randn(N, K, device="cuda", generator=g) * K ** -0.5
     xq, sx = _quantize_rows(x)
     q, scale = quantize_weight(w)
+    plan = int8_plan(M, N, K, xq.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
     out = int8_matmul_fwd(xq, sx, q, scale, torch.bfloat16)
     torch.cuda.synchronize()
     ref = int8_matmul_reference(xq, sx, q, scale, torch.bfloat16)
     err = (out.float() - ref.float()).abs().max().item()
     equal = torch.equal(out, ref)
-    log(f"kernel int8_matmul_fwd [{label} M={M} K={K} N={N}]: bit-equal to its plain version: "
-        f"{equal} (max |out-plain| {err:.3e}) -> {'ok' if equal else 'FAIL'}")
+    plan_s = (f"{plan.kernel} {plan.tile_m}x{plan.tile_n} split {plan.split}, "
+              f"{plan.blocks(M, N)} blocks")
+    log(f"kernel int8_matmul_fwd [{label} M={M} K={K} N={N}; {plan_s}]: bit-equal to its plain "
+        f"version: {equal} (max |out-plain| {err:.3e}) -> {'ok' if equal else 'FAIL'}")
     if not equal:
         raise SystemExit(f"int8_matmul_fwd differs from its plain version at {label}")
+    k0, k1 = split_ranges(K, plan.split)[-1] if plan.split > 1 else (max(0, K - 64), K)
+    cut = xq.clone()
+    cut[:, k0:k1] = 0
+    caught = not torch.equal(int8_matmul_fwd(cut, sx, q, scale, torch.bfloat16), ref)
+    log(f"  planted fault K bytes {k0}-{k1 - 1} left out: "
+        f"{'caught by bit-equality' if caught else 'NOT caught'}")
+    if not caught:
+        raise SystemExit(f"{label}: bit-equality passes B7 with a K slice left out")
+    del cut
     wb = w.to(torch.bfloat16)
     kernel_ms = time_ms(lambda: int8_matmul_fwd(xq, sx, q, scale, torch.bfloat16))
     plain_ms = time_ms(lambda: int8_matmul_reference(xq, sx, q, scale, torch.bfloat16), n=10)
@@ -1056,19 +1077,24 @@ def check_int8(label, M, K, N):
     log(f"  times [{label}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"(torch._int_mm + epilogue) {lib}, bf16 F.linear {bf16_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {ops} int8 OP)")
-    return dict(shape=label, M=M, K=K, N=N, err=err, bit_equal=equal, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, library_ms=library_ms, bf16_linear_ms=bf16_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(shape=label, M=M, K=K, N=N, plan=vars(plan), err=err, bit_equal=equal,
+                fault_caught=caught, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bf16_linear_ms=bf16_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def phase_int8_kernels(encoder_rows, vocab):
     """Kernel B7 at serve_int8's shapes: the tied logits of a beam-5 and a
-    greedy decode step over ``vocab`` symbols, a decode step's fc1 and fc2
-    (8 requests x beam 5 = 40 rows), the encoder's fc1 at the largest
-    dispatch's B*T rows, and a ragged shape."""
+    greedy decode step over ``vocab`` symbols, a beam-5 decode step's fc1,
+    fc2 and q/k/v/out (8 requests x beam 5 = 40 rows), a greedy step's
+    q/k/v/out (4 rows), the encoder's fc1, fc2 and q/k/v/out at the largest
+    dispatch's B*T rows, and a ragged shape (K % 16 != 0: the __dp4a
+    kernel). Every plan of ``int8_plan`` the path takes is among them."""
     shapes = [("decode_logits", 40, 768, vocab), ("greedy_logits", 4, 768, vocab),
               ("decode_fc1", 40, 768, 3072), ("decode_fc2", 40, 3072, 768),
-              ("encoder_fc1", encoder_rows, 768, 3072), ("ragged", 300, 200, 333)]
+              ("decode_qkv", 40, 768, 768), ("greedy_qkv", 4, 768, 768),
+              ("encoder_fc1", encoder_rows, 768, 3072), ("encoder_fc2", encoder_rows, 3072, 768),
+              ("encoder_qkv", encoder_rows, 768, 768), ("ragged", 300, 200, 333)]
     return [check_int8(*s) for s in shapes]
 
 
@@ -1128,7 +1154,8 @@ def check_ln(label, N, E):
     ok_sums = all(errs[n]["frob"] <= LN_SUM_TOL and errs[n]["max_rel"] <= LN_SUM_TOL
                   for n in ("dg", "db"))
     ok = y_ok and stat_err <= 1e-5 and ok_dx and ok_sums
-    tag = f"[{label} N={N} E={E} bf16]"
+    fplan = tln.ln_fwd_plan(E, x.element_size())
+    tag = f"[{label} N={N} E={E} bf16; B6-fwd {fplan.kernel} {fplan.warps}x{fplan.slots}]"
     log(f"kernels layer_norm_fwd/bwd {tag}: max|y-plain| {dy_err.max().item():.3e} (one bf16 ulp), "
         f"mu/rstd rel {stat_err:.2e} (1e-5); "
         + " ".join(f"{n} frob {v['frob']:.2e} max {v['max_rel']:.2e}" for n, v in errs.items())
@@ -1163,22 +1190,26 @@ def check_ln(label, N, E):
             f"(F.layer_norm{'' if name.endswith('fwd') else ' backward'}) {lib_s}, bound "
             f"{bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {ops} FLOP)")
         rows.append(dict(shape=label, N=N, E=E, err=err, kernel_ms=k_ms, plain_ms=p_ms,
-                         library_ms=lib, bound_ms=bound_ms, bound_by=bound_by))
+                         library_ms=lib, bound_ms=bound_ms, bound_by=bound_by,
+                         **({"plan": vars(fplan)} if name == "layer_norm_fwd" else {})))
     return rows
 
 
 def phase_ln_kernels(batches):
     """Kernels B6-fwd and B6-bwd at the train mix's LayerNorm shapes (each
     task's encoder and decoder rows at E = 768, the encoder rows of the
-    first task at fc2_ln's 3,072), a decode step and a ragged N. Returns
-    {kernel name: [rows]}."""
+    first task at fc2_ln's 3,072), a decode step and a ragged N; then at
+    E = 1,024 and 4,096 (the large arch's width and FFN width: B6-fwd's row
+    in registers with one warp and with a group of six) and at an odd E =
+    1,001 (the two-walk kernel). Returns {kernel name: [rows]}."""
     shapes = []
     for i, (name, b) in enumerate(batches.items()):
         B, Ts, Tt = _task_shapes(b)
         shapes += [(f"{name}_encoder", B * Ts, 768), (f"{name}_decoder", B * Tt, 768)]
         if i == 0:
             shapes.append((f"{name}_encoder_fc2_ln", B * Ts, 3072))
-    shapes += [("decode_step", 40, 768), ("ragged", 1001, 768)]
+    shapes += [("decode_step", 40, 768), ("ragged", 1001, 768), ("E1024", 12288, 1024),
+               ("E4096", 12288, 4096), ("E1001_odd", 12288, 1001)]
     rows = {"layer_norm_fwd": [], "layer_norm_bwd": []}
     for label, N, E in shapes:
         f, bw = check_ln(label, N, E)
@@ -1533,8 +1564,8 @@ def serve_truncated_and_check(hub, card):
 
 def _report_profile(prof, wall_ms, what, card, share=None):
     """Wall, device busy time and idle share, launches and the top kernels;
-    with ``share``, the share of device time of the kernels whose name holds
-    it."""
+    with ``share`` (a tuple of names), the share of device time of the
+    kernels whose name holds one of them."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1544,9 +1575,10 @@ def _report_profile(prof, wall_ms, what, card, share=None):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
     if share:
-        own = [e for e in kernels if share in e.key]
+        own = [e for e in kernels if any(s in e.key for s in share)]
         own_ms = sum(e.self_device_time_total for e in own) / 1e3
-        log(f"  kernels named *{share}*: {own_ms:.3f} ms in {sum(e.count for e in own)} launches, "
+        log(f"  kernels named {' or '.join(f'*{s}*' for s in share)}: {own_ms:.3f} ms in "
+            f"{sum(e.count for e in own)} launches, "
             f"{100 * own_ms / max(busy_ms, 1e-9):.1f}% of device time")
 
 
@@ -1554,7 +1586,7 @@ def phase_profile(hub, card, share=None, tpl=TPL, reqs=None, what="one dispatch 
     """One dispatch of the serving path (the first 8 requests, beam 5) under
     torch.profiler: wall time, device busy time and idle share, kernel
     launches, and the kernels that take the most device time (with
-    ``share``, the share of the kernels whose name holds it)."""
+    ``share``, the share of the kernels whose name holds one of its names)."""
     from torch.profiler import ProfilerActivity, profile
 
     recs = [r for r, _ in (reqs or _serve_requests())[:8]]
@@ -1629,7 +1661,7 @@ def serve_int8_and_check(hub, card, serve_res=None):
             f"{res['tokens_per_s']:.1f} vs {serve_res['tokens_per_s']:.1f} tokens/s; "
             f"{same} of {len(res['outs'])} answers equal to the bf16 hub's (information) [{card}]")
     if hub.device.type == "cuda":
-        phase_profile(qhub, card, share="int8_matmul")
+        phase_profile(qhub, card, share=B7_KERNEL_NAMES)
     del qhub, model
     return res
 

@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16 dense-attention kernels
-// (dense_attention_fwd.cu, B1; dense_attention_bwd.cu, B2). Hopper (sm_90a).
+// (dense_attention_fwd.cu, B1; dense_attention_bwd.cu, B2) and the int8
+// GEMM (int8_matmul.cu, B7). Hopper (sm_90a).
 //
 // Products use mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: A is a
 // 16 x 16 bf16 tile (4 registers), B a 16 x 8 bf16 tile (2 registers), C a
@@ -48,6 +49,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a . b on the int8 tensor cores:
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32. The fragments hold the
+// same bytes as m16n8k16 bf16's (A 16 x 32 bytes, B 32 x 8 bytes, C 16 x 8
+// int32 at the fp32 positions), so the b16 ldmatrix loads them unchanged.
+__device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two 8 x 8 b16 matrices; lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // two fp32 values rounded to bf16 and packed, x in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
@@ -58,12 +79,24 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
+// 16 bytes when `full`, else 16 zero bytes and nothing read (src-size 0)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // wait for this thread's copies but those of its last committed group

@@ -11,7 +11,9 @@ fast-variance form ``E[x^2] - mu^2`` (as flax.linen.LayerNorm computes them),
 eps inside the square root, y rounded once to x's dtype; the backward takes
 mu and rstd from the forward and returns dg and db as fp32 sums over all
 rows. ofasys_tpu's gate ``ln_supported`` (E % 128, a TPU backend) does not
-carry over: the kernels take any E.
+carry over: the kernels take any E. B6-fwd holds each row in registers at
+the widths of the arch table and their FFN widths (``ln_fwd_plan``, a pure
+function the CPU tests check) and walks the row twice at any other E.
 
   * :class:`FusedLayerNormFunction`: B6-fwd forward, B6-bwd backward
     (``fused_layer_norm``; ``ln_impl='pallas'``).
@@ -25,13 +27,47 @@ carry over: the kernels take any E.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
+from ofasys_torch.model.config import _ARCH_TABLE
 from ofasys_torch.model.transformer import LayerNorm
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+# the widths B6-fwd holds in registers: every embed and FFN width of the
+# arch table (256 to 11,264)
+LN_WIDTHS = frozenset(w for e, f, *_ in _ARCH_TABLE.values() for w in (e, f))
+# the slot counts the kernel is instantiated for (layer_norm.cu `fwd_rows`)
+LN_SLOTS = (1, 2, 3, 4, 5, 6, 8, 10, 11)
+ROW_WARPS_MAX_E = 1024      # one warp a row up to this width, a group of 2-8 above
+SLOTS_TARGET = 3            # 16-byte vectors a lane the group size aims at
+
+
+@dataclass(frozen=True)
+class LnFwdPlan:
+    """How one B6-fwd call runs: ``kernel`` 'rows' holds each row in
+    registers, ``warps`` warps a row and ``slots`` 16-byte vectors a lane;
+    'two_walk' walks the row twice, in 16-byte vectors when ``vec``."""
+
+    kernel: str
+    warps: int = 0
+    slots: int = 0
+    vec: bool = False
+
+
+def ln_fwd_plan(E: int, element_size: int, aligned: bool = True) -> LnFwdPlan:
+    """The plan of :func:`layer_norm_fwd` for rows of E elements of
+    ``element_size`` bytes (2 bf16, 4 fp32); ``aligned``: every row and g
+    and b start on a 16-byte boundary."""
+    per = 16 // element_size
+    if E not in LN_WIDTHS or not aligned:
+        return LnFwdPlan("two_walk", vec=aligned and E % per == 0)
+    nv = E // per
+    warps = 1 if E <= ROW_WARPS_MAX_E else min(8, -(-nv // (32 * SLOTS_TARGET)))
+    return LnFwdPlan("rows", warps, -(-nv // (32 * warps)))
 
 
 def layer_norm_fwd_reference(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -99,8 +135,8 @@ def _ptr(t):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # x, g, b, y, mu, rstd; N, E; eps; vec, dtype; stream
-    "layer_norm_fwd": [_P] * 6 + [_I] * 2 + [ctypes.c_float] + [_I] * 2 + [_P],
+    # x, g, b, y, mu, rstd; N, E; eps; warps, slots, vec, dtype; stream
+    "layer_norm_fwd": [_P] * 6 + [_I] * 2 + [ctypes.c_float] + [_I] * 4 + [_P],
     # x, g, mu, rstd, dy, dx, dg, db, part; N, E, chunks, rows, vec, dtype; stream
     "layer_norm_bwd": [_P] * 9 + [_I] * 6 + [_P],
 }
@@ -121,8 +157,9 @@ def layer_norm_fwd(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     """Kernel B6-fwd: x (N, E) bf16 or fp32, g and b (E,) fp32 -> y (N, E)
     in x's dtype, mu and rstd (N, 1) fp32.
 
-    CUDA tensors launch the kernel (counted in ``layer_norm_fwd.launches``);
-    CPU tensors run :func:`layer_norm_fwd_reference`."""
+    CUDA tensors launch the kernel that :func:`ln_fwd_plan` picks (counted
+    in ``layer_norm_fwd.launches``); CPU tensors run
+    :func:`layer_norm_fwd_reference`."""
     _check("layer_norm_fwd", x, g, (b, tuple(g.shape), torch.float32))
     if not x.is_cuda:
         return layer_norm_fwd_reference(x, g, b, eps)
@@ -132,8 +169,9 @@ def layer_norm_fwd(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
         y = torch.empty_like(x)
         mu = torch.empty((N, 1), dtype=torch.float32, device=x.device)
         rstd = torch.empty((N, 1), dtype=torch.float32, device=x.device)
+        plan = ln_fwd_plan(E, x.element_size(), all(t.data_ptr() % 16 == 0 for t in (x, y, g, b)))
         err = fn(_ptr(x), _ptr(g), _ptr(b), _ptr(y), _ptr(mu), _ptr(rstd), N, E, float(eps),
-                 _vec(x, y), _DTYPE_CODE[x.dtype], _stream(x))
+                 plan.warps, plan.slots, int(plan.vec), _DTYPE_CODE[x.dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"layer_norm_fwd: CUDA launch failed with error {err}")
     layer_norm_fwd.launches += 1

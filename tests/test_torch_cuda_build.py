@@ -50,7 +50,7 @@ INCLUDES = [("flash_attention_fwd", "dense_mma.cuh"), ("dense_attention_fwd", "d
             ("dense_attention_bwd_rowmajor", "dense_attention_bwd_mma.cuh"),
             ("dense_attention_bwd_rowmajor", "dense_mma.cuh"),
             ("flash_attention_bwd", "dense_attention_bwd_mma.cuh"),
-            ("flash_attention_bwd", "dense_mma.cuh")]
+            ("flash_attention_bwd", "dense_mma.cuh"), ("int8_matmul", "dense_mma.cuh")]
 
 
 @pytest.mark.parametrize("name,header", INCLUDES, ids=[f"{n}-{h}" for n, h in INCLUDES])

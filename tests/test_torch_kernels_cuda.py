@@ -19,7 +19,8 @@ Tolerances (bf16), for q scaled as the model scales it:
   * fp32 tensors (B1's, B2's and B2r's CUDA-core kernels): 1e-4 on every measure;
   * B3 (flash attention): as B1, the same bits run to run;
   * B7 (int8 GEMM): equal to its plain version bit for bit (an exact
-    integer product and the same two fp32 products);
+    integer product and the same two fp32 products), at every plan
+    (``int8_plan``: small M, large M, each cluster size, the __dp4a kernel);
   * B6 (LayerNorm), bf16: y within one bf16 ulp (|y - ref| <= 2^-7 |ref| +
     1e-3), mu and rstd rtol 1e-5 (fp32 row sums in another order); dx as
     GRAD_TOL; dg and db, fp32 sums over the rows in another order, within
@@ -662,6 +663,66 @@ def test_int8_kernel_equals_plain_version_on_card(case, out_dtype):
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
 
 
+# (M, N, K) -> the plan int8_plan gives: every kernel and cluster size, at
+# M = 1, 4, 40 and 64 (one small-M block), 65 and 1,472 (128-row tiles), N
+# with a ragged tile edge, K of 16 to 8,192, and K = 200 (the __dp4a kernel)
+INT8_PLAN_CASES = [
+    (M, N, K, plan)
+    for M, small in ((1, True), (4, True), (40, True), (64, True), (65, False), (1472, False))
+    for N, K, plan in (
+        ((333, 3072, ("small_m", 8)), (1000, 768, ("small_m", 4)), (1608, 8192, ("small_m", 2)),
+         (200, 48, ("small_m", 1)), (3208, 16, ("small_m", 1)), (333, 200, ("dp4a", 1)))
+        if small else
+        ((333, 3072, ("large_m", 8 if M == 65 else 4)), (1000, 768, ("large_m", 4 if M == 65 else 2)),
+         (200, 48, ("large_m", 1)), (3208, 16, ("large_m", 1)), (333, 200, ("dp4a", 1))))
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("M,N,K,plan", INT8_PLAN_CASES,
+                         ids=[f"M{M}_N{N}_K{K}_{p[0]}_x{p[1]}" for M, N, K, p in INT8_PLAN_CASES])
+def test_int8_plans_equal_plain_version_on_card(M, N, K, plan, out_dtype):
+    """Every plan of B7, bit for bit; a K slice left out (the last rank's
+    share under a split, else the last 64 bytes) must change the bits."""
+    _need_card()
+    from ofasys_torch.ops import int8_matmul as ti8
+
+    got = ti8.int8_plan(M, N, K)
+    assert (got.kernel, got.split) == plan
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xq = torch.randint(-127, 128, (M, K), device="cuda", generator=g, dtype=torch.int8)
+    q = torch.randint(-127, 128, (N, K), device="cuda", generator=g, dtype=torch.int8)
+    sx = torch.rand(M, 1, device="cuda", generator=g) * 0.02 + 1e-3
+    scale = torch.rand(N, device="cuda", generator=g) * 0.02 + 1e-3
+    out = ti8.int8_matmul_fwd(xq, sx, q, scale, out_dtype)
+    torch.cuda.synchronize()
+    ref = ti8.int8_matmul_reference(xq, sx, q, scale, out_dtype)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(ti8.int8_matmul_fwd(xq, sx, q, scale, out_dtype), out)
+    k0, k1 = ti8.split_ranges(K, got.split)[-1] if got.split > 1 else (max(0, K - 64), K)
+    cut = xq.clone()
+    cut[:, k0:k1] = 0
+    assert not torch.equal(ti8.int8_matmul_fwd(cut, sx, q, scale, out_dtype), ref)
+
+
+@pytest.mark.cuda
+def test_int8_operand_off_16_bytes_takes_the_dp4a_kernel_on_card():
+    _need_card()
+    from ofasys_torch.ops import int8_matmul as ti8
+
+    M, N, K = 40, 768, 768
+    g = torch.Generator(device="cuda").manual_seed(6)
+    buf = torch.randint(-127, 128, (M * K + 1,), device="cuda", generator=g, dtype=torch.int8)
+    xq = buf[1:].view(M, K)
+    q = torch.randint(-127, 128, (N, K), device="cuda", generator=g, dtype=torch.int8)
+    sx = torch.rand(M, 1, device="cuda", generator=g) * 0.02
+    scale = torch.rand(N, device="cuda", generator=g) * 0.02
+    assert xq.data_ptr() % 16 and ti8.int8_plan(M, N, K, aligned=False).kernel == "dp4a"
+    out = ti8.int8_matmul_fwd(xq, sx, q, scale, torch.bfloat16)
+    assert torch.equal(out, ti8.int8_matmul_reference(xq, sx, q, scale, torch.bfloat16))
+
+
 @pytest.mark.cuda
 def test_quantized_dense_runs_the_int8_kernel_on_card():
     _need_card()
@@ -734,6 +795,31 @@ def test_layer_norm_kernels_match_plain_versions_on_card(case, dtype):
     skip[N // 2] = 0
     _, fdg, _ = tln.layer_norm_bwd(x, w, mu, rstd, skip)
     assert not _grad_close(fdg, rdg, LN_SUM_TOL)[0]
+
+
+# B6-fwd's row held in registers at every width of the arch table and its
+# FFN widths, then the two-walk kernel at an odd E and at E = 1,536 (16-byte
+# vectors, not a table width); N = 300 leaves the last block part empty
+LN_FWD_WIDTHS = [256, 512, 768, 1024, 1280, 2048, 2560, 2816, 3072, 4096, 5120, 10240, 11264,
+                 1001, 1536]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("E", LN_FWD_WIDTHS)
+def test_layer_norm_fwd_plans_match_plain_version_on_card(E, dtype):
+    _need_card()
+    from ofasys_torch.ops import layer_norm as tln
+
+    x, w, b, _ = _ln_inputs(300, E, dtype)
+    plan = tln.ln_fwd_plan(E, x.element_size())
+    assert plan.kernel == ("rows" if E in tln.LN_WIDTHS else "two_walk")
+    y, mu, rstd = tln.layer_norm_fwd(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    ry, rmu, rrstd = tln.layer_norm_fwd_reference(x, w, b, 1e-5)
+    assert ((y.float() - ry.float()).abs() <= 2.0 ** -7 * ry.float().abs() + 1e-3).all()
+    torch.testing.assert_close(mu, rmu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

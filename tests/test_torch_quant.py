@@ -11,8 +11,11 @@ Tiny arch, 2+2 layers, fp32 on both sides. Tolerances:
     rtol and atol 2e-5 in fp32, as tests/test_quant.py holds the two JAX
     paths (the integer product is exact, the epilogue the same two fp32
     products);
-  * one int8 encoder and decoder layer on the same inputs: atol 1e-4, the
-    fp32 noise of the plain ops around the exact int8 products;
+  * one int8 encoder and decoder layer on the same inputs: each row
+    quantization's sx within SX_RTOL and its xq equal but where x / sx lies
+    within HALF_STEP_TOL of a .5 boundary; then JAX's xq and sx on both
+    sides, and the outputs within atol 1e-4, the fp32 noise of the plain
+    ops around the exact int8 products;
   * logits of the whole quantized model: 'w8' relative Frobenius error
     1e-3 and max abs W8_ATOL: the tied logits projection is w8a8 in both
     modes (``QuantEmbed.attend``), and one of its rows may take the other
@@ -30,6 +33,7 @@ Tiny arch, 2+2 layers, fp32 on both sides. Tolerances:
 """
 
 import copy
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +58,8 @@ TPL = "[TEXT:src] -> [TEXT:tgt]"
 SRCS = ["hello world", "the quick brown fox jumps", "over the lazy dog", "0123456789 abc", "a"]
 TGTS = ["a greeting", "a fox", "a dog", "digits", "b"]
 W8_ATOL = 2e-2
+SX_RTOL = 1e-5         # a row scale from fp32 activations summed in another order
+HALF_STEP_TOL = 1e-4   # x / sx that close to a .5 boundary may round either way
 W8A8_REL, W8A8_ATOL = 5e-2, 0.3
 SCORE_ATOL = 2e-2
 DTYPES = {"fp32": (np.float32, jnp.float32, torch.float32),
@@ -285,7 +291,13 @@ def test_port_quantize_equals_jax_quantize(env):
 
 def test_quantized_layers_match_jax(env):
     """One int8 encoder layer and one int8 decoder layer of the carried
-    variables on the same inputs."""
+    variables on the same inputs, with the same int8 activations on both
+    sides. Each of the port's row quantizations is held to JAX's at the
+    same call: sx within SX_RTOL, xq equal but where the port's x / sx lies
+    within HALF_STEP_TOL of a .5 boundary, and there one step away (the fp32
+    noise of the ops before it decides the rounding; module docstring). The
+    port then goes on with JAX's xq and sx, so such a flip cannot cascade
+    through the later projections, and the outputs are held at atol 1e-4."""
     from ofasys_tpu.model.transformer import TransformerDecoderLayer as JDec
     from ofasys_tpu.model.transformer import TransformerEncoderLayer as JEnc
 
@@ -301,11 +313,36 @@ def test_quantized_layers_match_jax(env):
     def variables(stack):
         return {c: v[c][stack]["layers_0"] for c in ("params", "qkern")}
 
-    jo = JEnc(jm.cfg, dtype=jnp.float32).apply(variables("encoder"), jnp.asarray(x), jnp.asarray(keep))
-    jd, _ = JDec(jm.cfg, dtype=jnp.float32).apply(variables("decoder"), jnp.asarray(x), jnp.asarray(enc))
-    with torch.no_grad():
+    jcalls = []
+    real_j, real_t = jquant._quantize_rows, tquant._quantize_rows
+
+    def record(a):
+        xq, sx = real_j(a)
+        jcalls.append((np.array(xq), np.array(sx, np.float32)))
+        return xq, sx
+
+    def pinned(a):
+        xq, sx = real_t(a)
+        jxq, jsx = (torch.from_numpy(t).reshape(u.shape)
+                    for t, u in zip(jcalls[pinned.calls], (xq, sx)))
+        pinned.calls += 1
+        np.testing.assert_allclose(sx.numpy(), jsx.numpy(), rtol=SX_RTOL, atol=0)
+        flip = xq != jxq
+        r = (a.float() / sx)[flip].abs()
+        assert ((r - r.floor() - 0.5).abs() <= HALF_STEP_TOL).all(), r
+        assert ((xq.int() - jxq.int())[flip].abs() == 1).all()
+        return jxq, jsx
+
+    pinned.calls = 0
+    with mock.patch.object(jquant, "_quantize_rows", record):
+        jo = JEnc(jm.cfg, dtype=jnp.float32).apply(variables("encoder"), jnp.asarray(x),
+                                                   jnp.asarray(keep))
+        jd, _ = JDec(jm.cfg, dtype=jnp.float32).apply(variables("decoder"), jnp.asarray(x),
+                                                      jnp.asarray(enc))
+    with mock.patch.object(tquant, "_quantize_rows", pinned), torch.no_grad():
         to = net.encoder.layers_0(torch.from_numpy(x), torch.from_numpy(keep))
         td, _ = net.decoder.layers_0(torch.from_numpy(x), torch.from_numpy(enc))
+    assert pinned.calls == len(jcalls) > 0
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-4)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-4)
 

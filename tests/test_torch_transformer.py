@@ -18,9 +18,11 @@ import torch
 
 from ofasys_tpu import GeneralistModel as JModel, Instruction as JInstruction
 from ofasys_tpu.model import transformer as jtr
+from ofasys_tpu.ops import pallas_dense_attention as jdense
 from ofasys_tpu.preprocessor.dictionary import Dictionary as JDictionary
 from ofasys_tpu.preprocessor.general import GeneralPreprocess as JGeneralPreprocess
 from ofasys_torch import GeneralistModel, Instruction
+from ofasys_torch.model import transformer as ttr
 from ofasys_torch.ops import dense_attention as tdense
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.general import GeneralPreprocess
@@ -29,6 +31,7 @@ from ofasys_torch.utils.pytree import slots_to_device
 
 TPL = "[TEXT:src] -> [TEXT:tgt]"
 ATOL = 1e-4
+BIAS_ATOL = 2e-5     # a few fp32 ulps of an attention bias of |bias| <= 16
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -294,24 +297,49 @@ def test_decode_step_logits(models):
 
 def test_dense_kernel_route_matches_pallas_interpret(models):
     """attn_kernel='pallas': JAX runs the Pallas kernel in interpret mode,
-    the port runs kernel B1's plain version; B·T >= 256 opens the gate."""
+    the port runs kernel B1's plain version; B·T >= 256 opens the gate.
+
+    Both kernels take the batch-shared bias rounded to bf16. The fp32 bias
+    each side forms (the position and relative-position terms, summed in
+    another order) differs by a few fp32 ulps (under 1e-5 at |bias| <= 16),
+    and on some CPUs that flips a bf16 rounding of the bias: one bf16 ulp,
+    up to 0.03 in a score, about 1e-2 in the encoder output. So each layer's
+    fp32 bias is held to JAX's (BIAS_ATOL), and then the kernel takes JAX's
+    bias on both sides: the encoder output is held at ATOL whatever the
+    machine's summation order."""
     jm, params, jgp, tm, tgp = models
     srcs = [s * 6 for s in SRCS]                     # T = 72, B*T = 288
     jslots, tslots = _batch(jgp, tgp, srcs)
     assert tslots[0].value["inputs"].numel() >= 256
     jcfg = dataclasses.replace(jm.cfg, attn_kernel="pallas")
     jnet = jm.net.clone(cfg=jcfg)
+    jbias = []
+    real_jdense, real_tdense = jdense.dense_attention, ttr.dense_attention
+
+    def record(q, k, v, *args, bias=None, **kw):
+        jbias.append(np.array(bias, np.float32))
+        return real_jdense(q, k, v, *args, bias=bias, **kw)
+
+    def pinned(q, k, v, *, bias, **kw):
+        jb = torch.from_numpy(jbias[pinned.calls]).reshape(bias.shape).to(bias.dtype)
+        pinned.calls += 1
+        np.testing.assert_allclose(bias.float().numpy(), jb.float().numpy(), rtol=0, atol=BIAS_ATOL)
+        return real_tdense(q, k, v, bias=jb, **kw)
+
+    pinned.calls = 0
     # op by op, as the port runs: the bias is rounded to bf16 before the
     # kernel, so a fused (jitted) fp32 bias sum could flip a bf16 rounding
-    jenc = jnet.apply({"params": params}, [s for s in jslots if s.is_src], method=jnet.encode)
+    with mock.patch.object(jdense, "dense_attention", record):
+        jenc = jnet.apply({"params": params}, [s for s in jslots if s.is_src], method=jnet.encode)
     tm.cfg.attn_kernel = "pallas"
     try:
         with mock.patch.object(tdense, "dense_attention_fwd_reference",
-                               wraps=tdense.dense_attention_fwd_reference) as ref, torch.no_grad():
+                               wraps=tdense.dense_attention_fwd_reference) as ref, \
+                mock.patch.object(ttr, "dense_attention", pinned), torch.no_grad():
             tenc = tm.net.encode([s for s in tslots if s.is_src])
     finally:
         tm.cfg.attn_kernel = "auto"
-    assert ref.call_count == tm.cfg.encoder.layers
+    assert ref.call_count == tm.cfg.encoder.layers == len(jbias) == pinned.calls
     _close(tenc.x, jenc.x)
 
 
