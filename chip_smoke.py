@@ -42,8 +42,9 @@ Phases, in order; any failure exits non-zero:
      same seed with ln_impl='pallas' (kernel B6-fwd, 25 + 37 S launches per
      dispatch), first-step logits against ln_impl='xla'
  14. train_ln: the train phase's 5 updates with ln_impl='pallas' (124
-     B6-fwd and 124 B6-bwd per update), gradients against ln_impl='xla';
-     then one ln_impl='hybrid' update (124 B6-bwd, no B6-fwd)
+     B6-fwd and 124 B6-bwd per update), gradients against ln_impl='xla',
+     one update profiled (B6-bwd's device time); then one ln_impl='hybrid'
+     update (124 B6-bwd, no B6-fwd)
  15. serve_caption: image→text serving on the same model (adaptors text +
      image_vit): 16 requests of "[IMAGE:img] what does the image describe?
      -> [TEXT:cap]" with 224 x 224 images from a seeded generator (12 beam
@@ -68,13 +69,17 @@ dd = 0) at every shape; B7 at serve_int8's shapes (decode logits, fc1, fc2
 and q/k/v/out at 40 and 4 rows, the encoder's projections, a ragged K for
 the __dp4a kernel), bit for bit, each with its plan and a planted fault (a
 K slice left out: one cluster rank's share under a split); B6 at the train
-mix's shapes and at E = 1,024, 4,096 and an odd 1,001; B2r beside B2 at
+mix's shapes and at E = 1,024, 4,096 and an odd 1,001, B6-bwd with its plan,
+the same bits from two calls and from its two parts run apart, each part's
+time, and two planted faults (a row left out; one block's partial left out
+of the reduction); B2r beside B2 at
 every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1, head dims
 88, 128 and 256), B2 and B2r each run
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
 B2) with the scale and the causal mask inside the kernel at a decoder shape
 and at a shape with Tq < Tk (the causal offset), with two planted faults.
-The build phase logs ptxas's registers and spills of every kernel.
+The build phase logs ptxas's registers and spills of every kernel and
+fails if B6-bwd's row kernel spills.
 Prints a ``{"kernels": [...]}`` line, then, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX or ofasys_tpu. Exits non-zero without CUDA.
@@ -98,8 +103,10 @@ tasks=TINY_MM_TRAIN_TASKS)``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -377,10 +384,22 @@ def phase_build():
     reports = cuda_build.build(names)
     secs = time.perf_counter() - t0
     log(f"build: {names} in {secs:.2f} s")
+    spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+            # B6-bwd's row kernel holds the row and dg/db in registers: a
+            # spill would put them in local memory
+            m = spill.search(line)
+            if "ln_bwd_rows_kernel" in entry and m and (int(m[1]) or int(m[2])):
+                raise SystemExit(f"ptxas spills in {entry}: {line.strip()}")
+    if "layer_norm" not in reports:
+        log("  layer_norm was built before this run: no ptxas report, B6-bwd's spill gate "
+            "did not run")
     return names
 
 
@@ -1128,10 +1147,51 @@ def _ln_library_ms(x, w, b, dy):
     return f_ms, both - f_ms
 
 
+def _ln_bwd_parts(tln, x, w, mu, rstd, dy, drop_block=None):
+    """B6-bwd run in its two parts (the per-chunk pass, then the reduction
+    of the partials), not counted; with ``drop_block`` one block's partial
+    is zeroed between them (a planted fault). Returns (dg, db, setup)."""
+    setup = tln.bwd_setup(x, w, dy)
+    plan, rows, dx, dg, db, part = setup
+    tln.bwd_launch(x, w, mu, rstd, dy, dx, dg, db, part, plan, rows, parts=1)
+    if drop_block is not None:
+        part[drop_block] = 0
+    tln.bwd_launch(x, w, mu, rstd, dy, dx, dg, db, part, plan, rows, parts=2)
+    torch.cuda.synchronize()
+    return dg, db, setup
+
+
+def _ln_bwd_alternatives(tln, x, w, mu, rstd, dy, plan, blocks, rows):
+    """The per-chunk pass's ms with the choices the plan and the partition
+    did not make, where the kernel takes them: straight loads for the ring,
+    and the other number of blocks a SM (one or two) for a plan that allows
+    two. Not counted; the outputs are thrown away."""
+    if plan.kernel != "rows":
+        return {}
+    N, E = x.shape
+    dx, dg, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(w)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ways = {}
+    if plan.ring:
+        ways["straight loads"] = (dataclasses.replace(plan, ring=0), blocks, rows)
+    if plan.sm_blocks == 2:
+        per = 1 if blocks > sms else 2             # the count the partition did not take
+        per_rows = max(1, -(-N // (sms * per)))
+        ways[f"{per} block{'s' if per > 1 else ''} a SM"] = (plan, -(-N // per_rows), per_rows)
+    out = {}
+    for name, (p, n_blocks, rows) in ways.items():
+        part = torch.empty((n_blocks, 2, E), dtype=torch.float32, device=x.device)
+        out[name] = time_ms(lambda p=p, part=part, rows=rows: tln.bwd_launch(
+            x, w, mu, rstd, dy, dx, dg, db, part, p, rows, parts=1))
+    return out
+
+
 def check_ln(label, N, E):
     """Kernels B6-fwd and B6-bwd against their plain versions at one (N, E)
-    in bf16, with their times, and a planted fault: dg summed over all rows
-    but one must fail LN_SUM_TOL. Returns (forward row, backward row)."""
+    in bf16, with their times (B6-bwd's two parts apart beside the call),
+    the same bits from two B6-bwd calls, and two planted faults that must
+    fail LN_SUM_TOL: dg summed over all rows but one, and dg and db reduced
+    over all blocks' partials but one. Returns (forward row, backward row)."""
     from ofasys_torch.ops import layer_norm as tln
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1153,13 +1213,22 @@ def check_ln(label, N, E):
         and bool(torch.isfinite(dx.float()).all())
     ok_sums = all(errs[n]["frob"] <= LN_SUM_TOL and errs[n]["max_rel"] <= LN_SUM_TOL
                   for n in ("dg", "db"))
-    ok = y_ok and stat_err <= 1e-5 and ok_dx and ok_sums
+    dx2, dg2, db2 = tln.layer_norm_bwd(x, w, mu, rstd, dy)
+    sdg, sdb, (bplan, chunk_rows, *_, part) = _ln_bwd_parts(tln, x, w, mu, rstd, dy)
+    same = torch.equal(dx, dx2) and torch.equal(dg, dg2) and torch.equal(db, db2) \
+        and torch.equal(sdg, dg) and torch.equal(sdb, db)
+    ok = y_ok and stat_err <= 1e-5 and ok_dx and ok_sums and same
     fplan = tln.ln_fwd_plan(E, x.element_size())
+    blocks = part.shape[0]
+    bdesc = (f"{bplan.kernel} {bplan.warps}x{bplan.slots} acc {bplan.acc} ring {bplan.ring}"
+             if bplan.kernel == "rows"
+             else f"two_walk vec {int(bplan.vec)}") + f", {blocks} blocks of {chunk_rows} rows"
     tag = f"[{label} N={N} E={E} bf16; B6-fwd {fplan.kernel} {fplan.warps}x{fplan.slots}]"
-    log(f"kernels layer_norm_fwd/bwd {tag}: max|y-plain| {dy_err.max().item():.3e} (one bf16 ulp), "
-        f"mu/rstd rel {stat_err:.2e} (1e-5); "
+    log(f"kernels layer_norm_fwd/bwd {tag} B6-bwd {bdesc}: max|y-plain| {dy_err.max().item():.3e} "
+        f"(one bf16 ulp), mu/rstd rel {stat_err:.2e} (1e-5); "
         + " ".join(f"{n} frob {v['frob']:.2e} max {v['max_rel']:.2e}" for n, v in errs.items())
-        + f" (dx {GRAD_FROB_TOL}/{GRAD_MAX_TOL}, dg/db {LN_SUM_TOL}) -> {'ok' if ok else 'FAIL'}")
+        + f" (dx {GRAD_FROB_TOL}/{GRAD_MAX_TOL}, dg/db {LN_SUM_TOL}); B6-bwd same bits twice and "
+        f"by parts: {same} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"layer_norm kernels disagree with their plain versions at {label}")
     skip = dy.clone()
@@ -1167,14 +1236,26 @@ def check_ln(label, N, E):
     _, fdg, _ = tln.layer_norm_bwd(x, w, mu, rstd, skip)
     fault = _rel_errors(fdg, rdg)
     caught = fault["frob"] > LN_SUM_TOL or fault["max_rel"] > LN_SUM_TOL
-    log(f"  planted fault dg without row {N // 2}: frob {fault['frob']:.2e} max "
-        f"{fault['max_rel']:.2e} -> {'caught' if caught else 'NOT caught'}")
-    if not caught:
-        raise SystemExit(f"{label}: LN_SUM_TOL passes a dg that skipped a row")
+    drop = blocks // 2
+    pdg, pdb, _ = _ln_bwd_parts(tln, x, w, mu, rstd, dy, drop_block=drop)
+    pfault = {n: _rel_errors(a, r) for n, a, r in (("dg", pdg, rdg), ("db", pdb, rdb))}
+    pcaught = all(v["frob"] > LN_SUM_TOL or v["max_rel"] > LN_SUM_TOL for v in pfault.values())
+    log(f"  planted faults: dg without row {N // 2}: frob {fault['frob']:.2e} max "
+        f"{fault['max_rel']:.2e} -> {'caught' if caught else 'NOT caught'}; dg/db without "
+        f"block {drop}'s partial: "
+        + " ".join(f"{n} frob {v['frob']:.2e} max {v['max_rel']:.2e}" for n, v in pfault.items())
+        + f" -> {'caught' if pcaught else 'NOT caught'}")
+    if not (caught and pcaught):
+        raise SystemExit(f"{label}: LN_SUM_TOL passes a dg that skipped a row or a partial")
     lib_f, lib_b = _ln_library_ms(x, w, b, dy)
     sz = x.element_size()
     fwd_bytes, fwd_ops = 2 * N * E * sz + 8 * E + 8 * N, 8 * N * E
     bwd_bytes, bwd_ops = 3 * N * E * sz + 8 * N + 12 * E, 12 * N * E
+    _, _, *bufs = tln.bwd_setup(x, w, dy)
+    stage_ms = {k: time_ms(lambda k=k: tln.bwd_launch(x, w, mu, rstd, dy, *bufs, bplan,
+                                                       chunk_rows, parts=k))
+                for k in (1, 2)}
+    alt_ms = _ln_bwd_alternatives(tln, x, w, mu, rstd, dy, bplan, blocks, chunk_rows)
     rows = []
     for name, kernel, plain, lib, n_bytes, ops, err in (
             ("layer_norm_fwd", lambda: tln.layer_norm_fwd(x, w, b, 1e-5),
@@ -1186,12 +1267,18 @@ def check_ln(label, N, E):
         bound_ms, bound_by = _bound(n_bytes, ops, PEAK_FP32_FLOPS)
         k_ms, p_ms = time_ms(kernel), time_ms(plain)
         lib_s = "not timed" if lib is None else f"{lib:.4f} ms"
-        log(f"  times {name} {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+        alts = ", ".join(f"{k} {v:.4f} ms" for k, v in alt_ms.items()) or "no other plan"
+        split = "" if name.endswith("fwd") else \
+            f" (per-chunk pass {stage_ms[1]:.4f} ms, reduction {stage_ms[2]:.4f} ms; " \
+            f"the pass with {alts})"
+        log(f"  times {name} {tag}: kernel {k_ms:.4f} ms{split}, plain {p_ms:.4f} ms, library "
             f"(F.layer_norm{'' if name.endswith('fwd') else ' backward'}) {lib_s}, bound "
             f"{bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {ops} FLOP)")
+        extra = {"plan": vars(fplan)} if name == "layer_norm_fwd" else \
+            {"plan": vars(bplan), "blocks": blocks, "rows_per_block": chunk_rows,
+             "chunk_pass_ms": stage_ms[1], "reduction_ms": stage_ms[2], "alt_pass_ms": alt_ms}
         rows.append(dict(shape=label, N=N, E=E, err=err, kernel_ms=k_ms, plain_ms=p_ms,
-                         library_ms=lib, bound_ms=bound_ms, bound_by=bound_by,
-                         **({"plan": vars(fplan)} if name == "layer_norm_fwd" else {})))
+                         library_ms=lib, bound_ms=bound_ms, bound_by=bound_by, **extra))
     return rows
 
 
@@ -1714,9 +1801,12 @@ def train_ln_and_check(d, gp, card, arch="base", tasks=None, batches=None):
     out = {}
     for impl, label, n in (("pallas", "train_ln", N_UPDATES), ("hybrid", "train_ln_hybrid", 1)):
         model = build_train_model(d, device, arch, ln_impl=impl)
-        counts, res, _ = train_and_check(model, gp, card, tasks=tasks, batches=batches, label=label,
-                                         grad_ref=ref, n_updates=n)
+        counts, res, (step, state, dev) = train_and_check(
+            model, gp, card, tasks=tasks, batches=batches, label=label, grad_ref=ref, n_updates=n)
         out[label] = (counts, res)
+        if impl == "pallas" and card != "cpu":       # B6-bwd's device time in one update
+            phase_profile_train(step, state, dev, card, "one train_ln update", share=("ln_bwd",))
+        del step, state, dev
         del model
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -2120,8 +2210,10 @@ def _grads_vs(model, ref, crit, state, batches, label):
 
 
 def phase_profile_train(step, state, batches, card,
-                        what="one training update (text_infilling B=128 + gigaword B=64)"):
-    """One training update under torch.profiler."""
+                        what="one training update (text_infilling B=128 + gigaword B=64)",
+                        share=None):
+    """One training update under torch.profiler (``share`` as in
+    :func:`_report_profile`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2130,7 +2222,7 @@ def phase_profile_train(step, state, batches, card,
         step(state, batches, SEED)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_profile(prof, wall_ms, what, card)
+    _report_profile(prof, wall_ms, what, card, share)
 
 
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):

@@ -1,19 +1,23 @@
-"""The host-side plans of kernels B7 (int8 GEMM) and B6-fwd (LayerNorm
-forward), on the CPU.
+"""The host-side plans of kernels B7 (int8 GEMM), B6-fwd and B6-bwd
+(LayerNorm forward and backward), on the CPU.
 
 The kernels run only on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py). Which of a source's kernels runs, with which tile, K split
 or row geometry, is plain Python: ``int8_plan`` and ``split_ranges`` in
-ofasys_torch/ops/int8_matmul.py, ``ln_fwd_plan`` in
-ofasys_torch/ops/layer_norm.py. These tests hold the plans to what the
+ofasys_torch/ops/int8_matmul.py, ``ln_fwd_plan``, ``ln_bwd_plan`` and
+``ln_bwd_partition`` in ofasys_torch/ops/layer_norm.py. These tests hold the plans to what the
 kernels take and to the rules they state: B7's small-M plan up to 64 rows
 and 128 x 128 tiles above, a cluster split only where the tiles alone give
 fewer than ``MIN_BLOCKS`` blocks and never below ``MIN_SPLIT_K`` (128) bytes
 of K a rank, the ``__dp4a`` kernel exactly where 16-byte copies are impossible;
-B6-fwd's row in registers at every width of the arch table and its FFN
-widths, in bf16 and fp32, and the two-walk kernel at any other width.
+B6-fwd's and B6-bwd's row in registers at every width of the arch table
+and its FFN widths, in bf16 and fp32, and the two-walk kernel at any other
+width; B6-bwd's dg/db accumulators in registers within the plan's register
+budget, and its persistent partition covering every row once, in chunk
+order.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -165,3 +169,123 @@ def test_ln_slots_are_the_ones_the_source_instantiates():
     assert cases == tln.LN_SLOTS
     used = {tln.ln_fwd_plan(E, s).slots for E in WIDTHS for s in (2, 4)}
     assert used <= set(tln.LN_SLOTS)
+
+
+# ------------------------------------------------------------------ B6-bwd
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("E", WIDTHS)
+def test_ln_bwd_geometry_at_arch_widths(E, element_size):
+    """The row held in registers: each lane's slots cover the row with no
+    slot row left empty; whole groups in a block of at most 256 threads; dg
+    and db in registers only within ACC_REG_BUDGET, and in shared memory
+    only for one group of eight warps a block; up to two blocks a SM within
+    PAIR_SMEM, else one; a ring of RING row buffers a group wherever a block
+    holds it, else none; a slot count the source is instantiated for."""
+    plan = tln.ln_bwd_plan(E, element_size)
+    nv = E // (16 // element_size)
+    W, P = plan.warps, plan.slots
+    assert plan.kernel == "rows" and 1 <= W <= 8
+    assert 32 * W * P >= nv > 32 * W * (P - 1)
+    assert 32 * W * plan.groups <= 256 and plan.groups == 8 // W
+    assert P in tln.LN_BWD_SLOTS[(element_size, plan.acc)]
+    smem = tln.ln_bwd_smem(plan, element_size)
+    if plan.acc == "regs":
+        assert tln.ln_bwd_regs(P, element_size, "regs") <= tln.ACC_REG_BUDGET
+    else:
+        assert plan.acc == "smem" and W == 8 and plan.groups == 1
+        assert tln.ln_bwd_regs(P, element_size, "regs") > tln.ACC_REG_BUDGET
+    assert plan.ring in (tln.RING, 0)
+    if plan.ring == 0:              # no ring only where a block cannot hold one
+        ringed = dataclasses.replace(plan, ring=tln.RING)
+        assert tln.ln_bwd_smem(ringed, element_size) > tln.BLOCK_SMEM
+    if plan.sm_blocks == 2:         # a pair of blocks: 128 registers a thread
+        assert plan.acc == "regs" and plan.ring == tln.RING and smem <= tln.PAIR_SMEM
+        assert 2 * W * plan.groups <= 16
+    else:
+        assert plan.sm_blocks == 1 and smem <= tln.BLOCK_SMEM
+        pair = dataclasses.replace(plan, ring=tln.RING, sm_blocks=2)
+        assert plan.acc == "smem" or tln.ln_bwd_smem(pair, element_size) > tln.PAIR_SMEM
+    assert plan.sm_blocks * (smem + 1024) <= tln.SM_SMEM
+
+
+def test_ln_bwd_geometry_at_the_train_mix():
+    """E = 768 and fc2_ln's 3,072 in bf16: dg and db in registers, one warp
+    of 3 vectors a lane (8 rows a block, two blocks a SM, two row buffers a
+    group) and 4 warps of 3 (2 rows, 80 KB and more: one block, two
+    buffers); E = 11,264 holds no ring beside its shared-memory
+    accumulators."""
+    assert tln.ln_bwd_plan(768, 2) == tln.LnBwdPlan("rows", 1, 3, "regs", 2, 2)
+    assert tln.ln_bwd_plan(3072, 2) == tln.LnBwdPlan("rows", 4, 3, "regs", 2, 1)
+    assert tln.ln_bwd_regs(3, 2, "regs") == 72
+    assert tln.ln_bwd_plan(11264, 2) == tln.LnBwdPlan("rows", 8, 6, "smem", 0, 1)
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("E", [1, 100, 300, 776, 1001, 1536, 3000, 3080, 6144, 11265])
+def test_ln_bwd_two_walk_at_any_other_width(E, element_size):
+    plan = tln.ln_bwd_plan(E, element_size)
+    assert plan == tln.LnBwdPlan("two_walk", vec=E % (16 // element_size) == 0)
+    assert plan.groups == 8 and plan.sm_blocks == 2
+
+
+@pytest.mark.parametrize("E", [768, 3072])
+def test_ln_bwd_unaligned_rows_walk_twice_element_by_element(E):
+    assert tln.ln_bwd_plan(E, 2, aligned=False) == tln.LnBwdPlan("two_walk", vec=False)
+
+
+def test_ln_bwd_slots_are_the_ones_the_source_instantiates():
+    """The (element size, accumulator, slots) the plan returns over the arch
+    widths are exactly the C dispatch's cases, and the source's shared
+    memory is the plan's."""
+    src = (CSRC / "layer_norm.cu").read_text()
+    cases = re.findall(r"case (\d+): return bwd_rows_launch<T, \1, (false|true)>", src)
+    bodies = src.split("cudaError_t bwd_rows_fp32(")
+    assert len(bodies) == 2 and "using T = __nv_bfloat16;" in bodies[0].split("bwd_rows_bf16(")[1]
+    source = set()
+    for size, body in ((2, bodies[0].split("cudaError_t bwd_rows_bf16(")[1]), (4, bodies[1])):
+        for p, acc in re.findall(r"case (\d+): return bwd_rows_launch<T, \1, (false|true)>", body):
+            source.add((size, "smem" if acc == "true" else "regs", int(p)))
+    assert len(source) == len(cases)
+    assert source == {(s, acc, p) for (s, acc), ps in tln.LN_BWD_SLOTS.items() for p in ps}
+    plans = {(s, tln.ln_bwd_plan(E, s)) for E in WIDTHS for s in (2, 4)}
+    assert {(s, p.acc, p.slots) for s, p in plans} == source
+    assert "W != kWarps" in src                     # smem accumulators: one group a block
+    assert f"constexpr int kRing = {tln.RING};" in src and "!(S == 0 || S == kRing)" in src
+    assert "16 * stride * (2 * P + 1) * S * G +" in src
+    assert "sizeof(float) * stride * P * V * (kSmemAcc || G > 1 ? 3 : 1)" in src
+
+
+@pytest.mark.parametrize("plan", [tln.ln_bwd_plan(768, 2), tln.ln_bwd_plan(3072, 2),
+                                  tln.ln_bwd_plan(11264, 2), tln.ln_bwd_plan(1001, 2)],
+                         ids=["E768", "fc2_ln", "smem", "two_walk"])
+@pytest.mark.parametrize("N", [1, 40, 77, 1001, 12288])
+def test_ln_bwd_partition_covers_every_row_once_in_chunk_order(N, plan):
+    """One wave of blocks at 132 SMs, none empty; block k owns the k-th
+    chunk of consecutive rows, and its groups (rows r0 + q, r0 + q + G, ...,
+    as the kernels walk them) take each row of the chunk once."""
+    sms = 132
+    blocks, rows = tln.ln_bwd_partition(N, plan, sms)
+    assert 1 <= blocks <= sms * plan.sm_blocks
+    assert (blocks - 1) * rows < N <= blocks * rows
+    seen = []
+    for k in range(blocks):
+        r0, r1 = k * rows, min(N, (k + 1) * rows)
+        chunk = sorted(r for q in range(plan.groups) for r in range(r0 + q, r1, plan.groups))
+        assert chunk == list(range(r0, r1))
+        seen += chunk
+    assert seen == list(range(N))
+
+
+@pytest.mark.parametrize("E", [768, 4096])
+@pytest.mark.parametrize("N, per_sm", [(40, 1), (2048, 1), (6335, 1), (6336, 2), (8192, 2),
+                                       (12288, 2)])
+def test_ln_bwd_partition_takes_one_block_a_sm_at_few_rows(N, per_sm, E):
+    """Plans of two blocks a SM (E = 768: eight one-warp groups a block;
+    4,096: one group of six warps) keep two only from 132 * 2 *
+    PAIR_BLOCK_ROWS = 6,336 rows; below that one block a SM (the gigaword
+    decoder's 2,048 rows: 128 blocks of 16)."""
+    plan = tln.ln_bwd_plan(E, 2)
+    assert (plan.sm_blocks, tln.PAIR_BLOCK_ROWS) == (2, 24)
+    blocks, rows = tln.ln_bwd_partition(N, plan, 132)
+    assert rows == max(1, -(-N // (132 * per_sm)))
+    assert blocks == -(-N // rows) <= 132 * per_sm

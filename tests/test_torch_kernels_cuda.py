@@ -25,7 +25,9 @@ Tolerances (bf16), for q scaled as the model scales it:
     1e-3), mu and rstd rtol 1e-5 (fp32 row sums in another order); dx as
     GRAD_TOL; dg and db, fp32 sums over the rows in another order, within
     LN_SUM_TOL (1e-4 on both measures), which a dg that skipped one row of
-    the chunk fails.
+    the chunk, or a reduction that skipped one block's partial, fails;
+    B6-bwd gives the same bits run to run, at every plan (``ln_bwd_plan``:
+    dg and db in registers or in shared memory, the two-walk kernel).
 """
 
 import pytest
@@ -820,6 +822,64 @@ def test_layer_norm_fwd_plans_match_plain_version_on_card(E, dtype):
     assert ((y.float() - ry.float()).abs() <= 2.0 ** -7 * ry.float().abs() + 1e-3).all()
     torch.testing.assert_close(mu, rmu, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-6)
+
+
+def _ln_bwd_parts(tln, x, w, mu, rstd, dy, drop_block=None):
+    """B6-bwd by its two parts, with one block's partial zeroed between
+    them when ``drop_block`` is given (a planted fault): (dg, db, blocks)."""
+    plan, rows, dx, dg, db, part = tln.bwd_setup(x, w, dy)
+    tln.bwd_launch(x, w, mu, rstd, dy, dx, dg, db, part, plan, rows, parts=1)
+    if drop_block is not None:
+        part[drop_block] = 0
+    tln.bwd_launch(x, w, mu, rstd, dy, dx, dg, db, part, plan, rows, parts=2)
+    torch.cuda.synchronize()
+    return dg, db, part.shape[0]
+
+
+# B6-bwd at the same widths: the row in registers (dg and db in registers,
+# or in shared memory at 10,240 and 11,264; a ring of row buffers, or loads
+# straight into registers where it does not fit), then the two-walk kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("E", LN_FWD_WIDTHS)
+def test_layer_norm_bwd_plans_match_plain_version_on_card(E, dtype):
+    _need_card()
+    from ofasys_torch.ops import layer_norm as tln
+
+    N = 300
+    x, w, b, dy = _ln_inputs(N, E, dtype)
+    plan = tln.ln_bwd_plan(E, x.element_size())
+    assert plan.kernel == ("rows" if E in tln.LN_WIDTHS else "two_walk")
+    _, mu, rstd = tln.layer_norm_fwd_reference(x, w, b, 1e-5)
+    b0 = tln.layer_norm_bwd.launches
+    dx, dg, db = tln.layer_norm_bwd(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert tln.layer_norm_bwd.launches - b0 == 1
+    rdx, rdg, rdb = tln.layer_norm_bwd_reference(x, w, mu, rstd, dy)
+    ok, errs = _grad_close(dx, rdx, GRAD_TOL)
+    assert ok, ("dx", errs)
+    for name, a, r in (("dg", dg, rdg), ("db", db, rdb)):
+        ok, errs = _grad_close(a, r, LN_SUM_TOL)
+        assert ok, (name, errs)
+    dx2, dg2, db2 = tln.layer_norm_bwd(x, w, mu, rstd, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2) and torch.equal(db, db2)
+    # the two parts run apart give the call's bits; planted faults: a row
+    # left out of the sums, one block's partial left out of the reduction
+    pdg, pdb, blocks = _ln_bwd_parts(tln, x, w, mu, rstd, dy)
+    assert torch.equal(pdg, dg) and torch.equal(pdb, db)
+    if plan.ring:                       # the ring and straight loads: the same bits
+        import dataclasses
+
+        p0, rows, *outs, part = tln.bwd_setup(x, w, dy)
+        tln.bwd_launch(x, w, mu, rstd, dy, *outs, part, dataclasses.replace(p0, ring=0), rows)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, r) for a, r in zip(outs, (dx, dg, db)))
+    skip = dy.clone()
+    skip[N // 2] = 0
+    _, fdg, _ = tln.layer_norm_bwd(x, w, mu, rstd, skip)
+    assert not _grad_close(fdg, rdg, LN_SUM_TOL)[0]
+    fdg, fdb, _ = _ln_bwd_parts(tln, x, w, mu, rstd, dy, drop_block=blocks // 2)
+    assert not _grad_close(fdg, rdg, LN_SUM_TOL)[0] and not _grad_close(fdb, rdb, LN_SUM_TOL)[0]
 
 
 @pytest.mark.cuda

@@ -4,8 +4,9 @@
 Kernel level: the plain versions (what the wrappers run on CPU tensors)
 against ``fused_layer_norm`` (the Pallas kernels in interpret mode) and
 ``hybrid_layer_norm`` (XLA forward, Pallas backward), forward and
-``jax.vjp`` gradients, at E = 768 and 3,072 (``fc2_ln``) and a ragged N, in
-fp32 and bf16. Tolerances:
+``jax.vjp`` gradients, at E = 768 and 3,072 (``fc2_ln``), a ragged N, and
+E = 1,024 and 4,096 (the large arch's width and FFN width, where B6-bwd's
+plan takes groups of two and six warps) at N = 300, in fp32 and bf16. Tolerances:
   * fp32: y, mu and rstd rtol/atol 1e-5 (fp32 row sums in another order);
     dx rtol/atol 1e-4 and dg, db rtol/atol 2e-4 (as
     tests/test_pallas_layernorm.py holds the Pallas gradients; dg and db
@@ -70,8 +71,8 @@ from ofasys_torch.utils.pytree import sample_to_device, slots_to_device
 
 EPS = 1e-5
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
-SHAPES = [(256, 768), (300, 3072), (77, 768)]
-SHAPE_IDS = ["E768", "fc2_ln_E3072", "ragged_N77"]
+SHAPES = [(256, 768), (300, 3072), (77, 768), (300, 1024), (300, 4096)]
+SHAPE_IDS = ["E768", "fc2_ln_E3072", "ragged_N77", "E1024", "E4096"]
 INFILL = 'what is the complete text of " [TEXT:text,mask_ratio=0.3] "? -> [TEXT:text]'
 SUMMARY = 'what is the summary of article " [TEXT:src] "? -> [TEXT:tgt]'
 LR = 1e-3
