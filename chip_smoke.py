@@ -59,8 +59,31 @@ Phases, in order; any failure exits non-zero:
      attention and B2 not at all, one update's gradients against the plain
      attention path and against B2's from the same weights and batches
      (GRAD_FROB_TOL), the step time beside train_mm's
-The kernel phase also holds kernel B3 and the one flash backward pass (for
-B4-dq, B4-dkv and B5) against their plain versions at every shape of the
+ 18. serve_asr: speech→text serving on the same model (adaptors text +
+     image_vit + audio_fbank + motion_6d): 16 requests of "[AUDIO:wav] what
+     is the transcription? -> [TEXT:text]" with 16 kHz wav bytes of 3.0-4.8 s
+     from a seeded generator (12 beam 5, 4 greedy), the host time of the
+     audio preprocessing per request, kernel B1 in every dispatch's encoder
+     (the 4x-subsampled frames + the prompt's tokens), served answers
+     against the hub on the same batch composition, p50 and tokens/s
+     beside serve's; one dispatch profiled
+ 19. serve_motion: 8 text→motion requests with open 64 x 135 targets in one
+     batch through DiffusionGenerator.generate (50 DDIM steps, eta 0, the
+     motion preprocessor's clamp): B1 in the encoder and in every decoder
+     self- and cross-attention of every full-context denoiser pass, the
+     features against the plain attention path from the same initial noise
+     (MOTION_REL_TOL), the wall time
+ 20. train_full: 5 summed five-task updates at bench.py's sizes (caption
+     B=64, text_infilling B=128, asr B=32 with 480 fbank frames under
+     speech_to_text_loss, vqa B=48, motion_t2m B=32 with 64 x 135 targets
+     under diffusion_criterion): B1 and B2 once per attention call, a
+     falling loss, each task's loss, one update's gradients against the
+     plain attention path, the peak device memory; one update profiled
+The kernel phase holds B1 and B2 at the shapes of the new paths too (the
+asr encoder, causal decoder and cross attention, the motion decoder in full
+context and its cross attention, serve_asr's dispatches and serve_motion's
+denoiser) and prints each shape's route. It also holds kernel B3 and the
+one flash backward pass (for B4-dq, B4-dkv and B5) against their plain versions at every shape of the
 long paths, a per-(b, h) bias, a causal and a ragged shape and at
 FLASH_EDGE_SHAPES (head dims 88, 128 and 256, a batch of one, ragged Tq !=
 Tk, T = 4,096 past the backward's scratch cap), each run twice for equal
@@ -97,7 +120,11 @@ tasks=TINY_TRAIN_TASKS)``; the image phases with a ``GeneralPreprocess(d,
 active=["text", "image"])``: ``serve_caption_and_check(hub, "cpu")``,
 ``train_and_check(m, gp, "cpu", tasks=TINY_MM_TRAIN_TASKS, label="train_mm")``
 and ``train_rowmajor_and_check(d, gp, "cpu", arch="tiny",
-tasks=TINY_MM_TRAIN_TASKS)``.
+tasks=TINY_MM_TRAIN_TASKS)``; the speech and motion phases on a tiny hub
+whose model has ``ACTIVE_ADAPTORS`` and ``cfg.attn_kernel="pallas"``:
+``serve_asr_and_check(hub, "cpu")``, ``serve_motion_and_check(hub, "cpu")``
+and ``train_and_check(m, gp, "cpu", tasks=TINY_FULL_TRAIN_TASKS,
+label="train_full")``.
 """
 
 from __future__ import annotations
@@ -200,7 +227,7 @@ FLASH_TIMING = dict(n=5, repeats=3)   # flash calls take milliseconds: fewer rep
 # (196 patches of 16 pixels); batch sizes and lengths follow bench.py's
 # caption (B=64, target about 24) and grounding/VQA (B=48, question about
 # 16, answer about 8) tasks
-ACTIVE_ADAPTORS = ("text", "image_vit")
+ACTIVE_ADAPTORS = ("text", "image_vit", "audio_fbank", "motion_6d")
 CAPTION_TPL = "[IMAGE:img] what does the image describe? -> [TEXT:cap]"
 VQA_TPL = "[IMAGE:img] [TEXT:question] -> [TEXT:answer]"
 IMAGE_SIZE = 224
@@ -213,6 +240,49 @@ TINY_MM_TRAIN_TASKS = {
     "caption": dict(MM_TRAIN_TASKS["caption"], batch=4),
     "text_infilling": TINY_TRAIN_TASKS["text_infilling"],
     "vqa": dict(MM_TRAIN_TASKS["vqa"], batch=2),
+}
+# the speech and motion slice: ofasys_tpu's speech_to_text template
+# (task/tasks.py:360) with 16 kHz mono 16-bit wavs of ASR_SECONDS (300-480
+# fbank frames, 75-120 encoder positions after the 4x subsampling), and its
+# text-to-motion template (task/tasks.py:454) with 64-frame x 135-feature
+# targets, sampled by the DiffusionGenerator's defaults (1,000 train steps,
+# cosine schedule, 50 DDIM steps, eta 0)
+ASR_TPL = "[AUDIO:wav] what is the transcription? -> [TEXT:text]"
+MOTION_TPL = 'motion capture: " [TEXT:text] " -> [MOTION:bvh,preprocess=motion_6d,adaptor=motion_6d]'
+SAMPLE_RATE = 16000
+ASR_SECONDS = (3.0, 4.8)
+MOTION_FEAT = 135
+N_MOTION_REQUESTS = 8
+# serve_motion: features after 50 DDIM steps under the kernels against the
+# plain attention path (fp32 scores) from the same initial noise. Each
+# denoiser pass differs by the bf16 rounding of ENC_REL_TOL; the x0
+# estimate divides by sqrt(alpha_bar_t) (0.016 at t = 999 of the cosine
+# schedule) and is clamped to +-5, and the last steps set the sample, so
+# the pass-level error carries over about as it is: relative Frobenius
+# error <= MOTION_REL_TOL.
+MOTION_REL_TOL = 5e-2
+# the five tasks of bench.py:36-45 at its sizes: caption B=64 (224 x 224
+# images), text_infilling B=128, asr B=32 with wavs of 4.75-4.8 s (473-478
+# fbank frames, padded to 480: 120 encoder positions + the prompt's
+# tokens) and transcripts of 26-30 bytes (32-token targets with bos and
+# eos), vqa B=48, motion_t2m B=32 with short texts and 64 x 135 targets
+# cropped from clips of 64-80 frames; asr under speech_to_text_loss,
+# motion under diffusion_criterion
+FULL_TRAIN_TASKS = {
+    "caption": MM_TRAIN_TASKS["caption"],
+    "text_infilling": TRAIN_TASKS["text_infilling"],
+    "asr": dict(template=ASR_TPL, batch=32, audio=(4.75, 4.8), text=(26, 30),
+                criterion="speech_to_text"),
+    "vqa": MM_TRAIN_TASKS["vqa"],
+    "motion_t2m": dict(template=MOTION_TPL, batch=32, motion=(64, 80), text=(8, 14),
+                       criterion="diffusion"),
+}
+TINY_FULL_TRAIN_TASKS = {
+    "caption": dict(MM_TRAIN_TASKS["caption"], batch=4),
+    "text_infilling": TINY_TRAIN_TASKS["text_infilling"],
+    "asr": dict(FULL_TRAIN_TASKS["asr"], batch=2, audio=(1.0, 1.2)),
+    "vqa": dict(MM_TRAIN_TASKS["vqa"], batch=2),
+    "motion_t2m": dict(FULL_TRAIN_TASKS["motion_t2m"], batch=4),
 }
 # B1 and B2r with the scale and the causal mask inside the kernel, as a
 # direct ``_dense_attention(..., scale, causal=True, H)`` call runs them:
@@ -697,11 +767,12 @@ def check_inside(label, shape):
                  library_ms=bwd_lib_ms, bound_ms=bb_ms, bound_by=bb_by))
 
 
-def phase_kernels(dispatch_shapes, train_shapes):
+def phase_kernels(dispatch_shapes, train_shapes, serve_calls=()):
     """Kernel B1 at the serving paths' encoder shapes (``dispatch_shapes``:
-    [(label, (B, T))], one per planned dispatch), the nominal serving shape
-    B=8 T=128 and every training shape; kernels B2 and B2r at every training
-    shape (B2 also the same bits twice, and with a key tile left out, which
+    [(label, (B, T))], one per planned dispatch), at ``serve_calls`` ([(label,
+    (B, Tq, Tk))]: serve_motion's denoiser attentions), the nominal serving
+    shape B=8 T=128 and every training shape; kernels B2 and B2r at every
+    training shape (B2 also the same bits twice, and with a key tile left out, which
     the limits must catch); all three at EDGE_SHAPES; B1 and B2r with the
     scale and the causal mask inside at INSIDE_SHAPES. The paths' shapes are
     at the base arch, H=12, D=64. ``train_shapes`` is [(label, (B, Tq, Tk),
@@ -709,6 +780,8 @@ def phase_kernels(dispatch_shapes, train_shapes):
     fwd, bwd, row = [], [], []
     for label, (B, T) in dispatch_shapes:
         fwd.append(check_fwd(label, (B, T, T, 12, 64)))
+    for label, (B, Tq, Tk) in serve_calls:
+        fwd.append(check_fwd(label, (B, Tq, Tk, 12, 64)))
     fwd.append(check_fwd("serving", (8, 128, 128, 12, 64)))
     calls = [(label, (B, Tq, Tk, 12, 64), causal) for label, (B, Tq, Tk), causal in train_shapes]
     for label, shape, causal in calls + EDGE_SHAPES:
@@ -1025,20 +1098,24 @@ def phase_flash_kernels(serve_shapes, train_shapes):
 
 def _int_mm_ms(xq, sx, q, scale):
     """The library yardstick of B7: ``torch._int_mm`` (cuBLASLt int8, int32
-    out) plus the same epilogue, where its shape rules allow (K and N
-    multiples of 8; else None). It refuses M <= 16, so such a product is
-    timed padded with zero rows to M = 32 (the least work it accepts for
-    the same function)."""
+    out) plus the same epilogue. Its shape rules want M > 16 and K and N
+    multiples of 8, so a product outside them is timed zero-padded to the
+    least work it accepts for the same function: rows to M = 32, K to a
+    multiple of 16 (zero columns of xq against zero columns of q add 0), N
+    to a multiple of 8 (outputs past N sliced off)."""
     M, K = xq.shape
     N = q.shape[0]
-    if K % 8 or N % 8:
-        return None
     if M <= 16:
         xq = torch.cat([xq, xq.new_zeros(32 - M, K)])
         sx = torch.cat([sx, sx.new_zeros(32 - M, 1)])
+    if K % 8 or N % 8:
+        Kp, Np = -(-K // 16) * 16, -(-N // 8) * 8
+        xq = torch.nn.functional.pad(xq, (0, Kp - K))
+        q = torch.nn.functional.pad(q, (0, Kp - K, 0, Np - N))
+        scale = torch.nn.functional.pad(scale, (0, Np - N))
     qt = q.t()
     try:
-        return time_ms(lambda: ((torch._int_mm(xq, qt).float() * sx) * scale).to(torch.bfloat16))
+        return time_ms(lambda: ((torch._int_mm(xq, qt).float() * sx) * scale)[:, :N].to(torch.bfloat16))
     except RuntimeError as e:               # a yardstick only: the port never calls it
         log(f"  library int8 product not timed: {str(e).splitlines()[0][:120]}")
         return None
@@ -1091,8 +1168,10 @@ def check_int8(label, M, K, N):
     n_bytes = M * K + N * K + 4 * M + 4 * N + 2 * M * N
     ops = 2 * M * N * K
     bound_ms, bound_by = _bound(n_bytes, ops, PEAK_INT8_OPS)
-    lib = "not timed (shape rules)" if library_ms is None else \
-        f"{library_ms:.4f} ms{' (padded to M = 32)' if M <= 16 else ''}"
+    pads = [p for p, cut in (("M to 32", M <= 16), (f"K to {-(-K // 16) * 16} and N to "
+                                                      f"{-(-N // 8) * 8}", K % 8 or N % 8)) if cut]
+    lib = "not timed" if library_ms is None else \
+        f"{library_ms:.4f} ms{' (zero-padded: ' + ', '.join(pads) + ')' if pads else ''}"
     log(f"  times [{label}]: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"(torch._int_mm + epilogue) {lib}, bf16 F.linear {bf16_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {ops} int8 OP)")
@@ -1368,15 +1447,24 @@ def _truncated_requests():
 
 def _encoder_tokens(slots):
     """(B, T) of the encoder's input: a text slot counts its tokens, an
-    image slot its patches."""
+    image slot its patches, an audio slot its fbank frames after the 4x
+    subsampling."""
+    from ofasys_torch import ModalityType
+    from ofasys_torch.adaptor.audio import AudioFbankAdaptorConfig
     from ofasys_torch.adaptor.image import PATCH_SIZE
 
+    stride = AudioFbankAdaptorConfig().subsample_stride
     B = T = 0
     for s in slots:
         if s.is_src:
             a = s.value["inputs"]
             B = a.shape[0]
-            T += a.shape[1] if a.ndim == 2 else (a.shape[1] // PATCH_SIZE) * (a.shape[2] // PATCH_SIZE)
+            if s.modality == ModalityType.IMAGE:
+                T += (a.shape[1] // PATCH_SIZE) * (a.shape[2] // PATCH_SIZE)
+            elif s.modality == ModalityType.AUDIO:
+                T += -(-a.shape[1] // stride)
+            else:
+                T += a.shape[1]
     return B, T
 
 
@@ -1400,6 +1488,40 @@ def _caption_requests():
     reqs = [({"img": a}, {"max_len_b": MAX_LEN_B}) for a in imgs[:N_BEAM_REQUESTS]]
     reqs += [({"img": a}, {"max_len_b": MAX_LEN_B, "beam_size": 1}) for a in imgs[N_BEAM_REQUESTS:]]
     return reqs
+
+
+def _wav_bytes(rng, seconds):
+    """16 kHz mono 16-bit wav bytes (stdlib ``wave``) of two tones and
+    noise, ``seconds`` long."""
+    import io
+    import wave
+
+    t = np.arange(int(SAMPLE_RATE * seconds)) / SAMPLE_RATE
+    f1, f2 = rng.uniform(120, 1200, 2)
+    x = 0.4 * np.sin(2 * np.pi * f1 * t) + 0.2 * np.sin(2 * np.pi * f2 * t) \
+        + 0.05 * rng.standard_normal(t.shape)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SAMPLE_RATE)
+        w.writeframes(np.round(np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def _asr_requests():
+    """serve_asr: 16 wavs of ASR_SECONDS, 12 with the hub's TEXT defaults
+    (beam 5) and 4 greedy."""
+    rng = np.random.default_rng(SEED + 6)
+    wavs = [_wav_bytes(rng, rng.uniform(*ASR_SECONDS)) for _ in range(N_BEAM_REQUESTS + N_GREEDY_REQUESTS)]
+    reqs = [({"wav": w}, {"max_len_b": MAX_LEN_B}) for w in wavs[:N_BEAM_REQUESTS]]
+    reqs += [({"wav": w}, {"max_len_b": MAX_LEN_B, "beam_size": 1}) for w in wavs[N_BEAM_REQUESTS:]]
+    return reqs
+
+
+def _motion_texts():
+    """serve_motion: the 8 requests' motion descriptions."""
+    return [_text(np.random.default_rng(SEED + 7 + i), 12, 40) for i in range(N_MOTION_REQUESTS)]
 
 
 def _same_record(a, b):
@@ -1697,6 +1819,126 @@ def serve_caption_and_check(hub, card, serve_res=None):
     return res
 
 
+def serve_asr_and_check(hub, card, serve_res=None):
+    """serve_asr: 16 speech→text requests (wav bytes) through the server;
+    kernel B1 in every dispatch's encoder (the subsampled frames + the
+    prompt's tokens), the encoder output against plain attention, served
+    answers against the hub on the same batch composition (a request's
+    encoder states depend on its batch's longest wav through the padded
+    frames), p50 and tokens/s beside serve's (``serve_res``). First the
+    host time of the audio preprocessing per request: wav decode, fbank and
+    CMVN, and the whole of GeneralPreprocess for one request."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+    from ofasys_torch.utils.audio_utils import apply_cmvn, load_wav, logmel_fbank
+
+    reqs = _asr_requests()
+    gp = hub.general_preprocess
+    parts = {"wav decode": [], "fbank": [], "cmvn": [], "GeneralPreprocess": []}
+    frames = []
+    for data, _ in reqs:
+        t0 = time.perf_counter()
+        wav, sr = load_wav(data["wav"])
+        t1 = time.perf_counter()
+        feats = logmel_fbank(wav, sr)
+        t2 = time.perf_counter()
+        apply_cmvn(feats)
+        t3 = time.perf_counter()
+        gp(Instruction(ASR_TPL, split="test").format(**data))
+        t4 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key].append(dt * 1e3)
+        frames.append(feats.shape[0])
+    log(f"  serve_asr: {len(reqs)} wavs of {min(frames)}-{max(frames)} fbank frames; host ms per request "
+        "(median, max): " + ", ".join(f"{k} {statistics.median(v):.3f}, {max(v):.3f}"
+                                        for k, v in parts.items()) + " [host CPU]")
+    res = serve_and_check(hub, card, ASR_TPL, reqs, "serve_asr")
+    res["preprocess_ms"] = {k: statistics.median(v) for k, v in parts.items()}
+    if serve_res is not None:
+        log(f"  serve_asr vs serve: p50 {res['p50_ms']} vs {serve_res['p50_ms']} ms, "
+            f"{res['tokens_per_s']:.1f} vs {serve_res['tokens_per_s']:.1f} tokens/s [{card}]")
+    return res
+
+
+def motion_sample(gp):
+    """serve_motion's batch (the test split: open targets) and the motion
+    preprocessor. An open target's width is what the preprocessor learned
+    from its data; it may have seen none, so it is set to MOTION_FEAT."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    pre = gp.name2pre.get("motion_6d") or gp._build("motion_6d")
+    pre.feat_dim = MOTION_FEAT
+    sample = gp.collate([gp(Instruction(MOTION_TPL, split="test").format(text=t)) for t in _motion_texts()])
+    return sample, pre
+
+
+def serve_motion_and_check(hub, card):
+    """serve_motion: N_MOTION_REQUESTS text→motion requests (open 64 x 135
+    targets) in one batch through DiffusionGenerator.generate with its
+    defaults (50 DDIM steps of the full-context decoder, the motion
+    preprocessor's clamp): kernel B1 in the encoder and in every decoder
+    self- and cross-attention of every denoiser pass, launches as
+    attention_route expects; the features against the same run on the plain
+    attention path from the same initial noise (MOTION_REL_TOL); the wall
+    time of the batch. Returns the launch counts and the results."""
+    from ofasys_torch.generator import DiffusionGenerator
+
+    gp, model = hub.general_preprocess, hub.model
+    cfg = model.cfg
+    sample, pre = motion_sample(gp)
+    B, Ts, Tt = _task_shapes(sample)
+    gen = DiffusionGenerator(model, clamp_fn=pre.clamp)
+    L = cfg.decoder.layers
+    routes = {"encoder": _route(cfg, B, Ts, Ts), "decoder_full": _route(cfg, B, Tt, Tt),
+              "cross": _route(cfg, B, Tt, Ts)}
+    log(f"  serve_motion: B={B} encoder T={Ts} target {Tt} x {MOTION_FEAT}, {gen.num_inference_steps} "
+        f"DDIM steps of {gen.diffusion.num_steps} ({gen.diffusion.schedule}), eta {gen.eta}; "
+        f"routes {routes}")
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["dense_attention_fwd"] = cfg.encoder.layers * (routes["encoder"] == "dense") \
+        + gen.num_inference_steps * L * ((routes["decoder_full"] == "dense") + (routes["cross"] == "dense"))
+    on_card = hub.device.type == "cuda"
+    gen.generate(sample, seed=SEED)                       # warm-up
+    _sync(hub.device)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = gen.generate(sample, seed=SEED)
+    _sync(hub.device)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    feats = np.stack([o.feature for o in outs])
+    if feats.shape != (B, Tt, MOTION_FEAT) or not np.isfinite(feats).all():
+        raise SystemExit(f"serve_motion: bad features {feats.shape}")
+    log(f"  serve_motion launches: {({n: c for n, c in launches.items() if c})} (expected "
+        f"{({n: c for n, c in expected.items() if c})}: {cfg.encoder.layers} encoder layers + "
+        f"{gen.num_inference_steps} steps x {L} layers x 2)")
+    if on_card and (launches != expected or "plain" in routes.values()):
+        raise SystemExit("serve_motion: B1 did not run in every attention of every denoiser pass")
+    log(f"  serve_motion: {B} requests in one batch, {wall * 1e3:.2f} ms wall (each request's "
+        f"latency), {B / wall:.2f} requests/s, {wall * 1e3 / gen.num_inference_steps:.3f} ms per "
+        f"DDIM step [{card}]")
+    saved = cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
+    plain = {}
+    try:
+        cfg.attn_kernel, cfg.use_flash_attention = "xla", False
+        for logits in GRAD_PLAIN_LOGITS:
+            cfg.attn_logits = logits
+            plain[logits] = np.stack([o.feature for o in gen.generate(sample, seed=SEED)])
+    finally:
+        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
+    rels = {lg: float(np.linalg.norm(feats - f) / np.linalg.norm(f)) for lg, f in plain.items()}
+    mx = float(np.abs(feats - plain[GRAD_REF_LOGITS]).max())
+    log(f"  serve_motion: features under B1 vs plain attention, same initial noise: rel "
+        + ", ".join(f"{rel:.3e} (attn_logits={lg!r})" for lg, rel in rels.items())
+        + f"; checked against {GRAD_REF_LOGITS!r} (tol {MOTION_REL_TOL}), max abs {mx:.3e}; "
+        f"feature rms {float(np.sqrt((feats ** 2).mean())):.3f}")
+    if not rels[GRAD_REF_LOGITS] <= MOTION_REL_TOL:
+        raise SystemExit("serve_motion: features under B1 disagree with the plain attention path")
+    bvh = gp.postprocess(outs, sample)[0].bvh
+    log(f"  serve_motion: postprocess -> {type(bvh).__name__} {np.shape(bvh)}")
+    return launches, dict(wall_ms=wall * 1e3, requests_per_s=B / wall, rel=rels, max_abs=mx,
+                          routes=routes)
+
+
 def _param_bytes(net):
     """Bytes of the net's parameters and buffers (the int8 tables and their
     scales after quantize())."""
@@ -1900,44 +2142,88 @@ def _text(rng, lo, hi):
 
 
 def make_train_batches(gp, tasks=None):
-    """One collated batch (numpy) per task, from seeded text and images,
-    through Instruction(template, split="train") -> GeneralPreprocess ->
-    collate: span masking runs on the text_infilling source. A task's spec
-    names its text columns with their lengths in bytes and, under ``image``,
-    the side of the ``img`` column's square images."""
+    """One collated batch (numpy) per task, from seeded text, images, wavs
+    and motion features, through Instruction(template, split="train") ->
+    GeneralPreprocess -> collate: span masking runs on the text_infilling
+    source, SpecAugment on the asr wavs, a random crop on the motion clips.
+    A task's spec names its text columns with their lengths in bytes and,
+    under ``image``, the side of the ``img`` column's square images, under
+    ``audio`` the seconds of the ``wav`` column's wavs, under ``motion``
+    the frames of the ``bvh`` column's (frames, MOTION_FEAT) features."""
     from ofasys_torch.preprocessor.instruction import Instruction
 
     rng = np.random.default_rng(SEED + 1)
     out = {}
     for name, spec in (tasks or TRAIN_TASKS).items():
-        columns = [c for c in spec if c not in ("template", "batch", "image")]
+        columns = [c for c in spec if c not in ("template", "batch", "image", "audio", "motion",
+                                                "criterion")]
         recs = [{c: _text(rng, *spec[c]) for c in columns} for _ in range(spec["batch"])]
         if "image" in spec:
             for r, a in zip(recs, _images(rng, len(recs), spec["image"])):
                 r["img"] = a
+        for r in recs:
+            if "audio" in spec:
+                r["wav"] = _wav_bytes(rng, rng.uniform(*spec["audio"]))
+            if "motion" in spec:
+                n = int(rng.integers(spec["motion"][0], spec["motion"][1] + 1))
+                r["bvh"] = rng.standard_normal((n, MOTION_FEAT)).astype(np.float32)
         out[name] = gp.collate([gp(Instruction(spec["template"], split="train").format(**r))
                                 for r in recs])
     return out
 
 
 def _task_shapes(batch):
-    """(B, encoder tokens, decoder tokens) of a collated batch."""
+    """(B, encoder tokens, decoder tokens) of a collated batch: a text
+    target counts its tokens, a motion target its frames."""
     slots = batch["net_input"]["slots"]
     B, Ts = _encoder_tokens(slots)
-    Tt = [s for s in slots if not s.is_src][-1].value["inputs"].shape[1]
+    target = [s for s in slots if not s.is_src][-1].value
+    Tt = (target["inputs"] if "inputs" in target else target["value"]).shape[1]
     return B, Ts, Tt
+
+
+def _full_context(batch):
+    """The decoder runs without the causal mask (the diffusion target)."""
+    from ofasys_torch import ModalityType
+
+    return [s for s in batch["net_input"]["slots"] if not s.is_src][-1].modality == ModalityType.MOTION
 
 
 def train_shapes(batches):
     """[(label, (B, Tq, Tk), causal)] of the attention calls of one update:
-    encoder self, decoder self (causal, folded into the bias) and cross."""
+    encoder self, decoder self (causal, folded into the bias; full context
+    for a motion target) and cross."""
     shapes = []
     for name, b in batches.items():
         B, Ts, Tt = _task_shapes(b)
+        dec = (f"{name}_decoder_full", False) if _full_context(b) else (f"{name}_decoder_causal", True)
         shapes += [(f"{name}_encoder", (B, Ts, Ts), False),
-                   (f"{name}_decoder_causal", (B, Tt, Tt), True),
+                   (dec[0], (B, Tt, Tt), dec[1]),
                    (f"{name}_cross", (B, Tt, Ts), False)]
     return shapes
+
+
+def make_criteria(batches, pad, tasks=None):
+    """Each task's criterion: label-smoothed CE, or the spec's
+    ``criterion``: 'speech_to_text' (speech_to_text_loss) or 'diffusion'
+    (diffusion_criterion)."""
+    from ofasys_torch.engine.criterion import (
+        DiffusionCriterion,
+        DiffusionCriterionConfig,
+        LabelSmoothedCrossEntropyCriterion,
+        LabelSmoothedCrossEntropyCriterionConfig,
+        SpeechToTextCriterion,
+        SpeechToTextCriterionConfig,
+    )
+
+    kinds = {"speech_to_text": (SpeechToTextCriterion, SpeechToTextCriterionConfig),
+             "diffusion": (DiffusionCriterion, DiffusionCriterionConfig),
+             None: (LabelSmoothedCrossEntropyCriterion, LabelSmoothedCrossEntropyCriterionConfig)}
+    out = {}
+    for name in batches:
+        cls, cfg = kinds[(tasks or {}).get(name, {}).get("criterion")]
+        out[name] = cls(cfg(), pad_id=pad)
+    return out
 
 
 def _expected_train_launches(batches, cfg, net=None):
@@ -1991,12 +2277,14 @@ def build_train_model(d, device, arch="base", dtype=torch.bfloat16, ln_impl="xla
 
 
 def _grads(model, crit, params, step, batches):
-    """One update's raw-summed gradients over every task (no optimizer)."""
+    """One update's raw-summed gradients over every task (no optimizer);
+    ``crit`` is one criterion or one per task."""
     from ofasys_torch.engine.train_step import make_grad_step
 
     total = None
-    for i, b in enumerate(batches.values()):
-        g, _, _ = make_grad_step(model, crit, fold=i)(params, step, b, SEED)
+    for i, (name, b) in enumerate(batches.items()):
+        c = crit[name] if isinstance(crit, dict) else crit
+        g, _, _ = make_grad_step(model, c, fold=i)(params, step, b, SEED)
         total = g if total is None else [a + c for a, c in zip(total, g)]
     return total
 
@@ -2056,16 +2344,13 @@ def _dd_from_unrounded_output():
 def train_and_check(model, gp, card, tasks=None, batches=None, label="train", grad_batches=None,
                     grad_ref=None, n_updates=N_UPDATES):
     """Drive the training path: ``n_updates`` summed multi-task updates
-    through make_multitask_train_step, then check what came out; the
-    gradient check runs on ``grad_batches`` when given, against the plain
-    attention path or, with ``grad_ref``, against that model (another
-    ``ln_impl``) at the same parameters. Returns the kernel launch counts of
-    that run, its results, and the step, state and batches."""
+    through make_multitask_train_step, each task under its spec's criterion
+    (:func:`make_criteria`), then check what came out; the gradient check
+    runs on ``grad_batches`` when given, against the plain attention path
+    or, with ``grad_ref``, against that model (another ``ln_impl``) at the
+    same parameters. Returns the kernel launch counts of that run, its
+    results, and the step, state and batches."""
     from ofasys_torch.configure.configs import OptimizationConfig
-    from ofasys_torch.engine.criterion import (
-        LabelSmoothedCrossEntropyCriterion,
-        LabelSmoothedCrossEntropyCriterionConfig,
-    )
     from ofasys_torch.engine.optim import build_optimizer
     from ofasys_torch.engine.train_step import TrainState, make_multitask_train_step
     from ofasys_torch.utils.pytree import sample_to_device
@@ -2076,11 +2361,10 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
         B, Ts, Tt = _task_shapes(b)
         log(f"  task {name}: B={B} encoder T={Ts} decoder T={Tt} target tokens={b['ntokens']}")
     dev = {n: sample_to_device(b, device) for n, b in batches.items()}
-    crit = LabelSmoothedCrossEntropyCriterion(LabelSmoothedCrossEntropyCriterionConfig(),
-                                              pad_id=model.global_dict.pad())
+    crit = make_criteria(batches, model.global_dict.pad(), tasks)
     opt = build_optimizer(OptimizationConfig(lr=(TRAIN_LR,)))
     state = TrainState.create(model.net, opt)
-    step = make_multitask_train_step(model, {n: crit for n in dev}, opt)
+    step = make_multitask_train_step(model, crit, opt)
     n_samples = sum(b["nsentences"] for b in batches.values())
 
     # warm-up update (allocator, cuBLAS handles) outside the measured run
@@ -2276,11 +2560,28 @@ def main() -> int:
     mm_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in mm_calls}
     log(f"train_mm attention routes (caption, vqa): {mm_routes}")
     caption_serve = planned_dispatch_shapes(hub.general_preprocess, _caption_requests(), CAPTION_TPL)
+    asr_serve = planned_dispatch_shapes(hub.general_preprocess, _asr_requests(), ASR_TPL)
+    full_batches = make_train_batches(hub.general_preprocess, FULL_TRAIN_TASKS)
+    full_calls = [(f"full_{label}", shape, causal) for label, shape, causal in train_shapes(full_batches)
+                  if label.startswith(("asr", "motion_t2m"))]
+    mB, mTs, mTt = _task_shapes(motion_sample(hub.general_preprocess)[0])
+    motion_calls = [("serve_motion_decoder_full", (mB, mTt, mTt)), ("serve_motion_cross", (mB, mTt, mTs))]
+    new_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in full_calls}
+    new_routes.update({label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk) in motion_calls})
+    new_routes.update({f"serve_asr_dispatch{i}": _route(cfg, B, T, T) for i, (B, T) in enumerate(asr_serve)})
+    new_routes["serve_motion_encoder"] = _route(cfg, mB, mTs, mTs)
+    log(f"train_full (asr, motion_t2m), serve_asr and serve_motion attention shapes (B, Tq, Tk) and "
+        f"routes: {[(lb, sh) for lb, sh, _ in full_calls] + motion_calls} "
+        f"{[(f'serve_asr_dispatch{i}', s) for i, s in enumerate(asr_serve)]} "
+        f"serve_motion_encoder {(mB, mTs)}: {new_routes}")
     dispatches = [(f"dispatch{i}", s) for i, s in enumerate(planned_dispatch_shapes())] \
-        + [(f"serve_caption_dispatch{i}", s) for i, s in enumerate(caption_serve)]
+        + [(f"serve_caption_dispatch{i}", s) for i, s in enumerate(caption_serve)] \
+        + [(f"serve_asr_dispatch{i}", s) for i, s in enumerate(asr_serve)] \
+        + [("serve_motion_encoder", (mB, mTs))]
     fres, bres, rres = phase_kernels(
         dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
-        + [c for c in mm_calls if mm_routes[c[0]] == "dense"])
+        + [c for c in mm_calls if mm_routes[c[0]] == "dense"]
+        + [c for c in full_calls if new_routes[c[0]] == "dense"], motion_calls)
     long_serve = planned_dispatch_shapes(long_gp, _long_requests(), SUMMARY_TPL)
     flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
     flash_serve.append(("serve_truncated", planned_dispatch_shapes(
@@ -2299,6 +2600,10 @@ def main() -> int:
     counts["serve_caption"] = serve_caption_and_check(hub, card, serve_res)["launches"]
     phase_profile(hub, card, tpl=CAPTION_TPL, reqs=_caption_requests(),
                   what="one caption dispatch (B=8, beam 5)")
+    asr_res = serve_asr_and_check(hub, card, serve_res)
+    counts["serve_asr"] = asr_res["launches"]
+    phase_profile(hub, card, tpl=ASR_TPL, reqs=_asr_requests(), what="one asr dispatch (B=8, beam 5)")
+    counts["serve_motion"], motion_res = serve_motion_and_check(hub, card)
 
     model = build_train_model(d, "cuda")
     counts["train"], train_res, (step, state, dev) = train_and_check(
@@ -2342,6 +2647,20 @@ def main() -> int:
         d, hub.general_preprocess, card, batches=mm_batches, mm_res=mm_res)
     torch.cuda.empty_cache()
 
+    model = build_train_model(d, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    counts["train_full"], full_res, (step, state, dev) = train_and_check(
+        model, hub.general_preprocess, card, tasks=FULL_TRAIN_TASKS, batches=full_batches,
+        label="train_full")
+    full_res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train_full: peak device memory {full_res['peak_memory_gib']:.2f} GiB (updates and "
+        f"gradient checks) [{card}]")
+    phase_profile_train(step, state, dev, card,
+                        "one five-task update (caption B=64 + text_infilling B=128 + asr B=32 + "
+                        "vqa B=48 + motion_t2m B=32)")
+    del model, step, state, dev
+    torch.cuda.empty_cache()
+
     def by_path(kernel):
         return {path: c[kernel] for path, c in counts.items()}
 
@@ -2377,6 +2696,9 @@ def main() -> int:
     log(f"train_long: {json.dumps(long_res)}")
     log(f"train_mm: {json.dumps(mm_res)}")
     log(f"train_rowmajor: {json.dumps(row_res)}")
+    log(f"train_full: {json.dumps(full_res)}")
+    log(f"serve_asr: {json.dumps({k: v for k, v in asr_res.items() if k in ('p50_ms', 'tokens_per_s', 'preprocess_ms')})}")
+    log(f"serve_motion: {json.dumps(motion_res)}")
     for label, (_, res) in ln.items():
         log(f"{label}: {json.dumps(res)}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

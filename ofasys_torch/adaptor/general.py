@@ -8,9 +8,11 @@ bias is computed once per forward and shared by all layers, with batch dim 1
 when positions are sample-independent.
 
 flax creates an adaptor's parameters only on the side where a slot calls it,
-so a param tree of ofasys_tpu holds ``image_vit`` under ``encoder_adaptor``
+so a param tree of ofasys_tpu holds ``image_vit`` and ``audio_fbank`` under
+``encoder_adaptor`` alone and ``motion_6d`` under ``decoder_adaptor``
 alone. Modules here are built eagerly: the source-only adaptors
-(``SOURCE_ONLY``) are built on the encoder side only, so that
+(``SOURCE_ONLY``) are built on the encoder side only and the target-only
+ones (``TARGET_ONLY``) on the decoder side only, so that
 utils/jax_params.load_jax_params finds every parameter in the tree.
 """
 
@@ -24,8 +26,10 @@ import torch
 from torch import nn
 
 from ofasys_torch import ModalityType
+from ofasys_torch.adaptor.audio import AudioFbankAdaptor
 from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor
 from ofasys_torch.adaptor.image import ImagePatchEmbedAdaptor, ImageVitAdaptor
+from ofasys_torch.adaptor.motion import Motion6dAdaptor
 from ofasys_torch.adaptor.text import TextAdaptor
 from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.model.positional import block_diag_buckets
@@ -58,17 +62,25 @@ def resolve_adaptor_name(slot: SlotBatch, is_src: bool) -> str:
 
 
 ADAPTORS = {"text": TextAdaptor, "image_vit": ImageVitAdaptor,
-            "image_patch_embed": ImagePatchEmbedAdaptor}
+            "image_patch_embed": ImagePatchEmbedAdaptor, "audio_fbank": AudioFbankAdaptor,
+            "motion_6d": Motion6dAdaptor}
 # input adaptors no target slot resolves to: built on the encoder side only
-SOURCE_ONLY = ("image_vit", "image_patch_embed")
+SOURCE_ONLY = ("image_vit", "image_patch_embed", "audio_fbank")
+# the diffusion target's adaptor, which no source slot of the ported tasks
+# resolves to: built on the decoder side only
+TARGET_ONLY = ("motion_6d",)
+
+
+# ROADMAP Queue A item that ports each adaptor this slice lacks
+_PENDING = {"image_resnet": 7, "audio_tgt_fbank": 10, "image_vqgan": 11, "video_image_sequence": 11}
 
 
 def build_adaptor(name: str, cfg, is_src, embed_tokens, pad_id, dtype) -> BaseAdaptor:
     if name in ADAPTORS:
         return ADAPTORS[name](cfg, is_src, embed_tokens, pad_id, dtype)
+    where = f"ROADMAP Queue A item {_PENDING[name]}" if name in _PENDING else "a later slice"
     raise NotImplementedError(
-        f"adaptor {name!r} is not ported to ofasys_torch yet (ROADMAP Queue A items 7 and 11); "
-        f"ported: {sorted(ADAPTORS)}"
+        f"adaptor {name!r} is not ported to ofasys_torch yet ({where}); ported: {sorted(ADAPTORS)}"
     )
 
 
@@ -88,7 +100,8 @@ class GeneralAdaptor(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.is_src = is_src
-        self.active_adaptors = tuple(n for n in active_adaptors if is_src or n not in SOURCE_ONLY)
+        self.active_adaptors = tuple(n for n in active_adaptors
+                                     if n not in (TARGET_ONLY if is_src else SOURCE_ONLY))
         for name in self.active_adaptors:
             self.add_module(name, build_adaptor(name, cfg, is_src, embed_tokens, pad_id, dtype))
         heads = cfg.encoder.attention_heads if is_src else cfg.decoder.attention_heads

@@ -26,6 +26,14 @@ class SequenceGeneratorOutput(GeneratorOutput):
     image: Optional[Any] = None
 
 
+@dataclass
+class MotionOutput(GeneratorOutput):
+    """Diffusion text-to-motion output (BVH-convertible features)."""
+
+    feature: Optional[np.ndarray] = None
+    bvh: Optional[Any] = None
+
+
 # one sample may return n-best lists; a batch is a list of those
 MultiGeneratorOutput = List[SequenceGeneratorOutput]
 BatchGeneratorOutput = List[MultiGeneratorOutput]

@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ofasys_torch.adaptor.audio import Conv1d
 from ofasys_torch.adaptor.general import GeneralAdaptor
 from ofasys_torch.adaptor.image import PatchEmbed
 from ofasys_torch.model.config import UNPORTED_DEFAULTS, GeneralistModelConfig, apply_arch
@@ -173,9 +174,10 @@ class GeneralistNet(nn.Module):
 
 
 def _init_parameters(net: GeneralistNet, generator: torch.Generator):
-    """flax's initializers: lecun-normal (truncated) Dense and PatchEmbed
-    kernels with zero bias, normal(0.02) embeddings and type embedding, unit LayerNorms and
-    head scales, zero relative-position tables."""
+    """flax's initializers: lecun-normal (truncated) Dense, PatchEmbed and
+    Conv1d kernels with zero bias, normal(0.02) embeddings, type embedding
+    and audio mask embedding, unit LayerNorms and head scales, zero
+    relative-position tables."""
     with torch.no_grad():
         for module in net.modules():
             if isinstance(module, Dense):
@@ -183,8 +185,8 @@ def _init_parameters(net: GeneralistNet, generator: torch.Generator):
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
                 module.bias.zero_()
-            elif isinstance(module, PatchEmbed):
-                # lecun-normal over the patch's fan-in p * p * C
+            elif isinstance(module, (PatchEmbed, Conv1d)):
+                # lecun-normal over the fan-in: p * p * C of a patch, k * C of a window
                 std = math.sqrt(1.0 / module.kernel[..., 0].numel()) / 0.87962566103423978
                 nn.init.trunc_normal_(module.kernel, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
@@ -196,7 +198,7 @@ def _init_parameters(net: GeneralistNet, generator: torch.Generator):
                 module.weight.normal_(0.0, 0.02, generator=generator)
         for name, p in net.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "type_embedding":
+            if leaf in ("type_embedding", "mask_emb"):
                 p.normal_(0.0, 0.02, generator=generator)
             elif leaf == "c_attn":
                 p.fill_(1.0)

@@ -5,10 +5,11 @@ Sample path (pure numpy):
   instruction_map -> map per slot -> merge adjacent same-group slots
   -> per-position collate into SlotBatch arrays.
 
-The TEXT and IMAGE preprocessors are ported (text-like modalities share the
-TEXT group and concatenate into one token run; an IMAGE slot is a group of
-its own); a slot of any other modality raises ``NotImplementedError`` naming
-the ROADMAP Queue A item that ports it.
+The TEXT, IMAGE, AUDIO and MOTION preprocessors are ported (text-like
+modalities share the TEXT group and concatenate into one token run; an
+IMAGE, AUDIO or MOTION slot is a group of its own); a slot of any other
+modality raises ``NotImplementedError`` naming the ROADMAP Queue A item
+that ports it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from ofasys_torch import ModalityType
+from ofasys_torch.preprocessor.audio import (
+    AudioEmbedPreprocess,
+    AudioEmbedPreprocessConfig,
+    AudioPreprocess,
+    AudioPreprocessConfig,
+)
 from ofasys_torch.preprocessor.base import BasePreprocess, PreprocessSkipException
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.image import (
@@ -27,6 +34,7 @@ from ofasys_torch.preprocessor.image import (
     ImagepretrainPreprocessConfig,
 )
 from ofasys_torch.preprocessor.instruction import Instruction, Slot
+from ofasys_torch.preprocessor.motion import MotionPreprocess, MotionPreprocessConfig
 from ofasys_torch.preprocessor.text import TextPreprocess, TextPreprocessConfig
 
 # the ported preprocessors by registered name: (class, config class)
@@ -35,6 +43,9 @@ PREPROCESSORS = {
     "image": (ImagePreprocess, ImagePreprocessConfig),
     "imagenet": (ImagenetPreprocess, ImagenetPreprocessConfig),
     "imagepretrain": (ImagepretrainPreprocess, ImagepretrainPreprocessConfig),
+    "audio": (AudioPreprocess, AudioPreprocessConfig),
+    "audio_embed": (AudioEmbedPreprocess, AudioEmbedPreprocessConfig),
+    "motion_6d": (MotionPreprocess, MotionPreprocessConfig),
 }
 
 # default preprocessor per modality
@@ -52,7 +63,7 @@ DEFAULT_PREPROCESS = {
 
 # ROADMAP Queue A item that ports each preprocessor this slice lacks
 _PENDING = {
-    "box": 7, "audio": 7, "motion_6d": 7,
+    "box": 7,
     "phone": 11, "video": 11, "struct": 11, "category": 11,
 }
 
@@ -172,12 +183,15 @@ class GeneralPreprocess:
     # ------------------------------------------------------------ decoding
     def postprocess(self, outputs, sample: Dict[str, Any]):
         """Route generator outputs back through the target slot's
-        preprocessor (de-tokenize)."""
+        preprocessor: its own ``postprocess`` where it has one (audio,
+        motion), else de-tokenize."""
         slots = sample["net_input"]["slots"]
         target = [s for s in slots if not s.is_src][-1]
         name = (target.get_attr("preprocess") if target.attributes else None) \
             or target.preprocess or DEFAULT_PREPROCESS[target.modality]
         pre = self.name2pre[name]
+        if hasattr(pre, "postprocess"):
+            return pre.postprocess(outputs, sample)
         for out in outputs if isinstance(outputs, list) else [outputs]:
             if getattr(out, "tokens", None) is not None:
                 out.text = pre.decode(out.tokens)

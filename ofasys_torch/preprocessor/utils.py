@@ -41,3 +41,22 @@ def collate_tokens(
         else:
             out[i, :len(seq)] = seq
     return out
+
+
+def collate_arrays(
+    arrays: Sequence[np.ndarray],
+    pad_value: float = 0.0,
+    pad_to_multiple: int = 1,
+    pad_to_length: Optional[int] = None,
+) -> np.ndarray:
+    """Pad a list of (T, ...) float arrays along dim 0 into (B, T, ...)."""
+    size = max(a.shape[0] for a in arrays)
+    if pad_to_length is not None:
+        size = max(size, pad_to_length)
+    if pad_to_multiple > 1 and size % pad_to_multiple != 0:
+        size = ((size + pad_to_multiple - 1) // pad_to_multiple) * pad_to_multiple
+    rest = arrays[0].shape[1:]
+    out = np.full((len(arrays), size) + rest, pad_value, dtype=arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        out[i, :a.shape[0]] = a
+    return out

@@ -56,12 +56,13 @@ class SlotBatch:
 
 def slots_to_device(slots: List[SlotBatch], device) -> List[SlotBatch]:
     """Copies of ``slots`` whose array values are tensors on ``device``:
-    integer arrays become int64 token tensors, float arrays (images, fp32
-    NHWC) keep their dtype and are cast to the compute dtype in the adaptor."""
+    integer arrays become int64 tensors (token ids, lengths), boolean masks
+    stay boolean, float arrays (images, fbank frames, motion features)
+    keep their dtype and are cast to the compute dtype in the adaptor."""
     def conv(v):
         if isinstance(v, np.ndarray):
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if not t.is_floating_point():
+            if not t.is_floating_point() and t.dtype != torch.bool:
                 t = t.long()
             return t.to(device)
         if isinstance(v, torch.Tensor):
@@ -74,7 +75,8 @@ def slots_to_device(slots: List[SlotBatch], device) -> List[SlotBatch]:
 def sample_to_device(sample: dict, device) -> dict:
     """A copy of a collated sample whose slots, ``target`` and
     ``constraint_masks`` are tensors on ``device`` (the form the criterion
-    and the train step take)."""
+    and the train step take): token targets int64, feature targets in
+    their float dtype, masks boolean."""
     out = dict(sample)
     out["net_input"] = {**sample["net_input"],
                         "slots": slots_to_device(sample["net_input"]["slots"], device)}
@@ -82,5 +84,5 @@ def sample_to_device(sample: dict, device) -> dict:
         v = sample.get(key)
         if isinstance(v, np.ndarray):
             t = torch.from_numpy(np.ascontiguousarray(v))
-            out[key] = (t if t.dtype == torch.bool else t.long()).to(device)
+            out[key] = (t if t.dtype == torch.bool or t.is_floating_point() else t.long()).to(device)
     return out
