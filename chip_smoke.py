@@ -79,10 +79,31 @@ Phases, in order; any failure exits non-zero:
      under diffusion_criterion): B1 and B2 once per attention call, a
      falling loss, each task's loss, one update's gradients against the
      plain attention path, the peak device memory; one update profiled
+ 21. serve_ground: a second model (adaptors text + image_resnet at
+     resnet101, the 1,000 <bin>_i in its dictionary): 16 refcoco requests
+     "[IMAGE:img,adaptor=image_resnet] which region does the text
+     " [TEXT:text] " describe? -> [BOX:region_coord]" with 224 x 224
+     images and expressions of GROUND_TEXT bytes (every encoder 252 < 256:
+     B1) under the hub's BOX defaults, then 4 with the bins as
+     constraint_range: B1 launches from the planned shapes, 4 tokens + EOS
+     a request, boxes in [0, 1], tokens against the plain attention path,
+     the trunk's bf16 output against fp32 and its RMS block by block, p50
+     and requests/s beside serve_caption's, the host ms of the image + box
+     preprocessing; one dispatch profiled with the trunk's share
+ 22. train_ground: 5 summed refcoco B=48 + vqa B=48 updates through the
+     trunk (the train split's joint flip / resize / object-centred crop on
+     the host): B1/B2 launches, a falling loss, gradients against the plain
+     attention path with the ResNet leaves, step time beside train_mm's,
+     peak memory, one update profiled with the trunk's share; then
+     RandAugment(2, 9) timed on the host
+ 23. train_ground_modal_ffn: one such update on a third model with
+     modal_ffn=True: spans, experts, gradients; its generate raises in the
+     first decode step (no plain fc1), as ofasys_tpu's does
 The kernel phase holds B1 and B2 at the shapes of the new paths too (the
 asr encoder, causal decoder and cross attention, the motion decoder in full
 context and its cross attention, serve_asr's dispatches and serve_motion's
-denoiser) and prints each shape's route. It also holds kernel B3 and the
+denoiser, serve_ground's dispatches and train_ground's refcoco calls; its
+vqa calls are train_mm's shapes) and prints each shape's route. It also holds kernel B3 and the
 one flash backward pass (for B4-dq, B4-dkv and B5) against their plain versions at every shape of the
 long paths, a per-(b, h) bias, a causal and a ragged shape and at
 FLASH_EDGE_SHAPES (head dims 88, 128 and 256, a batch of one, ragged Tq !=
@@ -124,7 +145,12 @@ tasks=TINY_MM_TRAIN_TASKS)``; the speech and motion phases on a tiny hub
 whose model has ``ACTIVE_ADAPTORS`` and ``cfg.attn_kernel="pallas"``:
 ``serve_asr_and_check(hub, "cpu")``, ``serve_motion_and_check(hub, "cpu")``
 and ``train_and_check(m, gp, "cpu", tasks=TINY_FULL_TRAIN_TASKS,
-label="train_full")``.
+label="train_full")``; the grounding phases with ``d, gp =
+ground_preprocess()``, ``hub = build_ground_hub(d, gp, device="cpu",
+arch="tiny")`` (``cfg.attn_kernel="pallas"``): ``serve_ground_and_check(hub,
+"cpu")``, and ``train_and_check(build_train_model(d, "cpu", arch="tiny",
+adaptors=GROUND_ADAPTORS), gp, "cpu", tasks=TINY_GROUND_TRAIN_TASKS,
+label="train_ground")``.
 """
 
 from __future__ import annotations
@@ -150,6 +176,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
+
+# the H100 SXM's boost clock (cycles a second of torch.cuda._sleep) and the
+# calls of a plain version timed (each takes up to milliseconds; its time
+# is a reference column, the kernels' are taken with time_ms's defaults)
+SLEEP_CYCLES_PER_S = 1.98e9
+PLAIN_TIMING = dict(n=10, repeats=3)
 
 SEED = 0
 TPL = "[TEXT:src] -> [TEXT:tgt]"
@@ -284,6 +316,39 @@ TINY_FULL_TRAIN_TASKS = {
     "vqa": dict(MM_TRAIN_TASKS["vqa"], batch=2),
     "motion_t2m": dict(FULL_TRAIN_TASKS["motion_t2m"], batch=4),
 }
+# the grounding slice: ofasys_tpu's refcoco template (task/tasks.py:182) and
+# the vqa template with the IMAGE slot on the reference OFA-base image trunk,
+# image_resnet at resnet101 (``adaptor=image_resnet``: an IMAGE source slot
+# resolves to image_vit by default); a second model (GROUND_ADAPTORS) whose
+# dictionary also holds the box preprocessor's 1,000 <bin>_i. serve_ground's
+# referring expressions are GROUND_TEXT bytes: with the prompt's 42 bytes,
+# bos and eos the text group is 52-56 tokens, padded to 56, so every
+# dispatch's encoder holds 196 + 56 = 252 positions (< 256: kernel B1).
+# train_ground is bench.py's grounding_vqa (B=48) as refcoco B=48 (seeded
+# images of 240-320 pixels a side, a seeded region each, the train split's
+# joint flip / resize / object-centred crop) + vqa B=48, both through the
+# trunk
+GROUND_ADAPTORS = ("text", "image_resnet")
+REFCOCO_TPL = ('[IMAGE:img,adaptor=image_resnet] which region does the text " [TEXT:text] " '
+               'describe? -> [BOX:region_coord]')
+GROUND_VQA_TPL = "[IMAGE:img,adaptor=image_resnet] [TEXT:question] -> [TEXT:answer]"
+GROUND_TEXT = (8, 12)
+N_GROUND_REQUESTS = 16
+N_CONSTRAINED_REQUESTS = 4
+GROUND_TRAIN_TASKS = {
+    "refcoco": dict(template=REFCOCO_TPL, batch=48, image=(240, 320), region=True, text=GROUND_TEXT),
+    "vqa": dict(MM_TRAIN_TASKS["vqa"], template=GROUND_VQA_TPL),
+}
+TINY_GROUND_TRAIN_TASKS = {n: dict(spec, batch=2) for n, spec in GROUND_TRAIN_TASKS.items()}
+# image_resnet's trunk in bf16 against the same trunk in fp32 (TF32 off) on
+# the same images: every convolution rounds its bf16 operands (2^-9
+# relative) and its output, each FrozenBatchNorm its factors and its
+# output; over 104 convolutions the roundings add up as a random walk of
+# about sqrt(104) * 2^-9 = 2e-2 before the ReLUs and the residual sums
+# damp or carry them: relative Frobenius error <= TRUNK_REL_TOL
+TRUNK_REL_TOL = 5e-2
+RAND_AUGMENT_IMAGES = 48
+
 # B1 and B2r with the scale and the causal mask inside the kernel, as a
 # direct ``_dense_attention(..., scale, causal=True, H)`` call runs them:
 # the caption decoder's shape and one with Tq < Tk (the causal offset)
@@ -418,14 +483,19 @@ def _route(cfg, B, Tq, Tk, dropout_rate=0.0):
 def time_ms(fn, n: int = 50, repeats: int = 5) -> float:
     """Median over ``repeats`` of the mean device time of ``n`` back-to-back
     calls. A GPU sleep first lets the host queue the calls ahead, so the
-    events bracket device work and not Python launch overhead."""
+    events bracket device work and not Python launch overhead: twice the
+    host time the n calls take to launch (from the warm-up's), at least
+    1e6 and at most 5e7 cycles."""
+    t0 = time.perf_counter()
     for _ in range(5):
         fn()
+    launch_s = (time.perf_counter() - t0) / 5
     torch.cuda.synchronize()
+    cycles = int(min(5e7, max(1e6, 2 * n * launch_s * SLEEP_CYCLES_PER_S)))
     times = []
     for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(n):
             fn()
@@ -549,7 +619,7 @@ def check_fwd(label, shape, causal=False):
         raise SystemExit(f"dense_attention_fwd disagrees with its plain version at {label}")
     q4, k4, v4, add = _sdpa_args(q, k, v, bias, mask, H, D)
     kernel_ms = time_ms(lambda: dense_attention_fwd(q, k, v, bias, mask, H))
-    plain_ms = time_ms(lambda: dense_attention_fwd_reference(q, k, v, bias, mask, H))
+    plain_ms = time_ms(lambda: dense_attention_fwd_reference(q, k, v, bias, mask, H), **PLAIN_TIMING)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add, scale=1.0))
     n_bytes, flops = _fwd_bound(B, Tq, Tk, H, D)
     bound_ms, bound_by = _bound(n_bytes, flops)
@@ -631,7 +701,8 @@ def check_bwd(label, shape, causal=False):
     q4, k4, v4, add = _sdpa_args(q, k, v, bias, mask, H, D, grad=True)
     do4 = do.view(B, Tq, H, D).transpose(1, 2)
     kernel_ms = {name: time_ms(fn, n=20) for name, fn in kernels.items()}
-    plain_ms = time_ms(lambda: dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H), n=20)
+    plain_ms = time_ms(lambda: dense_attention_bwd_reference(q, k, v, do, lse, bias, mask, H),
+                       **PLAIN_TIMING)
     library_ms = _sdpa_bwd_ms(q4, k4, v4, add, do4)
     n_bytes, flops = _bwd_bound(B, Tq, Tk, H, D)
     bound_ms, bound_by = _bound(n_bytes, flops)
@@ -737,14 +808,15 @@ def check_inside(label, shape):
     _, lse_f = da.dense_attention_fwd(q, k, v, fb, mask, H)
     fwd_ms = time_ms(lambda: da.dense_attention_fwd(q_raw, k, v, bias, mask, H, scale, True))
     fwd_folded_ms = time_ms(lambda: da.dense_attention_fwd(q, k, v, fb, mask, H))
-    fwd_plain_ms = time_ms(lambda: da.dense_attention_fwd_reference(q_raw, k, v, bias, mask, H, scale, True))
+    fwd_plain_ms = time_ms(lambda: da.dense_attention_fwd_reference(q_raw, k, v, bias, mask, H, scale, True),
+                           **PLAIN_TIMING)
     bwd_ms = time_ms(lambda: da.dense_attention_bwd_rowmajor(
         q_raw, k, v, do, lse, bias, mask, H, scale, True), n=20)
     bwd_folded_ms = time_ms(lambda: da.dense_attention_bwd_rowmajor(
         q, k, v, do, lse_f, fb, mask, H, 1.0, False), n=20)
     b2_folded_ms = time_ms(lambda: da.dense_attention_bwd(q, k, v, do, lse_f, fb, mask, H), n=20)
     bwd_plain_ms = time_ms(lambda: da.dense_attention_bwd_rowmajor_reference(
-        q_raw, k, v, do, lse, bias, mask, H, scale, True), n=20)
+        q_raw, k, v, do, lse, bias, mask, H, scale, True), **PLAIN_TIMING)
     import torch.nn.functional as F
 
     q4, k4, v4, add = _sdpa_args(q, k, v, fb, mask, H, D, grad=True)
@@ -1162,7 +1234,7 @@ def check_int8(label, M, K, N):
     del cut
     wb = w.to(torch.bfloat16)
     kernel_ms = time_ms(lambda: int8_matmul_fwd(xq, sx, q, scale, torch.bfloat16))
-    plain_ms = time_ms(lambda: int8_matmul_reference(xq, sx, q, scale, torch.bfloat16), n=10)
+    plain_ms = time_ms(lambda: int8_matmul_reference(xq, sx, q, scale, torch.bfloat16), **PLAIN_TIMING)
     library_ms = _int_mm_ms(xq, sx, q, scale)
     bf16_ms = time_ms(lambda: F.linear(x, wb))
     n_bytes = M * K + N * K + 4 * M + 4 * N + 2 * M * N
@@ -1344,7 +1416,7 @@ def check_ln(label, N, E):
              lambda: tln.layer_norm_bwd_reference(x, w, mu, rstd, dy), lib_b, bwd_bytes, bwd_ops,
              max(e["max"] for e in errs.values()))):
         bound_ms, bound_by = _bound(n_bytes, ops, PEAK_FP32_FLOPS)
-        k_ms, p_ms = time_ms(kernel), time_ms(plain)
+        k_ms, p_ms = time_ms(kernel), time_ms(plain, **PLAIN_TIMING)
         lib_s = "not timed" if lib is None else f"{lib:.4f} ms"
         alts = ", ".join(f"{k} {v:.4f} ms" for k, v in alt_ms.items()) or "no other plan"
         split = "" if name.endswith("fwd") else \
@@ -1670,7 +1742,8 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=
     stats = srv.stats()
 
     for i, o in enumerate(outs):
-        if not (np.isfinite(o.score) and isinstance(o.text, str) and o.tokens.size > 0):
+        if not (np.isfinite(o.score) and (isinstance(o.text, str) or o.box is not None)
+                and o.tokens.size > 0):
             raise SystemExit(f"{label} request {i}: bad answer {o!r}")
     n_tokens = int(sum(o.tokens.size for o in outs))
     shapes, expected = _expected_launches(gp, rec.calls, rec.steps, model.net, tpl)
@@ -1687,8 +1760,10 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=
         f"p50 latency {stats['p50_latency_ms']} ms, {n_tokens} tokens in {wall:.3f} s = "
         f"{n_tokens / wall:.1f} tokens/s [{card}]")
     res = dict(launches=launches, p50_ms=stats["p50_latency_ms"], tokens_per_s=n_tokens / wall,
-               outs=outs, calls=rec.calls, steps=rec.steps)
-    log(f"  sample answer: {outs[0].text[:60]!r} score {outs[0].score:.4f}")
+               requests_per_s=len(reqs) / wall, outs=outs, calls=rec.calls, steps=rec.steps,
+               shapes=shapes)
+    answer = outs[0].text[:60] if outs[0].text is not None else outs[0].box
+    log(f"  sample answer: {answer!r} score {outs[0].score:.4f}")
 
     # served answers equal direct hub.inference on the same batches, and
     # each future got the answer to its own record
@@ -1774,7 +1849,9 @@ def serve_truncated_and_check(hub, card):
 def _report_profile(prof, wall_ms, what, card, share=None):
     """Wall, device busy time and idle share, launches and the top kernels;
     with ``share`` (a tuple of names), the share of device time of the
-    kernels whose name holds one of them."""
+    kernels whose name holds one of them. Profiles trace the card alone
+    (its kernels and copies): tracing the host's ops as well lengthened the
+    profiled wall and took 5-10 s a profile to gather."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1789,23 +1866,26 @@ def _report_profile(prof, wall_ms, what, card, share=None):
         log(f"  kernels named {' or '.join(f'*{s}*' for s in share)}: {own_ms:.3f} ms in "
             f"{sum(e.count for e in own)} launches, "
             f"{100 * own_ms / max(busy_ms, 1e-9):.1f}% of device time")
+    return busy_ms
 
 
-def phase_profile(hub, card, share=None, tpl=TPL, reqs=None, what="one dispatch (B=8, beam 5)"):
-    """One dispatch of the serving path (the first 8 requests, beam 5) under
-    torch.profiler: wall time, device busy time and idle share, kernel
-    launches, and the kernels that take the most device time (with
-    ``share``, the share of the kernels whose name holds one of its names)."""
+def phase_profile(hub, card, share=None, tpl=TPL, reqs=None, what="one dispatch (B=8, beam 5)",
+                  opts=None):
+    """One dispatch of the serving path (the first 8 requests, beam 5, or
+    the generation options ``opts``) under torch.profiler: wall time,
+    device busy time and idle share, kernel launches, and the kernels that
+    take the most device time (with ``share``, the share of the kernels
+    whose name holds one of its names)."""
     from torch.profiler import ProfilerActivity, profile
 
     recs = [r for r, _ in (reqs or _serve_requests())[:8]]
     _sync(hub.device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        hub.inference(tpl, recs, max_len_b=MAX_LEN_B)
+        hub.inference(tpl, recs, **({"max_len_b": MAX_LEN_B} if opts is None else opts))
         _sync(hub.device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_profile(prof, wall_ms, what, card, share)
+    return _report_profile(prof, wall_ms, what, card, share)
 
 
 def serve_caption_and_check(hub, card, serve_res=None):
@@ -1937,6 +2017,348 @@ def serve_motion_and_check(hub, card):
     log(f"  serve_motion: postprocess -> {type(bvh).__name__} {np.shape(bvh)}")
     return launches, dict(wall_ms=wall * 1e3, requests_per_s=B / wall, rel=rels, max_abs=mx,
                           routes=routes)
+
+
+def ground_preprocess():
+    """The grounding model's dictionary and preprocessors: the byte symbols
+    and <mask> (text), the 1,000 <bin>_i (box), then <text>_256 .. 49,999,
+    padded to a multiple of 8."""
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+    from ofasys_torch.preprocessor.general import GeneralPreprocess
+
+    d = Dictionary()
+    gp = GeneralPreprocess(d, active=["text", "image", "box"])
+    for i in range(256, 50000):
+        d.add_symbol(f"<text>_{i}")
+    d.pad_to_multiple_(8)
+    return d, gp
+
+
+def build_ground_hub(d, gp, device="cuda", arch="base"):
+    """The grounding model: ``arch`` at full width with adaptors
+    GROUND_ADAPTORS (image_resnet at resnet101), random weights from SEED,
+    bf16 compute, built after the preprocessors grew the dictionary."""
+    from ofasys_torch import GeneralistModel, OFASys
+
+    t0 = time.perf_counter()
+    model = GeneralistModel(arch=arch)
+    model.cfg.dropout = 0.0
+    model.initialize(d, active_adaptors=GROUND_ADAPTORS, dtype=torch.bfloat16, device=device, seed=SEED)
+    hub = OFASys(model, None, d, gp, device=device)
+    trunk = model.net.encoder_adaptor.image_resnet
+    n_trunk = sum(p.numel() for p in trunk.embed_images.parameters())
+    cfg = model.cfg
+    log(f"ground: {arch} arch E={cfg.encoder.embed_dim} heads={cfg.encoder.attention_heads} "
+        f"layers={cfg.encoder.layers}+{cfg.decoder.layers} vocab={len(d)} adaptors={GROUND_ADAPTORS} "
+        f"({trunk.acfg.resnet_type}: {len(trunk.embed_images.block_names)} bottlenecks, {n_trunk} "
+        f"trunk parameters) params={sum(p.numel() for p in model.net.parameters())} "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    return hub
+
+
+def _ground_requests(bins=None):
+    """serve_ground's requests: N_GROUND_REQUESTS 224 x 224 images and
+    referring expressions of GROUND_TEXT bytes under the hub's BOX defaults
+    (greedy, exactly 4 tokens); with ``bins`` (start, end), the
+    N_CONSTRAINED_REQUESTS that follow, with the bins as constraint_range."""
+    rng = np.random.default_rng(SEED + 8)
+    n = N_GROUND_REQUESTS + N_CONSTRAINED_REQUESTS
+    recs = [{"img": a, "text": _text(rng, *GROUND_TEXT)} for a in _images(rng, n)]
+    if bins is None:
+        return [(r, {}) for r in recs[:N_GROUND_REQUESTS]]
+    return [(r, {"constraint_range": f"({bins[0]},{bins[1]})"}) for r in recs[N_GROUND_REQUESTS:]]
+
+
+def ground_dispatch_shapes(gp):
+    """(B, T) of the encoder in each serve_ground dispatch: two of 8, then
+    the constrained 4."""
+    recs = [r for r, _ in _ground_requests()]
+    box = gp.name2pre["box"]
+    con = [r for r, _ in _ground_requests((box.bin_start, box.bin_end))]
+    return [_encoder_shape(gp, g, REFCOCO_TPL) for g in (recs[:8], recs[8:], con)]
+
+
+def _trunk_forward(trunk, x):
+    """The ResNet's forward, with the RMS of each bottleneck's output."""
+    rms = []
+
+    def record(name):
+        return lambda module, inputs, out: rms.append((name, out.float().pow(2).mean().sqrt().item()))
+
+    hooks = [getattr(trunk, n).register_forward_hook(record(n)) for n in trunk.block_names]
+    try:
+        return trunk(x), rms
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def trunk_device_ms(trunk, images, backward=False):
+    """Device busy ms and launches of one call of the trunk on ``images``
+    (and, with ``backward``, its backward to every parameter) under
+    torch.profiler, with its three costliest kernels: the trunk's part of
+    a profiled dispatch or update, whose cuDNN and cuBLAS kernels cannot be
+    told apart from the transformer's by name (1 x 1 convolutions run as
+    GEMMs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params = [p for p in trunk.parameters()]
+
+    def call():
+        out = trunk(images.to(torch.bfloat16))
+        if backward:
+            torch.autograd.grad(out.float().square().mean(), params)
+
+    call()                                                 # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if backward:
+            call()
+        else:
+            with torch.no_grad():
+                call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    return busy, sum(e.count for e in kernels), [(round(e.self_device_time_total / 1e3, 3), e.key[:60])
+                                                 for e in top]
+
+
+def trunk_check(hub, card):
+    """image_resnet's trunk on the first serve_ground dispatch's images:
+    the output in bf16 (as served) against a copy in fp32 (TF32 off), the
+    RMS after each bottleneck (random convolutions with unit statistics
+    let it grow block by block), the time of each and, on the card, one
+    bf16 call's device time."""
+    import copy
+
+    from ofasys_torch.model.resnet import Conv2d
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    gp = hub.general_preprocess
+    recs = [r for r, _ in _ground_requests()[:8]]
+    sample = gp.collate([gp(Instruction(REFCOCO_TPL, split="test").format(**r)) for r in recs])
+    images = torch.from_numpy(sample["net_input"]["slots"][0].value["inputs"]).to(hub.device)
+    trunk = hub.model.net.encoder_adaptor.image_resnet.embed_images
+    trunk32 = copy.deepcopy(trunk)
+    for m in trunk32.modules():
+        if isinstance(m, Conv2d):
+            m.dtype = torch.float32
+    with torch.no_grad():
+        out16, rms = _trunk_forward(trunk, images.to(torch.bfloat16))
+        out32, _ = _trunk_forward(trunk32, images)
+        ms16 = ms32 = None
+        if hub.device.type == "cuda":
+            ms16 = time_ms(lambda: trunk(images.to(torch.bfloat16)), n=3, repeats=3)
+            ms32 = time_ms(lambda: trunk32(images), n=3, repeats=3)
+    rel = ((out16.float() - out32).norm() / out32.norm()).item()
+    log(f"  image_resnet trunk on {tuple(images.shape)}: output {tuple(out16.shape)}, bf16 vs fp32 "
+        f"relative Frobenius {rel:.3e} (tol {TRUNK_REL_TOL}), output rms {rms[-1][1]:.4g}; input rms "
+        f"{images.pow(2).mean().sqrt().item():.4g}, rms after each bottleneck: "
+        + ", ".join(f"{n} {v:.4g}" for n, v in rms))
+    busy = None
+    if ms16 is not None:
+        busy, n, top = trunk_device_ms(trunk, images)
+        log(f"  image_resnet trunk, B={images.shape[0]}: bf16 {ms16:.3f} ms, fp32 {ms32:.3f} ms a call "
+            f"(CUDA events, host launches included); one bf16 call profiled: device busy {busy:.3f} ms "
+            f"in {n} launches, top {top} [{card}]")
+    if not torch.isfinite(out16).all() or not rel <= TRUNK_REL_TOL:
+        raise SystemExit("serve_ground: the bf16 trunk disagrees with its fp32 copy")
+    del trunk32
+    return dict(trunk_rel=rel, trunk_rms=rms[-1][1], trunk_ms_bf16=ms16, trunk_ms_fp32=ms32,
+                trunk_busy_ms=busy)
+
+
+def _tokens_vs_plain(hub, calls, label):
+    """Each recorded dispatch again on the plain attention path (fp32
+    scores), the same batch composition: the tokens must be equal."""
+    cfg = hub.model.cfg
+    saved = cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
+    mismatches = n = 0
+    try:
+        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = "xla", False, GRAD_REF_LOGITS
+        for instruction, data, kw, out in calls:
+            plain = hub.inference(instruction, data, **kw)
+            if not isinstance(data, list):
+                out, plain = [out], [plain]
+            for o, r in zip(out, plain, strict=True):
+                n += 1
+                mismatches += not np.array_equal(o.tokens, r.tokens)
+    finally:
+        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
+    log(f"  {label}: tokens under B1 vs the plain attention path (attn_logits={GRAD_REF_LOGITS!r}) on "
+        f"the same batches: {mismatches} of {n} requests differ")
+    if mismatches:
+        raise SystemExit(f"{label}: tokens under B1 differ from the plain attention path")
+
+
+def serve_ground_and_check(hub, card, caption_res=None):
+    """serve_ground: N_GROUND_REQUESTS refcoco requests through the server
+    under the hub's BOX defaults, then N_CONSTRAINED_REQUESTS with the bins
+    as constraint range: kernel B1 in every dispatch's encoder, the encoder
+    output against plain attention, every request's 4 bin tokens decoded
+    to a box in [0, 1] (every token a bin under the range), tokens against
+    the plain attention path, the trunk's bf16 output against fp32, p50 and
+    requests/s beside serve_caption's; first the host time of the image +
+    box preprocessing a request."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    gp = hub.general_preprocess
+    box = gp.name2pre["box"]
+    reqs = _ground_requests()
+    con = _ground_requests((box.bin_start, box.bin_end))
+    host = []
+    for data, _ in reqs:
+        t0 = time.perf_counter()
+        gp(Instruction(REFCOCO_TPL, split="test").format(**data))
+        host.append((time.perf_counter() - t0) * 1e3)
+    shapes = ground_dispatch_shapes(gp)
+    log(f"  serve_ground: expressions of {GROUND_TEXT[0]}-{GROUND_TEXT[1]} bytes; planned encoder "
+        f"(B, T) {shapes}, routes {[_route(hub.model.cfg, B, T, T) for B, T in shapes]}; host ms a "
+        f"request of image + box preprocessing (GeneralPreprocess, test split): median "
+        f"{statistics.median(host):.3f}, max {max(host):.3f} [host CPU]")
+    res = serve_and_check(hub, card, REFCOCO_TPL, reqs, "serve_ground")
+    res_c = serve_and_check(hub, card, REFCOCO_TPL, con, "serve_ground_constrained", check_encoder=False)
+    eos = hub.global_dict.eos()
+    for label, r, constrained in (("serve_ground", res, False), ("serve_ground_constrained", res_c, True)):
+        boxes = [o.box for o in r["outs"]]
+        lengths = [len(o.tokens) for o in r["outs"]]
+        log(f"  {label}: tokens per request {sorted(set(lengths))}; boxes "
+            + "; ".join(np.array2string(b, precision=3, separator=",") for b in boxes))
+        if any(n != 5 for n in lengths) or any(b is None or not ((b >= 0) & (b <= 1)).all() for b in boxes):
+            raise SystemExit(f"{label}: not 4 tokens + EOS a request, or a box outside [0, 1]")
+        if constrained:
+            toks = np.stack([o.tokens for o in r["outs"]])
+            in_range = ((toks >= box.bin_start) & (toks < box.bin_end)) | (toks == eos)
+            if not in_range.all() or any(b.shape != (4,) for b in boxes):
+                raise SystemExit(f"{label}: a token outside the constraint range")
+    _tokens_vs_plain(hub, res["calls"] + res_c["calls"], "serve_ground")
+    res.update(trunk_check(hub, card))
+    res["preprocess_ms"] = statistics.median(host)
+    if caption_res is not None:
+        log(f"  serve_ground vs serve_caption: p50 {res['p50_ms']} vs {caption_res['p50_ms']} ms, "
+            f"{res['requests_per_s']:.2f} vs {caption_res['requests_per_s']:.2f} requests/s [{card}]")
+    res["launches_constrained"] = res_c["launches"]
+    return res
+
+
+def rand_augment_ms(card):
+    """RandAugment(2, 9) on the host, ms per 224 x 224 image over
+    RAND_AUGMENT_IMAGES images (not applied to the grounding batches: it
+    moves pixels under the boxes, and refcoco's recipe does not use it)."""
+    from ofasys_torch.utils.vision_helper import RandAugment
+
+    imgs = _images(np.random.default_rng(SEED + 9), RAND_AUGMENT_IMAGES)
+    ra = RandAugment(2, 9, rng=np.random.default_rng(SEED))
+    np.random.seed(SEED)
+    t0 = time.perf_counter()
+    outs = [ra(a) for a in imgs]
+    ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    if any(o.shape != (IMAGE_SIZE, IMAGE_SIZE, 3) or not np.isfinite(o).all() for o in outs):
+        raise SystemExit("RandAugment: bad image")
+    log(f"  RandAugment(2, 9): {ms:.3f} ms per {IMAGE_SIZE} x {IMAGE_SIZE} image over {len(imgs)} "
+        "images [host CPU]")
+    return ms
+
+
+def ground_train_preprocess_ms(gp, n=16):
+    """Host ms a refcoco sample of GeneralPreprocess on the train split
+    (the joint flip / resize / object-centred crop and the image resize)."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    rng = np.random.default_rng(SEED + 10)
+    spec = GROUND_TRAIN_TASKS["refcoco"]
+    times = []
+    for _ in range(n):
+        h, w = (int(x) for x in rng.integers(spec["image"][0], spec["image"][1] + 1, 2))
+        r = {"img": rng.integers(0, 256, (h, w, 3)).astype(np.float32), "text": _text(rng, *GROUND_TEXT),
+             "region_coord": _region(rng, h, w)}
+        t0 = time.perf_counter()
+        gp(Instruction(REFCOCO_TPL, split="train").format(**r))
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"  train_ground: host ms a refcoco sample on the train split (joint transforms + resize): "
+        f"median {statistics.median(times):.3f}, max {max(times):.3f} [host CPU]")
+    return statistics.median(times)
+
+
+def train_ground_and_check(d, gp, card, batches, mm_res=None):
+    """train_ground: N_UPDATES summed refcoco B=48 + vqa B=48 updates, both
+    through image_resnet at resnet101 (train_and_check: launches of B1 and
+    B2 from the planned shapes, a falling loss, each task's loss, one
+    update's gradients against the plain attention path, ResNet leaves
+    included), the step time beside train_mm's, the peak device memory,
+    one update profiled with the convolutions' share."""
+    torch.backends.cudnn.benchmark = False
+    log("  train_ground: torch.backends.cudnn.benchmark = False: cuDNN picks each convolution's "
+        "algorithm by its heuristics, the same in every run; its backward may still add in another "
+        "order from run to run, so gradients are held to limits, not bits")
+    pre_ms = ground_train_preprocess_ms(gp)
+    model = build_train_model(d, "cuda", adaptors=GROUND_ADAPTORS)
+    torch.cuda.reset_peak_memory_stats()
+    counts, res, (step, state, dev) = train_and_check(model, gp, card, tasks=GROUND_TRAIN_TASKS,
+                                                      batches=batches, label="train_ground")
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["preprocess_train_ms"] = pre_ms
+    log(f"  train_ground: peak device memory {res['peak_memory_gib']:.2f} GiB (updates and gradient "
+        f"checks) [{card}]")
+    if mm_res is not None:
+        log(f"  train_ground vs train_mm: step {res['step_ms']:.2f} vs {mm_res['step_ms']:.2f} ms, "
+            f"{res['samples_per_s']:.1f} vs {mm_res['samples_per_s']:.1f} samples/s [{card}]")
+    busy = phase_profile_train(step, state, dev, card, "one grounding update (refcoco B=48 + vqa "
+                               "B=48, image_resnet at resnet101)")
+    trunk = model.net.encoder_adaptor.image_resnet.embed_images
+    parts = [trunk_device_ms(trunk, b["net_input"]["slots"][0].value["inputs"], backward=True)
+             for b in dev.values()]
+    trunk_busy = sum(p[0] for p in parts)
+    res["trunk_busy_ms"], res["update_busy_ms"] = trunk_busy, busy
+    log(f"  train_ground: the trunk's forward + backward on each task's 48 images, profiled alone: "
+        f"{[round(p[0], 3) for p in parts]} ms busy in {[p[1] for p in parts]} launches, "
+        f"{100 * trunk_busy / busy:.1f}% of the profiled update's {busy:.2f} ms; top "
+        f"{parts[0][2]} [{card}]")
+    del model, step, state, dev
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def train_ground_modal_ffn_and_check(d, gp, card, batches):
+    """train_ground_modal_ffn: one update of the grounding step on a third
+    model from SEED with modal_ffn=True (experts from the batches' slot
+    lists): the encoder's spans and the experts they took, a finite loss,
+    the launches, gradients against the plain attention path; then one
+    generate of 4 serve_ground requests, whose cached decode steps pass no
+    spans and need the plain fc1, which an init from slot lists does not
+    build: it raises, as ofasys_tpu's apply does."""
+    from ofasys_torch import OFASys
+    from ofasys_torch.utils.pytree import slots_to_device
+
+    slot_lists = [b["net_input"]["slots"] for b in batches.values()]
+    model = build_train_model(d, "cuda", adaptors=GROUND_ADAPTORS, sample_slots=slot_lists, modal_ffn=True)
+    net = model.net
+    experts = {side: [n for n, _ in getattr(net, side).layers_0.ffn.named_children()]
+               for side in ("encoder", "decoder")}
+    with torch.no_grad():
+        spans = {n: net.encoder_adaptor(slots_to_device([s for s in b["net_input"]["slots"] if s.is_src],
+                                                        net.device)).modal_spans
+                 for n, b in batches.items()}
+    log(f"  train_ground_modal_ffn: encoder spans (start, end, modal id) {spans}; each layer's "
+        f"FeedForward children {experts}")
+    counts, res, _ = train_and_check(model, gp, card, batches=batches, label="train_ground_modal_ffn",
+                                     n_updates=1)
+    hub = OFASys(model, None, d, gp, device=net.device)
+    recs = [r for r, _ in _ground_requests()[:4]]
+    try:
+        hub.inference(REFCOCO_TPL, recs)
+    except LookupError as e:
+        log(f"  train_ground_modal_ffn: generate of {len(recs)} serve_ground requests raises in its "
+            f"first decode step, as ofasys_tpu's apply does: {str(e)[:140]}")
+        res["generate"] = "raises (no fc1)"
+    else:
+        raise SystemExit("train_ground_modal_ffn: generate ran without the plain fc1, which "
+                         "ofasys_tpu's tree does not hold")
+    del model, hub, net
+    torch.cuda.empty_cache()
+    return counts, res
 
 
 def _param_bytes(net):
@@ -2156,9 +2578,15 @@ def make_train_batches(gp, tasks=None):
     out = {}
     for name, spec in (tasks or TRAIN_TASKS).items():
         columns = [c for c in spec if c not in ("template", "batch", "image", "audio", "motion",
-                                                "criterion")]
+                                                "criterion", "region")]
         recs = [{c: _text(rng, *spec[c]) for c in columns} for _ in range(spec["batch"])]
-        if "image" in spec:
+        if isinstance(spec.get("image"), tuple):
+            for r in recs:
+                h, w = (int(x) for x in rng.integers(spec["image"][0], spec["image"][1] + 1, 2))
+                r["img"] = rng.integers(0, 256, (h, w, 3)).astype(np.float32)
+                if spec.get("region"):
+                    r["region_coord"] = _region(rng, h, w)
+        elif "image" in spec:
             for r, a in zip(recs, _images(rng, len(recs), spec["image"])):
                 r["img"] = a
         for r in recs:
@@ -2170,6 +2598,15 @@ def make_train_batches(gp, tasks=None):
         out[name] = gp.collate([gp(Instruction(spec["template"], split="train").format(**r))
                                 for r in recs])
     return out
+
+
+def _region(rng, h, w):
+    """A seeded box of at least 16 pixels a side inside an h x w image, as
+    {"box": [x0, y0, x1, y1], "width": w, "height": h}."""
+    bw, bh = rng.uniform(16, 0.6 * w), rng.uniform(16, 0.6 * h)
+    x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+    return {"box": [float(x0), float(y0), float(x0 + bw), float(y0 + bh)],
+            "width": float(w), "height": float(h)}
 
 
 def _task_shapes(batch):
@@ -2260,19 +2697,23 @@ def _expected_train_launches(batches, cfg, net=None):
     return n
 
 
-def build_train_model(d, device, arch="base", dtype=torch.bfloat16, ln_impl="xla"):
+def build_train_model(d, device, arch="base", dtype=torch.bfloat16, ln_impl="xla",
+                      adaptors=ACTIVE_ADAPTORS, sample_slots=None, **cfg_kw):
     """The arch at full width with random weights from SEED; dropout keeps
-    its default of 0.1, attention dropout its default of 0."""
+    its default of 0.1, attention dropout its default of 0. ``cfg_kw`` sets
+    other config fields (``modal_ffn``, whose experts follow the slot lists
+    ``sample_slots``)."""
     from ofasys_torch import GeneralistModel
 
     t0 = time.perf_counter()
-    model = GeneralistModel(arch=arch, ln_impl=ln_impl)
-    model.initialize(d, active_adaptors=ACTIVE_ADAPTORS, dtype=dtype, device=device, seed=SEED)
+    model = GeneralistModel(arch=arch, ln_impl=ln_impl, **cfg_kw)
+    model.initialize(d, active_adaptors=adaptors, dtype=dtype, device=device, seed=SEED,
+                     sample_slots=sample_slots)
     cfg = model.cfg
     log(f"train: {arch} arch E={cfg.encoder.embed_dim} ffn={cfg.encoder.ffn_embed_dim} "
         f"heads={cfg.encoder.attention_heads} layers={cfg.encoder.layers}+{cfg.decoder.layers} "
-        f"vocab={len(d)} dropout={cfg.dropout} ln_impl={cfg.ln_impl} "
-        f"built in {time.perf_counter() - t0:.1f} s")
+        f"vocab={len(d)} adaptors={adaptors} dropout={cfg.dropout} ln_impl={cfg.ln_impl} "
+        f"modal_ffn={cfg.modal_ffn} built in {time.perf_counter() - t0:.1f} s")
     return model
 
 
@@ -2455,6 +2896,14 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     rel, norm_rel, leaves = cmp[GRAD_REF_LOGITS]
     worst_name = max(leaves, key=leaves.get)
     worst = leaves[worst_name]
+    trunk = {k: v for k, v in leaves.items() if ".embed_images." in k}
+    if trunk:
+        by_kind = {kind: max(((v, k) for k, v in trunk.items() if k.endswith("." + kind)),
+                             default=(0.0, "embed_images.none"))
+                   for kind in ("kernel", "scale", "bias", "mean", "var")}
+        log(f"  {label}: the ResNet trunk's {len(trunk)} leaves against attn_logits="
+            f"{GRAD_REF_LOGITS!r}, worst of each kind: "
+            + ", ".join(f"{kind} {v:.3e} ({k.split('embed_images.')[1]})" for kind, (v, k) in by_kind.items()))
     log(f"  {label}: checked against attn_logits={GRAD_REF_LOGITS!r}: rel {rel:.3e} "
         f"(tol {GRAD_REL_TOL}), worst leaf {worst_name} {worst:.3e} (tol {LEAF_REL_TOL})")
     if not rel <= GRAD_REL_TOL or not worst <= LEAF_REL_TOL:
@@ -2501,12 +2950,12 @@ def phase_profile_train(step, state, batches, card,
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, batches, SEED)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _report_profile(prof, wall_ms, what, card, share)
+    return _report_profile(prof, wall_ms, what, card, share)
 
 
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
@@ -2545,8 +2994,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     name, card = phase_device()
     phase_build()
+    mark("build")
     hub = build_base_hub()
     cfg, d = hub.model.cfg, hub.global_dict
     train_batches = make_train_batches(hub.general_preprocess)
@@ -2574,36 +3028,64 @@ def main() -> int:
         f"routes: {[(lb, sh) for lb, sh, _ in full_calls] + motion_calls} "
         f"{[(f'serve_asr_dispatch{i}', s) for i, s in enumerate(asr_serve)]} "
         f"serve_motion_encoder {(mB, mTs)}: {new_routes}")
+    ground_d, ground_gp = ground_preprocess()
+    t0 = time.perf_counter()
+    ground_batches = make_train_batches(ground_gp, GROUND_TRAIN_TASKS)
+    log(f"train_ground batches: {sum(b['nsentences'] for b in ground_batches.values())} samples "
+        f"preprocessed in {time.perf_counter() - t0:.1f} s [host CPU]")
+    ground_serve = ground_dispatch_shapes(ground_gp)
+    ground_calls = [(f"ground_{label}", shape, causal) for label, shape, causal in train_shapes(ground_batches)]
+    ground_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in ground_calls}
+    ground_routes.update({f"serve_ground_dispatch{i}": _route(cfg, B, T, T)
+                          for i, (B, T) in enumerate(ground_serve)})
+    mm_shapes = {shape: label for label, shape, _ in mm_calls}
+    same_as_mm = {label: mm_shapes[shape] for label, shape, _ in ground_calls if shape in mm_shapes}
+    log(f"train_ground and serve_ground attention shapes (B, Tq, Tk) and routes: "
+        f"{[(lb, sh) for lb, sh, _ in ground_calls]} serve_ground dispatches {ground_serve}: "
+        f"{ground_routes}; held at train_mm's rows where the shape is the same: {same_as_mm}")
     dispatches = [(f"dispatch{i}", s) for i, s in enumerate(planned_dispatch_shapes())] \
         + [(f"serve_caption_dispatch{i}", s) for i, s in enumerate(caption_serve)] \
         + [(f"serve_asr_dispatch{i}", s) for i, s in enumerate(asr_serve)] \
-        + [("serve_motion_encoder", (mB, mTs))]
+        + [("serve_motion_encoder", (mB, mTs))] \
+        + [(f"serve_ground_dispatch{i}", s) for i, s in enumerate(ground_serve)]
     fres, bres, rres = phase_kernels(
         dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
         + [c for c in mm_calls if mm_routes[c[0]] == "dense"]
-        + [c for c in full_calls if new_routes[c[0]] == "dense"], motion_calls)
+        + [c for c in full_calls if new_routes[c[0]] == "dense"]
+        + [c for c in ground_calls if ground_routes[c[0]] == "dense" and c[0] not in same_as_mm],
+        motion_calls)
+    mark("dense kernels")
     long_serve = planned_dispatch_shapes(long_gp, _long_requests(), SUMMARY_TPL)
     flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
     flash_serve.append(("serve_truncated", planned_dispatch_shapes(
         hub.general_preprocess, _truncated_requests(), SUMMARY_TPL)[0]))
     flash_rows = phase_flash_kernels(flash_serve, [c for c in long_calls if routes[c[0]] == "flash"])
+    mark("flash kernels")
     int8_rows = phase_int8_kernels(max(B * T for B, T in planned_dispatch_shapes()), len(d))
     ln_rows = phase_ln_kernels(train_batches)
+    mark("kernels")
 
     serve_res = serve_and_check(hub, card)
     counts = {"serve": serve_res["launches"]}
     phase_profile(hub, card)
+    mark("serve")
     counts["serve_long"] = serve_long_and_check(hub, card)["launches"]
     counts["serve_truncated"] = serve_truncated_and_check(hub, card)["launches"]
+    mark("serve_long, serve_truncated")
     counts["serve_int8"] = serve_int8_and_check(hub, card, serve_res)["launches"]
     counts["serve_ln"] = serve_ln_and_check(hub, card)["launches"]
-    counts["serve_caption"] = serve_caption_and_check(hub, card, serve_res)["launches"]
+    mark("serve_int8, serve_ln")
+    caption_res = serve_caption_and_check(hub, card, serve_res)
+    counts["serve_caption"] = caption_res["launches"]
     phase_profile(hub, card, tpl=CAPTION_TPL, reqs=_caption_requests(),
                   what="one caption dispatch (B=8, beam 5)")
+    mark("serve_caption")
     asr_res = serve_asr_and_check(hub, card, serve_res)
     counts["serve_asr"] = asr_res["launches"]
     phase_profile(hub, card, tpl=ASR_TPL, reqs=_asr_requests(), what="one asr dispatch (B=8, beam 5)")
+    mark("serve_asr")
     counts["serve_motion"], motion_res = serve_motion_and_check(hub, card)
+    mark("serve_motion")
 
     model = build_train_model(d, "cuda")
     counts["train"], train_res, (step, state, dev) = train_and_check(
@@ -2611,6 +3093,7 @@ def main() -> int:
     phase_profile_train(step, state, dev, card)
     del model, step, state, dev
     torch.cuda.empty_cache()
+    mark("train")
 
     model = build_train_model(d, "cuda")
     grad_batches = make_train_batches(long_gp, {n: dict(spec, batch=GRAD_CHECK_BATCH)
@@ -2629,12 +3112,14 @@ def main() -> int:
                         "one long training update (text_infilling_long B=16 + gigaword_long B=16)")
     del model, step, state, dev
     torch.cuda.empty_cache()
+    mark("train_long")
 
     ln = train_ln_and_check(d, hub.general_preprocess, card, batches=train_batches)
     for label, (c, res) in ln.items():
         counts[label] = c
         log(f"{label}: step {res['step_ms']:.2f} ms, {res['samples_per_s']:.1f} samples/s "
             f"(train: {train_res['step_ms']:.2f} ms, {train_res['samples_per_s']:.1f} samples/s) [{card}]")
+    mark("train_ln")
 
     model = build_train_model(d, "cuda")
     counts["train_mm"], mm_res, (step, state, dev) = train_and_check(
@@ -2643,9 +3128,11 @@ def main() -> int:
                         "one three-task update (caption B=64 + text_infilling B=128 + vqa B=48)")
     del model, step, state, dev
     torch.cuda.empty_cache()
+    mark("train_mm")
     counts["train_rowmajor"], row_res = train_rowmajor_and_check(
         d, hub.general_preprocess, card, batches=mm_batches, mm_res=mm_res)
     torch.cuda.empty_cache()
+    mark("train_rowmajor")
 
     model = build_train_model(d, "cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -2660,6 +3147,29 @@ def main() -> int:
                         "vqa B=48 + motion_t2m B=32)")
     del model, step, state, dev
     torch.cuda.empty_cache()
+
+    del hub
+    torch.cuda.empty_cache()
+    mark("train_full")
+    ground_hub = build_ground_hub(ground_d, ground_gp)
+    ground_res = serve_ground_and_check(ground_hub, card, caption_res)
+    counts["serve_ground"] = ground_res["launches"]
+    counts["serve_ground_constrained"] = ground_res["launches_constrained"]
+    busy = phase_profile(ground_hub, card, tpl=REFCOCO_TPL, reqs=_ground_requests(),
+                         what="one serve_ground dispatch (B=8, greedy, 4 bin tokens)", opts={})
+    log(f"  serve_ground: the trunk's forward on the dispatch's 8 images, profiled alone: "
+        f"{ground_res['trunk_busy_ms']:.3f} ms busy, {100 * ground_res['trunk_busy_ms'] / busy:.1f}% of "
+        f"the dispatch's {busy:.2f} ms [{card}]")
+    ground_res["dispatch_busy_ms"] = busy
+    del ground_hub
+    torch.cuda.empty_cache()
+    mark("serve_ground")
+    counts["train_ground"], tg_res = train_ground_and_check(ground_d, ground_gp, card, ground_batches, mm_res)
+    tg_res["rand_augment_ms"] = rand_augment_ms(card)
+    mark("train_ground")
+    counts["train_ground_modal_ffn"], mf_res = train_ground_modal_ffn_and_check(
+        ground_d, ground_gp, card, ground_batches)
+    mark("train_ground_modal_ffn")
 
     def by_path(kernel):
         return {path: c[kernel] for path, c in counts.items()}
@@ -2699,6 +3209,9 @@ def main() -> int:
     log(f"train_full: {json.dumps(full_res)}")
     log(f"serve_asr: {json.dumps({k: v for k, v in asr_res.items() if k in ('p50_ms', 'tokens_per_s', 'preprocess_ms')})}")
     log(f"serve_motion: {json.dumps(motion_res)}")
+    log(f"serve_ground: {json.dumps({k: v for k, v in ground_res.items() if k in ('p50_ms', 'requests_per_s', 'tokens_per_s', 'preprocess_ms', 'trunk_rel', 'trunk_rms', 'trunk_ms_bf16', 'trunk_ms_fp32', 'trunk_busy_ms', 'dispatch_busy_ms', 'shapes')})}")
+    log(f"train_ground: {json.dumps(tg_res)}")
+    log(f"train_ground_modal_ffn: {json.dumps(mf_res)}")
     for label, (_, res) in ln.items():
         log(f"{label}: {json.dumps(res)}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -28,7 +28,7 @@ from torch import nn
 from ofasys_torch import ModalityType
 from ofasys_torch.adaptor.audio import AudioFbankAdaptor
 from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor
-from ofasys_torch.adaptor.image import ImagePatchEmbedAdaptor, ImageVitAdaptor
+from ofasys_torch.adaptor.image import ImagePatchEmbedAdaptor, ImageResnetAdaptor, ImageVitAdaptor
 from ofasys_torch.adaptor.motion import Motion6dAdaptor
 from ofasys_torch.adaptor.text import TextAdaptor
 from ofasys_torch.model.config import GeneralistModelConfig
@@ -61,23 +61,25 @@ def resolve_adaptor_name(slot: SlotBatch, is_src: bool) -> str:
     return DEFAULT_ADAPTOR_BY_MODALITY[slot.modality]
 
 
-ADAPTORS = {"text": TextAdaptor, "image_vit": ImageVitAdaptor,
+ADAPTORS = {"text": TextAdaptor, "image_resnet": ImageResnetAdaptor, "image_vit": ImageVitAdaptor,
             "image_patch_embed": ImagePatchEmbedAdaptor, "audio_fbank": AudioFbankAdaptor,
             "motion_6d": Motion6dAdaptor}
 # input adaptors no target slot resolves to: built on the encoder side only
-SOURCE_ONLY = ("image_vit", "image_patch_embed", "audio_fbank")
+SOURCE_ONLY = ("image_resnet", "image_vit", "image_patch_embed", "audio_fbank")
 # the diffusion target's adaptor, which no source slot of the ported tasks
 # resolves to: built on the decoder side only
 TARGET_ONLY = ("motion_6d",)
 
 
 # ROADMAP Queue A item that ports each adaptor this slice lacks
-_PENDING = {"image_resnet": 7, "audio_tgt_fbank": 10, "image_vqgan": 11, "video_image_sequence": 11}
+_PENDING = {"audio_tgt_fbank": 10, "image_vqgan": 11, "video_image_sequence": 11}
 
 
-def build_adaptor(name: str, cfg, is_src, embed_tokens, pad_id, dtype) -> BaseAdaptor:
+def build_adaptor(name: str, cfg, is_src, embed_tokens, pad_id, dtype, acfg=None) -> BaseAdaptor:
+    """``acfg``: the adaptor's own config (image_resnet's, audio_fbank's), else its defaults."""
     if name in ADAPTORS:
-        return ADAPTORS[name](cfg, is_src, embed_tokens, pad_id, dtype)
+        own = () if acfg is None else (acfg,)
+        return ADAPTORS[name](cfg, is_src, embed_tokens, pad_id, dtype, *own)
     where = f"ROADMAP Queue A item {_PENDING[name]}" if name in _PENDING else "a later slice"
     raise NotImplementedError(
         f"adaptor {name!r} is not ported to ofasys_torch yet ({where}); ported: {sorted(ADAPTORS)}"
@@ -90,20 +92,25 @@ class GeneralAdaptorOutput:
     padding_mask: torch.Tensor       # (B, T) True = pad
     pos_embed: torch.Tensor          # (B|1, T, E)
     bias_spec: Optional[BiasSpec]
+    # (start, end, modal_id) of each run of same-modality slots, for modal_ffn
+    modal_spans: Tuple[Tuple[int, int, int], ...] = ()
 
 
 class GeneralAdaptor(nn.Module):
     """One per side (encoder / decoder)."""
 
     def __init__(self, cfg: GeneralistModelConfig, is_src: bool, embed_tokens: nn.Embedding,
-                 active_adaptors: Tuple[str, ...], pad_id: int, dtype: torch.dtype):
+                 active_adaptors: Tuple[str, ...], pad_id: int, dtype: torch.dtype,
+                 adaptor_cfgs: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.cfg = cfg
         self.is_src = is_src
         self.active_adaptors = tuple(n for n in active_adaptors
                                      if n not in (TARGET_ONLY if is_src else SOURCE_ONLY))
+        adaptor_cfgs = adaptor_cfgs or {}
         for name in self.active_adaptors:
-            self.add_module(name, build_adaptor(name, cfg, is_src, embed_tokens, pad_id, dtype))
+            self.add_module(name, build_adaptor(name, cfg, is_src, embed_tokens, pad_id, dtype,
+                                                adaptor_cfgs.get(name)))
         heads = cfg.encoder.attention_heads if is_src else cfg.decoder.attention_heads
         embed_dim = cfg.encoder.embed_dim
         self.num_attention_heads = heads
@@ -142,6 +149,17 @@ class GeneralAdaptor(nn.Module):
             [o.pos_embed.expand((pb,) + tuple(o.pos_embed.shape[1:])) for o in outputs], dim=1
         )
 
+        # modality spans (adjacent same-modality slots merged)
+        spans: List[Tuple[int, int, int]] = []
+        start = 0
+        for o in outputs:
+            end = start + o.seq_length
+            if spans and spans[-1][2] == o.modal_id:
+                spans[-1] = (spans[-1][0], end, o.modal_id)
+            else:
+                spans.append((start, end, o.modal_id))
+            start = end
+
         bias_spec = None
         if self.cfg.use_self_attn_bias:
             abs_bias = None
@@ -173,6 +191,7 @@ class GeneralAdaptor(nn.Module):
             padding_mask=padding_mask,
             pos_embed=pos_embed,
             bias_spec=bias_spec,
+            modal_spans=tuple(spans),
         )
 
     def forward_output(self, x: torch.Tensor, extra: Dict[str, Any], slots: List[SlotBatch]):

@@ -1,18 +1,20 @@
 """Image input adaptors (counterpart of ofasys_tpu/adaptor/image.py).
 
-``image_vit`` and ``image_patch_embed`` produce the same AdaptorOutput:
-patch-grid embeddings with a 2-D bucketed relative-position bias and
-learned absolute grid positions. The grid (h, w) follows from the image
+``image_resnet``, ``image_vit`` and ``image_patch_embed`` produce the same
+AdaptorOutput: grid embeddings with a 2-D bucketed relative-position bias
+and learned absolute grid positions. The grid (h, w) follows from the image
 size the preprocessor fixes, so the bucket sub-matrix is computed
 host-side. ofasys_tpu's image adaptor configs keep their defaults here
-(bucket size 42, patch 16, no extra trunk layers). ``image_resnet`` waits
-for ``model/resnet.py`` (ROADMAP Queue A item 7).
+(bucket size 42, patch 16, no extra trunk layers); ``image_resnet`` takes
+an :class:`ImageResnetAdaptorConfig` (trunk depth, ``freeze_resnet``,
+drop_path rate).
 
 Layout: NHWC (B, H, W, 3) in; flattened (B, h*w, E) out.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -21,7 +23,8 @@ from torch import nn
 
 from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor
 from ofasys_torch.model.positional import image_bucket_count, make_image_bucket_position
-from ofasys_torch.model.transformer import TransformerEncoderLayer
+from ofasys_torch.model.resnet import STAGE_FEATURES, EXPANSION, ResNet
+from ofasys_torch.model.transformer import Dense, TransformerEncoderLayer
 from ofasys_torch.utils.pytree import SlotBatch
 
 IMAGE_BUCKET_SIZE = 42         # max grid side for rel-pos buckets
@@ -101,6 +104,37 @@ class _ImageAdaptorMixin(BaseAdaptor):
     @staticmethod
     def get_images(slot: SlotBatch) -> torch.Tensor:
         return slot.value["inputs"] if isinstance(slot.value, dict) else slot.value
+
+
+@dataclass
+class ImageResnetAdaptorConfig:
+    resnet_type: str = "resnet101"
+    # the trunk's output is detached: its parameters take zero gradients
+    # (and still the optimizer's weight decay, as under stop_gradient)
+    freeze_resnet: bool = False
+    resnet_drop_path_rate: float = 0.0
+
+
+class ImageResnetAdaptor(_ImageAdaptorMixin):
+    """ResNet trunk (``embed_images``) -> Dense to E (``image_proj``) -> grid
+    embeddings; 224 x 224 images give a 14 x 14 grid."""
+
+    def __init__(self, cfg, is_src, embed_tokens, pad_id, dtype,
+                 acfg: Optional[ImageResnetAdaptorConfig] = None):
+        super().__init__(cfg, is_src, embed_tokens, pad_id, dtype)
+        self.acfg = acfg = acfg or ImageResnetAdaptorConfig()
+        self.embed_images = ResNet(acfg.resnet_type, acfg.resnet_drop_path_rate, dtype)
+        self.image_proj = Dense(STAGE_FEATURES[-1] * EXPANSION, self.embed_dim, dtype, cfg)
+
+    def forward(self, slot: SlotBatch, generator: Optional[torch.Generator] = None) -> AdaptorOutput:
+        images = self.get_images(slot).to(self.dtype)           # (B, H, W, 3)
+        if self.acfg.freeze_resnet:
+            with torch.no_grad():
+                feat = self.embed_images(images, generator)
+        else:
+            feat = self.embed_images(images, generator)
+        feat = self.image_proj(feat)
+        return self.finish_image(slot, feat, generator)
 
 
 class ImageVitAdaptor(_ImageAdaptorMixin):

@@ -49,6 +49,7 @@ class TextAdaptor(BaseAdaptor):
             pos_embed=pos_embed,
             rel_bucket=rel_bucket,
             rel_tables=getattr(self, "rel_pos_table", None),
+            modal_id=slot.modality.value - 1,
         )
         return self.finish(slot, out, generator)
 

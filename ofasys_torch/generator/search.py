@@ -1,7 +1,8 @@
 """Logit transforms of the decode loop (counterpart of part of
-ofasys_tpu/generator/search.py: ``apply_min_len``, ``block_repeat_ngrams``
-and ``length_penalty``). Constraint ranges, tries, lexical constraints,
-diverse search and sampling filters wait for a later slice."""
+ofasys_tpu/generator/search.py: ``apply_min_len``, ``apply_constraint_range``,
+``apply_vocab_mask``, ``block_repeat_ngrams`` and ``length_penalty``).
+Tries, lexical constraints, diverse search and sampling filters wait for a
+later slice."""
 
 from __future__ import annotations
 
@@ -16,6 +17,20 @@ def apply_min_len(log_probs: torch.Tensor, step: int, min_len: int, eos: int) ->
         log_probs = log_probs.clone()
         log_probs[..., eos] = NEG_INF
     return log_probs
+
+
+def apply_constraint_range(log_probs: torch.Tensor, start: int, end: int, eos: int) -> torch.Tensor:
+    """Allow only [start, end) plus EOS (the bin or code sub-vocabulary of a
+    BOX or image target)."""
+    ids = torch.arange(log_probs.shape[-1], device=log_probs.device)
+    allowed = ((ids >= start) & (ids < end)) | (ids == eos)
+    return apply_vocab_mask(log_probs, allowed)
+
+
+def apply_vocab_mask(log_probs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """mask: bool (..., V), True = allowed."""
+    return torch.where(mask, log_probs, torch.full((), NEG_INF, dtype=log_probs.dtype,
+                                                   device=log_probs.device))
 
 
 def block_repeat_ngrams(

@@ -8,11 +8,12 @@ ofasys_tpu's ``lax.while_loop``:
   * the decoder KV cache is reordered with one gather per step
   * EOS is forced at the final step, so exactly K finished hypotheses
     always exist
-  * vocab shaping (min-len, unk penalty, n-gram blocking, prefix forcing)
-    are logit transforms from generator/search.py
+  * vocab shaping (min-len, unk penalty, constraint range, n-gram blocking,
+    prefix forcing) are logit transforms from generator/search.py, in
+    ofasys_tpu's order
 
-Greedy decode is beam_size=1. Ensembles, constraint ranges, tries, lexical
-constraints, diverse search and sampling wait for a later slice and raise.
+Greedy decode is beam_size=1. Ensembles, tries, lexical constraints,
+diverse search and sampling wait for a later slice and raise.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ _UNPORTED = {
     "sampling": False,
     "sampling_topk": -1,
     "sampling_topp": -1.0,
-    "constraint_range": None,
     "constraint_trie": None,
     "search_strategy": "beam",
     "num_groups": 2,
@@ -89,6 +89,7 @@ class SequenceGenerator:
         normalize_scores: bool = True,
         match_source_len: bool = False,
         no_repeat_ngram_size: int = 0,
+        constraint_range: Optional[str] = None,
         return_n_best: int = 1,
         **unported,
     ):
@@ -119,6 +120,11 @@ class SequenceGenerator:
         self.match_source_len = match_source_len
         self.ngram = no_repeat_ngram_size
         self.return_n_best = max(1, return_n_best)
+        self.constraint_start = self.constraint_end = None
+        if constraint_range:
+            # both "lo,hi" and "(lo,hi)"
+            lo, hi = constraint_range.strip("() ").split(",")
+            self.constraint_start, self.constraint_end = int(lo), int(hi)
 
     # ----------------------------------------------------------- public API
     @torch.no_grad()
@@ -220,6 +226,9 @@ class SequenceGenerator:
             lp = search.apply_min_len(lp, step, min_len, self.eos)
             if self.unkpen:
                 lp[:, self.unk] -= self.unkpen
+            if self.constraint_start is not None:
+                lp = search.apply_constraint_range(lp, self.constraint_start, self.constraint_end,
+                                                   self.eos)
             if self.ngram > 0:
                 lp = search.block_repeat_ngrams(lp, seq.reshape(N, T_buf), step + 1, self.ngram)
             if step == max_len:

@@ -143,7 +143,6 @@ UNPORTED_DEFAULTS = {
     "moe_experts": (0, "Queue A item 13"),
     "pipeline_stages": (1, "Queue A item 13"),
     "sequence_parallel": (False, "Queue A item 13"),
-    "modal_ffn": (False, "Queue A item 7"),
     "quant_training": ("none", "Queue A item 14"),
     # per-layer activation checkpointing; torch.utils.checkpoint with the
     # step's generator draws replayed comes with the parallelism item

@@ -4,7 +4,10 @@ Epsilon- and x0-prediction, linear / cosine / scaled-linear beta
 schedules, min-SNR loss weighting, and DDIM sampling (deterministic at
 eta = 0, stochastic above) with optional classifier-free guidance. The
 schedule is computed in float64 numpy and held in fp32, as in ofasys_tpu;
-all sampling math is fp32. Random draws come from the caller
+all sampling math is fp32. The roots of ``alphas_bar`` are tabulated once in
+numpy fp32 (correctly rounded, as XLA's fp32 sqrt is; torch's vectorised
+fp32 sqrt on some CPUs is one ulp off) and gathered where ofasys_tpu takes
+the root of a gathered value. Random draws come from the caller
 (``noise_fn``), so the caller owns the ``torch.Generator``.
 """
 
@@ -42,22 +45,31 @@ class GaussianDiffusion:
         betas = make_betas(self.schedule, self.num_steps)
         alphas_bar = np.cumprod(1.0 - betas)
         object.__setattr__(self, "betas", betas.astype(np.float32))
-        object.__setattr__(self, "alphas_bar", alphas_bar.astype(np.float32))
+        ab = alphas_bar.astype(np.float32)
+        object.__setattr__(self, "alphas_bar", ab)
+        # sqrt(ab), sqrt(1 - ab) with the subtraction in fp32, sqrt(max(ab, 1e-8))
+        object.__setattr__(self, "tables", {
+            "ab": ab,
+            "sqrt_ab": np.sqrt(ab),
+            "sqrt_1m_ab": np.sqrt(np.float32(1) - ab),
+            "sqrt_ab_floor": np.sqrt(np.maximum(ab, np.float32(1e-8))),
+        })
         object.__setattr__(self, "_on_device", {})
 
-    def _ab(self, t: torch.Tensor) -> torch.Tensor:
-        """alphas_bar[t] (fp32) on t's device."""
-        table: Dict[torch.device, torch.Tensor] = self._on_device
-        if t.device not in table:
-            table[t.device] = torch.from_numpy(self.alphas_bar).to(t.device)
-        return table[t.device][t.long()]
+    def _gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """tables[name][t] (fp32) on t's device."""
+        on_device: Dict[Tuple[str, torch.device], torch.Tensor] = self._on_device
+        key = (name, t.device)
+        if key not in on_device:
+            on_device[key] = torch.from_numpy(self.tables[name]).to(t.device)
+        return on_device[key][t.long()]
 
     # ------------------------------------------------------------- training
     def q_sample(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """x_t = sqrt(a_bar_t) x0 + sqrt(1 - a_bar_t) eps; t: (B,) int."""
-        ab = self._ab(t)
         shape = (-1,) + (1,) * (x0.dim() - 1)
-        return torch.sqrt(ab).reshape(shape) * x0 + torch.sqrt(1 - ab).reshape(shape) * noise
+        return (self._gather("sqrt_ab", t).reshape(shape) * x0
+                + self._gather("sqrt_1m_ab", t).reshape(shape) * noise)
 
     def training_target(self, x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         return noise if self.prediction_type == "epsilon" else x0
@@ -66,7 +78,7 @@ class GaussianDiffusion:
         """Min-SNR-gamma weighting (Hang et al.); 1.0 when disabled."""
         if self.snr_gamma is None:
             return torch.ones(t.shape, dtype=torch.float32, device=t.device)
-        ab = self._ab(t)
+        ab = self._gather("ab", t)
         snr = ab / torch.clamp(1 - ab, min=1e-8)
         if self.prediction_type == "epsilon":
             return torch.clamp(self.snr_gamma / torch.clamp(snr, min=1e-8), max=1.0)
@@ -75,8 +87,9 @@ class GaussianDiffusion:
     def to_x0(self, x_t: torch.Tensor, t: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
         if self.prediction_type == "sample":
             return pred
-        ab = self._ab(t).reshape((-1,) + (1,) * (x_t.dim() - 1))
-        return (x_t - torch.sqrt(1 - ab) * pred) / torch.sqrt(torch.clamp(ab, min=1e-8))
+        shape = (-1,) + (1,) * (x_t.dim() - 1)
+        return ((x_t - self._gather("sqrt_1m_ab", t).reshape(shape) * pred)
+                / self._gather("sqrt_ab_floor", t).reshape(shape))
 
     # ------------------------------------------------------------- sampling
     def ddim_sample(
@@ -97,7 +110,7 @@ class GaussianDiffusion:
         # from num_steps - 1 down to 0; each step's successor, -1 after the last
         steps = np.linspace(self.num_steps - 1, 0, num_inference_steps).round().astype(np.int32)
         steps_next = np.concatenate([steps[1:], [-1]]).astype(np.int32)
-        ab_all = self.alphas_bar
+        ab_all, sqrt_ab = self.alphas_bar, self.tables["sqrt_ab"]
         one, tiny = np.float32(1.0), np.float32(1e-8)
         x = noise_fn(shape)
         for t, t_next in zip(steps.tolist(), steps_next.tolist()):
@@ -116,8 +129,9 @@ class GaussianDiffusion:
                 max((one - ab_next) / max(one - ab_t, tiny), np.float32(0))
                 * max(one - ab_t / max(ab_next, tiny), np.float32(0)))
             c_dir = np.sqrt(max(one - ab_next - sigma * sigma, np.float32(0)))
-            eps = (x - float(np.sqrt(ab_t)) * x0) / float(sqrt_1m_t)
-            x = float(np.sqrt(ab_next)) * x0 + float(c_dir) * eps
+            sqrt_ab_next = sqrt_ab[t_next] if t_next >= 0 else one
+            eps = (x - float(sqrt_ab[t]) * x0) / float(sqrt_1m_t)
+            x = float(sqrt_ab_next) * x0 + float(c_dir) * eps
             if eta > 0:
                 x = x + float(sigma) * noise_fn(shape)
         return x

@@ -17,7 +17,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,6 +26,7 @@ from ofasys_torch.adaptor.audio import Conv1d
 from ofasys_torch.adaptor.general import GeneralAdaptor
 from ofasys_torch.adaptor.image import PatchEmbed
 from ofasys_torch.model.config import UNPORTED_DEFAULTS, GeneralistModelConfig, apply_arch
+from ofasys_torch.model.resnet import init_resnet_
 from ofasys_torch.model.transformer import (
     BiasSpec,
     Dense,
@@ -48,8 +49,14 @@ class EncoderOut:
 
 
 class GeneralistNet(nn.Module):
+    """``adaptor_cfgs``: configs of the adaptors that take one, by name.
+    ``modal_ids`` (under ``cfg.modal_ffn``): the FeedForward experts of the
+    ``"encoder"`` and ``"decoder"`` stacks."""
+
     def __init__(self, cfg: GeneralistModelConfig, vocab_size: int, pad_id: int,
-                 active_adaptors: Tuple[str, ...], dtype: torch.dtype = torch.bfloat16):
+                 active_adaptors: Tuple[str, ...], dtype: torch.dtype = torch.bfloat16,
+                 adaptor_cfgs: Optional[Dict[str, Any]] = None,
+                 modal_ids: Optional[Dict[str, Tuple[int, ...]]] = None):
         super().__init__()
         self.cfg = cfg
         self.vocab_size = vocab_size
@@ -58,11 +65,12 @@ class GeneralistNet(nn.Module):
         E = cfg.encoder.embed_dim
         self.embed_tokens = Embed(vocab_size, E)
         self.encoder_adaptor = GeneralAdaptor(cfg, True, self.embed_tokens, active_adaptors,
-                                              pad_id, dtype)
+                                              pad_id, dtype, adaptor_cfgs)
         self.decoder_adaptor = GeneralAdaptor(cfg, False, self.embed_tokens, active_adaptors,
-                                              pad_id, dtype)
-        self.encoder = TransformerEncoder(cfg, dtype)
-        self.decoder = TransformerDecoder(cfg, dtype)
+                                              pad_id, dtype, adaptor_cfgs)
+        modal_ids = modal_ids or {}
+        self.encoder = TransformerEncoder(cfg, dtype, modal_ids.get("encoder"))
+        self.decoder = TransformerDecoder(cfg, dtype, modal_ids.get("decoder"))
         if cfg.use_self_attn_bias:
             # cross-attention absolute-position bias, shared across decoder layers
             self.cross_pos_q_linear = Dense(E, E, dtype, cfg)
@@ -93,7 +101,8 @@ class GeneralistNet(nn.Module):
                generator: Optional[torch.Generator] = None) -> EncoderOut:
         a = self.encoder_adaptor(src_slots, generator)
         x = self.encoder(a.embed, padding_mask=torch.logical_not(a.padding_mask),
-                         bias_spec=a.bias_spec, generator=generator)
+                         bias_spec=a.bias_spec, generator=generator,
+                         modal_spans=a.modal_spans if self.cfg.modal_ffn else None)
         return EncoderOut(x=x, padding_mask=a.padding_mask, pos_embed=a.pos_embed)
 
     # ------------------------------------------------------ whole sequences
@@ -127,6 +136,7 @@ class GeneralistNet(nn.Module):
             cross_bias=cb,
             full_context=full_context,
             generator=generator,
+            modal_spans=d.modal_spans if self.cfg.modal_ffn else None,
         )
         extra: Dict[str, Any] = {"decoder_hidden": x}
         return self.decoder_adaptor.forward_output(x, extra, all_slots or tgt_slots)
@@ -157,7 +167,9 @@ class GeneralistNet(nn.Module):
                     bias_spec: Optional[BiasSpec], cross_bias: Optional[torch.Tensor],
                     cache: Dict[str, Any], tgt_slot: SlotBatch):
         """One decode step at absolute position ``step``: returns
-        (output (B, S, ...), extra, new_cache)."""
+        (output (B, S, ...), extra, new_cache). As in ofasys_tpu, a step
+        passes no modality spans: under ``cfg.modal_ffn`` its FeedForwards
+        take the plain pair (which an init from slot lists does not build)."""
         step_slot = dataclasses.replace(tgt_slot, value={"inputs": tokens, "pos_offset": step})
         d = self.decoder_adaptor([step_slot])
         x, new_cache = self.decoder(
@@ -174,8 +186,9 @@ class GeneralistNet(nn.Module):
 
 
 def _init_parameters(net: GeneralistNet, generator: torch.Generator):
-    """flax's initializers: lecun-normal (truncated) Dense, PatchEmbed and
-    Conv1d kernels with zero bias, normal(0.02) embeddings, type embedding
+    """flax's initializers: lecun-normal (truncated) Dense, PatchEmbed,
+    Conv1d and ResNet kernels with zero bias, unit-scale zero-mean unit-var
+    FrozenBatchNorms, normal(0.02) embeddings, type embedding
     and audio mask embedding, unit LayerNorms and head scales, zero
     relative-position tables."""
     with torch.no_grad():
@@ -196,6 +209,7 @@ def _init_parameters(net: GeneralistNet, generator: torch.Generator):
                 module.bias.zero_()
             elif isinstance(module, nn.Embedding):
                 module.weight.normal_(0.0, 0.02, generator=generator)
+        init_resnet_(net, generator)
         for name, p in net.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("type_embedding", "mask_emb"):
@@ -204,6 +218,21 @@ def _init_parameters(net: GeneralistNet, generator: torch.Generator):
                 p.fill_(1.0)
             elif leaf in ("rel_pos_table", "image_rel_pos_table"):
                 p.zero_()
+
+
+def modal_ids_of(sample_slots: Sequence) -> Dict[str, Tuple[int, ...]]:
+    """The modality ids (``ModalityType.value - 1``, as every adaptor sets
+    them) of the source and the target slots of one slot list or of a list
+    of them, in first-seen order: {"encoder": ..., "decoder": ...}."""
+    lists = (list(sample_slots) if isinstance(sample_slots[0], (list, tuple))
+             else [sample_slots])
+    ids: Dict[str, List[int]] = {"encoder": [], "decoder": []}
+    for slots in lists:
+        for s in slots:
+            side = ids["encoder" if s.is_src else "decoder"]
+            if s.modality.value - 1 not in side:
+                side.append(s.modality.value - 1)
+    return {k: tuple(v) for k, v in ids.items()}
 
 
 class GeneralistModel:
@@ -227,10 +256,18 @@ class GeneralistModel:
 
     def initialize(self, global_dict, active_adaptors: Tuple[str, ...] = ("text",),
                    dtype: torch.dtype = torch.bfloat16,
-                   device: Union[str, torch.device] = "cuda", seed: int = 0):
+                   device: Union[str, torch.device] = "cuda", seed: int = 0,
+                   adaptor_cfgs: Optional[Dict[str, Any]] = None,
+                   sample_slots: Optional[Sequence] = None):
         """Build the net once the vocab is final, with random parameters
         drawn from ``seed``, on ``device`` (raises when CUDA is requested
-        and absent)."""
+        and absent). ``adaptor_cfgs`` configures adaptors by name (e.g.
+        ``{"image_resnet": ImageResnetAdaptorConfig(...)}``).
+
+        ``sample_slots`` (one slot list, or one list per task), required
+        under ``cfg.modal_ffn``: each stack gets an expert for every
+        modality that a source (encoder) or target (decoder) slot of these
+        lists has, as ofasys_tpu's ``init_params`` creates exactly those."""
         dev = resolve_device(device)
         for name, (default, where) in UNPORTED_DEFAULTS.items():
             if getattr(self.cfg, name) != default:
@@ -238,9 +275,15 @@ class GeneralistModel:
                     f"config {name}={getattr(self.cfg, name)!r} is not ported to ofasys_torch "
                     f"yet ({where})"
                 )
+        modal_ids = None
+        if self.cfg.modal_ffn:
+            if not sample_slots:
+                raise ValueError("modal_ffn needs the sample slot lists that decide its experts")
+            modal_ids = modal_ids_of(sample_slots)
         self.global_dict = global_dict
         net = GeneralistNet(self.cfg, vocab_size=len(global_dict), pad_id=global_dict.pad(),
-                            active_adaptors=tuple(active_adaptors), dtype=dtype)
+                            active_adaptors=tuple(active_adaptors), dtype=dtype,
+                            adaptor_cfgs=adaptor_cfgs, modal_ids=modal_ids)
         _init_parameters(net, torch.Generator().manual_seed(seed))
         self.net = net.to(dev).eval()
         return self

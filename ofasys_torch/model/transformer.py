@@ -21,7 +21,8 @@ so utils/jax_params.load_jax_params maps one onto the other.
 Int8 serving (``ops.quant.quantize_for_serving``: ``Dense`` and
 ``Embed.attend`` through kernel B7) and ``cfg.ln_impl`` (``make_ln``: the
 LayerNorm kernels B6) follow ofasys_tpu's ``QuantDense``/``QuantEmbed`` and
-``make_ln``. MoE, scan_layers, remat, ring attention and pipeline
+``make_ln``; ``cfg.modal_ffn`` routes each modality's span through its own
+FeedForward experts (:class:`FeedForward`). MoE, scan_layers, remat, ring attention and pipeline
 parallelism wait for later slices (GeneralistModel.initialize raises when a
 config asks for them).
 """
@@ -335,29 +336,56 @@ def layer_drop(y: torch.Tensor, x: torch.Tensor, rate: float,
 
 
 class FeedForward(nn.Module):
-    """FFN with optional mid-LN (scale_fc) and activation dropout."""
+    """FFN with optional mid-LN (scale_fc) and activation dropout.
+
+    ``modal_ids`` None: the plain ``fc1``/``fc2``. A tuple (``cfg.modal_ffn``):
+    one expert pair ``experts_fc1_{id}``/``experts_fc2_{id}`` (and
+    ``experts_fc2_{id}_ln``) per modality id, and no plain pair, as
+    ofasys_tpu's tree holds after an init whose every call passed spans.
+    Each (start, end, modal_id) span of ``modal_spans`` runs through its
+    modality's expert and the results are concatenated; a call without
+    spans needs the plain pair and raises where it is missing, as
+    ofasys_tpu's apply does."""
 
     def __init__(self, cfg: GeneralistModelConfig, ffn_dim: int, embed_dim: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, modal_ids: Optional[Tuple[int, ...]] = None):
         super().__init__()
         self.cfg = cfg
         self.act = get_activation_fn(cfg.activation_fn)
-        self.fc1 = Dense(embed_dim, ffn_dim, dtype, cfg)
-        self.fc2 = Dense(ffn_dim, embed_dim, dtype, cfg)
-        self.fc2_ln = make_ln(cfg, ffn_dim, dtype) if cfg.scale_fc else None
+        self.modal_ids = None if modal_ids is None else tuple(modal_ids)
+        names = ([("fc1", "fc2")] if modal_ids is None
+                 else [(f"experts_fc1_{i}", f"experts_fc2_{i}") for i in self.modal_ids])
+        for fc1, fc2 in names:
+            self.add_module(fc1, Dense(embed_dim, ffn_dim, dtype, cfg))
+            self.add_module(fc2, Dense(ffn_dim, embed_dim, dtype, cfg))
+            self.add_module(fc2 + "_ln", make_ln(cfg, ffn_dim, dtype) if cfg.scale_fc else None)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.act(self.fc1(x))
+    def _run(self, x: torch.Tensor, fc1: str, fc2: str,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not hasattr(self, fc1):
+            raise LookupError(
+                f"FeedForward has no {fc1!r}: its parameters are {sorted(n for n, _ in self.named_children())} "
+                "(under modal_ffn only the experts of the initialized modalities exist)")
+        h = self.act(getattr(self, fc1)(x))
         h = dropout(h, self.cfg.activation_dropout, generator)
-        if self.fc2_ln is not None:
-            h = self.fc2_ln(h)
-        return self.fc2(h)
+        ln = getattr(self, fc2 + "_ln")
+        if ln is not None:
+            h = ln(h)
+        return getattr(self, fc2)(h)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                modal_spans: Optional[Tuple[Tuple[int, int, int], ...]] = None) -> torch.Tensor:
+        if not self.cfg.modal_ffn or not modal_spans:
+            return self._run(x, "fc1", "fc2", generator)
+        return torch.cat([self._run(x[:, start:end], f"experts_fc1_{m}", f"experts_fc2_{m}", generator)
+                          for start, end, m in modal_spans], dim=1)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-LN encoder block with normformer extras."""
 
-    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
+                 modal_ids: Optional[Tuple[int, ...]] = None):
         super().__init__()
         self.cfg = cfg
         E = cfg.encoder.embed_dim
@@ -365,12 +393,13 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = MultiheadAttention(cfg, E, cfg.encoder.attention_heads, dtype)
         self.attn_ln = make_ln(cfg, E, dtype) if cfg.scale_attn else None
         self.final_layer_norm = make_ln(cfg, E, dtype)
-        self.ffn = FeedForward(cfg, cfg.encoder.ffn_embed_dim, E, dtype)
+        self.ffn = FeedForward(cfg, cfg.encoder.ffn_embed_dim, E, dtype, modal_ids)
         if cfg.scale_resids:
             self.w_resid = nn.Parameter(torch.ones(E))
         self.dtype = dtype
 
-    def forward(self, x, mask=None, bias=None, generator=None, drop_path_rate: float = 0.0):
+    def forward(self, x, mask=None, bias=None, generator=None, drop_path_rate: float = 0.0,
+                modal_spans=None):
         cfg = self.cfg
         pre = cfg.encoder.normalize_before
         residual = x
@@ -385,7 +414,7 @@ class TransformerEncoderLayer(nn.Module):
 
         residual = x
         h = self.final_layer_norm(x) if pre else x
-        h = self.ffn(h, generator)
+        h = self.ffn(h, generator, modal_spans)
         h = dropout(h, cfg.dropout, generator)
         if cfg.scale_resids:
             residual = residual * self.w_resid.to(self.dtype)
@@ -398,7 +427,8 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     """Pre-LN decoder block: causal self-attention + cross-attention + FFN."""
 
-    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
+                 modal_ids: Optional[Tuple[int, ...]] = None):
         super().__init__()
         self.cfg = cfg
         E = cfg.decoder.embed_dim
@@ -410,14 +440,14 @@ class TransformerDecoderLayer(nn.Module):
         self.encoder_attn = MultiheadAttention(cfg, E, H, dtype)
         self.cross_attn_ln = make_ln(cfg, E, dtype) if cfg.scale_attn else None
         self.final_layer_norm = make_ln(cfg, E, dtype)
-        self.ffn = FeedForward(cfg, cfg.decoder.ffn_embed_dim, E, dtype)
+        self.ffn = FeedForward(cfg, cfg.decoder.ffn_embed_dim, E, dtype, modal_ids)
         if cfg.scale_resids:
             self.w_resid = nn.Parameter(torch.ones(E))
         self.dtype = dtype
 
     def forward(self, x, encoder_out=None, self_mask=None, self_bias=None, cross_mask=None,
                 cross_bias=None, cache=None, full_context: bool = False, generator=None,
-                drop_path_rate: float = 0.0):
+                drop_path_rate: float = 0.0, modal_spans=None):
         cfg = self.cfg
         pre = cfg.decoder.normalize_before
         new_cache: Dict[str, Any] = {}
@@ -456,7 +486,7 @@ class TransformerDecoderLayer(nn.Module):
 
         residual = x
         h = self.final_layer_norm(x) if pre else x
-        h = self.ffn(h, generator)
+        h = self.ffn(h, generator, modal_spans)
         h = dropout(h, cfg.dropout, generator)
         if cfg.scale_resids:
             residual = residual * self.w_resid.to(self.dtype)
@@ -467,26 +497,30 @@ class TransformerDecoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Layer stack over already-adapted embeddings."""
+    """Layer stack over already-adapted embeddings. ``modal_ids``: the
+    experts of every layer's FeedForward under ``cfg.modal_ffn``."""
 
-    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
+                 modal_ids: Optional[Tuple[int, ...]] = None):
         super().__init__()
         self.cfg = cfg
         self.n_layers = cfg.encoder.layers
         for i in range(self.n_layers):
-            self.add_module(f"layers_{i}", TransformerEncoderLayer(cfg, dtype))
+            self.add_module(f"layers_{i}", TransformerEncoderLayer(cfg, dtype, modal_ids))
         self.layer_norm = make_ln(cfg, cfg.encoder.embed_dim, dtype) if cfg.encoder.normalize_before else None
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
                 bias_spec: Optional[BiasSpec] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                modal_spans: Optional[Tuple[Tuple[int, int, int], ...]] = None) -> torch.Tensor:
         """x (B, T, E) adapted embeddings; padding_mask (B, T) True = valid;
-        ``generator`` turns on training mode (module docstring)."""
+        ``generator`` turns on training mode (module docstring);
+        ``modal_spans`` route the FeedForwards under ``cfg.modal_ffn``."""
         attn_mask = padding_mask[:, None, None, :]
         dpr = np.linspace(0.0, self.cfg.encode_drop_path_rate, self.n_layers)
         for i in range(self.n_layers):
             bias = bias_spec.layer_bias(i) if bias_spec is not None else None
-            y = getattr(self, f"layers_{i}")(x, attn_mask, bias, generator, float(dpr[i]))
+            y = getattr(self, f"layers_{i}")(x, attn_mask, bias, generator, float(dpr[i]), modal_spans)
             x = layer_drop(y, x, self.cfg.encoder.layerdrop, generator)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
@@ -496,12 +530,13 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoder(nn.Module):
     """Decoder stack; full-sequence and incremental (KV cache) modes."""
 
-    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
+                 modal_ids: Optional[Tuple[int, ...]] = None):
         super().__init__()
         self.cfg = cfg
         self.n_layers = cfg.decoder.layers
         for i in range(self.n_layers):
-            self.add_module(f"layers_{i}", TransformerDecoderLayer(cfg, dtype))
+            self.add_module(f"layers_{i}", TransformerDecoderLayer(cfg, dtype, modal_ids))
         self.layer_norm = make_ln(cfg, cfg.decoder.embed_dim, dtype) if cfg.decoder.normalize_before else None
 
     def forward(
@@ -517,6 +552,7 @@ class TransformerDecoder(nn.Module):
         cache_index: Optional[int] = None,
         full_context: bool = False,
         generator: Optional[torch.Generator] = None,
+        modal_spans: Optional[Tuple[Tuple[int, int, int], ...]] = None,
     ):
         Tt = x.shape[1]
         self_mask = None
@@ -540,7 +576,7 @@ class TransformerDecoder(nn.Module):
             y, layer_cache = getattr(self, f"layers_{i}")(
                 x, encoder_out, self_mask, self_bias, cross_mask, cb,
                 None if cache is None else cache[f"layers_{i}"], full_context,
-                generator, float(dpr[i]),
+                generator, float(dpr[i]), modal_spans,
             )
             # LayerDrop (never during incremental decoding)
             x = y if cache is not None else layer_drop(y, x, self.cfg.decoder.layerdrop, generator)

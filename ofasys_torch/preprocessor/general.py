@@ -5,7 +5,7 @@ Sample path (pure numpy):
   instruction_map -> map per slot -> merge adjacent same-group slots
   -> per-position collate into SlotBatch arrays.
 
-The TEXT, IMAGE, AUDIO and MOTION preprocessors are ported (text-like
+The TEXT, BOX, IMAGE, AUDIO and MOTION preprocessors are ported (text-like
 modalities share the TEXT group and concatenate into one token run; an
 IMAGE, AUDIO or MOTION slot is a group of its own); a slot of any other
 modality raises ``NotImplementedError`` naming the ROADMAP Queue A item
@@ -24,6 +24,7 @@ from ofasys_torch.preprocessor.audio import (
     AudioPreprocessConfig,
 )
 from ofasys_torch.preprocessor.base import BasePreprocess, PreprocessSkipException
+from ofasys_torch.preprocessor.box import BoxPreprocess, BoxPreprocessConfig
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.image import (
     ImagenetPreprocess,
@@ -40,6 +41,7 @@ from ofasys_torch.preprocessor.text import TextPreprocess, TextPreprocessConfig
 # the ported preprocessors by registered name: (class, config class)
 PREPROCESSORS = {
     "text": (TextPreprocess, TextPreprocessConfig),
+    "box": (BoxPreprocess, BoxPreprocessConfig),
     "image": (ImagePreprocess, ImagePreprocessConfig),
     "imagenet": (ImagenetPreprocess, ImagenetPreprocessConfig),
     "imagepretrain": (ImagepretrainPreprocess, ImagepretrainPreprocessConfig),
@@ -63,7 +65,6 @@ DEFAULT_PREPROCESS = {
 
 # ROADMAP Queue A item that ports each preprocessor this slice lacks
 _PENDING = {
-    "box": 7,
     "phone": 11, "video": 11, "struct": 11, "category": 11,
 }
 

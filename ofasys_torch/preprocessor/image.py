@@ -2,14 +2,16 @@
 
 Host-side, PIL + numpy: loads from path / bytes / base64 / PIL / ndarray,
 resizes to a fixed square, normalizes with mean/std, emits NHWC float32.
-Train-time augmentation: random square crop + horizontal flip.
+Train-time augmentation: random square crop + horizontal flip, then
+RandAugment (``rand_augment``; utils/vision_helper.py), each from the
+preprocessor's own ``rng`` in ofasys_tpu's order.
 
 PIL is imported inside the functions that need it, and an ndarray that
 already is ``size x size`` does not go through it: ``resize_image`` then
 only truncates to uint8 as PIL's same-size resize (a copy) would, so the
 result equals ofasys_tpu's bit for bit and such inputs need no PIL at all.
-RandAugment (ROADMAP Queue A item 7) and remote image sources (Queue A
-item 11) are not ported: both raise ``NotImplementedError``.
+Remote image sources (ROADMAP Queue A item 11) are not ported: they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ class ImagePreprocessConfig(PreprocessConfig):
     interpolation: str = "bicubic"
     random_crop: bool = False
     random_flip: bool = False
-    # RandAugment (applied train-only in ofasys_tpu; not ported)
+    # RandAugment, applied on the train split only
     rand_augment: bool = False
     rand_augment_n: int = 2
     rand_augment_m: int = 9
@@ -93,10 +95,11 @@ class ImagePreprocess(BasePreprocess):
     def __init__(self, global_dict, cfg: ImagePreprocessConfig):
         super().__init__(global_dict, cfg)
         self.rng = np.random.default_rng(cfg.seed)
+        self._rand_augment = None
         if cfg.rand_augment:
-            raise NotImplementedError(
-                "rand_augment (ofasys_tpu's utils/vision_helper.RandAugment) is not ported to "
-                "ofasys_torch yet (ROADMAP Queue A item 7)")
+            from ofasys_torch.utils.vision_helper import RandAugment
+
+            self._rand_augment = RandAugment(cfg.rand_augment_n, cfg.rand_augment_m, rng=self.rng)
 
     def map(self, slot: Slot) -> Slot:
         if isinstance(slot.value, dict):
@@ -113,6 +116,8 @@ class ImagePreprocess(BasePreprocess):
         arr = resize_image(arr, size, self.cfg.interpolation)
         if slot.split == "train" and self.cfg.random_flip and self.rng.random() < 0.5:
             arr = arr[:, ::-1]
+        if slot.split == "train" and self._rand_augment is not None:
+            arr = self._rand_augment(arr)
         arr = arr / 255.0
         arr = (arr - np.asarray(self.cfg.mean, np.float32)) / np.asarray(self.cfg.std, np.float32)
         slot.value = {"inputs": arr.astype(np.float32)}

@@ -7,8 +7,11 @@ as follows:
   * Dense ``kernel`` (in, out)     -> ``weight`` (out, in), transposed
   * LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
   * Embed ``embedding``            -> ``weight``
-  * PatchEmbed ``kernel`` (p, p, C, E) -> ``kernel``, as it is (the module
-    keeps flax's name and layout)
+  * PatchEmbed ``kernel`` (p, p, C, E), the ResNet's convolution
+    ``kernel`` (kh, kw, Cin, Cout) and its FrozenBatchNorm ``scale`` ->
+    the parameter of the same name, as it is (the modules keep flax's
+    names and layouts; a leaf whose flax name the net has is never
+    renamed or transposed)
   * any other leaf (``bias``, ``c_attn``, ``rel_pos_table``,
     ``type_embedding``, ...)       -> the parameter of the same name
 

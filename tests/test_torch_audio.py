@@ -249,8 +249,7 @@ def test_general_preprocess_builds_audio_and_keeps_pending_items():
     d = Dictionary()
     gp = GeneralPreprocess(d, active=["text", "audio", "audio_embed", "motion_6d"])
     assert set(gp.name2pre) == {"text", "audio", "audio_embed", "motion_6d"}
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        GeneralPreprocess(d, active=["box"])
+    assert type(GeneralPreprocess(d, active=["box"]).name2pre["box"]).__name__ == "BoxPreprocess"
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
         GeneralPreprocess(d, active=["phone"])
 

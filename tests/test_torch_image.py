@@ -166,18 +166,22 @@ def test_array_at_size_needs_no_pil(monkeypatch):
 
 
 def test_unported_image_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tpimage.ImagePreprocess(None, tpimage.ImagePreprocessConfig(rand_augment=True))
+    """Remote image sources still raise; RandAugment, the box preprocessor
+    and image_resnet (Queue A item 7) now build."""
+    pre = tpimage.ImagePreprocess(None, tpimage.ImagePreprocessConfig(rand_augment=True))
+    assert (pre._rand_augment.n, pre._rand_augment.m, pre._rand_augment.rng) == (2, 9, pre.rng)
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
         tpimage.load_image("https://example.invalid/cat.png")
     d = Dictionary()
     gp = GeneralPreprocess(d, active=["text", "image", "imagenet", "imagepretrain"])
     assert gp.name2pre["imagenet"].cfg.random_crop and not gp.name2pre["image"].cfg.random_crop
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        GeneralPreprocess(d, active=["box"])
+    assert type(GeneralPreprocess(d, active=["box"]).name2pre["box"]).__name__ == "BoxPreprocess"
     m = GeneralistModel(arch="tiny")
-    with pytest.raises(NotImplementedError, match="image_resnet"):
-        m.initialize(d, active_adaptors=("text", "image_resnet"), device="cpu")
+    m.cfg.encoder.layers = m.cfg.decoder.layers = 1
+    m.initialize(d, active_adaptors=("text", "image_resnet"), device="cpu",
+                 adaptor_cfgs={"image_resnet": timage.ImageResnetAdaptorConfig(resnet_type="resnet50")})
+    assert hasattr(m.net.encoder_adaptor, "image_resnet")
+    assert not hasattr(m.net.decoder_adaptor, "image_resnet")
 
 
 # ------------------------------------------------------------ bucket matrices

@@ -896,3 +896,31 @@ def test_fused_layer_norm_module_runs_its_kernels_on_card(mode):
     assert tln.layer_norm_fwd.launches - f0 == (1 if mode == "fused" else 0)
     assert tln.layer_norm_bwd.launches - b0 == 1
     assert all(torch.isfinite(t.float()).all() for t in (x.grad, ln.weight.grad, ln.bias.grad))
+
+
+@pytest.mark.cuda
+def test_resnet_trunk_bf16_against_fp32_on_card():
+    """image_resnet's trunk (resnet50, cuDNN convolutions) in bf16 against
+    the same parameters in fp32 with TF32 off: relative Frobenius error
+    <= 5e-2 (bf16 operands and outputs rounded at each of 53 convolutions
+    and norms, the bound chip_smoke's trunk check states)."""
+    _need_card()
+    from ofasys_torch.model import resnet as tresnet
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        g = torch.Generator().manual_seed(0)
+        m16 = tresnet.ResNet("resnet50", dtype=torch.bfloat16)
+        tresnet.init_resnet_(m16, g)
+        m32 = tresnet.ResNet("resnet50", dtype=torch.float32)
+        m32.load_state_dict(m16.state_dict())
+        m16, m32 = m16.cuda(), m32.cuda()
+        x = torch.randn(2, 64, 64, 3, device="cuda")
+        with torch.no_grad():
+            y16, y32 = m16(x), m32(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert y16.dtype == torch.bfloat16 and tuple(y16.shape) == (2, 4, 4, 1024)
+    rel = ((y16.float() - y32).norm() / y32.norm()).item()
+    assert torch.isfinite(y16.float()).all() and rel <= 5e-2, rel

@@ -410,6 +410,25 @@ def test_gaussian_diffusion_matches_jax(schedule, prediction, snr_gamma):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=DIFF_RTOL, atol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("schedule", ["linear", "cosine", "scaled_linear"])
+def test_diffusion_roots_are_correctly_rounded(schedule):
+    """The port's root tables are numpy's fp32 roots of the fp32 alphas_bar,
+    bit for bit (XLA's fp32 sqrt is correctly rounded, and so is numpy's)."""
+    td = tdiff.GaussianDiffusion(num_steps=1000, schedule=schedule)
+    ab = td.alphas_bar
+    assert ab.dtype == np.float32
+    want = {"sqrt_ab": np.sqrt(ab), "sqrt_1m_ab": np.sqrt(np.float32(1) - ab),
+            "sqrt_ab_floor": np.sqrt(np.maximum(ab, np.float32(1e-8)))}
+    for name, w in want.items():
+        got = td.tables[name]
+        assert got.dtype == np.float32, name
+        np.testing.assert_array_equal(got, w, err_msg=name)
+    # the fp64 root rounded to fp32 is the correctly rounded fp32 root
+    np.testing.assert_array_equal(td.tables["sqrt_ab"], np.sqrt(ab.astype(np.float64)).astype(np.float32))
+    t = torch.arange(1000)
+    np.testing.assert_array_equal(td._gather("sqrt_1m_ab", t).numpy(), want["sqrt_1m_ab"])
+
+
 @pytest.mark.parametrize("eta", [0.0, 0.7])
 def test_ddim_sample_matches_jax(eta):
     """The sampling loop with a fixed linear denoiser, guidance and a clamp,

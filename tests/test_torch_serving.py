@@ -226,7 +226,7 @@ def test_vocab_growth_after_init_raises():
         OFASys(m, None, d, gp, device="cpu")
 
 
-@pytest.mark.parametrize("opt", [{"sampling": True}, {"constraint_range": "4,8"},
+@pytest.mark.parametrize("opt", [{"sampling": True}, {"sampling_topp": 0.9},
                                  {"search_strategy": "diverse_beam"}])
 def test_unported_generation_options_raise(env, opt):
     with pytest.raises(NotImplementedError):
