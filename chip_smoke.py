@@ -99,6 +99,35 @@ Phases, in order; any failure exits non-zero:
  23. train_ground_modal_ffn: one such update on a third model with
      modal_ffn=True: spans, experts, gradients; its generate raises in the
      first decode step (no plain fc1), as ofasys_tpu's does
+After serve_motion (phase 19), on the serve model:
+ 24. serve_closed: 16 requests of the closed-set template (image_classify's,
+     task/tasks.py:81) with 224 x 224 images, beam 5 under the trie of an
+     ans2label table of 3,129 answers of 1-3 words from a seeded
+     vocabulary: B1 in both dispatches' encoders, every answer in the set,
+     tokens equal to the plain attention path's
+ 25. serve_sample: serve's 16 requests with sampling, top-k 256 (the hub's
+     IMAGE default), then top-p 0.9: the same seed gives the same tokens
+     (served against direct), another seed other tokens, top-k 1 greedy's
+ 26. serve_diverse: serve's 12 beam requests under diverse_beam (beam 4, 2
+     groups) and diverse_siblings (beam 5), 4-best each, with the count of
+     hypotheses plain beam search's 4-best does not hold
+ 27. serve_lexical: 16 gigaword-style requests with 1-3 constraints of 1-3
+     tokens through SequenceGenerator under pointer, ordered and unordered:
+     B1 per encoder layer and batch, every finished hypothesis holds its
+     constraints (in order under ordered)
+ 28. serve_ensemble: serve's requests on an ensemble of the serve model and
+     a second base model from seed 1: B1 in both members' encoders, a
+     one-member ensemble is the model bit for bit, p50 beside serve's
+After train (phase 6), from the same seed:
+ 29. train_qat: train's updates under quant_training='fwd': B7 in every
+     forward projection (4 per encoder and 7 per decoder layer per task,
+     132 an update), the loss tracking train's, one update's gradients
+     against quant_training='none', one update profiled beside train's
+ 30. train_chunked: train's updates with the chunked-vocab CE: loss and
+     gradients against the unfused criterion, peak memory beside train's
+ 31. train_optimizers: one update under each of adafactor, sgd, nag,
+     adagrad, adadelta and adamax: a finite loss, moved parameters, sgd's
+     steps against the gradient
 The kernel phase holds B1 and B2 at the shapes of the new paths too (the
 asr encoder, causal decoder and cross attention, the motion decoder in full
 context and its cross attention, serve_asr's dispatches and serve_motion's
@@ -121,7 +150,9 @@ every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1, head dims
 88, 128 and 256), B2 and B2r each run
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
 B2) with the scale and the causal mask inside the kernel at a decoder shape
-and at a shape with Tq < Tk (the causal offset), with two planted faults.
+and at a shape with Tq < Tk (the causal offset), with two planted faults;
+B1 also at serve_closed's and serve_lexical's dispatch shapes, and B7 also
+at every shape of train_qat's projections.
 The build phase logs ptxas's registers and spills of every kernel and
 fails if B6-bwd's row kernel spills.
 Prints a ``{"kernels": [...]}`` line, then, last,
@@ -150,7 +181,13 @@ ground_preprocess()``, ``hub = build_ground_hub(d, gp, device="cpu",
 arch="tiny")`` (``cfg.attn_kernel="pallas"``): ``serve_ground_and_check(hub,
 "cpu")``, and ``train_and_check(build_train_model(d, "cpu", arch="tiny",
 adaptors=GROUND_ADAPTORS), gp, "cpu", tasks=TINY_GROUND_TRAIN_TASKS,
-label="train_ground")``.
+label="train_ground")``; phases 24-28 on the tiny image hub with
+``serve_closed_and_check(hub, "cpu")``, ``serve_sample_and_check``,
+``serve_diverse_and_check``, ``serve_lexical_and_check`` and
+``serve_ensemble_and_check``, phases 29-31 with ``build_train_model``
+patched to the tiny arch: ``train_qat_and_check(d, gp, "cpu", batches,
+train_res)``, ``train_chunked_and_check`` and
+``train_optimizers_and_check(d, gp, "cpu", batches)``.
 """
 
 from __future__ import annotations
@@ -375,6 +412,47 @@ FLASH_EDGE_SHAPES = [("flash_D88", (2, 300, 333, 32, 88), False),
                      ("flash_B1", (1, 1000, 1000, 12, 64), False),
                      ("flash_ragged", (3, 200, 333, 12, 64), False),
                      ("flash_long_T4096", (2, 4096, 4096, 12, 64), False)]
+
+# decode extras and training options: the closed-set template of
+# image_classify (task/tasks.py:81) with an ans2label table of N_ANSWERS
+# answers (the usual VQAv2 answer set's size) of 1-3 words; the length
+# limit is above the longest answer (3 words of up to 8 letters, the
+# leading space, eos), since EOS forced at the limit would cut one
+CLOSED_TPL = "[IMAGE:img] what does the image describe? -> [TEXT:label_name,closed_set]"
+N_ANSWERS = 3129
+CLOSED_MAX_LEN = 32
+N_CLOSED_REQUESTS = 16
+# serve_closed's tokens against the plain attention path: the bf16 encoder
+# differs from the plain path's by ENC_REL_TOL-sized rounding, which moves
+# a step's log-probs by about 1e-2; with random weights many answers score
+# alike, and a beam selection that keeps one prefix over another by less
+# than that can go the other way, after which the searches part. A request
+# whose best answer differs passes only if both answers are in the set and
+# the first selection at which its two searches part had a margin of at
+# most CLOSED_TIE_TOL (cumulative log-prob) in one of them.
+CLOSED_TIE_TOL = 5e-2
+DIVERSE = {"diverse_beam": dict(search_strategy="diverse_beam", beam_size=4, num_groups=2),
+           "diverse_siblings": dict(search_strategy="diverse_siblings", beam_size=5)}
+N_BEST = 4
+LEXICAL_SRC = (140, 150)      # gigaword sources of the train mix: encoders of about 190 tokens
+N_LEXICAL_REQUESTS = 16
+LEXICAL_MAX_LEN = 32
+REPRESENTATIONS = ("pointer", "ordered", "unordered")
+NEG_SCORE = -1e8              # below: a slot of the finished pool no hypothesis filled
+OPTIMIZERS = ("adafactor", "sgd", "nag", "adagrad", "adadelta", "adamax")
+# train_qat: ofasys_tpu's own bound on the quantized run's loss
+# (tests/test_quant_training.py:95)
+QAT_LOSS_FACTOR, QAT_LOSS_SLACK = 1.25, 0.25
+# One update's gradients, quant_training 'fwd' vs 'none' at the same
+# parameters: every forward projection of the 12 layers carries the int8
+# rounding of its input rows and weight columns (a product's relative error
+# about 1%), which the backward carries to every leaf: 1.2e-2 over all
+# leaves in a CPU rehearsal at the tiny arch (4+4 layers, bf16); the limit
+# leaves room for the base arch's 6+6 layers.
+QAT_GRAD_REL_TOL = 0.1
+# train_chunked vs the unfused criterion: the same bf16 logits reduced in
+# fp32 in another order (chunk by chunk online)
+CHUNKED_LOSS_RTOL = 1e-5
 
 N_UPDATES = 5
 TRAIN_LR = 1e-4
@@ -1253,18 +1331,42 @@ def check_int8(label, M, K, N):
                 bound_by=bound_by)
 
 
-def phase_int8_kernels(encoder_rows, vocab):
+def qat_shapes(batches, E=768, F=3072):
+    """(label, M, K, N) of every distinct B7 call of one train_qat update at
+    the base arch under fuse_qkv: per task the encoder's fused q/k/v, out
+    (also the decoder's cross q and outs), fc1 and fc2 at B*Ts rows, the
+    decoder's at B*Tt rows, and the cross k/v at B*Ts rows."""
+    out, seen = [], set()
+    for name, b in batches.items():
+        B, Ts, Tt = _task_shapes(b)
+        Me, Md = B * Ts, B * Tt
+        for label, M, K, N in ((f"train_{name}_encoder_qkv", Me, E, 3 * E), (f"train_{name}_encoder_out", Me, E, E),
+                               (f"train_{name}_encoder_fc1", Me, E, F), (f"train_{name}_encoder_fc2", Me, F, E),
+                               (f"train_{name}_decoder_qkv", Md, E, 3 * E), (f"train_{name}_decoder_out", Md, E, E),
+                               (f"train_{name}_cross_kv", Me, E, 2 * E),
+                               (f"train_{name}_decoder_fc1", Md, E, F), (f"train_{name}_decoder_fc2", Md, F, E)):
+            if (M, K, N) not in seen:
+                seen.add((M, K, N))
+                out.append((label, M, K, N))
+    return out
+
+
+def phase_int8_kernels(encoder_rows, vocab, train_batches=None):
     """Kernel B7 at serve_int8's shapes: the tied logits of a beam-5 and a
     greedy decode step over ``vocab`` symbols, a beam-5 decode step's fc1,
     fc2 and q/k/v/out (8 requests x beam 5 = 40 rows), a greedy step's
     q/k/v/out (4 rows), the encoder's fc1, fc2 and q/k/v/out at the largest
     dispatch's B*T rows, and a ragged shape (K % 16 != 0: the __dp4a
-    kernel). Every plan of ``int8_plan`` the path takes is among them."""
+    kernel); then at train_qat's shapes (:func:`qat_shapes` of
+    ``train_batches``). Every plan of ``int8_plan`` the paths take is among
+    them."""
     shapes = [("decode_logits", 40, 768, vocab), ("greedy_logits", 4, 768, vocab),
               ("decode_fc1", 40, 768, 3072), ("decode_fc2", 40, 3072, 768),
               ("decode_qkv", 40, 768, 768), ("greedy_qkv", 4, 768, 768),
               ("encoder_fc1", encoder_rows, 768, 3072), ("encoder_fc2", encoder_rows, 3072, 768),
               ("encoder_qkv", encoder_rows, 768, 768), ("ragged", 300, 200, 333)]
+    if train_batches is not None:
+        shapes += qat_shapes(train_batches)
     return [check_int8(*s) for s in shapes]
 
 
@@ -1656,11 +1758,11 @@ def _per_dispatch(net):
             "layer_norm_fwd": (count("encoder.", fused), count("decoder.", fused))}
 
 
-def _expected_launches(gp, calls, steps, net, tpl=TPL):
+def _expected_launches(gp, calls, steps, net, tpl=TPL, members=1):
     """Per dispatch (B, T, route) and the kernel launches the dispatches
     should make: one per encoder layer of kernel B3 (flash, T >= 256) or B1
-    (dense gate), none on the plain path; B7 and B6-fwd by
-    :func:`_per_dispatch` for each dispatch's decode steps."""
+    (dense gate) for each of the ``members`` models, none on the plain path;
+    B7 and B6-fwd by :func:`_per_dispatch` for each dispatch's decode steps."""
     cfg = net.cfg
     shapes, expected = [], dict.fromkeys(KERNELS, 0)
     per = _per_dispatch(net)
@@ -1669,7 +1771,7 @@ def _expected_launches(gp, calls, steps, net, tpl=TPL):
         route = _route(cfg, B, T, T)
         shapes.append((B, T, route))
         if route != "plain":
-            expected[f"{route}_attention_fwd"] += cfg.encoder.layers
+            expected[f"{route}_attention_fwd"] += members * cfg.encoder.layers
         for name, (once, step) in per.items():
             expected[name] += once + step * S
     return shapes, expected
@@ -1707,12 +1809,18 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=True):
+def _best(o):
+    """The best hypothesis of an answer (an n-best list or one hypothesis)."""
+    return o[0] if isinstance(o, list) else o
+
+
+def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=True, members=1):
     """Drive the serving path with the requests (default: the serve run's 16) and
     check what comes out; returns the kernel launch counts of that run
     (``launches``), its p50 latency, tokens/s, answers, and the dispatches
     with their decode steps. ``check_encoder`` holds the encoder output
-    under the attention kernel against plain attention (ENC_REL_TOL)."""
+    under the attention kernel against plain attention (ENC_REL_TOL).
+    ``members``: the models of an ensemble hub, each running its encoder."""
     from ofasys_torch.preprocessor.instruction import Instruction
     from ofasys_torch.serve import InferenceServer
     from ofasys_torch.utils.pytree import slots_to_device
@@ -1741,12 +1849,12 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=
         srv.close()
     stats = srv.stats()
 
-    for i, o in enumerate(outs):
+    for i, o in enumerate(map(_best, outs)):
         if not (np.isfinite(o.score) and (isinstance(o.text, str) or o.box is not None)
                 and o.tokens.size > 0):
             raise SystemExit(f"{label} request {i}: bad answer {o!r}")
-    n_tokens = int(sum(o.tokens.size for o in outs))
-    shapes, expected = _expected_launches(gp, rec.calls, rec.steps, model.net, tpl)
+    n_tokens = int(sum(_best(o).tokens.size for o in outs))
+    shapes, expected = _expected_launches(gp, rec.calls, rec.steps, model.net, tpl, members)
     launched = {n: c for n, c in launches.items() if c or expected[n]}
     log(f"  {label} dispatches (B, T, encoder route): {shapes}, decode steps {rec.steps}")
     for name, (once, step) in _per_dispatch(model.net).items():
@@ -1762,8 +1870,9 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=
     res = dict(launches=launches, p50_ms=stats["p50_latency_ms"], tokens_per_s=n_tokens / wall,
                requests_per_s=len(reqs) / wall, outs=outs, calls=rec.calls, steps=rec.steps,
                shapes=shapes)
-    answer = outs[0].text[:60] if outs[0].text is not None else outs[0].box
-    log(f"  sample answer: {answer!r} score {outs[0].score:.4f}")
+    first = _best(outs[0])
+    answer = first.text[:60] if first.text is not None else first.box
+    log(f"  sample answer: {answer!r} score {first.score:.4f}")
 
     # served answers equal direct hub.inference on the same batches, and
     # each future got the answer to its own record
@@ -1775,7 +1884,9 @@ def serve_and_check(hub, card, tpl=TPL, reqs=None, label="serve", check_encoder=
         served = out if isinstance(data, list) else [out]
         direct = direct if isinstance(data, list) else [direct]
         for j, (o, r) in enumerate(zip(served, direct, strict=True)):
-            mismatches += not np.array_equal(o.tokens, r.tokens)
+            o_hyps, r_hyps = (x if isinstance(x, list) else [x] for x in (o, r))
+            mismatches += any(not np.array_equal(a.tokens, b.tokens)
+                              for a, b in zip(o_hyps, r_hyps, strict=True))
             where[id(o)] = batch[j]
     misrouted = sum(not _same_record(where.get(id(o)), data) for o, (data, _) in zip(outs, reqs))
     log(f"  served vs direct hub.inference on the same batches: {mismatches} mismatches, "
@@ -1847,7 +1958,8 @@ def serve_truncated_and_check(hub, card):
 
 
 def _report_profile(prof, wall_ms, what, card, share=None):
-    """Wall, device busy time and idle share, launches and the top kernels;
+    """Log and return (a dict) wall, device busy time and idle share,
+    launches and the top kernels;
     with ``share`` (a tuple of names), the share of device time of the
     kernels whose name holds one of them. Profiles trace the card alone
     (its kernels and copies): tracing the host's ops as well lengthened the
@@ -1860,13 +1972,15 @@ def _report_profile(prof, wall_ms, what, card, share=None):
         f"idle {100 * (1 - busy_ms / wall_ms):.1f}%, {n_launch} kernel launches [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms, launches=n_launch)
     if share:
         own = [e for e in kernels if any(s in e.key for s in share)]
         own_ms = sum(e.self_device_time_total for e in own) / 1e3
         log(f"  kernels named {' or '.join(f'*{s}*' for s in share)}: {own_ms:.3f} ms in "
             f"{sum(e.count for e in own)} launches, "
             f"{100 * own_ms / max(busy_ms, 1e-9):.1f}% of device time")
-    return busy_ms
+        out.update(share_ms=own_ms, share_launches=sum(e.count for e in own))
+    return out
 
 
 def phase_profile(hub, card, share=None, tpl=TPL, reqs=None, what="one dispatch (B=8, beam 5)",
@@ -2170,27 +2284,77 @@ def trunk_check(hub, card):
                 trunk_busy_ms=busy)
 
 
-def _tokens_vs_plain(hub, calls, label):
+def _selection_log(hub, instruction, data, kw):
+    """One inference of the batch with every stable top-k of the generator
+    recorded: per call, the indices it kept and, per request row, the
+    smallest gap between neighbours among the kept and the first dropped
+    real candidates (the margin by which its choice and order were made)."""
+    from ofasys_torch.generator import sequence_generator as sg
+
+    orig, log_ = sg._top_k, []
+
+    def record(x, k):
+        vals, idx = orig(x, k)
+        v = torch.topk(x, min(k + 1, x.shape[-1]), dim=-1).values
+        gap = torch.where(v[..., 1:] > NEG_SCORE, v[..., :-1] - v[..., 1:], float("inf"))
+        log_.append((idx.reshape(x.shape[0], -1).cpu(),
+                     gap.reshape(x.shape[0], -1).min(dim=-1).values.cpu() if gap.numel() else None))
+        return vals, idx
+
+    sg._top_k = record
+    try:
+        hub.inference(instruction, data, **kw)
+    finally:
+        sg._top_k = orig
+    return log_
+
+
+def _parting_margin(log_a, log_b, row):
+    """The margin of the first selection at which two runs of one batch
+    chose differently for request ``row`` (the smaller of the two runs'
+    margins there); inf if their recorded selections never part."""
+    for (ia, ga), (ib, gb) in zip(log_a, log_b):
+        if not torch.equal(ia[row], ib[row]):
+            return min(float(g[row]) if g is not None else float("inf") for g in (ga, gb))
+    return float("inf")
+
+
+def _tokens_vs_plain(hub, calls, label, tie_tol=0.0):
     """Each recorded dispatch again on the plain attention path (fp32
-    scores), the same batch composition: the tokens must be equal."""
+    scores), the same batch composition: the tokens must be equal, or, with
+    ``tie_tol``, a request may differ where the two searches first part at
+    a selection whose margin (between neighbouring candidates, in either
+    run) is at most ``tie_tol``, a near-tie that bf16 rounding can swap.
+    Returns the plain path's best hypotheses."""
     cfg = hub.model.cfg
     saved = cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
-    mismatches = n = 0
+    n, plain_outs, differ = 0, [], []
     try:
-        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = "xla", False, GRAD_REF_LOGITS
         for instruction, data, kw, out in calls:
+            cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = "xla", False, GRAD_REF_LOGITS
             plain = hub.inference(instruction, data, **kw)
             if not isinstance(data, list):
                 out, plain = [out], [plain]
-            for o, r in zip(out, plain, strict=True):
-                n += 1
-                mismatches += not np.array_equal(o.tokens, r.tokens)
+            rows = [i for i, (o, r) in enumerate(zip(map(_best, out), map(_best, plain), strict=True))
+                    if not np.array_equal(o.tokens, r.tokens)]
+            n += len(out)
+            plain_outs += list(map(_best, plain))
+            if rows and tie_tol:
+                log_plain = _selection_log(hub, instruction, data, kw)
+                cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
+                log_kernel = _selection_log(hub, instruction, data, kw)
+                differ += [_parting_margin(log_kernel, log_plain, i) for i in rows]
+            else:
+                differ += [float("inf")] * len(rows)
     finally:
         cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
     log(f"  {label}: tokens under B1 vs the plain attention path (attn_logits={GRAD_REF_LOGITS!r}) on "
-        f"the same batches: {mismatches} of {n} requests differ")
-    if mismatches:
+        f"the same batches: {len(differ)} of {n} requests differ"
+        + (f", their searches parting at selections with margins {[round(g, 5) for g in differ]} "
+           f"(near-tie tol {tie_tol})" if differ and tie_tol else ""))
+    if any(not g <= tie_tol for g in differ):
         raise SystemExit(f"{label}: tokens under B1 differ from the plain attention path")
+    return plain_outs
 
 
 def serve_ground_and_check(hub, card, caption_res=None):
@@ -2306,7 +2470,7 @@ def train_ground_and_check(d, gp, card, batches, mm_res=None):
         log(f"  train_ground vs train_mm: step {res['step_ms']:.2f} vs {mm_res['step_ms']:.2f} ms, "
             f"{res['samples_per_s']:.1f} vs {mm_res['samples_per_s']:.1f} samples/s [{card}]")
     busy = phase_profile_train(step, state, dev, card, "one grounding update (refcoco B=48 + vqa "
-                               "B=48, image_resnet at resnet101)")
+                               "B=48, image_resnet at resnet101)")["busy_ms"]
     trunk = model.net.encoder_adaptor.image_resnet.embed_images
     parts = [trunk_device_ms(trunk, b["net_input"]["slots"][0].value["inputs"], backward=True)
              for b in dev.values()]
@@ -2640,9 +2804,10 @@ def train_shapes(batches):
     return shapes
 
 
-def make_criteria(batches, pad, tasks=None):
-    """Each task's criterion: label-smoothed CE, or the spec's
-    ``criterion``: 'speech_to_text' (speech_to_text_loss) or 'diffusion'
+def make_criteria(batches, pad, tasks=None, ce_kw=None):
+    """Each task's criterion: label-smoothed CE (its config fields
+    ``ce_kw``, e.g. ``chunked_vocab``), or the spec's ``criterion``:
+    'speech_to_text' (speech_to_text_loss) or 'diffusion'
     (diffusion_criterion)."""
     from ofasys_torch.engine.criterion import (
         DiffusionCriterion,
@@ -2658,8 +2823,9 @@ def make_criteria(batches, pad, tasks=None):
              None: (LabelSmoothedCrossEntropyCriterion, LabelSmoothedCrossEntropyCriterionConfig)}
     out = {}
     for name in batches:
-        cls, cfg = kinds[(tasks or {}).get(name, {}).get("criterion")]
-        out[name] = cls(cfg(), pad_id=pad)
+        kind = (tasks or {}).get(name, {}).get("criterion")
+        cls, cfg = kinds[kind]
+        out[name] = cls(cfg(**(ce_kw or {}) if kind is None else {}), pad_id=pad)
     return out
 
 
@@ -2686,6 +2852,8 @@ def _expected_train_launches(batches, cfg, net=None):
             elif route == "flash":
                 n["flash_attention_fwd"] += layers
                 n["flash_attention_bwd"] += layers
+    if cfg.quant_training == "fwd":
+        n["int8_matmul_fwd"] += len(batches) * qat_projections(cfg)
     if net is not None:
         # B6 (ln_impl): every stack LayerNorm once per task's forward and
         # backward; B6-fwd only where the forward is fused
@@ -2695,6 +2863,16 @@ def _expected_train_launches(batches, cfg, net=None):
         n["layer_norm_fwd"] += len(batches) * sum(m.mode == "fused" for m in lns)
         n["layer_norm_bwd"] += len(batches) * len(lns)
     return n
+
+
+def qat_projections(cfg):
+    """B7 launches of one task's training forward under quant_training='fwd':
+    an encoder layer's q/k/v (one fused call under fuse_qkv, else three),
+    out, fc1 and fc2; a decoder layer's self q/k/v (1 or 3), out, cross q,
+    cross k/v (1 or 2), out, fc1 and fc2. 4 + 7 per layer pair fused."""
+    f = cfg.fuse_qkv
+    return (cfg.encoder.layers * ((1 if f else 3) + 3)
+            + cfg.decoder.layers * ((1 if f else 3) + 1 + 1 + (1 if f else 2) + 1 + 2))
 
 
 def build_train_model(d, device, arch="base", dtype=torch.bfloat16, ln_impl="xla",
@@ -2783,7 +2961,7 @@ def _dd_from_unrounded_output():
 
 
 def train_and_check(model, gp, card, tasks=None, batches=None, label="train", grad_batches=None,
-                    grad_ref=None, n_updates=N_UPDATES):
+                    grad_ref=None, n_updates=N_UPDATES, ce_kw=None):
     """Drive the training path: ``n_updates`` summed multi-task updates
     through make_multitask_train_step, each task under its spec's criterion
     (:func:`make_criteria`), then check what came out; the gradient check
@@ -2802,7 +2980,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
         B, Ts, Tt = _task_shapes(b)
         log(f"  task {name}: B={B} encoder T={Ts} decoder T={Tt} target tokens={b['ntokens']}")
     dev = {n: sample_to_device(b, device) for n, b in batches.items()}
-    crit = make_criteria(batches, model.global_dict.pad(), tasks)
+    crit = make_criteria(batches, model.global_dict.pad(), tasks, ce_kw)
     opt = build_optimizer(OptimizationConfig(lr=(TRAIN_LR,)))
     state = TrainState.create(model.net, opt)
     step = make_multitask_train_step(model, crit, opt)
@@ -2812,6 +2990,8 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     state, _ = step(state, dev, SEED)
     _sync(device)
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
     outs, times = [], []
     for _ in range(n_updates):
@@ -2821,6 +3001,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
         times.append(time.perf_counter() - t0)
         outs.append(out)
     launches = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else None
 
     losses, gnorms = [], []
     for out in outs:
@@ -2857,7 +3038,8 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     names = [n for n, _ in model.net.named_parameters()]
     gdev = dev if grad_batches is None else {n: sample_to_device(b, device)
                                              for n, b in grad_batches.items()}
-    result = dict(step_ms=step_ms, samples_per_s=n_samples / (step_ms / 1e3), losses=losses)
+    result = dict(step_ms=step_ms, samples_per_s=n_samples / (step_ms / 1e3), losses=losses,
+                  peak_updates_gib=peak_gib)
     if grad_ref is not None:
         return launches, {**result, **_grads_vs(model, grad_ref, crit, state, gdev, label)}, \
             (step, state, dev)
@@ -2958,6 +3140,480 @@ def phase_profile_train(step, state, batches, card,
     return _report_profile(prof, wall_ms, what, card, share)
 
 
+# ------------------------------------------- decode extras, training options
+def _answer_table(n=N_ANSWERS):
+    """``n`` distinct answers of 1-3 words from a seeded vocabulary of 400
+    pseudo-words of 2-8 letters."""
+    rng = np.random.default_rng(SEED + 9)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    vocab = ["".join(rng.choice(letters, int(rng.integers(2, 9)))) for _ in range(400)]
+    answers, seen = [], set()
+    while len(answers) < n:
+        a = " ".join(rng.choice(vocab, int(rng.integers(1, 4))))
+        if a not in seen:
+            seen.add(a)
+            answers.append(a)
+    return answers
+
+
+def closed_set_preprocess(d):
+    """The text preprocessor with an ans2label table of N_ANSWERS answers
+    (written as JSON to a temporary file and read back), on dictionary
+    ``d``; returns (GeneralPreprocess, answers)."""
+    import tempfile
+
+    from ofasys_torch.preprocessor.general import GeneralPreprocess
+    from ofasys_torch.preprocessor.text import TextPreprocessConfig
+
+    answers = _answer_table()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ans2label.json")
+        with open(path, "w") as f:
+            json.dump({a: i for i, a in enumerate(answers)}, f)
+        gp = GeneralPreprocess(d, active=["text", "image"],
+                               text_cfg=TextPreprocessConfig(ans2label_file=path))
+    return gp, answers
+
+
+def _closed_requests(trie):
+    """serve_closed: N_CLOSED_REQUESTS images, beam 5 under the trie."""
+    imgs = _images(np.random.default_rng(SEED + 10), N_CLOSED_REQUESTS)
+    return [({"img": a}, {"max_len_b": CLOSED_MAX_LEN, "beam_size": 5, "constraint_trie": trie})
+            for a in imgs]
+
+
+def closed_dispatch_shapes(gp):
+    """(B, T) of serve_closed's two dispatches of 8."""
+    recs = [r for r, _ in _closed_requests(None)]
+    return [_encoder_shape(gp, recs[i:i + 8], CLOSED_TPL) for i in range(0, len(recs), 8)]
+
+
+def serve_closed_and_check(hub, card):
+    """serve_closed: the closed-set template (image_classify's,
+    task/tasks.py:81) through the server with the text preprocessor's trie
+    over N_ANSWERS answers: kernel B1 in every dispatch's encoder (and the
+    encoder output against plain attention), every answer one of the table's,
+    the tokens equal to the plain attention path's on the same batches but
+    where the searches part at a near-tie (CLOSED_TIE_TOL)."""
+    from ofasys_torch import OFASys
+
+    t0 = time.perf_counter()
+    gp, answers = closed_set_preprocess(hub.global_dict)
+    trie = gp.name2pre["text"].constraint_trie
+    log(f"serve_closed: ans2label of {len(answers)} answers of 1-3 words (longest "
+        f"{max(len(a) for a in answers)} bytes) and its trie in {time.perf_counter() - t0:.2f} s "
+        f"[host CPU]")
+    chub = OFASys(hub.model, None, hub.global_dict, gp, device=hub.device)
+    res = serve_and_check(chub, card, CLOSED_TPL, _closed_requests(trie), "serve_closed")
+    table = set(answers)
+    outside = [o.text for o in map(_best, res["outs"]) if o.text not in table]
+    log(f"  serve_closed: {len(res['outs']) - len(outside)} of {len(res['outs'])} answers in the "
+        f"answer set; e.g. {[_best(o).text for o in res['outs'][:4]]}")
+    plain = _tokens_vs_plain(chub, res["calls"], "serve_closed", CLOSED_TIE_TOL)
+    outside += [o.text for o in plain if o.text not in table]
+    if outside:
+        raise SystemExit(f"serve_closed: answers outside the closed set: {outside[:4]}")
+    return res
+
+
+def serve_sample_and_check(hub, card, serve_res=None):
+    """serve_sample: serve's 16 requests (12 beam 5, 4 greedy) with the
+    hub's IMAGE sampling defaults (top-k 256) at seed SEED, then with top-p
+    0.9: served answers equal direct inference at the same seed (in
+    serve_and_check), another seed changes some tokens, and top-k 1 gives
+    greedy search's tokens."""
+    base = _serve_requests()
+
+    def with_opts(extra):
+        return [(d, {**o, **extra}) for d, o in base]
+
+    res = serve_and_check(hub, card, reqs=with_opts({"sampling": True, "sampling_topk": 256, "seed": SEED}),
+                          label="serve_sample", check_encoder=False)
+    differ = n = 0
+    for instruction, data, kw, out in res["calls"]:
+        other = hub.inference(instruction, data, **{**kw, "seed": SEED + 1})
+        for a, b in zip(out, other, strict=True):
+            n += 1
+            differ += not np.array_equal(a.tokens, b.tokens)
+    log(f"  serve_sample: seed {SEED + 1} against seed {SEED}: {differ} of {n} requests differ")
+    if not differ:
+        raise SystemExit("serve_sample: another seed gave the same tokens")
+    res_p = serve_and_check(hub, card, reqs=with_opts({"sampling": True, "sampling_topp": 0.9, "seed": SEED}),
+                            label="serve_sample_topp", check_encoder=False)
+    mism, ties, n = _top1_vs_greedy(hub, res["calls"])
+    log(f"  serve_sample: sampling_topk=1 vs greedy search (beam 1) on the same batches: {len(mism)} of "
+        f"{n} differ, each first at a step where the bf16 logits tie at the maximum: {ties}")
+    if len(mism) != ties:
+        raise SystemExit("serve_sample: top-k 1 sampling differs from greedy search off a tie")
+    if serve_res is not None:
+        log(f"  serve_sample vs serve: p50 {res['p50_ms']} (top-p: {res_p['p50_ms']}) vs "
+            f"{serve_res['p50_ms']} ms [{card}]")
+    return res, res_p
+
+
+def _top1_vs_greedy(hub, calls):
+    """Each recorded batch under sampling with top-k 1 and under greedy
+    search, both at beam 1: the same computation until the sampled token
+    differs, which can only happen where the step's log-probs hold their
+    maximum more than once (bf16 logits tie), the one place top-k 1 keeps
+    several tokens. Returns the differing requests, how many of them first
+    differ at such a tie, and the number of requests."""
+    from ofasys_torch.generator import search
+
+    orig = search.top_k_top_p_filter
+    kept = []
+
+    def record(lp, k, p):
+        out = orig(lp, k, p)
+        kept.append((out > NEG_SCORE).sum(dim=-1).cpu())
+        return out
+
+    mism, ties, n = [], 0, 0
+    for instruction, data, kw, _ in calls:
+        base = {k: v for k, v in kw.items() if k not in ("sampling", "sampling_topk", "seed", "beam_size")}
+        kept.clear()
+        search.top_k_top_p_filter = record
+        try:
+            top1 = hub.inference(instruction, data, **base, beam_size=1, sampling=True, sampling_topk=1)
+        finally:
+            search.top_k_top_p_filter = orig
+        steps = list(kept)
+        greedy = hub.inference(instruction, data, **base, beam_size=1)
+        for row, (a, b) in enumerate(zip(top1, greedy, strict=True)):
+            n += 1
+            if np.array_equal(a.tokens, b.tokens):
+                continue
+            mism.append(row)
+            t = next(i for i in range(min(len(a.tokens), len(b.tokens)) + 1)
+                     if i >= min(len(a.tokens), len(b.tokens)) or a.tokens[i] != b.tokens[i])
+            ties += t < len(steps) and int(steps[t][row]) > 1
+    return mism, ties, n
+
+
+def serve_diverse_and_check(hub, card):
+    """serve_diverse: serve's 12 beam requests under diverse_beam (beam 4, 2
+    groups) and diverse_siblings (beam 5), N_BEST hypotheses each: served
+    against direct inference (serve_and_check) and the count of hypotheses
+    that plain beam search's N_BEST on the same batches does not hold."""
+    out = {}
+    for name, opts in DIVERSE.items():
+        reqs = [(d, {**o, **opts, "return_n_best": N_BEST}) for d, o in _serve_requests()[:N_BEAM_REQUESTS]]
+        res = serve_and_check(hub, card, reqs=reqs, label=f"serve_{name}", check_encoder=False)
+        new = total = 0
+        for instruction, data, kw, served in res["calls"]:
+            plain_kw = {k: v for k, v in kw.items() if k not in opts or k == "beam_size"}
+            plain = hub.inference(instruction, data, **plain_kw)
+            for hyps, ref in zip(served, plain, strict=True):
+                known = {tuple(h.tokens) for h in ref}
+                total += len(hyps)
+                new += sum(tuple(h.tokens) not in known for h in hyps)
+        log(f"  serve_{name}: {new} of {total} hypotheses are not in plain beam search's "
+            f"{N_BEST}-best at beam {opts['beam_size']} (information)")
+        res["not_in_plain"] = (new, total)
+        out[name] = res
+    return out
+
+
+def _lexical_requests(gp):
+    """serve_lexical: N_LEXICAL_REQUESTS gigaword-style sources of
+    LEXICAL_SRC bytes, each with 1-3 constraints of 1-3 tokens taken from
+    its own source's tokens."""
+    rng = np.random.default_rng(SEED + 11)
+    text = gp.name2pre["text"]
+    recs, cons = [], []
+    for src in _sources(rng, rng.integers(LEXICAL_SRC[0], LEXICAL_SRC[1] + 1, N_LEXICAL_REQUESTS)):
+        toks = text.encode(src)[1:].tolist()
+        c = []
+        for _ in range(int(rng.integers(1, 4))):
+            n = int(rng.integers(1, 4))
+            i = int(rng.integers(0, len(toks) - n))
+            c.append(toks[i:i + n])
+        recs.append({"src": src})
+        cons.append(c)
+    return recs, cons
+
+
+def lexical_dispatch_shapes(gp):
+    recs, _ = _lexical_requests(gp)
+    return [_encoder_shape(gp, recs[i:i + 8], SUMMARY_TPL) for i in range(0, len(recs), 8)]
+
+
+def _contains(seq, sub):
+    return any(seq[i:i + len(sub)] == sub for i in range(len(seq) - len(sub) + 1))
+
+
+def _in_order(seq, cons):
+    """Every constraint appears, each after the end of the one before."""
+    pos = 0
+    for c in cons:
+        i = next((j for j in range(pos, len(seq) - len(c) + 1) if seq[j:j + len(c)] == c), None)
+        if i is None:
+            return False
+        pos = i + len(c)
+    return True
+
+
+def serve_lexical_and_check(hub, card):
+    """serve_lexical: the lexical search strategy through
+    ``SequenceGenerator.generate`` (the constraints ride in the sample) under
+    each representation, beam 5, two batches of 8: B1 once per encoder layer
+    and batch, every finished hypothesis holds its constraints (in order
+    under 'ordered')."""
+    from ofasys_torch.generator import SequenceGenerator
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    gp, net = hub.general_preprocess, hub.model.net
+    recs, cons = _lexical_requests(gp)
+    batches = []
+    for i in range(0, len(recs), 8):
+        sample = gp.collate([gp(Instruction(SUMMARY_TPL, split="test").format(**r)) for r in recs[i:i + 8]])
+        sample["constraints"] = cons[i:i + 8]
+        batches.append(sample)
+    routes = []
+    for b in batches:
+        B, T = _encoder_tokens(b["net_input"]["slots"])
+        routes.append(_route(net.cfg, B, T, T))
+    out = {}
+    for rep in REPRESENTATIONS:
+        gen = SequenceGenerator(hub.model, hub.global_dict, beam_size=5, max_len_b=LEXICAL_MAX_LEN,
+                                search_strategy="lexical", constraint_representation=rep, return_n_best=5)
+        gen.generate(batches[0])                                  # warm-up
+        _sync(hub.device)
+        reset_counts()
+        t0 = time.perf_counter()
+        hyps = [h for b in batches for h in gen.generate(b)]
+        _sync(hub.device)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        expected = {k: 0 for k in KERNELS}
+        for r in routes:
+            if r != "plain":
+                expected[f"{r}_attention_fwd"] += net.cfg.encoder.layers
+        finished = bad = 0
+        for hs, c in zip(hyps, cons, strict=True):
+            for h in hs:
+                if h.score < NEG_SCORE:
+                    continue
+                finished += 1
+                seq = h.tokens.tolist()
+                ok = _in_order(seq, c) if rep == "ordered" else all(_contains(seq, x) for x in c)
+                bad += not ok
+        log(f"  serve_lexical[{rep}]: {finished} finished hypotheses of {len(recs)} requests x 5, "
+            f"{bad} without their constraints{' in order' if rep == 'ordered' else ''}; "
+            f"{sum(any(h.score >= NEG_SCORE for h in hs) for hs in hyps)} requests with one; "
+            f"{wall * 1e3:.1f} ms for the 2 batches; launches "
+            f"{({k: v for k, v in launches.items() if v})} (expected "
+            f"{({k: v for k, v in expected.items() if v})}) [{card}]")
+        if bad:
+            raise SystemExit(f"serve_lexical[{rep}]: a finished hypothesis misses a constraint")
+        if hub.device.type == "cuda" and (launches != expected or "plain" in routes):
+            raise SystemExit(f"serve_lexical[{rep}]: B1 did not run once per encoder layer and batch")
+        out[rep] = dict(launches=launches, finished=finished, wall_ms=wall * 1e3)
+    if not sum(r["finished"] for r in out.values()):
+        raise SystemExit("serve_lexical: no hypothesis met its constraints in any representation")
+    return out
+
+
+def serve_ensemble_and_check(hub, card, serve_res=None):
+    """serve_ensemble: serve's 16 requests through the server on a hub whose
+    generator ensembles the serve model with a second base model from seed
+    SEED + 1 (``SequenceGenerator([m0, m1])``): B1 in each member's encoder,
+    served against direct inference; a one-member ensemble gives the serve
+    model's tokens and scores bit for bit; p50 beside serve's."""
+    from ofasys_torch import GeneralistModel, OFASys
+    from ofasys_torch.generator import SequenceGenerator
+
+    m1 = GeneralistModel(hub.model.cfg)
+    m1.initialize(hub.global_dict, active_adaptors=ACTIVE_ADAPTORS, dtype=hub.model.net.dtype,
+                  device=hub.device, seed=SEED + 1)
+
+    class EnsembleHub(OFASys):
+        def __init__(self, members, *a, **k):
+            super().__init__(*a, **k)
+            self.members = members
+
+        def build_generator(self, **gen_kwargs):
+            return SequenceGenerator(self.members, self.global_dict, **gen_kwargs)
+
+    args = (hub.model, None, hub.global_dict, hub.general_preprocess)
+    ehub = EnsembleHub([hub.model, m1], *args, device=hub.device)
+    res = serve_and_check(ehub, card, label="serve_ensemble", check_encoder=False, members=2)
+    one = EnsembleHub([hub.model], *args, device=hub.device)
+    mism = n = 0
+    for instruction, data, kw, _ in res["calls"]:
+        for a, b in zip(one.inference(instruction, data, **kw), hub.inference(instruction, data, **kw),
+                        strict=True):
+            n += 1
+            mism += not (np.array_equal(a.tokens, b.tokens) and a.score == b.score)
+    log(f"  serve_ensemble: a one-member ensemble vs the model alone on the same batches: {mism} of "
+        f"{n} differ (tokens or score)")
+    if mism:
+        raise SystemExit("serve_ensemble: a one-member ensemble is not the model")
+    same = sum(np.array_equal(_best(a).tokens, _best(b).tokens) for a, b in zip(res["outs"], serve_res["outs"])) \
+        if serve_res is not None else None
+    if serve_res is not None:
+        log(f"  serve_ensemble vs serve: p50 {res['p50_ms']} vs {serve_res['p50_ms']} ms, "
+            f"{res['tokens_per_s']:.1f} vs {serve_res['tokens_per_s']:.1f} tokens/s; {same} of "
+            f"{len(res['outs'])} answers equal to the one model's (information) [{card}]")
+    del m1, ehub, one
+    return res
+
+
+def _loss_grads(model, crit, params, step, batches):
+    """One update's per-token loss (summed over the tasks, over their
+    summed sample size) and raw-summed gradients, dropout as the step draws it."""
+    from ofasys_torch.engine.train_step import make_grad_step
+
+    total, loss, ss = None, 0.0, 0.0
+    for i, (name, b) in enumerate(batches.items()):
+        g, size, logs = make_grad_step(model, crit[name], fold=i)(params, step, b, SEED)
+        total = g if total is None else [a + c for a, c in zip(total, g)]
+        loss += float(logs["loss"])
+        ss += float(size)
+    return loss / ss, total
+
+
+def train_qat_and_check(d, gp, card, batches, train_res):
+    """train_qat: the train phase's updates with quant_training='fwd' (B7 in
+    every training forward projection, ``qat_projections`` per task), the
+    loss tracking train's (final < train's final * QAT_LOSS_FACTOR +
+    QAT_LOSS_SLACK, ofasys_tpu's own test), one update's gradients against the
+    same update with quant_training='none' at the same parameters
+    (QAT_GRAD_REL_TOL), step time and one profiled update beside train's."""
+    model = build_train_model(d, "cuda" if card != "cpu" else "cpu", quant_training="fwd")
+    cfg = model.cfg
+    per_task = qat_projections(cfg)
+    log(f"  train_qat: B7 launches per task's forward: {cfg.encoder.layers} encoder layers x 4 + "
+        f"{cfg.decoder.layers} decoder layers x 7 = {per_task}; {len(batches)} tasks: "
+        f"{len(batches) * per_task} an update")
+    counts, res, (step, state, dev) = train_and_check(model, gp, card, batches=batches, label="train_qat")
+    log(f"  train_qat: B7 launched {counts['int8_matmul_fwd']} times in {N_UPDATES} updates, expected "
+        f"{N_UPDATES * len(batches) * per_task}")
+    final, ref = res["losses"][-1], train_res["losses"][-1]
+    bound = ref * QAT_LOSS_FACTOR + QAT_LOSS_SLACK
+    log(f"  train_qat: loss {[round(x, 5) for x in res['losses']]} vs train's "
+        f"{[round(x, 5) for x in train_res['losses']]}: final {final:.5f} < {bound:.5f} "
+        f"(train's final x {QAT_LOSS_FACTOR} + {QAT_LOSS_SLACK})")
+    if not final < bound:
+        raise SystemExit("train_qat: the quantized run's loss does not track the bf16 run's")
+    crit = make_criteria(batches, d.pad())
+    names = [n for n, _ in model.net.named_parameters()]
+    saved = cfg.dropout
+    cfg.dropout = 0.0
+    try:
+        lq, gq = _loss_grads(model, crit, state.params, state.step, dev)
+        cfg.quant_training = "none"
+        ln, gn = _loss_grads(model, crit, state.params, state.step, dev)
+    finally:
+        cfg.quant_training, cfg.dropout = "fwd", saved
+    rel, norm_rel, leaves = _grad_diff(names, gq, gn)
+    log(f"  train_qat: one update (dropout 0) at the same parameters, quant_training 'fwd' vs 'none': "
+        f"loss {lq:.5f} vs {ln:.5f}, gradients rel {rel:.3e} (tol {QAT_GRAD_REL_TOL}), global norm "
+        f"rel err {norm_rel:.3e}, worst leaves {_top_leaves(leaves)}")
+    if not rel <= QAT_GRAD_REL_TOL:
+        raise SystemExit("train_qat: the quantized update's gradients are too far from the bf16 one's")
+    res.update(qat_grad_rel=rel, qat_loss=lq, bf16_loss=ln)
+    if card != "cpu":
+        res["profile"] = phase_profile_train(step, state, dev, card, "one train_qat update",
+                                             share=B7_KERNEL_NAMES)
+        log(f"  train_qat vs train: step {res['step_ms']:.2f} vs {train_res['step_ms']:.2f} ms, idle "
+            f"{100 * res['profile']['idle']:.1f}% vs {100 * train_res['profile']['idle']:.1f}%, "
+            f"{res['profile']['launches']} vs {train_res['profile']['launches']} launches an update, "
+            f"peak {res['peak_updates_gib']:.2f} vs {train_res['peak_updates_gib']:.2f} GiB [{card}]")
+    del model, step, state, dev
+    return counts, res
+
+
+def train_chunked_and_check(d, gp, card, batches, train_res):
+    """train_chunked: the train phase's updates with chunked_vocab=True (the
+    (N, V) logits never exist); the loss of one update at the same
+    parameters against the unfused criterion's (CHUNKED_LOSS_RTOL) and its
+    gradients (GRAD_REL_TOL over all leaves, LEAF_REL_TOL per leaf: both
+    sides round the logit gradient to bf16, the fused one also each chunk's
+    product); the peak device memory of the updates beside train's."""
+    from ofasys_torch.ops.fused_ce import pick_chunks
+
+    model = build_train_model(d, "cuda" if card != "cpu" else "cpu")
+    V = model.net.embed_tokens.weight.shape[0]
+    log(f"  train_chunked: V = {V}, {pick_chunks(V)} chunks of {V // pick_chunks(V)}")
+    counts, res, (step, state, dev) = train_and_check(model, gp, card, batches=batches, label="train_chunked",
+                                                      ce_kw={"chunked_vocab": True})
+    names = [n for n, _ in model.net.named_parameters()]
+    cfg = model.cfg
+    saved = cfg.dropout
+    cfg.dropout = 0.0
+    try:
+        lf, gf = _loss_grads(model, make_criteria(batches, d.pad(), ce_kw={"chunked_vocab": True}),
+                             state.params, state.step, dev)
+        lu, gu = _loss_grads(model, make_criteria(batches, d.pad()), state.params, state.step, dev)
+    finally:
+        cfg.dropout = saved
+    rel, norm_rel, leaves = _grad_diff(names, gf, gu)
+    worst = max(leaves, key=leaves.get)
+    loss_rel = abs(lf - lu) / abs(lu)
+    log(f"  train_chunked: one update (dropout 0), fused vs unfused: loss {lf:.6f} vs {lu:.6f} "
+        f"(rel {loss_rel:.2e}, tol {CHUNKED_LOSS_RTOL}), gradients rel {rel:.3e} (tol {GRAD_REL_TOL}), "
+        f"global norm rel err {norm_rel:.3e}, worst leaf {worst} {leaves[worst]:.3e} (tol {LEAF_REL_TOL})")
+    if not (loss_rel <= CHUNKED_LOSS_RTOL and rel <= GRAD_REL_TOL and leaves[worst] <= LEAF_REL_TOL):
+        raise SystemExit("train_chunked: the fused loss or gradients disagree with the unfused ones")
+    res.update(loss_rel=loss_rel, chunked_grad_rel=rel, chunked_worst_leaf=leaves[worst])
+    if card != "cpu":
+        log(f"  train_chunked vs train: peak device memory of the updates {res['peak_updates_gib']:.2f} vs "
+            f"{train_res['peak_updates_gib']:.2f} GiB, step {res['step_ms']:.2f} vs "
+            f"{train_res['step_ms']:.2f} ms [{card}]")
+        res["profile"] = phase_profile_train(step, state, dev, card, "one train_chunked update")
+    del model, step, state, dev
+    return counts, res
+
+
+def train_optimizers_and_check(d, gp, card, batches):
+    """train_optimizers: one update of train's batches under each of
+    OPTIMIZERS from the same initial parameters: a finite loss, parameters
+    that moved, and under sgd every moved entry stepped against its gradient."""
+    from ofasys_torch.configure.configs import OptimizationConfig
+    from ofasys_torch.engine.optim import build_optimizer
+    from ofasys_torch.engine.train_step import TrainState, make_multitask_train_step
+    from ofasys_torch.utils.pytree import sample_to_device
+
+    model = build_train_model(d, "cuda" if card != "cpu" else "cpu")
+    dev = {n: sample_to_device(b, model.net.device) for n, b in batches.items()}
+    crit = make_criteria(batches, d.pad())
+    init = [p.detach().clone() for p in model.net.parameters()]
+    out = {}
+    for name in OPTIMIZERS:
+        with torch.no_grad():
+            for p, q in zip(model.net.parameters(), init):
+                p.copy_(q)
+        opt = build_optimizer(OptimizationConfig(optimizer=name, lr=(TRAIN_LR,)))
+        state = TrainState.create(model.net, opt)
+        step = make_multitask_train_step(model, crit, opt)
+        g = _grads(model, crit, state.params, state.step, dev) if name == "sgd" else None
+        t0 = time.perf_counter()
+        state, o = step(state, dev, SEED)
+        _sync(model.net.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        tasks = o["tasks"].values()
+        loss = sum(float(t["loss"]) for t in tasks) / sum(float(t["sample_size"]) for t in tasks)
+        moved = sum(int((p != q).sum()) for p, q in zip(state.params, init))
+        n_par = sum(q.numel() for q in init)
+        line = f"  train_optimizers[{name}]: loss {loss:.5f}, {moved} of {n_par} entries moved, {ms:.1f} ms"
+        ok = np.isfinite(loss) and moved > 0 and all(torch.isfinite(p).all() for p in state.params)
+        if g is not None:
+            with torch.no_grad():
+                dg = [(p - q) * gg for p, q, gg in zip(state.params, init, g)]
+                wrong = sum(int((x > 0).sum()) for x in dg)
+                along = sum(float(x.double().sum()) for x in dg)
+            line += f"; moved against -g: {wrong}, sum(dp * g) {along:.3e}"
+            ok = ok and wrong == 0 and along < 0
+        log(line + f" [{card}]")
+        if not ok:
+            raise SystemExit(f"train_optimizers: {name} gave a bad update")
+        out[name] = dict(loss=loss, moved=moved, ms=ms)
+        del state, step, opt
+    del model, dev
+    return out
+
+
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
     """One kernel's entry of the ``{"kernels": [...]}`` line: ``launches`` by
     path (the counts of each path's run), the error over every checked
@@ -3043,11 +3699,17 @@ def main() -> int:
     log(f"train_ground and serve_ground attention shapes (B, Tq, Tk) and routes: "
         f"{[(lb, sh) for lb, sh, _ in ground_calls]} serve_ground dispatches {ground_serve}: "
         f"{ground_routes}; held at train_mm's rows where the shape is the same: {same_as_mm}")
+    closed_serve = closed_dispatch_shapes(hub.general_preprocess)
+    lexical_serve = lexical_dispatch_shapes(hub.general_preprocess)
+    log(f"serve_closed and serve_lexical dispatches (B, T) and routes: "
+        f"{[(sh, _route(cfg, sh[0], sh[1], sh[1])) for sh in closed_serve + lexical_serve]}")
     dispatches = [(f"dispatch{i}", s) for i, s in enumerate(planned_dispatch_shapes())] \
         + [(f"serve_caption_dispatch{i}", s) for i, s in enumerate(caption_serve)] \
         + [(f"serve_asr_dispatch{i}", s) for i, s in enumerate(asr_serve)] \
         + [("serve_motion_encoder", (mB, mTs))] \
-        + [(f"serve_ground_dispatch{i}", s) for i, s in enumerate(ground_serve)]
+        + [(f"serve_ground_dispatch{i}", s) for i, s in enumerate(ground_serve)] \
+        + [(f"serve_closed_dispatch{i}", s) for i, s in enumerate(closed_serve)] \
+        + [(f"serve_lexical_dispatch{i}", s) for i, s in enumerate(lexical_serve)]
     fres, bres, rres = phase_kernels(
         dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
         + [c for c in mm_calls if mm_routes[c[0]] == "dense"]
@@ -3061,7 +3723,7 @@ def main() -> int:
         hub.general_preprocess, _truncated_requests(), SUMMARY_TPL)[0]))
     flash_rows = phase_flash_kernels(flash_serve, [c for c in long_calls if routes[c[0]] == "flash"])
     mark("flash kernels")
-    int8_rows = phase_int8_kernels(max(B * T for B, T in planned_dispatch_shapes()), len(d))
+    int8_rows = phase_int8_kernels(max(B * T for B, T in planned_dispatch_shapes()), len(d), train_batches)
     ln_rows = phase_ln_kernels(train_batches)
     mark("kernels")
 
@@ -3086,14 +3748,40 @@ def main() -> int:
     mark("serve_asr")
     counts["serve_motion"], motion_res = serve_motion_and_check(hub, card)
     mark("serve_motion")
+    closed_res = serve_closed_and_check(hub, card)
+    counts["serve_closed"] = closed_res["launches"]
+    mark("serve_closed")
+    sample_res, topp_res = serve_sample_and_check(hub, card, serve_res)
+    counts["serve_sample"], counts["serve_sample_topp"] = sample_res["launches"], topp_res["launches"]
+    mark("serve_sample")
+    for strategy, r in serve_diverse_and_check(hub, card).items():
+        counts[f"serve_{strategy}"] = r["launches"]
+    mark("serve_diverse")
+    lexical_res = serve_lexical_and_check(hub, card)
+    for rep, r in lexical_res.items():
+        counts[f"serve_lexical_{rep}"] = r["launches"]
+    mark("serve_lexical")
+    ensemble_res = serve_ensemble_and_check(hub, card, serve_res)
+    counts["serve_ensemble"] = ensemble_res["launches"]
+    mark("serve_ensemble")
 
     model = build_train_model(d, "cuda")
     counts["train"], train_res, (step, state, dev) = train_and_check(
         model, hub.general_preprocess, card, batches=train_batches)
-    phase_profile_train(step, state, dev, card)
+    train_res["profile"] = phase_profile_train(step, state, dev, card)
     del model, step, state, dev
     torch.cuda.empty_cache()
     mark("train")
+    counts["train_qat"], qat_res = train_qat_and_check(d, hub.general_preprocess, card, train_batches, train_res)
+    torch.cuda.empty_cache()
+    mark("train_qat")
+    counts["train_chunked"], chunked_res = train_chunked_and_check(d, hub.general_preprocess, card,
+                                                                   train_batches, train_res)
+    torch.cuda.empty_cache()
+    mark("train_chunked")
+    optim_res = train_optimizers_and_check(d, hub.general_preprocess, card, train_batches)
+    torch.cuda.empty_cache()
+    mark("train_optimizers")
 
     model = build_train_model(d, "cuda")
     grad_batches = make_train_batches(long_gp, {n: dict(spec, batch=GRAD_CHECK_BATCH)
@@ -3156,7 +3844,7 @@ def main() -> int:
     counts["serve_ground"] = ground_res["launches"]
     counts["serve_ground_constrained"] = ground_res["launches_constrained"]
     busy = phase_profile(ground_hub, card, tpl=REFCOCO_TPL, reqs=_ground_requests(),
-                         what="one serve_ground dispatch (B=8, greedy, 4 bin tokens)", opts={})
+                         what="one serve_ground dispatch (B=8, greedy, 4 bin tokens)", opts={})["busy_ms"]
     log(f"  serve_ground: the trunk's forward on the dispatch's 8 images, profiled alone: "
         f"{ground_res['trunk_busy_ms']:.3f} ms busy, {100 * ground_res['trunk_busy_ms'] / busy:.1f}% of "
         f"the dispatch's {busy:.2f} ms [{card}]")
@@ -3212,6 +3900,13 @@ def main() -> int:
     log(f"serve_ground: {json.dumps({k: v for k, v in ground_res.items() if k in ('p50_ms', 'requests_per_s', 'tokens_per_s', 'preprocess_ms', 'trunk_rel', 'trunk_rms', 'trunk_ms_bf16', 'trunk_ms_fp32', 'trunk_busy_ms', 'dispatch_busy_ms', 'shapes')})}")
     log(f"train_ground: {json.dumps(tg_res)}")
     log(f"train_ground_modal_ffn: {json.dumps(mf_res)}")
+    log(f"train_qat: {json.dumps(qat_res)}")
+    log(f"train_chunked: {json.dumps(chunked_res)}")
+    log(f"train_optimizers: {json.dumps(optim_res)}")
+    log(f"serve_lexical: {json.dumps(lexical_res)}")
+    log("serve p50 ms: " + json.dumps({k: r["p50_ms"] for k, r in (
+        ("serve", serve_res), ("serve_closed", closed_res), ("serve_sample", sample_res),
+        ("serve_sample_topp", topp_res), ("serve_ensemble", ensemble_res))}))
     for label, (_, res) in ln.items():
         log(f"{label}: {json.dumps(res)}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -15,7 +15,9 @@ from dataclasses import dataclass
 
 import torch
 
+from ofasys_torch import ModalityType
 from ofasys_torch.engine.criterion.base import BaseCriterion, CriterionConfig
+from ofasys_torch.ops.fused_ce import chunked_ce_stats, pick_chunks
 
 
 @dataclass
@@ -25,20 +27,69 @@ class LabelSmoothedCrossEntropyCriterionConfig(CriterionConfig):
     ignore_eos: bool = False
     drop_worst_ratio: float = 0.0
     drop_worst_after: int = 0
-    # ofasys_tpu's chunked-vocab fused CE (ops/fused_ce.py)
+    # the chunked-vocab fused CE (ops/fused_ce.py), where it applies
     chunked_vocab: bool = False
 
 
 class LabelSmoothedCrossEntropyCriterion(BaseCriterion):
     def __call__(self, model, sample, generator=None, train: bool = True):
-        if self.cfg.chunked_vocab:
-            raise NotImplementedError(
-                "chunked_vocab (the fused chunked-vocab CE of ofasys_tpu/ops/fused_ce.py) "
-                "is not ported yet (ROADMAP Queue A item 12)"
-            )
-        logits, _ = model.apply_train(sample["net_input"]["slots"], deterministic=not train,
-                                      generator=generator)
-        return self.compute_loss(logits, sample, train=train)
+        slots = sample["net_input"]["slots"]
+        n_chunks = self._fused_plan(model, sample)
+        out, extra = model.apply_train(slots, deterministic=not train, generator=generator,
+                                       hidden_only=n_chunks is not None)
+        if n_chunks is None:
+            return self.compute_loss(out, sample, train=train)
+        x = extra["decoder_hidden"]
+        B, T, E = x.shape
+        return self.compute_loss_fused(x.reshape(B * T, E), model.net.embed_tokens.weight,
+                                       n_chunks, sample, train=train)
+
+    # ------------------------------------------- chunked-vocab fused path
+    def _fused_plan(self, model, sample):
+        """The number of vocabulary chunks when the chunked-vocab CE applies,
+        else None: ofasys_tpu's gates, decided before the forward (the
+        decoder's hidden states of a TEXT target are (B, T, E) and the text
+        adaptor's logits span the embedding's rows, so its checks on them
+        hold)."""
+        cfg = self.cfg
+        if not cfg.chunked_vocab or cfg.report_accuracy:
+            return None
+        if sample.get("constraint_masks") is not None:
+            return None
+        try:
+            tgt_slots = [s for s in sample["net_input"]["slots"] if not s.is_src]
+        except (KeyError, TypeError):
+            return None
+        if len(tgt_slots) != 1 or tgt_slots[0].modality != ModalityType.TEXT:
+            return None
+        target = sample["target"]
+        if (not isinstance(target, torch.Tensor) or target.dim() != 2
+                or target.is_floating_point() or target.dtype == torch.bool):
+            return None
+        # an untied output projection or an output bias: the logits would
+        # not be x @ emb^T
+        for name, _ in model.net.named_parameters():
+            if {"output_projection", "output_projection_bias"} & set(name.split(".")):
+                return None
+        return pick_chunks(model.net.embed_tokens.weight.shape[0])
+
+    def compute_loss_fused(self, x2: torch.Tensor, emb: torch.Tensor, n_chunks: int, sample,
+                           train: bool = True):
+        """compute_loss's loss with (lse, z_t, rowsum) taken chunk by chunk
+        over the vocabulary from the hidden states ``x2`` (N, E) and the
+        tied table ``emb`` (V, E)."""
+        cfg = self.cfg
+        target = sample["target"]
+        B, T = target.shape
+        V = emb.shape[0]
+        tgt = target.reshape(B * T).long()
+        lse, z_t, zsum = chunked_ce_stats(x2, emb, tgt, n_chunks, x2.dtype)
+        nll_pos = lse - z_t
+        smooth = -(zsum - V * lse)
+        valid = tgt != self.pad_id
+        if cfg.ignore_eos:
+            valid = valid & (tgt != getattr(self, "eos_id", 2))
+        return self._reduce(nll_pos, smooth, float(V - 1), valid, tgt, sample, B, train)
 
     def compute_loss(self, logits: torch.Tensor, sample, train: bool = True):
         cfg = self.cfg

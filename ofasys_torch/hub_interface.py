@@ -9,8 +9,11 @@ ofasys_tpu/hub_interface.py).
 
     hub.quantize()        # int8 serving in place (ops/quant.py), kernel B7
 
-``from_pretrained`` (orbax checkpoints), ``shard`` and ``set_draft`` wait
-for later slices.
+Generation options go to ``SequenceGenerator`` (sampling, a closed-set
+``constraint_trie``, ``search_strategy``, ...); ``seed`` seeds the sampling
+draws. Ensembles are ``SequenceGenerator([m1, m2], ...)``; loading several
+checkpoints with ``from_pretrained`` (orbax checkpoints), ``shard`` and
+``set_draft`` wait for later slices (ROADMAP Queue A items 5, 13, 10).
 """
 
 from __future__ import annotations
@@ -87,6 +90,11 @@ class OFASys:
         self._generators.clear()
         return self
 
+    def build_generator(self, **gen_kwargs) -> SequenceGenerator:
+        """The generator ``inference`` runs for these options (cached per
+        target modality and options)."""
+        return SequenceGenerator(self.model, self.global_dict, **gen_kwargs)
+
     def inference(
         self,
         instruction: Union[str, Instruction],
@@ -95,7 +103,9 @@ class OFASys:
     ):
         """Format -> preprocess -> generate -> postprocess. ``data`` may be
         one dict or a list for batch inference; returns one (or a list of)
-        results, each the best hypothesis or an n-best list."""
+        results, each the best hypothesis or an n-best list. ``gen_overrides``
+        are SequenceGenerator options over the target modality's defaults,
+        and ``seed`` (default 0) the seed of the sampling draws."""
         batched = isinstance(data, list)
         records = data if batched else [data or {}]
 
@@ -106,14 +116,16 @@ class OFASys:
         sample = self.general_preprocess.collate(ists)
 
         target_modality = [s for s in sample["net_input"]["slots"] if not s.is_src][-1].modality
+        seed = gen_overrides.pop("seed", 0)
         gen_kwargs = dict(_GEN_DEFAULTS.get(target_modality, {}))
         gen_kwargs.update(gen_overrides)
         prefix = sample.get("prefix_tokens")
         has_prefix = prefix is not None and prefix.size
         key = (target_modality, tuple(sorted(gen_kwargs.items())))
         if key not in self._generators:
-            self._generators[key] = SequenceGenerator(self.model, self.global_dict, **gen_kwargs)
-        outputs = self._generators[key].generate(sample, prefix_tokens=prefix if has_prefix else None)
+            self._generators[key] = self.build_generator(**gen_kwargs)
+        outputs = self._generators[key].generate(sample, prefix_tokens=prefix if has_prefix else None,
+                                                 seed=seed)
         for hyps in outputs:
             self.general_preprocess.postprocess(hyps, sample)
         results = [hyps[0] if len(hyps) == 1 else hyps for hyps in outputs]

@@ -3,12 +3,12 @@ ofasys_tpu/model/config.py, every default kept).
 
 Plain dataclasses: the port has no config store. Fields that name
 execution features the port does not run yet (MoE, scan-over-layers,
-pipeline and sequence parallelism, int8 quantized training, per-modality
-FFNs) stay so that a config carried over from ofasys_tpu keeps its shape;
-``GeneralistModel.initialize`` raises when one is set away from its
-default. ``ln_impl`` is checked where the stacks build their LayerNorms
-(``model/transformer.make_ln``) and ``quant_mode`` where an int8 matmul
-runs (``ops/quant.int8_matmul``), as in ofasys_tpu.
+pipeline and sequence parallelism, remat) stay so that a config carried
+over from ofasys_tpu keeps its shape; ``GeneralistModel.initialize`` raises
+when one is set away from its default, and when ``quant_training`` is
+neither 'none' nor 'fwd'. ``ln_impl`` is checked where the stacks build
+their LayerNorms (``model/transformer.make_ln``) and ``quant_mode`` where
+an int8 matmul runs (``ops/quant.int8_matmul``), as in ofasys_tpu.
 """
 
 from __future__ import annotations
@@ -92,6 +92,8 @@ class GeneralistModelConfig:
     # int8 serving after OFASys.quantize() (ops/quant.py): 'w8a8' (kernel B7)
     # or 'w8' (dequantize, plain matmul)
     quant_mode: str = "w8a8"
+    # int8 quantized training: 'none' or 'fwd' (the stacks' projections run
+    # ops/quant.int8_train_matmul, kernel B7, in training calls only)
     quant_training: str = "none"
 
     def __post_init__(self):
@@ -136,6 +138,8 @@ def apply_arch(cfg: GeneralistModelConfig, arch: str):
     return cfg
 
 
+QUANT_TRAINING = ("none", "fwd")
+
 # fields whose non-default values select code this slice does not port,
 # with where each waits
 UNPORTED_DEFAULTS = {
@@ -143,7 +147,6 @@ UNPORTED_DEFAULTS = {
     "moe_experts": (0, "Queue A item 13"),
     "pipeline_stages": (1, "Queue A item 13"),
     "sequence_parallel": (False, "Queue A item 13"),
-    "quant_training": ("none", "Queue A item 14"),
     # per-layer activation checkpointing; torch.utils.checkpoint with the
     # step's generator draws replayed comes with the parallelism item
     "remat": ("none", "Queue A item 13"),

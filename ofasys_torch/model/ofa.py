@@ -25,7 +25,8 @@ from torch import nn
 from ofasys_torch.adaptor.audio import Conv1d
 from ofasys_torch.adaptor.general import GeneralAdaptor
 from ofasys_torch.adaptor.image import PatchEmbed
-from ofasys_torch.model.config import UNPORTED_DEFAULTS, GeneralistModelConfig, apply_arch
+from ofasys_torch.model.config import (QUANT_TRAINING, UNPORTED_DEFAULTS, GeneralistModelConfig,
+                                      apply_arch)
 from ofasys_torch.model.resnet import init_resnet_
 from ofasys_torch.model.transformer import (
     BiasSpec,
@@ -107,23 +108,25 @@ class GeneralistNet(nn.Module):
 
     # ------------------------------------------------------ whole sequences
     def forward(self, slots: List[SlotBatch], full_context: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, hidden_only: bool = False):
         """Full forward: returns (output, extra); for text targets the output
         is vocab logits (B, Tt, V) in the compute dtype. ``generator`` (on
         the net's device) turns on training mode, as ``deterministic=False``
-        with a dropout rng does in flax; None is deterministic."""
+        with a dropout rng does in flax; None is deterministic.
+        ``hidden_only``: the output is None and only ``extra["decoder_hidden"]``
+        is computed (the chunked-vocab criterion projects it itself)."""
         src_slots = SlotBatch.source_slots(slots)
         tgt_slots = [s for s in slots if not s.is_src]
         enc = self.encode(src_slots, generator) if src_slots else None
         out, extra = self.decode_full(tgt_slots, enc, full_context=full_context, all_slots=slots,
-                                      generator=generator)
+                                      generator=generator, hidden_only=hidden_only)
         if enc is not None:
             extra["encoder_out"] = enc
         return out, extra
 
     def decode_full(self, tgt_slots: List[SlotBatch], enc: Optional[EncoderOut],
                     full_context: bool = False, all_slots: Optional[List[SlotBatch]] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, hidden_only: bool = False):
         """Decoder-side forward against a (possibly reused) encoder-out."""
         d = self.decoder_adaptor(tgt_slots, generator)
         cb = self.cross_bias(d.pos_embed, enc.pos_embed) if enc is not None else None
@@ -139,6 +142,8 @@ class GeneralistNet(nn.Module):
             modal_spans=d.modal_spans if self.cfg.modal_ffn else None,
         )
         extra: Dict[str, Any] = {"decoder_hidden": x}
+        if hidden_only:
+            return None, extra
         return self.decoder_adaptor.forward_output(x, extra, all_slots or tgt_slots)
 
     # ------------------------------------------------- incremental decoding
@@ -275,6 +280,9 @@ class GeneralistModel:
                     f"config {name}={getattr(self.cfg, name)!r} is not ported to ofasys_torch "
                     f"yet ({where})"
                 )
+        if self.cfg.quant_training not in QUANT_TRAINING:
+            raise ValueError(f"unknown quant_training {self.cfg.quant_training!r}; expected one of "
+                             f"{QUANT_TRAINING}")
         modal_ids = None
         if self.cfg.modal_ffn:
             if not sample_slots:
@@ -295,12 +303,15 @@ class GeneralistModel:
         return self.net(slots, full_context=full_context)
 
     def apply_train(self, slots: List[SlotBatch], deterministic: bool = False,
-                    generator: Optional[torch.Generator] = None, full_context: bool = False):
+                    generator: Optional[torch.Generator] = None, full_context: bool = False,
+                    hidden_only: bool = False):
         """The forward with gradients (ofasys_tpu's ``apply(params, slots,
         deterministic, rngs)``): with ``deterministic=False`` and a
         ``generator`` on the net's device, dropout, DropPath and LayerDrop
-        draw from it; otherwise the forward is deterministic."""
+        draw from it and ``quant_training='fwd'`` quantizes the stacks'
+        projections; otherwise the forward is deterministic.
+        ``hidden_only`` as in ``GeneralistNet.forward``."""
         if self.net is None:
             raise RuntimeError("call initialize(global_dict) first")
         return self.net(slots, full_context=full_context,
-                        generator=None if deterministic else generator)
+                        generator=None if deterministic else generator, hidden_only=hidden_only)

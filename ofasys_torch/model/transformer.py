@@ -19,7 +19,11 @@ Submodule and parameter names follow the flax tree of ofasys_tpu
 so utils/jax_params.load_jax_params maps one onto the other.
 
 Int8 serving (``ops.quant.quantize_for_serving``: ``Dense`` and
-``Embed.attend`` through kernel B7) and ``cfg.ln_impl`` (``make_ln``: the
+``Embed.attend`` through kernel B7), int8 quantized training
+(``cfg.quant_training='fwd'``: the attention projections and the FFN's
+``fc1``/``fc2``, experts included, run ``ops.quant.int8_train_matmul``, kernel
+B7, in training calls, the fused q/k/v as one call; the tied logits and the
+adaptors stay in the compute dtype) and ``cfg.ln_impl`` (``make_ln``: the
 LayerNorm kernels B6) follow ofasys_tpu's ``QuantDense``/``QuantEmbed`` and
 ``make_ln``; ``cfg.modal_ffn`` routes each modality's span through its own
 FeedForward experts (:class:`FeedForward`). MoE, scan_layers, remat, ring attention and pipeline
@@ -41,7 +45,7 @@ from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.ops.attention import causal_mask, combine_masks, dot_product_attention, dropout
 from ofasys_torch.ops.dense_attention import dense_attention, dense_supported
 from ofasys_torch.ops.flash_attention import flash_attention, flash_available, flash_supported
-from ofasys_torch.ops.quant import int8_matmul, is_quantized
+from ofasys_torch.ops.quant import int8_matmul, int8_train_matmul, is_quantized
 
 LN_EPS = 1e-5
 
@@ -50,7 +54,9 @@ class Dense(nn.Linear):
     """``nn.Linear`` with fp32 parameters that computes in ``dtype``. After
     ``ops.quant.quantize_for_serving`` it holds int8 buffers ``q`` (out, in)
     and ``scale`` (out,) in place of its weight and runs ``int8_matmul`` in
-    ``cfg.quant_mode``, read at call time (ofasys_tpu's ``QuantDense``)."""
+    ``cfg.quant_mode``, read at call time (ofasys_tpu's ``QuantDense``);
+    ``qtrain`` (a training call under quant_training='fwd') runs
+    ``int8_train_matmul`` on the fp32 weight."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  cfg: GeneralistModelConfig):
@@ -58,11 +64,19 @@ class Dense(nn.Linear):
         self.dtype = dtype
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, qtrain: bool = False) -> torch.Tensor:
         if is_quantized(self):
             y = int8_matmul(x, self.q, self.scale, mode=self.cfg.quant_mode, out_dtype=self.dtype)
             return y + self.bias.to(self.dtype)
+        if qtrain:
+            return int8_train_matmul(x.to(self.dtype), self.weight) + self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
+def qtrain_active(cfg: GeneralistModelConfig, generator: Optional[torch.Generator]) -> bool:
+    """Quantized training runs in training calls (a ``generator``) under
+    quant_training='fwd'; eval and decode calls stay in the compute dtype."""
+    return generator is not None and cfg.quant_training == "fwd"
 
 
 class Embed(nn.Embedding):
@@ -225,15 +239,23 @@ class MultiheadAttention(nn.Module):
         if cfg.scale_heads:
             self.c_attn = nn.Parameter(torch.ones(num_heads))
 
-    def _proj(self, mods, x):
+    def _proj(self, mods, x, qtrain: bool = False):
         """Projections of one input; with fuse_qkv they run as one GEMM over
         the concatenated weights (parameter layout unchanged). Int8 serving
-        keeps per-projection scales and no fp32 weight: one call each."""
+        keeps per-projection scales and no fp32 weight: one call each. Under
+        ``qtrain`` the concatenated fp32 weight goes through one
+        ``int8_train_matmul``: its per-output-channel scales are those of the
+        parts, so the result equals separate calls bit for bit."""
         if len(mods) == 1 or not self.cfg.fuse_qkv or any(is_quantized(m) for m in mods):
-            return [m(x) for m in mods]
-        w = torch.cat([m.weight for m in mods], dim=0).to(self.dtype)
+            return [m(x, qtrain) for m in mods]
         b = torch.cat([m.bias for m in mods]).to(self.dtype)
-        return list(torch.chunk(F.linear(x.to(self.dtype), w, b), len(mods), dim=-1))
+        if qtrain:
+            w = torch.cat([m.weight for m in mods], dim=0)
+            y = int8_train_matmul(x.to(self.dtype), w) + b
+        else:
+            w = torch.cat([m.weight for m in mods], dim=0).to(self.dtype)
+            y = F.linear(x.to(self.dtype), w, b)
+        return list(torch.chunk(y, len(mods), dim=-1))
 
     @staticmethod
     def init_cache(batch: int, max_len: int, num_heads: int, head_dim: int,
@@ -261,17 +283,18 @@ class MultiheadAttention(nn.Module):
         head_dim = self.embed_dim // H
         scaling = float(head_dim * cfg.attn_scale_factor) ** -0.5
         B, Tq = query.shape[:2]
+        qtrain = qtrain_active(cfg, generator)
         if cache is not None and static_kv:
             # cross-attention at decode time: k/v computed once, reused
             q = self.q_proj(query).reshape(B, Tq, H, head_dim)
             k, v = cache["k"], cache["v"]
         else:
             if key_value is None:
-                q, k, v = self._proj([self.q_proj, self.k_proj, self.v_proj], query)
+                q, k, v = self._proj([self.q_proj, self.k_proj, self.v_proj], query, qtrain)
                 Tk = Tq
             else:
-                q = self.q_proj(query)
-                k, v = self._proj([self.k_proj, self.v_proj], key_value)
+                q = self.q_proj(query, qtrain)
+                k, v = self._proj([self.k_proj, self.v_proj], key_value, qtrain)
                 Tk = key_value.shape[1]
             q = q.reshape(B, Tq, H, head_dim)
             k = k.reshape(B, Tk, H, head_dim)
@@ -315,7 +338,7 @@ class MultiheadAttention(nn.Module):
             )
         if cfg.scale_heads:
             x = x * self.c_attn.to(self.dtype)[None, None, :, None]
-        x = self.out_proj(x.reshape(B, Tq, self.embed_dim))
+        x = self.out_proj(x.reshape(B, Tq, self.embed_dim), qtrain)
         return x, cache
 
 
@@ -366,12 +389,13 @@ class FeedForward(nn.Module):
             raise LookupError(
                 f"FeedForward has no {fc1!r}: its parameters are {sorted(n for n, _ in self.named_children())} "
                 "(under modal_ffn only the experts of the initialized modalities exist)")
-        h = self.act(getattr(self, fc1)(x))
+        qtrain = qtrain_active(self.cfg, generator)
+        h = self.act(getattr(self, fc1)(x, qtrain))
         h = dropout(h, self.cfg.activation_dropout, generator)
         ln = getattr(self, fc2 + "_ln")
         if ln is not None:
             h = ln(h)
-        return getattr(self, fc2)(h)
+        return getattr(self, fc2)(h, qtrain)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 modal_spans: Optional[Tuple[Tuple[int, int, int], ...]] = None) -> torch.Tensor:

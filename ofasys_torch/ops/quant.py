@@ -1,4 +1,5 @@
-"""Int8 serving (counterpart of ofasys_tpu/ops/quant.py).
+"""Int8 serving and int8 quantized training (counterpart of
+ofasys_tpu/ops/quant.py).
 
 Symmetric post-training quantization, no zero point:
 
@@ -18,9 +19,12 @@ Buffers move with ``net.to(device)`` and are never cast. ``Dense.forward``
 and ``Embed.attend`` (model/transformer.py) take the int8 route when the
 buffers are there.
 
-Not ported yet: quantized training (``int8_train_matmul``, ``qtrain``;
-ROADMAP Queue A) and scan-stacked (L, in, out) kernels (``scan_layers`` is
-not ported).
+Quantized training (``cfg.quant_training='fwd'``): :func:`int8_train_matmul`
+quantizes the live fp32 weight per output channel and the activations per
+row in every training forward of the stacks' projections and runs kernel
+B7; its backward is straight-through in the compute dtype.
+
+Not ported: scan-stacked (L, in, out) kernels (``scan_layers`` is not ported).
 """
 
 from __future__ import annotations
@@ -77,6 +81,37 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, mode: str
     xq, sx = _quantize_rows(x.reshape(-1, x.shape[-1]))
     out = int8_matmul_fwd(xq, sx, q, scale, out_dtype)
     return out.reshape(*lead, q.shape[0])
+
+
+class Int8TrainMatmul(torch.autograd.Function):
+    """``x @ w.T`` with an int8 forward (kernel B7) and a straight-through
+    backward: ``dx = g @ w`` in the compute dtype, ``dw = g.T @ x`` in the
+    compute dtype, then fp32, as ofasys_tpu's ``int8_train_matmul``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        q, scale = quantize_weight(w, axis=-1)
+        xq, sx = _quantize_rows(x.reshape(-1, x.shape[-1]))
+        y = int8_matmul_fwd(xq, sx, q, scale, x.dtype)
+        ctx.save_for_backward(x, w)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gb = g.to(x.dtype)
+        dx = gb @ w.to(x.dtype)
+        dw = gb.reshape(-1, gb.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return dx, dw.to(w.dtype)
+
+
+def int8_train_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Quantized training's projection: x (..., in) in the compute dtype
+    (bf16 or fp32), w (out, in) the fp32 weight -> (..., out) in x's dtype,
+    ``(acc * sx) * scale`` of the int8 product of the per-row quantized x and
+    the per-output-channel quantized w (kernel B7 on CUDA tensors, its
+    plain version on CPU tensors); gradients straight through."""
+    return Int8TrainMatmul.apply(x, w)
 
 
 def is_quantized(module: nn.Module) -> bool:

@@ -65,7 +65,7 @@ DEFAULT_PREPROCESS = {
 
 # ROADMAP Queue A item that ports each preprocessor this slice lacks
 _PENDING = {
-    "phone": 11, "video": 11, "struct": 11, "category": 11,
+    "phone": 11, "video": 11, "struct": 11, "category": 11, "image_vqgan": 11,
 }
 
 # modalities whose token outputs merge into the TEXT group

@@ -7,9 +7,14 @@ prefix tokens at inference). group_map merges adjacent text slots and wraps
 them with bos/eos; collate builds prev_output_tokens = inputs[:-1] and
 target = target[1:].
 
-Closed-set constraint masks need the ans2label trie (``ans2label_file``),
-which is not ported yet (ROADMAP Queue A item 3); without it ofasys_tpu
-makes none either.
+Closed-set targets: ``ans2label_file`` (a ``.json`` answer -> label map, or
+one answer a line) builds ``constraint_trie``, a trie over ``[bos] + tokens
++ [eos]`` of every answer, which the generator takes as its
+``constraint_trie`` option; a decoder slot marked ``closed_set`` carries one
+boolean row over the dictionary per position, the tokens the trie allows
+after the prefix. group_map adds the bos row (all False) and the eos row,
+and collate shifts them with the target (``extra["constraint_masks"]``,
+(B, T, V)), where the criterion spreads the smoothing mass over them.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import re
 import string
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -27,6 +32,7 @@ from ofasys_torch.preprocessor.instruction import Slot
 from ofasys_torch.preprocessor.mask_utils import add_span_mask
 from ofasys_torch.preprocessor.tokenizer import build_tokenizer
 from ofasys_torch.preprocessor.utils import collate_tokens
+from ofasys_torch.utils.trie import Trie
 
 _PUNCT_RE = re.compile(f"[{re.escape(string.punctuation)}]")
 
@@ -41,6 +47,7 @@ class TextPreprocessConfig(PreprocessConfig):
     poisson_lambda: float = 3.0
     random_ratio: float = 0.0
     replace_length: int = 1
+    ans2label_file: Optional[str] = None
     seed: int = 1
 
 
@@ -51,6 +58,10 @@ class TextPreprocess(BasePreprocess):
         self.text_start, self.text_end = global_dict.add_namespace("<text>", self.bpe.vocab_size)
         self.mask_idx = global_dict.add_symbol("<mask>")
         self.rng = np.random.default_rng(cfg.seed)
+        self.constraint_trie: Optional[Trie] = None
+        self.ans2label: Optional[Dict[str, int]] = None
+        if cfg.ans2label_file:
+            self._load_ans2label(cfg.ans2label_file)
 
     # ------------------------------------------------------------- encoding
     def encode(self, text: str) -> np.ndarray:
@@ -62,6 +73,24 @@ class TextPreprocess(BasePreprocess):
         toks = np.asarray(tokens).reshape(-1)
         bpe_ids = [int(t) - self.text_start for t in toks if self.text_start <= int(t) < self.text_end]
         return self.bpe.decode(bpe_ids).strip()
+
+    def _load_ans2label(self, path):
+        import json
+
+        with open(path) as f:
+            self.ans2label = json.load(f) if path.endswith(".json") else {
+                line.strip(): i for i, line in enumerate(f) if line.strip()
+            }
+        self.build_constraint_trie(list(self.ans2label.keys()))
+
+    def build_constraint_trie(self, answers: List[str]):
+        """Closed-set candidates -> trie over [bos] + tokens + [eos]."""
+        self.constraint_trie = Trie(self.global_dict.eos())
+        self.answer_tokens = []
+        for ans in answers:
+            toks = self.encode(ans)
+            self.answer_tokens.append(toks)
+            self.constraint_trie.insert([self.global_dict.bos()] + toks.tolist() + [self.global_dict.eos()])
 
     def dummy_slot(self, slot: Slot) -> Slot:
         """Open decoder slot at inference: empty token run; after the group
@@ -121,10 +150,17 @@ class TextPreprocess(BasePreprocess):
             target = None
             prefix_tokens = None
 
+        constraint_masks = None
+        if not slot.is_src and slot.has_attr("closed_set") and self.constraint_trie is not None:
+            constraint_masks = np.zeros((len(tokens), len(self.global_dict)), dtype=bool)
+            for i in range(len(tokens)):
+                prefix = [self.global_dict.bos()] + tokens[:i].tolist()
+                constraint_masks[i][self.constraint_trie.get_next_layer(prefix)] = True
+
         slot.value = {
             "inputs": inputs,
             "target": target,
-            "constraint_masks": None,
+            "constraint_masks": constraint_masks,
             "raw_tokens": tokens,
             "prefix_tokens": prefix_tokens,
         }
@@ -144,17 +180,34 @@ class TextPreprocess(BasePreprocess):
                     "prefix_tokens": None if slot.is_src else np.asarray([], np.int32),
                 }
 
-        merged: Dict[str, Any] = {"constraint_masks": None}
+        has_cmask = any(s.value["constraint_masks"] is not None for s in slots)
+        if has_cmask:
+            for s in slots:
+                if s.value["constraint_masks"] is None:
+                    s.value["constraint_masks"] = np.zeros(
+                        (len(s.value["raw_tokens"]), len(d)), dtype=bool
+                    )
+
+        merged: Dict[str, Any] = {}
         wrap = not slots[0].has_attr("disable_auto_boseos")
-        for key in ("inputs", "target", "raw_tokens", "prefix_tokens"):
+        for key in ("inputs", "target", "raw_tokens", "prefix_tokens", "constraint_masks"):
             vals = [s.value[key] for s in slots]
             if all(v is None for v in vals):
                 merged[key] = None
                 continue
             cat = np.concatenate([v for v in vals if v is not None], axis=0)
-            if wrap:
+            if wrap and key != "constraint_masks":
                 cat = np.concatenate([[d.bos()], cat, [d.eos()]]).astype(np.int32)
             merged[key] = cat
+
+        if has_cmask and self.constraint_trie is not None and wrap:
+            # bos row (all False) + rows + eos row from the trie
+            eos_row = np.zeros((1, len(d)), dtype=bool)
+            prefix = [d.bos()] + slots[-1].value["raw_tokens"].tolist()
+            eos_row[0][self.constraint_trie.get_next_layer(prefix)] = True
+            merged["constraint_masks"] = np.concatenate(
+                [np.zeros((1, len(d)), dtype=bool), merged["constraint_masks"], eos_row]
+            )
 
         max_length = self.cfg.max_src_length if slots[0].is_src else self.cfg.max_tgt_length
         for key, v in merged.items():
@@ -207,6 +260,13 @@ class TextPreprocess(BasePreprocess):
             "dict_start": self.text_start,
             "dict_end": self.text_end,
         }
+        if slots[0].value["constraint_masks"] is not None:
+            T = target.shape[1]
+            cms = np.zeros((len(slots), T, len(d)), dtype=bool)
+            for i, s in enumerate(slots):
+                cm = s.value["constraint_masks"][1:]
+                cms[i, : cm.shape[0]] = cm
+            extra["constraint_masks"] = cms
         input_batch = self.to_slot_batch(slots[0], {"inputs": prev})
         target_batch = self.to_slot_batch(slots[0], {"inputs": target})
         return CollateOutput(input_batch, target_batch, extra)

@@ -106,10 +106,27 @@ def test_eval_mode_skips_drop_worst():
 
 
 def test_chunked_vocab_raises():
+    """chunked_vocab, which raised before it was ported (the name is kept),
+    now gives compute_loss's loss from the fused statistics: the hidden
+    states and tied table of a random projection, the logits ``x @ W^T``
+    on one side and the chunked statistics on the other (fp32, 96 symbols
+    in 3 chunks of 32): loss and nll rtol 1e-5, as above."""
+    from ofasys_torch.ops.fused_ce import pick_chunks
+
+    rng = np.random.default_rng(2)
+    _, target, _ = _data()
+    E = 16
+    x = torch.tensor(rng.standard_normal((B * T, E)), dtype=torch.float32)
+    emb = torch.tensor(rng.standard_normal((V, E)) * 0.3, dtype=torch.float32)
     crit = LabelSmoothedCrossEntropyCriterion(
         LabelSmoothedCrossEntropyCriterionConfig(chunked_vocab=True), pad_id=PAD)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        crit(None, {"net_input": {"slots": []}})
+    sample = {"target": torch.from_numpy(target).long()}
+    fused = crit.compute_loss_fused(x, emb, 3, sample)
+    plain = crit.compute_loss((x @ emb.t()).reshape(B, T, V), sample)
+    np.testing.assert_allclose(float(fused[0]), float(plain[0]), rtol=1e-5)
+    np.testing.assert_allclose(float(fused[2]["nll_loss"]), float(plain[2]["nll_loss"]), rtol=1e-5)
+    assert int(fused[2]["ntokens"]) == int(plain[2]["ntokens"])
+    assert pick_chunks(V) is None     # 96 symbols: no 128-aligned chunks, the gate declines
 
 
 def test_reduce_metrics():

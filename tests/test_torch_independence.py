@@ -1,5 +1,5 @@
 """ofasys_torch stands alone: importing every one of its modules loads no
-jax, flax or ofasys_tpu module, and its entry points refuse to run on an
+jax, flax, optax or ofasys_tpu module, and its entry points refuse to run on an
 absent card unless the CPU is asked for explicitly."""
 
 import json
@@ -17,7 +17,7 @@ for m in pkgutil.walk_packages(ofasys_torch.__path__, "ofasys_torch."):
     importlib.import_module(m.name)
     names.append(m.name)
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "ofasys_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ofasys_tpu"))
 out = {"modules": names, "bad": bad}
 import torch
 if not torch.cuda.is_available():
@@ -65,7 +65,8 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
                 "ofasys_torch.engine.criterion.label_smoothed_cross_entropy",
                 "ofasys_torch.configure.configs", "ofasys_torch.preprocessor.mask_utils",
                 "ofasys_torch.ops.quant", "ofasys_torch.ops.int8_matmul", "ofasys_torch.ops.layer_norm",
-                "ofasys_torch.adaptor.image", "ofasys_torch.preprocessor.image"}
+                "ofasys_torch.adaptor.image", "ofasys_torch.preprocessor.image",
+                "ofasys_torch.generator.search", "ofasys_torch.utils.trie", "ofasys_torch.ops.fused_ce"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
     if "raised" in out:

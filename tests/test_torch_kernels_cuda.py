@@ -747,6 +747,39 @@ def test_quantized_dense_runs_the_int8_kernel_on_card():
     assert y.shape == (2, 5, 96) and y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
 
 
+@pytest.mark.cuda
+def test_int8_train_matmul_on_card():
+    """Quantized training's projection at the infill encoder's fused q/k/v
+    (12,288 rows x 768 -> 2,304): one B7 launch, the forward equal to B7's
+    plain version on the same quantized operands bit for bit; the
+    straight-through backward against the bf16 plain product (dx = g w,
+    dw = g^T x): the same bf16 GEMMs, so within GRAD_TOL."""
+    _need_card()
+    from ofasys_torch.ops import int8_matmul as ti8
+    from ofasys_torch.ops.quant import _quantize_rows, int8_train_matmul, quantize_weight
+
+    M, K, N = 12288, 768, 2304
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16).requires_grad_()
+    w = (torch.randn(N, K, device="cuda", generator=g) * K ** -0.5).requires_grad_()
+    before = ti8.int8_matmul_fwd.launches
+    y = int8_train_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ti8.int8_matmul_fwd.launches == before + 1
+    xq, sx = _quantize_rows(x.detach())
+    q, scale = quantize_weight(w.detach())
+    assert y.dtype == torch.bfloat16 and torch.equal(y, ti8.int8_matmul_reference(xq, sx, q, scale,
+                                                                                  torch.bfloat16))
+    gy = torch.randn(M, N, device="cuda", generator=g).to(torch.bfloat16)
+    y.backward(gy)
+    dx_ref = gy @ w.detach().to(torch.bfloat16)
+    dw_ref = (gy.t() @ x.detach()).float()
+    ok, err = _grad_close(x.grad, dx_ref, GRAD_TOL)
+    assert ok and x.grad.dtype == torch.bfloat16, err
+    ok, err = _grad_close(w.grad, dw_ref, GRAD_TOL)
+    assert ok and w.grad.dtype == torch.float32, err
+
+
 # ------------------------------------------------------- LayerNorm (B6)
 # (N, E): the train mix's rows (12,288 = 128 x 96), fc2_ln's width, a
 # decode step, a ragged N, and an E that takes the one-element path

@@ -228,9 +228,33 @@ def test_vocab_growth_after_init_raises():
 
 @pytest.mark.parametrize("opt", [{"sampling": True}, {"sampling_topp": 0.9},
                                  {"search_strategy": "diverse_beam"}])
-def test_unported_generation_options_raise(env, opt):
-    with pytest.raises(NotImplementedError):
-        env["hub"].inference(TPL, {"src": "x"}, **opt)
+def test_unported_generation_options_raise(env, monkeypatch, opt):
+    """Options that raised before they were ported (the name is kept) now
+    behave as in ofasys_tpu: sampling gives the same tokens twice at one
+    seed; sampling_topp without sampling filters nothing, so the tokens
+    are plain beam search's, JAX's; diverse_beam at the TEXT default of
+    beam 5 with 2 groups raises ValueError on both sides."""
+    recs = [{"src": s} for s in SRCS[:3]]
+    jhub = JOFASys(env["jm"], env["params"], env["jd"], env["jgp"])
+    if "search_strategy" in opt:
+        for hub in (jhub, env["hub"]):
+            with pytest.raises(ValueError, match="divisible"):
+                hub.inference(TPL, recs, max_len_b=6, **opt)
+        return
+    tout = env["hub"].inference(TPL, recs, max_len_b=6, **opt)
+    if opt.get("sampling"):
+        again = env["hub"].inference(TPL, recs, max_len_b=6, **opt)
+        assert all(np.array_equal(a.tokens, b.tokens) and np.isfinite(a.score)
+                   for a, b in zip(tout, again))
+        return
+    margins = []
+    monkeypatch.setattr(jax.lax, "top_k", _recording_top_k(margins))
+    jout = jhub.inference(TPL, recs, max_len_b=6, **opt)
+    monkeypatch.undo()
+    assert margins and min(margins) > 1e-3
+    for a, b in zip(jout, tout, strict=True):
+        np.testing.assert_array_equal(b.tokens, np.asarray(a.tokens))
+        assert abs(a.score - b.score) <= 1e-4
 
 
 @pytest.mark.parametrize("mode", ["full", "dots"])
