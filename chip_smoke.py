@@ -128,6 +128,28 @@ After train (phase 6), from the same seed:
  31. train_optimizers: one update under each of adafactor, sgd, nag,
      adagrad, adadelta and adamax: a finite loss, moved parameters, sgd's
      steps against the gradient
+After train_full (phase 20), before the grounding model:
+ 32. train_fit: the README's front door at the base arch, from files: a
+     GPT-2-sized BPE table made from the seed (encoder.json with 50,257
+     entries, vocab.bpe with 50,000 merges) set as the text preprocess
+     through the ConfigStore, text_infilling and gigaword TSV files of two
+     batches' worth of rows each (train's byte lengths), two Tasks reading
+     them (load_dataset_from_path; train's templates and batch sizes), then
+     Trainer(cfg).fit(GeneralistModel(arch="base"), tasks, max_update=6)
+     in summed mode (dropout 0.1, adamw at 1e-4, a checkpoint every 3
+     updates): the vocabulary (about 50.3k), 36 B1 and 36 B2 an update, a
+     falling loss, the update ms beside train's, the batches' host ms and
+     the prefetch thread's waits, checkpoint bytes and save/join/load ms,
+     the host syncs of an update; a second Trainer resumes from
+     checkpoint_1_3 into its own save_dir and its checkpoint_last equals
+     the first's bit for bit, with the meters and iterator states; one
+     resumed update profiled
+ 33. serve_pretrained: OFASys.from_pretrained(checkpoint_last) serves
+     serve's 16 requests (sources of serve's token counts under the BPE
+     table) through InferenceServer, tokens equal to
+     OFASys.from_trainer(trainer, tasks)'s on the same batches; an ensemble
+     from_pretrained([checkpoint_last, checkpoint_1_3]) serves 4 (B1 twice
+     per encoder layer); p50 beside serve's
 The kernel phase holds B1 and B2 at the shapes of the new paths too (the
 asr encoder, causal decoder and cross attention, the motion decoder in full
 context and its cross attention, serve_asr's dispatches and serve_motion's
@@ -151,7 +173,8 @@ every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1, head dims
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
 B2) with the scale and the causal mask inside the kernel at a decoder shape
 and at a shape with Tq < Tk (the causal offset), with two planted faults;
-B1 also at serve_closed's and serve_lexical's dispatch shapes, and B7 also
+B1 also at serve_closed's, serve_lexical's and serve_pretrained's dispatch shapes, B1 and
+B2 at every attention shape of train_fit's six updates, and B7 also
 at every shape of train_qat's projections.
 The build phase logs ptxas's registers and spills of every kernel and
 fails if B6-bwd's row kernel spills.
@@ -192,14 +215,17 @@ train_res)``, ``train_chunked_and_check`` and
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3614,6 +3640,514 @@ def train_optimizers_and_check(d, gp, card, batches):
     return out
 
 
+# ------------------------------- the front door: Task, Trainer.fit, from_pretrained
+# train_fit: the train mix from TSV files through Task + Trainer.fit with a
+# GPT-2-sized BPE table (256 bytes + 50,000 merges + <|endoftext|>), summed
+# mode, a checkpoint every FIT_SAVE_EVERY updates; then a second Trainer
+# resumes from checkpoint_1_3 into its own save_dir.
+FIT_UPDATES = 6
+FIT_SAVE_EVERY = 3
+N_MERGES = 50000
+FIT_TASKS = {
+    "text_infilling": dict(TRAIN_TASKS["text_infilling"], cols="0:text"),
+    "gigaword": dict(TRAIN_TASKS["gigaword"], cols="0:src,1:tgt"),
+}
+TINY_FIT_TASKS = {n: dict(spec, batch=TINY_TRAIN_TASKS[n]["batch"]) for n, spec in FIT_TASKS.items()}
+FIT_BATCHES_PER_EPOCH = 2      # rows of each TSV: two batches' worth
+SERVE_WORDS = ["the", "model", "serves", "a", "batch", "of", "text", "requests", "on", "one", "card",
+               "with", "beam", "search", "and", "greedy", "decoding", "over", "fifty", "thousand",
+               "symbols", "quick", "brown", "fox", "jumps", "lazy", "dog", "12", "345", "north"]
+
+
+def write_bpe_table(root, seed=SEED, n_merges=N_MERGES):
+    """A GPT-2-sized byte-level BPE table in ``root`` (encoder.json,
+    vocab.bpe), made from ``seed`` in a few seconds: the 256 byte symbols,
+    then BPE merges learned on the words of the train and serve texts (so
+    that each becomes one token, as common words are in GPT-2's table),
+    then seeded merges of two tokens already in the table up to
+    ``n_merges``, then <|endoftext|>. Every merge makes a new token."""
+    from collections import Counter
+
+    from ofasys_torch.preprocessor.tokenizer.gpt2_bpe import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = [b2u[b] for b in range(256)]
+    known = set(vocab)
+    merges = []
+    words = Counter(tuple(b2u[b] for b in (lead + w).encode())
+                    for w in sorted(set(_WORDS) | set(SERVE_WORDS)) for lead in ("", " "))
+    while len(merges) < n_merges:
+        pairs = Counter()
+        for w, c in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += c
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        if a + b not in known:
+            merges.append((a, b))
+            vocab.append(a + b)
+            known.add(a + b)
+        nw = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            nw[tuple(out)] += c
+        words = nw
+    learned = len(merges)
+    rng = np.random.default_rng(seed)
+    while len(merges) < n_merges:
+        a, b = (vocab[int(i)] for i in rng.integers(0, len(vocab), 2))
+        if a + b in known or a.startswith("#"):
+            continue
+        merges.append((a, b))
+        vocab.append(a + b)
+        known.add(a + b)
+    vocab.append("<|endoftext|>")
+    enc, bpe = os.path.join(root, "encoder.json"), os.path.join(root, "vocab.bpe")
+    with open(enc, "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f, ensure_ascii=False)
+    with open(bpe, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return enc, bpe, dict(entries=len(vocab), merges=len(merges), learned=learned)
+
+
+def fit_fixture(root, tasks=None, seed=SEED):
+    """The BPE table and one TSV per task in ``root``: FIT_BATCHES_PER_EPOCH
+    batches' worth of rows with the spec's byte lengths (TRAIN_TASKS's)."""
+    t0 = time.perf_counter()
+    enc, bpe, table = write_bpe_table(root, seed)
+    rng = np.random.default_rng(seed + 5)
+    specs = {}
+    for name, spec in (tasks or FIT_TASKS).items():
+        cols = [c.split(":")[1] for c in spec["cols"].split(",")]
+        path = os.path.join(root, f"{name}.tsv")
+        with open(path, "w", encoding="utf-8") as f:
+            for _ in range(FIT_BATCHES_PER_EPOCH * spec["batch"]):
+                f.write("\t".join(_text(rng, *spec[c]) for c in cols) + "\n")
+        specs[name] = dict(spec, path=path)
+    log(f"train_fit: BPE table {table} and {len(specs)} TSV files written in "
+        f"{time.perf_counter() - t0:.1f} s [host CPU]")
+    return dict(root=root, encoder_json=enc, vocab_bpe=bpe, table=table, tasks=specs)
+
+
+@contextlib.contextmanager
+def gpt2_text(fx):
+    """The ConfigStore's text preprocess set to bpe='gpt2' with the
+    fixture's table for the block (as a user sets it), restored after."""
+    from ofasys_torch.configure import ConfigStore
+
+    cfg = ConfigStore().get("ofasys.preprocess", "text").config
+    saved = cfg.bpe, cfg.encoder_json, cfg.vocab_bpe
+    store = ConfigStore()
+    store.override("ofasys.preprocess.text.bpe", "gpt2")
+    store.override("ofasys.preprocess.text.encoder_json", fx["encoder_json"])
+    store.override("ofasys.preprocess.text.vocab_bpe", fx["vocab_bpe"])
+    try:
+        yield
+    finally:
+        cfg.bpe, cfg.encoder_json, cfg.vocab_bpe = saved
+
+
+def fit_tasks(fx):
+    """One Task per spec, reading its TSV (load_dataset_from_path)."""
+    from ofasys_torch import Task
+
+    tasks = []
+    for name, spec in fx["tasks"].items():
+        t = Task(name=name, instruction=spec["template"])
+        t.cfg.dataset.batch_size = spec["batch"]
+        t.cfg.dataset.selected_cols = spec["cols"]
+        tasks.append(t.load_dataset_from_path(spec["path"]))
+    return tasks
+
+
+def fit_config(fx, run):
+    """The trainer's config: train's dropout (the model's), adamw at
+    TRAIN_LR with clipping, summed mode, a checkpoint every FIT_SAVE_EVERY
+    updates into ``<root>/<run>``, meters fetched at the same boundary."""
+    from ofasys_torch import TrainerConfig
+
+    cfg = TrainerConfig()
+    cfg.common.seed = SEED
+    cfg.common.log_interval = FIT_SAVE_EVERY
+    cfg.optimization.lr = (TRAIN_LR,)
+    cfg.optimization.multi_task_mode = "sum"
+    cfg.checkpoint.save_dir = os.path.join(fx["root"], run)
+    cfg.checkpoint.save_interval_updates = FIT_SAVE_EVERY
+    cfg.checkpoint.no_epoch_checkpoints = True
+    return cfg
+
+
+def fit_plan(fx):
+    """The dictionary and each update's batches (numpy) of train_fit, made
+    on the host as the trainer makes them (its peek, then its streams)."""
+    from ofasys_torch import Trainer
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+
+    tr = Trainer(fit_config(fx, "plan"), device="cpu")
+    tasks = fit_tasks(fx)
+    d = Dictionary()
+    for t in tasks:
+        t.initialize(d)
+    d.pad_to_multiple_(128)
+    for t in tasks:
+        tr._peek_batch(t)
+    streams = {t.name: tr._task_batches(t) for t in tasks}
+    try:
+        updates = [{n: next(s) for n, s in streams.items()} for _ in range(FIT_UPDATES)]
+    finally:
+        for s in streams.values():
+            s.close()
+    return d, updates
+
+
+def fit_train_shapes(updates):
+    """The distinct attention calls (label, (B, Tq, Tk), causal) of
+    train_fit's updates."""
+    seen, out = set(), []
+    for u, batches in enumerate(updates):
+        for label, shape, causal in train_shapes(batches):
+            if (shape, causal) not in seen:
+                seen.add((shape, causal))
+                out.append((f"fit_{label}_u{u + 1}", shape, causal))
+    return out
+
+
+def _timed_trainer(cfg, device, card, profile_update=None, count_syncs_update=None):
+    """A Trainer whose updates are timed by the host clock ending in a
+    synchronize (``update_ms``; ``wait_ms``: the time each update waited
+    for its batches), that keeps each update's batches and metrics, counts
+    the synchronizing ops of update ``count_syncs_update`` (sync debug mode)
+    and profiles update ``profile_update`` (both 1-based, within the run)."""
+    import warnings
+
+    from ofasys_torch import Trainer
+    from torch.profiler import ProfilerActivity, profile
+
+    class TimedTrainer(Trainer):
+        def __init__(self):
+            super().__init__(cfg, device=device)
+            self.update_ms, self.wait_ms, self.batches, self.metrics = [], [], [], []
+            self.syncs = None
+            self.profile = None
+
+        def setup(self, *a, **k):
+            start = super().setup(*a, **k)
+            self._iterators = {n: self._timed(n, it) for n, it in self._iterators.items()}
+            return start
+
+        def _timed(self, name, it):
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    b = next(it)
+                    self.wait_ms[-1] += (time.perf_counter() - t0) * 1e3
+                    self.batches[-1][name] = b
+                    yield b
+            finally:
+                it.close()
+
+        def _log_metrics(self, task_name, metrics, ntokens, nsentences=0):
+            self.metrics[-1].append((task_name, metrics))
+            super()._log_metrics(task_name, metrics, ntokens, nsentences)
+
+        def train_one_update(self):
+            self.wait_ms.append(0.0)
+            self.batches.append({})
+            self.metrics.append([])
+            n = len(self.update_ms) + 1
+            if n == count_syncs_update and device.type == "cuda":
+                where = []
+
+                def record(message, category, filename, lineno, file=None, line=None):
+                    if "synchronizing" in str(message):
+                        where.append(_caller())
+
+                saved = warnings.showwarning
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.showwarning = record
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        t0 = time.perf_counter()
+                        super().train_one_update()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                        warnings.showwarning = saved
+                self.syncs = where
+            elif n == profile_update and device.type == "cuda":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    super().train_one_update()
+                    _sync(device)
+                self.profile = _report_profile(prof, (time.perf_counter() - t0) * 1e3,
+                                               "one train_fit update through Trainer.train_one_update",
+                                               card)
+            else:
+                t0 = time.perf_counter()
+                super().train_one_update()
+            _sync(device)
+            self.update_ms.append((time.perf_counter() - t0) * 1e3)
+
+    return TimedTrainer()
+
+
+def _caller():
+    """file:line of the innermost frame of ofasys_torch on the stack."""
+    import traceback
+
+    for f in reversed(traceback.extract_stack()):
+        if f"{os.sep}ofasys_torch{os.sep}" in f.filename:
+            return f"{f.filename.split(os.sep + 'ofasys_torch' + os.sep)[-1]}:{f.lineno}"
+    return "outside ofasys_torch"
+
+
+def _fit_losses(trainer):
+    """Loss per target token of each update, over the tasks."""
+    out = []
+    for ms in trainer.metrics:
+        tasks = [m for name, m in ms if name is not None]
+        out.append(sum(float(m["loss"]) for m in tasks) / sum(float(m["sample_size"]) for m in tasks))
+    return out
+
+
+def _ckpt_trees_equal(a, b, path=""):
+    """[paths where two checkpoint trees differ]."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b))}"]
+        return [d for k in a for d in _ckpt_trees_equal(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [f"{path}: max |diff| {(a - b).abs().max().item():.3e}"]
+    return [] if a == b else [f"{path}: {a} vs {b}"]
+
+
+def preprocess_ms(fx, n=3):
+    """Host ms to read, preprocess and collate one batch of each task (no
+    prefetch thread), on fresh tasks."""
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+
+    tasks = fit_tasks(fx)
+    d = Dictionary()
+    for t in tasks:
+        t.initialize(d)
+    out = {}
+    for t in tasks:
+        it = t.get_batch_iterator("train", seed=SEED)
+        it.prefetch = 0
+        epochs = it.next_epoch_itr()
+        times = []
+        for _ in range(min(n, FIT_BATCHES_PER_EPOCH)):
+            t0 = time.perf_counter()
+            next(epochs)
+            times.append((time.perf_counter() - t0) * 1e3)
+        epochs.close()
+        out[t.name] = statistics.median(times)
+    return out
+
+
+def train_fit_and_check(fx, card, device="cuda", arch="base", train_res=None):
+    """Phase train_fit (see the module docstring). Returns the launch
+    counts of the first run's fit, the results, and what serve_pretrained
+    needs (the first trainer, its tasks, the checkpoint paths)."""
+    from ofasys_torch import GeneralistModel
+    from ofasys_torch.preprocessor.tokenizer.gpt2_bpe import REGEX_BACKEND
+    from ofasys_torch.utils import checkpoint_utils as cu
+
+    device = torch.device(device)
+    times = {"save_ms": [], "join_ms": [], "load_ms": []}
+    orig_save, orig_wait, orig_load = cu.save_checkpoint, cu.wait_for_async_saves, cu.load_checkpoint
+    nested = [0]
+
+    def timed_wait():
+        t0 = time.perf_counter()
+        orig_wait()
+        times["join_ms"].append((time.perf_counter() - t0) * 1e3)
+        nested[0] += times["join_ms"][-1]
+
+    def timed_save(*a, **k):
+        nested[0] = 0.0
+        t0 = time.perf_counter()
+        orig_save(*a, **k)
+        times["save_ms"].append((time.perf_counter() - t0) * 1e3 - nested[0])
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_load(*a, **k)
+        times["load_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def model():
+        m = GeneralistModel(arch=arch)
+        if device.type == "cpu":
+            m.cfg.attn_kernel = "pallas"
+        return m
+
+    cu.save_checkpoint, cu.wait_for_async_saves, cu.load_checkpoint = timed_save, timed_wait, timed_load
+    try:
+        tasks = fit_tasks(fx)
+        first = _timed_trainer(fit_config(fx, "run1"), device, card)
+        reset_counts()
+        t0 = time.perf_counter()
+        first.fit(model(), tasks, max_update=FIT_UPDATES)
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        first_saves = list(times["save_ms"]), list(times["join_ms"])
+
+        cfg2 = fit_config(fx, "run2")
+        cfg2.checkpoint.restore_file = os.path.join(fx["root"], "run1", f"checkpoint_1_{FIT_SAVE_EVERY}")
+        second = _timed_trainer(cfg2, device, card, count_syncs_update=1, profile_update=2)
+        second.fit(model(), fit_tasks(fx), max_update=FIT_UPDATES)
+    finally:
+        cu.save_checkpoint, cu.wait_for_async_saves, cu.load_checkpoint = orig_save, orig_wait, orig_load
+
+    net = first.model.net
+    V = len(first.global_dict)
+    log(f"train_fit: {arch} arch, vocabulary {V} ({fx['table']['entries']} BPE symbols, padded to a "
+        f"multiple of 128), tokenizer {type(tasks[0].general_preprocess.bpe).__name__} with the "
+        f"{REGEX_BACKEND!r} word split, adaptors {net.active_adaptors}, dropout {net.cfg.dropout}")
+    if not 50_200 <= V <= 50_400 and arch == "base":
+        raise SystemExit(f"train_fit: vocabulary {V}, expected about 50.3k")
+    for u, batches in enumerate(first.batches):
+        shapes = {n: _task_shapes(b) for n, b in batches.items()}
+        log(f"  update {u + 1}: (B, encoder T, decoder T) {shapes}")
+    per_update = [_expected_train_launches(b, net.cfg, net) for b in first.batches]
+    expected = {k: sum(p[k] for p in per_update) for k in KERNELS}
+    log(f"train_fit: launches {launches} in {FIT_UPDATES} updates (expected {expected}; per update "
+        f"{[{k: v for k, v in p.items() if v} for p in per_update]})")
+    if device.type == "cuda":
+        dense = [p["dense_attention_fwd"] for p in per_update] + [p["dense_attention_bwd"] for p in per_update]
+        if launches != expected or set(dense) != {36}:
+            raise SystemExit("train_fit: B1/B2 did not run once per attention call (36 an update)")
+    losses = _fit_losses(first)
+    log(f"train_fit: loss per target token {[round(x, 5) for x in losses]}; gnorm "
+        f"{[round(float(next(m for n, m in ms if n is None)['gnorm']), 4) for ms in first.metrics]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("train_fit: the loss did not fall")
+    upd = statistics.median(first.update_ms[1:])
+    train_ms = (train_res or {}).get("step_ms")
+    log(f"train_fit: update ms {[round(x, 2) for x in first.update_ms]}, median of updates 2-"
+        f"{FIT_UPDATES} {upd:.2f} ms (host clock ending in a synchronize; train's step "
+        f"{train_ms if train_ms is None else round(train_ms, 2)} ms in this run, the same batch "
+        f"sizes at byte-token lengths) [{card}]; whole fit {fit_s:.1f} s")
+    prep = preprocess_ms(fx)
+    # an epoch's first batch starts its epoch's prefetch thread: the updates
+    # that open an epoch wait for it; the others should not
+    opens = [u for u in range(FIT_UPDATES) if u % FIT_BATCHES_PER_EPOCH == 0]
+    inside = [w for u, w in enumerate(first.wait_ms) if u not in opens]
+    log(f"train_fit: host ms to read, preprocess and collate one batch (no prefetch): "
+        f"{ {k: round(v, 2) for k, v in prep.items()} }; the updates waited "
+        f"{[round(x, 2) for x in first.wait_ms]} ms for their batches (prefetch thread, depth "
+        f"{first.cfg.dataset.num_workers}): hidden inside an epoch: "
+        f"{max(inside) < 0.1 * sum(prep.values())}; the updates that open an epoch "
+        f"{[u + 1 for u in opens]} wait for its first batches [host CPU]")
+
+    run1, run2 = (os.path.join(fx["root"], r) for r in ("run1", "run2"))
+    ck13 = os.path.join(run1, f"checkpoint_1_{FIT_SAVE_EVERY}")
+    nbytes = os.path.getsize(ck13)
+    log(f"train_fit: checkpoint {nbytes} bytes ({nbytes / 2 ** 30:.3f} GiB: params, adamw moments, "
+        f"step); first run's saves {[round(x, 1) for x in first_saves[0]]} ms to return (host copy, "
+        f"background write started), joins {[round(x, 1) for x in first_saves[1]]} ms; loads "
+        f"{[round(x, 1) for x in times['load_ms']]} ms [{card}]")
+    a, meta_a = orig_load(os.path.join(run1, "checkpoint_last"))
+    b, meta_b = orig_load(os.path.join(run2, "checkpoint_last"))
+    diffs = _ckpt_trees_equal(a, b)
+    log(f"train_fit: resumed from checkpoint_1_{FIT_SAVE_EVERY} (second save_dir) to {FIT_UPDATES}: "
+        f"params, adamw moments and step against the straight run's checkpoint_last: "
+        f"{'bit for bit' if not diffs else diffs[:8]}; resumed losses "
+        f"{[round(x, 5) for x in _fit_losses(second)]}")
+    if diffs:
+        raise SystemExit("train_fit: the resumed run differs from the straight run")
+    meters_a, meters_b = ({k: v for k, (cls, v) in m["meters"].items()
+                           if cls != "TimeMeter" and k not in ("train_wall", "gb_free")}
+                          for m in (meta_a, meta_b))
+    restored = meta_a["iterator_states"] == meta_b["iterator_states"] and meters_a == meters_b \
+        and meta_a["meters"]["ups"][1]["n"] == meta_b["meters"]["ups"][1]["n"]
+    log(f"train_fit: iterator states {meta_b['iterator_states'] and {n: {k: v for k, v in s.items() if k != 'rng'} for n, s in meta_b['iterator_states'].items()}} "
+        f"and meters {sorted(meters_b)} equal the straight run's: {restored}")
+    if not restored:
+        raise SystemExit("train_fit: the meters or the iterator states were not restored")
+    syncs = second.syncs
+    per = first.host_syncs / FIT_UPDATES
+    sites = None if syncs is None else {k: syncs.count(k) for k in sorted(set(syncs))}
+    log(f"train_fit: host syncs: {len(syncs) if syncs is not None else 'not counted'} synchronizing "
+        f"ops inside one update (sync debug mode, by site: {sites}), plus {first.host_syncs} metric "
+        f"fetches in {FIT_UPDATES} updates ({per:.2f} an update)")
+    res = dict(update_ms=upd, update_ms_all=first.update_ms, train_step_ms=train_ms, vocab=V,
+               losses=losses, checkpoint_bytes=nbytes, save_ms=first_saves[0], join_ms=first_saves[1],
+               load_ms=times["load_ms"], preprocess_ms=prep, wait_ms=first.wait_ms,
+               syncs_in_update=None if syncs is None else len(syncs), sync_sites=sites,
+               metric_fetches=first.host_syncs,
+               profile=second.profile, bpe_table=fx["table"], regex=REGEX_BACKEND)
+    return launches, res, dict(trainer=first, tasks=tasks, last=os.path.join(run1, "checkpoint_last"),
+                               ck13=ck13)
+
+
+def _bpe_requests(gp):
+    """serve's 16 requests (12 beam 5, 4 greedy) with sources of serve's
+    token counts under ``gp``'s tokenizer: words drawn like serve's until
+    the source has as many tokens as a serve source has bytes."""
+    rng = np.random.default_rng(SEED)
+    sizes = rng.integers(SERVE_SRC[0], SERVE_SRC[1] + 1, size=N_BEAM_REQUESTS + N_GREEDY_REQUESTS)
+    sizes[N_BEAM_REQUESTS - 4] = sizes[N_BEAM_REQUESTS] = 160
+    text = gp.name2pre["text"]
+    srcs = []
+    for n in sizes:
+        s = ""
+        while len(text.encode(s)) < n:
+            s += rng.choice(SERVE_WORDS) + " "
+        srcs.append(s.strip())
+    reqs = [({"src": s}, {"max_len_b": MAX_LEN_B}) for s in srcs[:N_BEAM_REQUESTS]]
+    return reqs + [({"src": s}, {"max_len_b": MAX_LEN_B, "beam_size": 1}) for s in srcs[N_BEAM_REQUESTS:]]
+
+
+def serve_pretrained_and_check(fit, card, device="cuda", serve_res=None):
+    """Phase serve_pretrained (see the module docstring). Returns the
+    launch counts of the single hub's and the ensemble's runs and the results."""
+    from ofasys_torch import OFASys
+
+    t0 = time.perf_counter()
+    hub = OFASys.from_pretrained(fit["last"], device=device)
+    load_s = time.perf_counter() - t0
+    if device != "cuda":
+        hub.model.cfg.attn_kernel = "pallas"
+    reqs = _bpe_requests(hub.general_preprocess)
+    log(f"serve_pretrained: OFASys.from_pretrained(checkpoint_last) in {load_s:.2f} s; requests' source "
+        f"tokens {[len(hub.general_preprocess.name2pre['text'].encode(r['src'])) for r, _ in reqs]}")
+    res = serve_and_check(hub, card, reqs=reqs, label="serve_pretrained")
+    ref = OFASys.from_trainer(fit["trainer"], fit["tasks"])
+    mismatches = 0
+    for instruction, data, kw, out in res["calls"]:
+        direct = ref.inference(instruction, data, **kw)
+        for o, r in zip(out if isinstance(data, list) else [out],
+                        direct if isinstance(data, list) else [direct], strict=True):
+            mismatches += not np.array_equal(_best(o).tokens, _best(r).tokens)
+    log(f"serve_pretrained: tokens against OFASys.from_trainer(trainer, tasks) on the same batches: "
+        f"{mismatches} of {len(reqs)} requests differ")
+    if mismatches:
+        raise SystemExit("serve_pretrained: from_pretrained's tokens differ from from_trainer's")
+    ens = OFASys.from_pretrained([fit["last"], fit["ck13"]], device=device)
+    if device != "cuda":
+        for m in ens._ensemble:
+            m.cfg.attn_kernel = "pallas"
+    ens_reqs = reqs[8:N_BEAM_REQUESTS]
+    ens_res = serve_and_check(ens, card, reqs=ens_reqs, label="serve_pretrained_ensemble", members=2)
+    serve_p50 = (serve_res or {}).get("p50_ms")
+    log(f"serve_pretrained: p50 {res['p50_ms']} ms, ensemble of 2 on {len(ens_reqs)} requests "
+        f"{ens_res['p50_ms']} ms, serve's {serve_p50} ms in this run [{card}]")
+    del hub, ens, ref
+    return res["launches"], ens_res["launches"], dict(
+        p50_ms=res["p50_ms"], tokens_per_s=res["tokens_per_s"], ensemble_p50_ms=ens_res["p50_ms"],
+        serve_p50_ms=serve_p50, load_s=load_s, shapes=res["shapes"], ensemble_shapes=ens_res["shapes"])
+
+
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
     """One kernel's entry of the ``{"kernels": [...]}`` line: ``launches`` by
     path (the counts of each path's run), the error over every checked
@@ -3684,6 +4218,21 @@ def main() -> int:
         f"routes: {[(lb, sh) for lb, sh, _ in full_calls] + motion_calls} "
         f"{[(f'serve_asr_dispatch{i}', s) for i, s in enumerate(asr_serve)]} "
         f"serve_motion_encoder {(mB, mTs)}: {new_routes}")
+    fit_root = tempfile.mkdtemp(prefix="ofasys_torch_fit_")
+    atexit.register(shutil.rmtree, fit_root, True)
+    saved_cache = os.environ.get("OFA_CACHE_HOME")
+    os.environ["OFA_CACHE_HOME"] = fit_root          # the TSV line indexes
+    fx = fit_fixture(fit_root)
+    with gpt2_text(fx):
+        fit_d, fit_updates = fit_plan(fx)
+        from ofasys_torch.preprocessor.general import GeneralPreprocess
+
+        fit_gp = GeneralPreprocess(fit_d, active=["text"])
+        pretrained_serve = planned_dispatch_shapes(fit_gp, _bpe_requests(fit_gp), TPL)
+    fit_calls = fit_train_shapes(fit_updates)
+    log(f"train_fit attention shapes (B, Tq, Tk) and routes: "
+        f"{[(lb, sh, _route(cfg, *sh)) for lb, sh, _ in fit_calls]}; serve_pretrained dispatches "
+        f"{pretrained_serve}: {[_route(cfg, B, T, T) for B, T in pretrained_serve]}")
     ground_d, ground_gp = ground_preprocess()
     t0 = time.perf_counter()
     ground_batches = make_train_batches(ground_gp, GROUND_TRAIN_TASKS)
@@ -3709,12 +4258,14 @@ def main() -> int:
         + [("serve_motion_encoder", (mB, mTs))] \
         + [(f"serve_ground_dispatch{i}", s) for i, s in enumerate(ground_serve)] \
         + [(f"serve_closed_dispatch{i}", s) for i, s in enumerate(closed_serve)] \
-        + [(f"serve_lexical_dispatch{i}", s) for i, s in enumerate(lexical_serve)]
+        + [(f"serve_lexical_dispatch{i}", s) for i, s in enumerate(lexical_serve)] \
+        + [(f"serve_pretrained_dispatch{i}", s) for i, s in enumerate(pretrained_serve)]
     fres, bres, rres = phase_kernels(
         dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
         + [c for c in mm_calls if mm_routes[c[0]] == "dense"]
         + [c for c in full_calls if new_routes[c[0]] == "dense"]
-        + [c for c in ground_calls if ground_routes[c[0]] == "dense" and c[0] not in same_as_mm],
+        + [c for c in ground_calls if ground_routes[c[0]] == "dense" and c[0] not in same_as_mm]
+        + fit_calls,
         motion_calls)
     mark("dense kernels")
     long_serve = planned_dispatch_shapes(long_gp, _long_requests(), SUMMARY_TPL)
@@ -3839,6 +4390,19 @@ def main() -> int:
     del hub
     torch.cuda.empty_cache()
     mark("train_full")
+    with gpt2_text(fx):
+        counts["train_fit"], fit_res, fit = train_fit_and_check(fx, card, train_res=train_res)
+        mark("train_fit")
+        counts["serve_pretrained"], counts["serve_pretrained_ensemble"], pre_res = \
+            serve_pretrained_and_check(fit, card, serve_res=serve_res)
+        del fit
+    torch.cuda.empty_cache()
+    shutil.rmtree(fit_root, ignore_errors=True)
+    if saved_cache is None:
+        os.environ.pop("OFA_CACHE_HOME", None)
+    else:
+        os.environ["OFA_CACHE_HOME"] = saved_cache
+    mark("serve_pretrained")
     ground_hub = build_ground_hub(ground_d, ground_gp)
     ground_res = serve_ground_and_check(ground_hub, card, caption_res)
     counts["serve_ground"] = ground_res["launches"]
@@ -3903,6 +4467,8 @@ def main() -> int:
     log(f"train_qat: {json.dumps(qat_res)}")
     log(f"train_chunked: {json.dumps(chunked_res)}")
     log(f"train_optimizers: {json.dumps(optim_res)}")
+    log(f"train_fit: {json.dumps(fit_res)}")
+    log(f"serve_pretrained: {json.dumps(pre_res)}")
     log(f"serve_lexical: {json.dumps(lexical_res)}")
     log("serve p50 ms: " + json.dumps({k: r["p50_ms"] for k, r in (
         ("serve", serve_res), ("serve_closed", closed_res), ("serve_sample", sample_res),

@@ -7,11 +7,16 @@ Mirrors ``ofasys_tpu``'s module paths: the counterpart of
 hand here (``ofasys_torch/csrc``), each beside a plain PyTorch version that
 the CPU tests run.
 
-It serves text→text and image→text (``OFASys.inference`` and
-``InferenceServer`` over a ``GeneralistModel``) and trains them
-(``engine/train_step.py``: the summed multi-task step). Attention that
-meets the dense gate runs the hand-written dense-attention forward and
-backward kernels on the card.
+The front door is ofasys_tpu's:
+
+    task = Task(name="caption", instruction="[TEXT:src] -> [TEXT:tgt]")
+    task.load_dataset_from_path("train.tsv")
+    Trainer(cfg, device="cuda").fit(GeneralistModel(arch="base"), [task])
+    hub = OFASys.from_pretrained("checkpoints/checkpoint_last", device="cuda")
+    hub.inference("[TEXT:src] -> [TEXT:tgt]", data={"src": "..."})
+
+Attention that meets the dense gate runs the hand-written dense-attention
+forward and backward kernels on the card.
 """
 
 import logging
@@ -63,6 +68,18 @@ def __getattr__(name):
         from ofasys_torch.hub_interface import OFASys
 
         return OFASys
+    if name in ("Task", "TaskConfig"):
+        from ofasys_torch.task import base as _m
+
+        return getattr(_m, name)
+    if name == "Trainer":
+        from ofasys_torch.engine.trainer import Trainer
+
+        return Trainer
+    if name == "TrainerConfig":
+        from ofasys_torch.configure.configs import TrainerConfig
+
+        return TrainerConfig
     if name == "InferenceServer":
         from ofasys_torch.serve import InferenceServer
 
@@ -78,5 +95,9 @@ __all__ = [
     "GeneralistModel",
     "OFASys",
     "InferenceServer",
+    "Task",
+    "TaskConfig",
+    "Trainer",
+    "TrainerConfig",
     "logger",
 ]

@@ -24,6 +24,11 @@ from ofasys_torch.utils.pytree import SlotBatch
 
 
 @dataclasses.dataclass
+class BaseAdaptorConfig:
+    """The config of an adaptor that takes none of its own."""
+
+
+@dataclasses.dataclass
 class AdaptorOutput:
     """One slot's adapted sequence.
 

@@ -26,11 +26,13 @@ import torch
 from torch import nn
 
 from ofasys_torch import ModalityType
-from ofasys_torch.adaptor.audio import AudioFbankAdaptor
-from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor
-from ofasys_torch.adaptor.image import ImagePatchEmbedAdaptor, ImageResnetAdaptor, ImageVitAdaptor
-from ofasys_torch.adaptor.motion import Motion6dAdaptor
+from ofasys_torch.adaptor.audio import AudioFbankAdaptor, AudioFbankAdaptorConfig
+from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor, BaseAdaptorConfig
+from ofasys_torch.adaptor.image import (ImagePatchEmbedAdaptor, ImageResnetAdaptor,
+                                        ImageResnetAdaptorConfig, ImageVitAdaptor)
+from ofasys_torch.adaptor.motion import Motion6dAdaptor, Motion6dAdaptorConfig
 from ofasys_torch.adaptor.text import TextAdaptor
+from ofasys_torch.configure.config_store import ConfigStore
 from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.model.positional import block_diag_buckets
 from ofasys_torch.model.transformer import BiasSpec, Dense
@@ -75,9 +77,20 @@ TARGET_ONLY = ("motion_6d",)
 _PENDING = {"audio_tgt_fbank": 10, "image_vqgan": 11, "video_image_sequence": 11}
 
 
+# adaptors that take a config of their own; the store holds it under
+# ofasys.adaptor/<name> (the others register the empty BaseAdaptorConfig)
+CONFIGURED = {"image_resnet": ImageResnetAdaptorConfig, "audio_fbank": AudioFbankAdaptorConfig,
+              "motion_6d": Motion6dAdaptorConfig}
+for _name, _cls in ADAPTORS.items():
+    ConfigStore().store("ofasys.adaptor", _name, CONFIGURED.get(_name, BaseAdaptorConfig), _cls)
+
+
 def build_adaptor(name: str, cfg, is_src, embed_tokens, pad_id, dtype, acfg=None) -> BaseAdaptor:
-    """``acfg``: the adaptor's own config (image_resnet's, audio_fbank's), else its defaults."""
+    """``acfg``: the adaptor's own config (image_resnet's, audio_fbank's,
+    motion_6d's), else the one the ConfigStore holds for it."""
     if name in ADAPTORS:
+        if acfg is None and name in CONFIGURED:
+            acfg = ConfigStore().get("ofasys.adaptor", name).config
         own = () if acfg is None else (acfg,)
         return ADAPTORS[name](cfg, is_src, embed_tokens, pad_id, dtype, *own)
     where = f"ROADMAP Queue A item {_PENDING[name]}" if name in _PENDING else "a later slice"

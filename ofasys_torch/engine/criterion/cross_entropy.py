@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.engine.criterion.label_smoothed_cross_entropy import (
     LabelSmoothedCrossEntropyCriterion,
     LabelSmoothedCrossEntropyCriterionConfig,
@@ -26,6 +27,7 @@ class CrossEntropyCriterionConfig(LabelSmoothedCrossEntropyCriterionConfig):
     label_smoothing: float = 0.0
 
 
+@register_config("ofasys.criterion", "cross_entropy", CrossEntropyCriterionConfig)
 class CrossEntropyCriterion(LabelSmoothedCrossEntropyCriterion):
     """label_smoothing = 0 specialization."""
 
@@ -37,6 +39,7 @@ class SpeechToTextCriterionConfig(LabelSmoothedCrossEntropyCriterionConfig):
     ctc_weight: float = 0.0
 
 
+@register_config("ofasys.criterion", "speech_to_text_loss", SpeechToTextCriterionConfig)
 class SpeechToTextCriterion(LabelSmoothedCrossEntropyCriterion):
     """ASR: token CE over transcripts (``ce_weight * CE + ctc_weight * CTC``
     in ofasys_tpu, the CTC term only where the sample has phone targets)."""

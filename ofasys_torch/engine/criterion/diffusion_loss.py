@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.engine.criterion.base import BaseCriterion, CriterionConfig
 from ofasys_torch.model.diffusion import GaussianDiffusion
 
@@ -30,6 +31,7 @@ class DiffusionCriterionConfig(CriterionConfig):
     snr_gamma: Optional[float] = None
 
 
+@register_config("ofasys.criterion", "diffusion_criterion", DiffusionCriterionConfig)
 class DiffusionCriterion(BaseCriterion):
     def __init__(self, cfg: DiffusionCriterionConfig, pad_id: int = 1):
         super().__init__(cfg, pad_id)

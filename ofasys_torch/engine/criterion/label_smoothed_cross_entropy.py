@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from ofasys_torch import ModalityType
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.engine.criterion.base import BaseCriterion, CriterionConfig
 from ofasys_torch.ops.fused_ce import chunked_ce_stats, pick_chunks
 
@@ -31,6 +32,7 @@ class LabelSmoothedCrossEntropyCriterionConfig(CriterionConfig):
     chunked_vocab: bool = False
 
 
+@register_config("ofasys.criterion", "label_smoothed_cross_entropy", LabelSmoothedCrossEntropyCriterionConfig)
 class LabelSmoothedCrossEntropyCriterion(BaseCriterion):
     def __call__(self, model, sample, generator=None, train: bool = True):
         slots = sample["net_input"]["slots"]

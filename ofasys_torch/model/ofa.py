@@ -25,6 +25,7 @@ from torch import nn
 from ofasys_torch.adaptor.audio import Conv1d
 from ofasys_torch.adaptor.general import GeneralAdaptor
 from ofasys_torch.adaptor.image import PatchEmbed
+from ofasys_torch.configure.config_store import ConfigStore, register_config
 from ofasys_torch.model.config import (QUANT_TRAINING, UNPORTED_DEFAULTS, GeneralistModelConfig,
                                       apply_arch)
 from ofasys_torch.model.resnet import init_resnet_
@@ -63,6 +64,7 @@ class GeneralistNet(nn.Module):
         self.vocab_size = vocab_size
         self.pad_id = pad_id
         self.dtype = dtype
+        self.active_adaptors = tuple(active_adaptors)
         E = cfg.encoder.embed_dim
         self.embed_tokens = Embed(vocab_size, E)
         self.encoder_adaptor = GeneralAdaptor(cfg, True, self.embed_tokens, active_adaptors,
@@ -240,6 +242,7 @@ def modal_ids_of(sample_slots: Sequence) -> Dict[str, Tuple[int, ...]]:
     return {k: tuple(v) for k, v in ids.items()}
 
 
+@register_config("ofasys.model", "unify", GeneralistModelConfig)
 class GeneralistModel:
     """User-facing model object.
 
@@ -251,7 +254,10 @@ class GeneralistModel:
 
     def __init__(self, cfg: Optional[GeneralistModelConfig] = None, arch: Optional[str] = None,
                  **kwargs):
-        self.cfg = copy.deepcopy(cfg) if cfg is not None else GeneralistModelConfig()
+        # deep copy: apply_arch/update mutate the config in place; the store's
+        # node must survive one model's customization
+        self.cfg = copy.deepcopy(cfg if cfg is not None
+                                 else ConfigStore().get("ofasys.model", "unify").config)
         if arch:
             apply_arch(self.cfg, arch)
         if kwargs:
@@ -263,7 +269,8 @@ class GeneralistModel:
                    dtype: torch.dtype = torch.bfloat16,
                    device: Union[str, torch.device] = "cuda", seed: int = 0,
                    adaptor_cfgs: Optional[Dict[str, Any]] = None,
-                   sample_slots: Optional[Sequence] = None):
+                   sample_slots: Optional[Sequence] = None,
+                   modal_ids: Optional[Dict[str, Tuple[int, ...]]] = None):
         """Build the net once the vocab is final, with random parameters
         drawn from ``seed``, on ``device`` (raises when CUDA is requested
         and absent). ``adaptor_cfgs`` configures adaptors by name (e.g.
@@ -283,8 +290,7 @@ class GeneralistModel:
         if self.cfg.quant_training not in QUANT_TRAINING:
             raise ValueError(f"unknown quant_training {self.cfg.quant_training!r}; expected one of "
                              f"{QUANT_TRAINING}")
-        modal_ids = None
-        if self.cfg.modal_ffn:
+        if self.cfg.modal_ffn and modal_ids is None:
             if not sample_slots:
                 raise ValueError("modal_ffn needs the sample slot lists that decide its experts")
             modal_ids = modal_ids_of(sample_slots)

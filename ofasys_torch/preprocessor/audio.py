@@ -21,6 +21,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.preprocessor.base import (
     BasePreprocess,
     CollateOutput,
@@ -54,6 +55,7 @@ class AudioPreprocessConfig(PreprocessConfig):
     pad_to_fixed: bool = False    # pad every batch to max_frames
 
 
+@register_config("ofasys.preprocess", "audio", AudioPreprocessConfig)
 class AudioPreprocess(BasePreprocess):
     def __init__(self, global_dict, cfg: AudioPreprocessConfig):
         super().__init__(global_dict, cfg)
@@ -152,6 +154,7 @@ class AudioEmbedPreprocessConfig(PreprocessConfig):
     audio_feature_length: int = 384
 
 
+@register_config("ofasys.preprocess", "audio_embed", AudioEmbedPreprocessConfig)
 class AudioEmbedPreprocess(BasePreprocess):
     """Precomputed dense audio feature embeddings: the slot carries either
     a (T, dim) float array or {'data': base64 of big-endian float32,

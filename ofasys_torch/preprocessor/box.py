@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 
 from ofasys_torch import ModalityType
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.preprocessor.base import PreprocessSkipException
 from ofasys_torch.preprocessor.instruction import Instruction, Slot
 from ofasys_torch.preprocessor.text import TextPreprocess, TextPreprocessConfig
@@ -39,6 +40,7 @@ class BoxPreprocessConfig(TextPreprocessConfig):
     resize_scales: tuple = (0.8, 0.9, 1.0, 1.1, 1.2)
 
 
+@register_config("ofasys.preprocess", "box", BoxPreprocessConfig)
 class BoxPreprocess(TextPreprocess):
     def __init__(self, global_dict, cfg: BoxPreprocessConfig):
         super().__init__(global_dict, cfg)
@@ -134,17 +136,16 @@ class BoxPreprocess(TextPreprocess):
 
     @staticmethod
     def _patch_image_size(img_slot: Slot) -> int:
-        """The crop size: the DEFAULT ``patch_image_size`` of the image slot's
-        preprocess config class, not the live preprocessor's value.
-        ofasys_tpu reads the config registered in its ConfigStore, which a
-        preprocessor's tuned (deep-copied) config does not change; the port
-        has no ConfigStore, so it takes the class default, and
-        FALLBACK_IMAGE_SIZE where the name is not a ported preprocess."""
-        from ofasys_torch.preprocessor.general import DEFAULT_PREPROCESS, PREPROCESSORS
+        """The crop size: the ``patch_image_size`` of the config the
+        ConfigStore holds for the image slot's preprocess (a preprocessor's
+        tuned, deep-copied config does not change it), FALLBACK_IMAGE_SIZE
+        where the store has no such node."""
+        from ofasys_torch.configure.config_store import ConfigStore
+        from ofasys_torch.preprocessor.general import DEFAULT_PREPROCESS
 
         name = img_slot.get_attr("preprocess") or DEFAULT_PREPROCESS[ModalityType.IMAGE]
         try:
-            return int(PREPROCESSORS[name][1]().patch_image_size)
+            return int(ConfigStore().get("ofasys.preprocess", name).config.patch_image_size)
         except Exception:
             return FALLBACK_IMAGE_SIZE
 

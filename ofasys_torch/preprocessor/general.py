@@ -14,41 +14,18 @@ that ports it.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional
 
 from ofasys_torch import ModalityType
-from ofasys_torch.preprocessor.audio import (
-    AudioEmbedPreprocess,
-    AudioEmbedPreprocessConfig,
-    AudioPreprocess,
-    AudioPreprocessConfig,
-)
+from ofasys_torch.configure.config_store import ConfigStore
+# the ported preprocessors register themselves in the ConfigStore
+# (ofasys.preprocess/<name>) when their modules are imported
+from ofasys_torch.preprocessor import audio, box, image, motion  # noqa: F401
 from ofasys_torch.preprocessor.base import BasePreprocess, PreprocessSkipException
-from ofasys_torch.preprocessor.box import BoxPreprocess, BoxPreprocessConfig
 from ofasys_torch.preprocessor.dictionary import Dictionary
-from ofasys_torch.preprocessor.image import (
-    ImagenetPreprocess,
-    ImagenetPreprocessConfig,
-    ImagePreprocess,
-    ImagePreprocessConfig,
-    ImagepretrainPreprocess,
-    ImagepretrainPreprocessConfig,
-)
 from ofasys_torch.preprocessor.instruction import Instruction, Slot
-from ofasys_torch.preprocessor.motion import MotionPreprocess, MotionPreprocessConfig
-from ofasys_torch.preprocessor.text import TextPreprocess, TextPreprocessConfig
-
-# the ported preprocessors by registered name: (class, config class)
-PREPROCESSORS = {
-    "text": (TextPreprocess, TextPreprocessConfig),
-    "box": (BoxPreprocess, BoxPreprocessConfig),
-    "image": (ImagePreprocess, ImagePreprocessConfig),
-    "imagenet": (ImagenetPreprocess, ImagenetPreprocessConfig),
-    "imagepretrain": (ImagepretrainPreprocess, ImagepretrainPreprocessConfig),
-    "audio": (AudioPreprocess, AudioPreprocessConfig),
-    "audio_embed": (AudioEmbedPreprocess, AudioEmbedPreprocessConfig),
-    "motion_6d": (MotionPreprocess, MotionPreprocessConfig),
-}
+from ofasys_torch.preprocessor.text import TextPreprocessConfig
 
 # default preprocessor per modality
 DEFAULT_PREPROCESS = {
@@ -79,25 +56,33 @@ TEXT_GROUP = {
 
 
 class GeneralPreprocess:
-    """Each preprocessor starts from its config class's defaults (``text_cfg``
-    replaces the text preprocessor's); tune another through
-    ``name2pre[name].cfg``, as in ofasys_tpu. A ported preprocessor that a
-    slot names and ``active`` left out is built at first use."""
+    """Each preprocessor starts from a deep copy of the config the
+    ConfigStore holds for it (``ofasys.preprocess/<name>``, as in
+    ofasys_tpu; ``text_cfg`` replaces the text preprocessor's); tune one
+    through ``name2pre[name].cfg``. ``active`` defaults to the store's
+    active preprocess nodes, else text. A ported preprocessor that a slot
+    names and ``active`` left out is built at first use."""
 
     def __init__(self, global_dict: Dictionary, active: Optional[List[str]] = None,
                  text_cfg: Optional[TextPreprocessConfig] = None):
         self.global_dict = global_dict
         self.text_cfg = text_cfg
         self.name2pre: Dict[str, BasePreprocess] = {}
-        for name in active or ["text"]:
+        names = active
+        if names is None:
+            names = [n.name for n in ConfigStore().active_nodes("ofasys.preprocess")] or ["text"]
+        for name in names:
             self._build(name)
 
     def _build(self, name: str) -> BasePreprocess:
-        if name not in PREPROCESSORS:
+        if not ConfigStore().contains("ofasys.preprocess", name):
             self._raise_pending(name)
-        cls, cfg_cls = PREPROCESSORS[name]
-        cfg = self.text_cfg if name == "text" and self.text_cfg is not None else cfg_cls()
-        self.name2pre[name] = cls(self.global_dict, cfg)
+        # deep copy: each task owns its preprocessors and may tune their
+        # config; the store's config object would leak across tasks
+        node = ConfigStore().get("ofasys.preprocess", name)
+        cfg = self.text_cfg if name == "text" and self.text_cfg is not None \
+            else copy.deepcopy(node.config)
+        self.name2pre[name] = node.target_cls(self.global_dict, cfg)
         return self.name2pre[name]
 
     @staticmethod
@@ -106,7 +91,7 @@ class GeneralPreprocess:
         where = f"ROADMAP Queue A item {item}" if item else "a later slice"
         raise NotImplementedError(
             f"preprocessor {name!r} is not ported to ofasys_torch yet ({where}); "
-            f"ported: {sorted(PREPROCESSORS)}"
+            f"ported: {ConfigStore().names('ofasys.preprocess')}"
         )
 
     # ------------------------------------------------------------- helpers

@@ -23,6 +23,7 @@ from typing import Any, List, Tuple
 
 import numpy as np
 
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.preprocessor.base import (
     BasePreprocess,
     CollateOutput,
@@ -91,6 +92,7 @@ def resize_image(arr: np.ndarray, size: int, interpolation: str = "bicubic") -> 
     return np.asarray(img, dtype=np.float32)
 
 
+@register_config("ofasys.preprocess", "image", ImagePreprocessConfig)
 class ImagePreprocess(BasePreprocess):
     def __init__(self, global_dict, cfg: ImagePreprocessConfig):
         super().__init__(global_dict, cfg)
@@ -136,6 +138,7 @@ class ImagenetPreprocessConfig(ImagePreprocessConfig):
     random_flip: bool = True
 
 
+@register_config("ofasys.preprocess", "imagenet", ImagenetPreprocessConfig)
 class ImagenetPreprocess(ImagePreprocess):
     """ImageNet-normalized variant (registered as 'imagenet')."""
 
@@ -145,5 +148,6 @@ class ImagepretrainPreprocessConfig(ImagePreprocessConfig):
     pass
 
 
+@register_config("ofasys.preprocess", "imagepretrain", ImagepretrainPreprocessConfig)
 class ImagepretrainPreprocess(ImagePreprocess):
     """Third registration of the image preprocessor ('imagepretrain')."""

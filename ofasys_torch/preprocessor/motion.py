@@ -16,6 +16,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.preprocessor.base import BasePreprocess, CollateOutput, PreprocessConfig
 from ofasys_torch.preprocessor.instruction import Slot
 from ofasys_torch.utils.motion_utils import (
@@ -34,6 +35,7 @@ class MotionPreprocessConfig(PreprocessConfig):
     seed: int = 1
 
 
+@register_config("ofasys.preprocess", "motion_6d", MotionPreprocessConfig)
 class MotionPreprocess(BasePreprocess):
     def __init__(self, global_dict, cfg: MotionPreprocessConfig):
         super().__init__(global_dict, cfg)

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.preprocessor.base import BasePreprocess, CollateOutput, PreprocessConfig
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.instruction import Slot
@@ -39,7 +40,10 @@ _PUNCT_RE = re.compile(f"[{re.escape(string.punctuation)}]")
 
 @dataclass
 class TextPreprocessConfig(PreprocessConfig):
-    bpe: str = "bytes"
+    bpe: str = "bytes"                 # 'gpt2' | 'bytes' | 'characters' | 'wordpiece' | 'bert'
+    encoder_json: Optional[str] = None
+    vocab_bpe: Optional[str] = None
+    vocab_file: Optional[str] = None   # wordpiece/bert vocab.txt (local)
     max_src_length: int = 256
     max_tgt_length: int = 256
     # pad every batch to max_src/tgt_length instead of longest-in-batch
@@ -51,10 +55,16 @@ class TextPreprocessConfig(PreprocessConfig):
     seed: int = 1
 
 
+@register_config("ofasys.preprocess", "text", TextPreprocessConfig)
 class TextPreprocess(BasePreprocess):
     def __init__(self, global_dict: Dictionary, cfg: TextPreprocessConfig):
         super().__init__(global_dict, cfg)
-        self.bpe = build_tokenizer(cfg.bpe)
+        kwargs = {}
+        if cfg.encoder_json:
+            kwargs = {"encoder_json": cfg.encoder_json, "vocab_bpe": cfg.vocab_bpe}
+        if cfg.bpe in ("wordpiece", "bert_file", "bert", "bert_cn", "hf_bert"):
+            kwargs = {"vocab_file": cfg.vocab_file}
+        self.bpe = build_tokenizer(cfg.bpe, **kwargs)
         self.text_start, self.text_end = global_dict.add_namespace("<text>", self.bpe.vocab_size)
         self.mask_idx = global_dict.add_symbol("<mask>")
         self.rng = np.random.default_rng(cfg.seed)
