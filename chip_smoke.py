@@ -150,11 +150,51 @@ After train_full (phase 20), before the grounding model:
      OFASys.from_trainer(trainer, tasks)'s on the same batches; an ensemble
      from_pretrained([checkpoint_last, checkpoint_1_3]) serves 4 (B1 twice
      per encoder layer); p50 beside serve's
+After serve_pretrained, on train_fit's files and checkpoints:
+ 35. evaluate: `python -m ofasys_torch.cli.evaluate evaluate.json --ckpt
+     checkpoint_last --split valid` on a JSON config of two tasks at the
+     base arch (the shape of examples/text_infilling.yaml): gigaword (128
+     valid rows of train's byte lengths, B=64, beam 5, rouge) and glue sst2
+     (256 rows, B=64, the answers no/yes through ans2label, accuracy): the
+     printed metrics, gigaword's hypotheses equal to hub.inference on the
+     same records, sst2's picks equal to the argmax of the plain attention
+     path's scores but at ties (a plain margin of at most twice the row's
+     score difference), the largest score difference within
+     TRAVERSE_SCORE_ATOL, B1 once per dense encoder layer of each
+     generation batch and of each candidate pass, rows per second, one
+     traverse batch profiled
+ 37. traverse_kernels: one sst2 traverse batch's scores under B1 against
+     the same scores with B1's plain version in its place, on the card
+ 36. launch: `python -m ofasys_torch.launch launch.json`, train_fit's run
+     written as JSON (its tasks, TSV files, batch sizes, dropout, adamw,
+     seed, 6 updates: the polynomial schedule's length is max_update, so a
+     3-update run would step another learning rate), into its own
+     save_dir: checkpoint_1_3 and checkpoint_last equal train_fit's bit for
+     bit (params, moments, step) with equal meters, 36 B1 and 36 B2 an
+     update; the same config as YAML with an _include parent and
+     ${var} paths loads to the same dict; one
+     `python -m ofasys_torch.cli.train launch.json --set ...` run whose
+     overrides reach its TrainerConfig
+After serve_ground, on its hub:
+ 34. import_reference: the grounding model exported as a reference
+     state_dict (export_reference_state_dict, plus the decoder's
+     embed_tokens copy and every num_batches_tracked, as a fairseq
+     checkpoint holds them) saved as {"model": sd}, converted by
+     `python -m ofasys_torch.utils.torch_import --arch base --adaptors
+     text,image_resnet --dict <the saved dictionary>` and served by
+     OFASys.from_pretrained: missing empty, unused exactly those extras,
+     every leaf the source's bit for bit, serve_ground's 16 requests (6 B1
+     a dispatch) with the source hub's boxes on the same batches; bytes,
+     convert and load seconds, p50 beside serve_ground's; with
+     OFASYS_MULTITASK_CKPT naming a released checkpoint, it is converted
+     and one caption decoded greedily
 The kernel phase holds B1 and B2 at the shapes of the new paths too (the
 asr encoder, causal decoder and cross attention, the motion decoder in full
 context and its cross attention, serve_asr's dispatches and serve_motion's
 denoiser, serve_ground's dispatches and train_ground's refcoco calls; its
-vqa calls are train_mm's shapes) and prints each shape's route. It also holds kernel B3 and the
+vqa calls are train_mm's shapes; B1 also at evaluate's encoder shapes and
+at the decoder self and cross attentions of its sst2 candidate passes that
+reach the dense kernel) and prints each shape's route. It also holds kernel B3 and the
 one flash backward pass (for B4-dq, B4-dkv and B5) against their plain versions at every shape of the
 long paths, a per-(b, h) bias, a causal and a ragged shape and at
 FLASH_EDGE_SHAPES (head dims 88, 128 and 256, a batch of one, ragged Tq !=
@@ -173,7 +213,7 @@ every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1, head dims
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
 B2) with the scale and the causal mask inside the kernel at a decoder shape
 and at a shape with Tq < Tk (the causal offset), with two planted faults;
-B1 also at serve_closed's, serve_lexical's and serve_pretrained's dispatch shapes, B1 and
+B1 also at serve_closed's, serve_lexical's, serve_pretrained's and evaluate's dispatch shapes, B1 and
 B2 at every attention shape of train_fit's six updates, and B7 also
 at every shape of train_qat's projections.
 The build phase logs ptxas's registers and spills of every kernel and
@@ -210,7 +250,14 @@ label="train_ground")``; phases 24-28 on the tiny image hub with
 ``serve_ensemble_and_check``, phases 29-31 with ``build_train_model``
 patched to the tiny arch: ``train_qat_and_check(d, gp, "cpu", batches,
 train_res)``, ``train_chunked_and_check`` and
-``train_optimizers_and_check(d, gp, "cpu", batches)``.
+``train_optimizers_and_check(d, gp, "cpu", batches)``; phases 35-37 after
+train_fit's rehearsal (``fx = fit_fixture(root, tasks=TINY_FIT_TASKS)``,
+``efx = eval_fixture(fx, TINY_EVAL_TASKS, arch="tiny", device="cpu")``,
+under ``gpt2_text(fx)``): ``evaluate_and_check(fx, efx, "cpu",
+fit["last"], device="cpu")``, ``traverse_kernels_and_check(trav, "cpu")``
+and ``launch_and_check(fx, fit, "cpu", counts, device="cpu",
+arch="tiny")``; phase 34 on the tiny grounding hub with
+``import_reference_and_check(hub, "cpu", None, device="cpu", arch="tiny")``.
 """
 
 from __future__ import annotations
@@ -946,7 +993,8 @@ def check_inside(label, shape):
 def phase_kernels(dispatch_shapes, train_shapes, serve_calls=()):
     """Kernel B1 at the serving paths' encoder shapes (``dispatch_shapes``:
     [(label, (B, T))], one per planned dispatch), at ``serve_calls`` ([(label,
-    (B, Tq, Tk))]: serve_motion's denoiser attentions), the nominal serving
+    (B, Tq, Tk), causal)]: serve_motion's denoiser attentions, the decoder
+    attentions of evaluate's candidate passes), the nominal serving
     shape B=8 T=128 and every training shape; kernels B2 and B2r at every
     training shape (B2 also the same bits twice, and with a key tile left out, which
     the limits must catch); all three at EDGE_SHAPES; B1 and B2r with the
@@ -956,8 +1004,8 @@ def phase_kernels(dispatch_shapes, train_shapes, serve_calls=()):
     fwd, bwd, row = [], [], []
     for label, (B, T) in dispatch_shapes:
         fwd.append(check_fwd(label, (B, T, T, 12, 64)))
-    for label, (B, Tq, Tk) in serve_calls:
-        fwd.append(check_fwd(label, (B, Tq, Tk, 12, 64)))
+    for label, (B, Tq, Tk), causal in serve_calls:
+        fwd.append(check_fwd(label, (B, Tq, Tk, 12, 64), causal))
     fwd.append(check_fwd("serving", (8, 128, 128, 12, 64)))
     calls = [(label, (B, Tq, Tk, 12, 64), causal) for label, (B, Tq, Tk), causal in train_shapes]
     for label, shape, causal in calls + EDGE_SHAPES:
@@ -4148,6 +4196,556 @@ def serve_pretrained_and_check(fit, card, device="cuda", serve_res=None):
         serve_p50_ms=serve_p50, load_s=load_s, shapes=res["shapes"], ensemble_shapes=ens_res["shapes"])
 
 
+# -------------- reference checkpoints in, metrics out: import, evaluate, launch
+# import_reference: serve_ground's model exported in the reference layout,
+# converted by `python -m ofasys_torch.utils.torch_import` and served again.
+# evaluate / launch: train_fit's checkpoint and run through the config-file
+# entry points (cli.evaluate, launch.main, cli.train).
+EVAL_TASKS = {
+    "gigaword": dict(rows=128, batch=64, cols="0:src,1:tgt"),
+    "sst2": dict(rows=256, batch=64, cols="0:sentence,1:label", sentence=(40, 80)),
+}
+TINY_EVAL_TASKS = {n: dict(spec, rows=6, batch=4) for n, spec in EVAL_TASKS.items()}
+SST2_ANSWERS = ("no", "yes")
+EVAL_GENERATION = dict(beam=5, max_len_b=MAX_LEN_B)
+# bound of |score under B1 - score under the plain path| for a candidate's
+# summed log-probability (bf16 logits, a few tokens): ENC_ABS_TOL's
+TRAVERSE_SCORE_ATOL = 0.25
+
+
+def reference_extras(sd):
+    """The keys a reference checkpoint holds beyond the mapped parameters:
+    the decoder's copy of the shared token embedding and each BatchNorm's
+    ``num_batches_tracked``; ``import_reference_state_dict`` leaves them
+    unused."""
+    out = dict(sd)
+    out["decoder.adaptor.embed_tokens.weight"] = sd["encoder.adaptor.embed_tokens.weight"]
+    for k in sd:
+        if k.endswith(".running_mean"):
+            out[k[: -len("running_mean")] + "num_batches_tracked"] = np.asarray(0, np.int64)
+    return out
+
+
+def _leaves_equal(a, b):
+    """(leaves, [flax paths where two nets' parameters differ])."""
+    from ofasys_torch.utils.jax_params import export_params
+    from ofasys_torch.utils.torch_import import _walk
+
+    fa, fb = dict(_walk(export_params(a))), dict(_walk(export_params(b)))
+    if set(fa) != set(fb):
+        return len(fa), sorted(set(fa) ^ set(fb))[:8]
+    return len(fa), [p for p in fa if not np.array_equal(fa[p], fb[p])]
+
+
+def import_reference_and_check(hub, card, ground_res=None, device="cuda", arch="base"):
+    """Phase import_reference (see the module docstring) on serve_ground's
+    hub. Returns the launch counts of the imported hub's serving run and
+    the results."""
+    from ofasys_torch import OFASys
+    from ofasys_torch.utils import torch_import as ti
+
+    root = tempfile.mkdtemp(prefix="ofasys_torch_import_")
+    try:
+        t0 = time.perf_counter()
+        sd = reference_extras(ti.export_reference_state_dict(hub.model))
+        pt = os.path.join(root, "reference.pt")
+        torch.save({"model": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}}, pt)
+        export_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(pt)
+        vocab = os.path.join(root, "dict.txt")
+        hub.global_dict.save(vocab)
+        seen = {}
+        orig = ti.import_reference_state_dict
+
+        def recording(*a, **k):
+            out = orig(*a, **k)
+            seen["missing"], seen["unused"] = out[1], out[2]
+            return out
+
+        ti.import_reference_state_dict = recording
+        t0 = time.perf_counter()
+        try:
+            ti.main([pt, os.path.join(root, "out"), "--arch", arch, "--adaptors", ",".join(GROUND_ADAPTORS),
+                     "--dict", vocab, "--preprocessors", "text,box", "--device", device])
+        finally:
+            ti.import_reference_state_dict = orig
+        convert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imported = OFASys.from_pretrained(os.path.join(root, "out", "checkpoint_last"), device=device)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    imported.model.cfg.attn_kernel = hub.model.cfg.attn_kernel
+    expected_unused = {k for k in sd if k.endswith("num_batches_tracked")} | {"decoder.adaptor.embed_tokens.weight"}
+    n_leaves, differ = _leaves_equal(imported.model.net, hub.model.net)
+    log(f"import_reference: {len(sd)} reference keys, {nbytes} bytes ({nbytes / 2 ** 30:.3f} GiB) "
+        f"exported in {export_s:.2f} s; `python -m ofasys_torch.utils.torch_import` converted it in "
+        f"{convert_s:.2f} s (missing {len(seen['missing'])}, unused {len(seen['unused'])}: the decoder's "
+        f"embed_tokens copy and {len(expected_unused) - 1} num_batches_tracked); from_pretrained in "
+        f"{load_s:.2f} s; {n_leaves} leaves against the source: "
+        f"{'bit for bit' if not differ else differ[:8]} [{card}]")
+    if (seen["missing"] or set(seen["unused"]) != expected_unused or differ
+            or imported.global_dict.symbols != hub.global_dict.symbols):
+        raise SystemExit("import_reference: the imported model is not the source's")
+    res = serve_and_check(imported, card, REFCOCO_TPL, _ground_requests(), "import_reference")
+    boxes_differ = 0
+    for instruction, data, kw, out in res["calls"]:
+        direct = hub.inference(instruction, data, **kw)
+        if not isinstance(data, list):
+            out, direct = [out], [direct]
+        for o, r in zip(out, direct, strict=True):
+            boxes_differ += not (np.array_equal(o.tokens, r.tokens) and np.array_equal(o.box, r.box))
+    ground_p50 = (ground_res or {}).get("p50_ms")
+    log(f"import_reference: boxes against the source hub on the same batches: {boxes_differ} of "
+        f"{len(res['outs'])} requests differ; p50 {res['p50_ms']} ms beside serve_ground's "
+        f"{ground_p50} ms in this run [{card}]")
+    if boxes_differ:
+        raise SystemExit("import_reference: the imported hub's boxes differ from the source hub's")
+    released = os.environ.get("OFASYS_MULTITASK_CKPT", "")
+    if os.path.isfile(released):
+        released_caption(released, card, device)
+    else:
+        log("import_reference: released checkpoint: not present (OFASYS_MULTITASK_CKPT names no file)")
+    del imported
+    return res["launches"], dict(reference_bytes=nbytes, export_s=export_s, convert_s=convert_s,
+                                 load_s=load_s, p50_ms=res["p50_ms"], serve_ground_p50_ms=ground_p50,
+                                 leaves=n_leaves, unused=len(expected_unused))
+
+
+def released_caption(path, card, device="cuda"):
+    """A released reference checkpoint (``multitask_10k.pt``) converted with
+    placeholder vocabulary and one greedy caption decoded from a seeded
+    image: finite, EOS-terminated."""
+    from ofasys_torch import OFASys
+    from ofasys_torch.utils import torch_import as ti
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        ti.main([path, out, "--arch", "base", "--adaptors", "text,image_resnet",
+                 "--preprocessors", "text,image,box", "--strict", "--device", device])
+        hub = OFASys.from_pretrained(os.path.join(out, "checkpoint_last"), device=device)
+    o = hub.inference("[IMAGE:img,adaptor=image_resnet] what does the image describe? -> [TEXT:cap]",
+                      data={"img": _images(np.random.default_rng(SEED), 1)[0]}, beam_size=1, max_len_b=16)
+    log(f"import_reference: released checkpoint {path}: imported and served in "
+        f"{time.perf_counter() - t0:.1f} s, greedy caption tokens {o.tokens.tolist()} [{card}]")
+    if not (np.isfinite(o.score) and o.tokens.size and o.tokens[-1] == hub.global_dict.eos()):
+        raise SystemExit("import_reference: the released checkpoint's caption is not EOS-terminated")
+
+
+def eval_fixture(fx, tasks=None, arch="base", device="cuda", seed=SEED):
+    """The valid TSVs of gigaword (train's byte lengths) and glue sst2
+    (labels no/yes), the sst2 answer table, and the JSON config of the two
+    tasks (the shape of examples/text_infilling.yaml at ``arch``) that
+    cli.evaluate reads, in the fit fixture's root."""
+    root = fx["root"]
+    rng = np.random.default_rng(seed + 11)
+    tasks = tasks or EVAL_TASKS
+    paths = {n: os.path.join(root, f"{n}_valid.tsv") for n in tasks}
+    with open(paths["gigaword"], "w", encoding="utf-8") as f:
+        spec = TRAIN_TASKS["gigaword"]
+        for _ in range(tasks["gigaword"]["rows"]):
+            f.write(f"{_text(rng, *spec['src'])}\t{_text(rng, *spec['tgt'])}\n")
+    with open(paths["sst2"], "w", encoding="utf-8") as f:
+        for _ in range(tasks["sst2"]["rows"]):
+            f.write(f"{_text(rng, *tasks['sst2']['sentence'])}\t{SST2_ANSWERS[int(rng.integers(0, 2))]}\n")
+    answers = os.path.join(root, "sst2_ans2label.json")
+    with open(answers, "w") as f:
+        json.dump({a: i for i, a in enumerate(SST2_ANSWERS)}, f)
+
+    def dataset(name):
+        return {"valid_data": paths[name], "batch_size": tasks[name]["batch"],
+                "selected_cols": tasks[name]["cols"], "num_workers": 0}
+
+    model = {"arch": arch} if device == "cuda" else {"arch": arch, "attn_kernel": "pallas"}
+    cfg = {"model": model,
+           "trainer": {"common": {"dtype": "bfloat16", "seed": SEED}},
+           "tasks": {"gigaword": {"task": "gigaword", "instruction": {"template": SUMMARY_TPL},
+                                  "dataset": dataset("gigaword"), "generation": dict(EVAL_GENERATION),
+                                  "evaluation": {"output_dir": os.path.join(root, "eval_out")}},
+                     "sst2": {"task": "glue", "subtask": "sst2", "dataset": dataset("sst2")}}}
+    path = os.path.join(root, "evaluate.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return dict(config=path, tsv=paths, answers=answers, tasks=tasks)
+
+
+@contextlib.contextmanager
+def text_store(**fields):
+    """The ConfigStore's text preprocess with ``fields`` set for the block
+    (as a user sets them), restored after."""
+    from ofasys_torch.configure import ConfigStore
+
+    cfg = ConfigStore().get("ofasys.preprocess", "text").config
+    saved = {k: getattr(cfg, k) for k in fields}
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(cfg, k, v)
+
+
+def _tsv_records(path, cols):
+    from ofasys_torch.io.reader.readers import TsvReader
+
+    reader = TsvReader(path, selected_cols=cols).open()
+    try:
+        return [reader.read(i) for i in range(len(reader))]
+    finally:
+        reader.close()
+
+
+def eval_dispatch_shapes(efx, d):
+    """(B, T) of the encoder in each evaluate batch of each task."""
+    from ofasys_torch import Task
+    from ofasys_torch.task.tasks import GlueTask
+
+    out = []
+    with text_store(ans2label_file=efx["answers"]):
+        for name, spec in efx["tasks"].items():
+            tpl = SUMMARY_TPL if name == "gigaword" else GlueTask.SUBTASK_TEMPLATES["sst2"]
+            gp = Task(name=name, instruction=tpl).initialize(d).general_preprocess
+            recs = _tsv_records(efx["tsv"][name], spec["cols"])
+            for i in range(0, len(recs), spec["batch"]):
+                out.append((f"evaluate_{name}_batch{i // spec['batch']}",
+                            _encoder_shape(gp, recs[i:i + spec["batch"]], tpl)))
+    return out
+
+
+def eval_traverse_calls(efx, d, eval_serve, cfg):
+    """[(label, (B, Tq, Tk), causal)] of the decoder attentions that B1 runs
+    in evaluate's sst2 candidate passes, one a distinct shape: each
+    answer's decoder self attention (causal) and cross attention against
+    each batch's encoder, where MultiheadAttention's rule routes them to the
+    dense kernel. ``eval_serve`` is eval_dispatch_shapes' list."""
+    from ofasys_torch import Task
+    from ofasys_torch.task.tasks import GlueTask
+
+    with text_store(ans2label_file=efx["answers"]):
+        pre = Task(name="sst2", instruction=GlueTask.SUBTASK_TEMPLATES["sst2"]).initialize(d) \
+            .general_preprocess.name2pre["text"]
+        lengths = sorted({len(pre.encode(a)) + 1 for a in SST2_ANSWERS})
+    calls = {}
+    for label, (B, Ts) in eval_serve:
+        if not label.startswith("evaluate_sst2_"):
+            continue
+        for Tt in lengths:
+            for kind, (Tq, Tk), causal in (("decoder_causal", (Tt, Tt), True), ("cross", (Tt, Ts), False)):
+                if _route(cfg, B, Tq, Tk) == "dense":
+                    calls.setdefault((B, Tq, Tk, causal), f"evaluate_sst2_{kind}_{Tq}x{Tk}")
+    return [(label, (B, Tq, Tk), causal) for (B, Tq, Tk, causal), label in calls.items()]
+
+
+@contextlib.contextmanager
+def recording_evaluate():
+    """Task.inference, TraverseTask.answer_scores and both evaluates
+    recorded while the block runs: each generation batch's outputs and
+    kernel launches, each traverse batch's scores and launches, each
+    task's evaluate seconds."""
+    from ofasys_torch.task.base import Task
+    from ofasys_torch.task.traverse_task import TraverseTask
+
+    rec = {"generate": [], "traverse": [], "seconds": {}}
+    saved = Task.inference, TraverseTask.answer_scores, Task.evaluate, TraverseTask.evaluate
+
+    def inference(self, model, params, sample, **kw):
+        before = read_counts()
+        out = saved[0](self, model, params, sample, **kw)
+        after = read_counts()
+        rec["generate"].append(dict(task=self, model=model, sample=sample, outputs=out,
+                                    launches={k: after[k] - before[k] for k in after}))
+        return out
+
+    def answer_scores(self, model, sample, answers):
+        before = read_counts()
+        scores = saved[1](self, model, sample, answers)
+        after = read_counts()
+        rec["traverse"].append(dict(task=self, model=model, sample=sample, answers=answers, scores=scores,
+                                    launches={k: after[k] - before[k] for k in after}))
+        return scores
+
+    def timed(fn):
+        def evaluate(self, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            rec["seconds"][self.name] = time.perf_counter() - t0
+            return out
+        return evaluate
+
+    Task.inference, TraverseTask.answer_scores = inference, answer_scores
+    Task.evaluate, TraverseTask.evaluate = timed(saved[2]), timed(saved[3])
+    try:
+        yield rec
+    finally:
+        Task.inference, TraverseTask.answer_scores, Task.evaluate, TraverseTask.evaluate = saved
+
+
+def _expected_pass_launches(cfg, B, Ts, Tt):
+    """B1 launches of one encoder pass over (B, Ts) and one full decoder
+    pass over (B, Tt) against it, by MultiheadAttention's routing rule."""
+    enc = cfg.encoder.layers * (_route(cfg, B, Ts, Ts) == "dense")
+    dec = cfg.decoder.layers * ((_route(cfg, B, Tt, Tt) == "dense") + (_route(cfg, B, Tt, Ts) == "dense"))
+    return enc + dec
+
+
+@contextlib.contextmanager
+def plain_attention(cfg):
+    """The model's attention on the plain path with fp32 scores for the block."""
+    saved = cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
+    cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = "xla", False, GRAD_REF_LOGITS
+    try:
+        yield
+    finally:
+        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
+
+
+def _traverse_ties(kernel, plain):
+    """Rows whose pick under the kernel differs from the plain path's, each
+    with (plain margin between its top two, the row's largest score
+    difference): a tie where the margin is at most twice the difference."""
+    out = []
+    for b in np.nonzero(kernel.argmax(1) != plain.argmax(1))[0]:
+        top2 = np.sort(plain[b])[-2:]
+        out.append((int(b), float(top2[1] - top2[0]), float(np.abs(kernel[b] - plain[b]).max())))
+    return out
+
+
+def evaluate_and_check(fx, efx, card, ckpt, device="cuda"):
+    """Phase evaluate (see the module docstring). Returns the launch counts
+    of the cli.evaluate run, the results, and one traverse batch with its
+    task and model for traverse_kernels."""
+    import io
+
+    from ofasys_torch import OFASys
+    from ofasys_torch.cli import evaluate as cli_evaluate
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = io.StringIO()
+    with text_store(ans2label_file=efx["answers"]), recording_evaluate() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_evaluate.main([efx["config"], "--ckpt", ckpt, "--split", "valid", "--device", device])
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    printed = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"evaluate: cli.evaluate printed {printed} in {wall:.1f} s (model build, checkpoint load and "
+        f"both tasks) [{card}]")
+    if set(printed) != {"gigaword", "sst2"} or set(printed["gigaword"]) != {"rouge1", "rouge2", "rougeL"} \
+            or set(printed["sst2"]) != {"accuracy"} or not all(
+                np.isfinite(v) for m in printed.values() for v in m.values()):
+        raise SystemExit("evaluate: cli.evaluate did not print both tasks' metrics")
+    gen, trav = rec["generate"], rec["traverse"]
+    model = gen[0]["model"]
+    cfg, on_card = model.cfg, model.net.device.type == "cuda"
+
+    # gigaword: the hypotheses against hub.inference on the same records, batch by batch
+    gw = gen[0]["task"]
+    hub = OFASys(model, None, gw.global_dict, gw.general_preprocess, device=model.net.device)
+    recs = _tsv_records(efx["tsv"]["gigaword"], efx["tasks"]["gigaword"]["cols"])
+    kw = dict(beam_size=EVAL_GENERATION["beam"], max_len_b=EVAL_GENERATION["max_len_b"], no_repeat_ngram_size=0)
+    B = efx["tasks"]["gigaword"]["batch"]
+    with open(os.path.join(fx["root"], "eval_out", "gigaword_valid.json")) as f:
+        written = json.load(f)["hyps"]
+    hyp_differ, gen_counts = 0, []
+    for i, g in enumerate(gen):
+        n_valid = g["sample"].get("n_valid", len(g["outputs"]))
+        direct = hub.inference(SUMMARY_TPL, [{"src": r["src"]} for r in recs[i * B:i * B + n_valid]], **kw)
+        for o, r, w in zip(g["outputs"][:n_valid], direct, written[i * B:i * B + n_valid], strict=True):
+            hyp_differ += not (np.array_equal(o[0].tokens, r.tokens) and o[0].text == r.text == w)
+        Bs, Ts = _encoder_tokens([s for s in g["sample"]["net_input"]["slots"] if s.is_src])
+        gen_counts.append((g["launches"]["dense_attention_fwd"], cfg.encoder.layers * (_route(cfg, Bs, Ts, Ts) == "dense"),
+                           (Bs, Ts)))
+    log(f"evaluate: gigaword {len(written)} hypotheses against hub.inference on the same records: "
+        f"{hyp_differ} differ; B1 per generation batch (launched, expected, encoder (B, T)): {gen_counts}")
+    if hyp_differ or len(written) != len(recs):
+        raise SystemExit("evaluate: gigaword's hypotheses differ from hub.inference's")
+
+    # sst2: the picks against the plain attention path's scores on the same batches
+    ties, max_diff, pass_counts, picks = [], 0.0, [], 0
+    for t in trav:
+        with plain_attention(cfg):
+            plain = t["task"].answer_scores(t["model"], t["sample"], t["answers"])
+        max_diff = max(max_diff, float(np.abs(t["scores"] - plain).max()))
+        ties += _traverse_ties(t["scores"], plain)
+        picks += len(plain)
+        Bs, Ts = _encoder_tokens([s for s in t["sample"]["net_input"]["slots"] if s.is_src])
+        pre = t["task"].general_preprocess.name2pre["text"]
+        per_pass = sum(_expected_pass_launches(cfg, Bs, Ts, len(pre.encode(a)) + 1)
+                       for a in t["answers"]) / len(t["answers"])
+        pass_counts.append((t["launches"]["dense_attention_fwd"] / len(t["answers"]), per_pass, (Bs, Ts)))
+    log(f"evaluate: sst2 picks under B1 against the plain attention path (attn_logits="
+        f"{GRAD_REF_LOGITS!r}): {len(ties)} of {picks} differ {ties} (a tie: plain margin <= twice the "
+        f"row's score difference); largest score difference {max_diff:.4g} (tol {TRAVERSE_SCORE_ATOL}); "
+        f"B1 per candidate pass (launched, expected, encoder (B, T)): {pass_counts} [{card}]")
+    if not max_diff <= TRAVERSE_SCORE_ATOL or any(m > 2 * d for _, m, d in ties):
+        raise SystemExit("evaluate: sst2's picks under B1 disagree with the plain attention path")
+    if on_card and any(a != e for a, e, _ in gen_counts + pass_counts):
+        raise SystemExit("evaluate: B1 did not run once per dense attention call")
+
+    rows_per_s = {n: efx["tasks"][n]["rows"] / rec["seconds"][n] for n in efx["tasks"]}
+    profile_res = None
+    t = trav[0]
+    if on_card:
+        _sync(model.net.device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            t["task"].answer_scores(t["model"], t["sample"], t["answers"])
+            _sync(model.net.device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profile_res = _report_profile(prof, wall_ms, f"one sst2 traverse batch ({len(t['answers'])} candidate "
+                                      f"passes, B={len(t['scores'])})", card)
+    log(f"evaluate: rows per second {({k: round(v, 2) for k, v in rows_per_s.items()})} (each task's "
+        f"Task.evaluate, host clock ending in a synchronize) [{card}]")
+    res = dict(metrics=printed, wall_s=wall, rows_per_s=rows_per_s, hyps=len(written), picks=picks,
+               ties=ties, max_score_diff=max_diff, gen_launches=gen_counts, pass_launches=pass_counts,
+               profile=profile_res)
+    return launches, res, dict(task=t["task"], model=t["model"], sample=t["sample"], answers=t["answers"])
+
+
+def traverse_kernels_and_check(trav, card):
+    """Phase traverse_kernels: one sst2 traverse batch's candidate scores
+    under B1 against the same scores with B1's plain version
+    (dense_attention_fwd_reference) in its place, on the card; within
+    TRAVERSE_SCORE_ATOL, the picks equal but at ties."""
+    from ofasys_torch.ops import dense_attention as da
+
+    task, model, sample, answers = trav["task"], trav["model"], trav["sample"], trav["answers"]
+    before = da.dense_attention_fwd.launches
+    kernel = task.answer_scores(model, sample, answers)
+    used = da.dense_attention_fwd.launches - before
+    orig = da.dense_attention_fwd
+
+    def plain_version(q, k, v, bias, mask, num_heads, scale=1.0, causal=False):
+        return da.dense_attention_fwd_reference(q, k, v, bias, mask, num_heads, scale, causal)
+
+    da.dense_attention_fwd = plain_version
+    try:
+        plain = task.answer_scores(model, sample, answers)
+    finally:
+        da.dense_attention_fwd = orig
+    diff = float(np.abs(kernel - plain).max())
+    ties = _traverse_ties(kernel, plain)
+    log(f"traverse_kernels: {len(answers)} candidates x B={len(kernel)}: scores under B1 ({used} launches) "
+        f"against B1's plain version in its place: largest difference {diff:.4g} (tol "
+        f"{TRAVERSE_SCORE_ATOL}), picks differing {ties} [{card}]")
+    if not diff <= TRAVERSE_SCORE_ATOL or any(m > 2 * d for _, m, d in ties) \
+            or (model.net.device.type == "cuda" and used == 0):
+        raise SystemExit("traverse_kernels: B1's scores disagree with its plain version")
+    return dict(max_score_diff=diff, ties=ties, launches=used)
+
+
+def launch_config(fx, run, updates=FIT_UPDATES, arch="base", device="cuda"):
+    """train_fit's run written as a config file (JSON): the same tasks,
+    TSV files, batch sizes, dropout (the model's default 0.1), adamw at
+    TRAIN_LR with clipping, seed and summed mode; ``updates`` updates (the
+    length of the polynomial learning-rate schedule), a checkpoint every
+    FIT_SAVE_EVERY, into ``<root>/<run>``."""
+    tasks = {}
+    for name, spec in fx["tasks"].items():
+        tasks[name] = {"instruction": {"template": spec["template"]},
+                       "dataset": {"train_data": spec["path"], "batch_size": spec["batch"],
+                                   "selected_cols": spec["cols"]}}
+    model = {"arch": arch} if device == "cuda" else {"arch": arch, "attn_kernel": "pallas"}
+    return {"model": model,
+            "trainer": {"common": {"seed": SEED, "log_interval": FIT_SAVE_EVERY},
+                        "optimization": {"lr": [TRAIN_LR], "multi_task_mode": "sum", "max_update": updates},
+                        "checkpoint": {"save_dir": os.path.join(fx["root"], run),
+                                       "save_interval_updates": FIT_SAVE_EVERY,
+                                       "no_epoch_checkpoints": True}},
+            "tasks": tasks}
+
+
+def _yaml_config_matches(path, data):
+    """The same config written as YAML, a parent with the model and trainer
+    and a child with ``_include`` and ``${var}`` paths, loads to the same
+    dict."""
+    import yaml
+
+    from ofasys_torch.launch import load_yaml_config
+
+    root = os.path.dirname(path)
+    parent = {k: v for k, v in data.items() if k != "tasks"}
+    child = {"_include": "launch_parent.yaml", "env": {"DATA": root}, "tasks": json.loads(
+        json.dumps(data["tasks"]).replace(root, "${DATA}"))}
+    for name, obj in (("launch_parent.yaml", parent), ("launch_child.yaml", child)):
+        with open(os.path.join(root, name), "w") as f:
+            yaml.safe_dump(obj, f)
+    same = load_yaml_config(os.path.join(root, "launch_child.yaml")) == load_yaml_config(path)
+    log(f"launch: pyyaml {yaml.__version__}: the YAML form (_include, ${{DATA}}) loads to the JSON's dict: {same}")
+    if not same:
+        raise SystemExit("launch: the YAML config loads to another dict than the JSON")
+
+
+def launch_and_check(fx, fit, card, fit_launches, device="cuda", arch="base"):
+    """Phase launch (see the module docstring). Returns the launch counts
+    of the launched run and the results."""
+    from ofasys_torch import launch
+    from ofasys_torch.cli import train as cli_train
+    from ofasys_torch.engine.trainer import Trainer
+    from ofasys_torch.utils import checkpoint_utils as cu
+
+    data = launch_config(fx, "launch", arch=arch, device=device)
+    path = os.path.join(fx["root"], "launch.json")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    launch.main([path, "--device", device])
+    cu.wait_for_async_saves()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    run = os.path.join(fx["root"], "launch")
+    diffs = {}
+    metas = {}
+    for name, ref in ((f"checkpoint_1_{FIT_SAVE_EVERY}", fit["ck13"]), ("checkpoint_last", fit["last"])):
+        a, meta_a = cu.load_checkpoint(os.path.join(run, name))
+        b, meta_b = cu.load_checkpoint(ref)
+        diffs[name] = _ckpt_trees_equal(a, b)
+        metas[name] = [{k: v for k, (cls, v) in m["meters"].items()
+                        if cls != "TimeMeter" and k not in ("train_wall", "gb_free")} for m in (meta_a, meta_b)]
+    per_update = {k: v / FIT_UPDATES for k, v in launches.items() if v}
+    log(f"launch: `python -m ofasys_torch.launch launch.json` ({FIT_UPDATES} updates, the schedule's "
+        f"length; checkpoints every {FIT_SAVE_EVERY}) in {fit_s:.1f} s; its checkpoints against train_fit's: "
+        + "; ".join(f"{n} {'bit for bit' if not d else d[:6]}, meters equal {m[0] == m[1]}"
+                    for (n, d), m in zip(diffs.items(), metas.values()))
+        + f"; launches {launches} ({per_update} an update; train_fit's {fit_launches}) [{card}]")
+    if any(diffs.values()) or any(m[0] != m[1] for m in metas.values()):
+        raise SystemExit("launch: the launched run differs from train_fit's")
+    if device == "cuda" and (launches != fit_launches or per_update.get("dense_attention_fwd") != 36
+                             or per_update.get("dense_attention_bwd") != 36):
+        raise SystemExit("launch: B1/B2 did not run 36 times an update")
+    _yaml_config_matches(path, data)
+
+    seen = {}
+    orig_fit = Trainer.fit
+
+    def recording_fit(self, model, tasks, max_update=None):
+        seen["cfg"] = self.cfg
+        return orig_fit(self, model, tasks, max_update)
+
+    Trainer.fit = recording_fit
+    t0 = time.perf_counter()
+    try:
+        cli_train.main([path, "--set", "trainer.optimization.max_update=1", "--set",
+                        f"trainer.checkpoint.save_dir={os.path.join(fx['root'], 'cli_train')}",
+                        "--set", "trainer.checkpoint.no_save=true", "--set", "trainer.optimization.lr=[2.0e-4]",
+                        "--device", device])
+    finally:
+        Trainer.fit = orig_fit
+    train_s = time.perf_counter() - t0
+    got = seen["cfg"].optimization
+    log(f"launch: `python -m ofasys_torch.cli.train launch.json --set trainer.optimization.max_update=1 "
+        f"--set trainer.checkpoint.no_save=true --set trainer.optimization.lr=[2.0e-4]` in {train_s:.1f} s: "
+        f"TrainerConfig max_update {got.max_update}, lr {got.lr}, no_save {seen['cfg'].checkpoint.no_save}")
+    if got.max_update != 1 or got.lr != (2e-4,) or not seen["cfg"].checkpoint.no_save:
+        raise SystemExit("launch: cli.train's --set overrides did not reach the TrainerConfig")
+    return launches, dict(fit_s=fit_s, per_update=per_update, cli_train_s=train_s)
+
+
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
     """One kernel's entry of the ``{"kernels": [...]}`` line: ``launches`` by
     path (the counts of each path's run), the error over every checked
@@ -4209,13 +4807,13 @@ def main() -> int:
     full_calls = [(f"full_{label}", shape, causal) for label, shape, causal in train_shapes(full_batches)
                   if label.startswith(("asr", "motion_t2m"))]
     mB, mTs, mTt = _task_shapes(motion_sample(hub.general_preprocess)[0])
-    motion_calls = [("serve_motion_decoder_full", (mB, mTt, mTt)), ("serve_motion_cross", (mB, mTt, mTs))]
-    new_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in full_calls}
-    new_routes.update({label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk) in motion_calls})
+    motion_calls = [("serve_motion_decoder_full", (mB, mTt, mTt), False),
+                    ("serve_motion_cross", (mB, mTt, mTs), False)]
+    new_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in full_calls + motion_calls}
     new_routes.update({f"serve_asr_dispatch{i}": _route(cfg, B, T, T) for i, (B, T) in enumerate(asr_serve)})
     new_routes["serve_motion_encoder"] = _route(cfg, mB, mTs, mTs)
     log(f"train_full (asr, motion_t2m), serve_asr and serve_motion attention shapes (B, Tq, Tk) and "
-        f"routes: {[(lb, sh) for lb, sh, _ in full_calls] + motion_calls} "
+        f"routes: {[(lb, sh) for lb, sh, _ in full_calls + motion_calls]} "
         f"{[(f'serve_asr_dispatch{i}', s) for i, s in enumerate(asr_serve)]} "
         f"serve_motion_encoder {(mB, mTs)}: {new_routes}")
     fit_root = tempfile.mkdtemp(prefix="ofasys_torch_fit_")
@@ -4223,12 +4821,17 @@ def main() -> int:
     saved_cache = os.environ.get("OFA_CACHE_HOME")
     os.environ["OFA_CACHE_HOME"] = fit_root          # the TSV line indexes
     fx = fit_fixture(fit_root)
+    efx = eval_fixture(fx)
     with gpt2_text(fx):
         fit_d, fit_updates = fit_plan(fx)
         from ofasys_torch.preprocessor.general import GeneralPreprocess
 
         fit_gp = GeneralPreprocess(fit_d, active=["text"])
         pretrained_serve = planned_dispatch_shapes(fit_gp, _bpe_requests(fit_gp), TPL)
+        eval_serve = eval_dispatch_shapes(efx, fit_d)
+        eval_calls = eval_traverse_calls(efx, fit_d, eval_serve, cfg)
+    log(f"evaluate encoder shapes (B, T) and routes: {[(lb, sh, _route(cfg, sh[0], sh[1], sh[1])) for lb, sh in eval_serve]}; "
+        f"B1's candidate-pass decoder calls (B, Tq, Tk): {[(lb, sh) for lb, sh, _ in eval_calls]}")
     fit_calls = fit_train_shapes(fit_updates)
     log(f"train_fit attention shapes (B, Tq, Tk) and routes: "
         f"{[(lb, sh, _route(cfg, *sh)) for lb, sh, _ in fit_calls]}; serve_pretrained dispatches "
@@ -4259,14 +4862,15 @@ def main() -> int:
         + [(f"serve_ground_dispatch{i}", s) for i, s in enumerate(ground_serve)] \
         + [(f"serve_closed_dispatch{i}", s) for i, s in enumerate(closed_serve)] \
         + [(f"serve_lexical_dispatch{i}", s) for i, s in enumerate(lexical_serve)] \
-        + [(f"serve_pretrained_dispatch{i}", s) for i, s in enumerate(pretrained_serve)]
+        + [(f"serve_pretrained_dispatch{i}", s) for i, s in enumerate(pretrained_serve)] \
+        + eval_serve
     fres, bres, rres = phase_kernels(
         dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
         + [c for c in mm_calls if mm_routes[c[0]] == "dense"]
         + [c for c in full_calls if new_routes[c[0]] == "dense"]
         + [c for c in ground_calls if ground_routes[c[0]] == "dense" and c[0] not in same_as_mm]
         + fit_calls,
-        motion_calls)
+        motion_calls + eval_calls)
     mark("dense kernels")
     long_serve = planned_dispatch_shapes(long_gp, _long_requests(), SUMMARY_TPL)
     flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
@@ -4395,6 +4999,16 @@ def main() -> int:
         mark("train_fit")
         counts["serve_pretrained"], counts["serve_pretrained_ensemble"], pre_res = \
             serve_pretrained_and_check(fit, card, serve_res=serve_res)
+        mark("serve_pretrained")
+        del fit["trainer"], fit["tasks"]
+        torch.cuda.empty_cache()
+        counts["evaluate"], eval_res, trav = evaluate_and_check(fx, efx, card, fit["last"])
+        mark("evaluate")
+        trav_res = traverse_kernels_and_check(trav, card)
+        del trav
+        torch.cuda.empty_cache()
+        mark("traverse_kernels")
+        counts["launch"], launch_res = launch_and_check(fx, fit, card, counts["train_fit"])
         del fit
     torch.cuda.empty_cache()
     shutil.rmtree(fit_root, ignore_errors=True)
@@ -4402,7 +5016,7 @@ def main() -> int:
         os.environ.pop("OFA_CACHE_HOME", None)
     else:
         os.environ["OFA_CACHE_HOME"] = saved_cache
-    mark("serve_pretrained")
+    mark("launch")
     ground_hub = build_ground_hub(ground_d, ground_gp)
     ground_res = serve_ground_and_check(ground_hub, card, caption_res)
     counts["serve_ground"] = ground_res["launches"]
@@ -4413,9 +5027,11 @@ def main() -> int:
         f"{ground_res['trunk_busy_ms']:.3f} ms busy, {100 * ground_res['trunk_busy_ms'] / busy:.1f}% of "
         f"the dispatch's {busy:.2f} ms [{card}]")
     ground_res["dispatch_busy_ms"] = busy
+    mark("serve_ground")
+    counts["import_reference"], import_res = import_reference_and_check(ground_hub, card, ground_res)
     del ground_hub
     torch.cuda.empty_cache()
-    mark("serve_ground")
+    mark("import_reference")
     counts["train_ground"], tg_res = train_ground_and_check(ground_d, ground_gp, card, ground_batches, mm_res)
     tg_res["rand_augment_ms"] = rand_augment_ms(card)
     mark("train_ground")
@@ -4469,6 +5085,10 @@ def main() -> int:
     log(f"train_optimizers: {json.dumps(optim_res)}")
     log(f"train_fit: {json.dumps(fit_res)}")
     log(f"serve_pretrained: {json.dumps(pre_res)}")
+    log(f"import_reference: {json.dumps(import_res)}")
+    log(f"evaluate: {json.dumps(eval_res)}")
+    log(f"traverse_kernels: {json.dumps(trav_res)}")
+    log(f"launch: {json.dumps(launch_res)}")
     log(f"serve_lexical: {json.dumps(lexical_res)}")
     log("serve p50 ms: " + json.dumps({k: r["p50_ms"] for k, r in (
         ("serve", serve_res), ("serve_closed", closed_res), ("serve_sample", sample_res),

@@ -15,6 +15,12 @@ The front door is ofasys_tpu's:
     hub = OFASys.from_pretrained("checkpoints/checkpoint_last", device="cuda")
     hub.inference("[TEXT:src] -> [TEXT:tgt]", data={"src": "..."})
 
+and the command lines: ``python -m ofasys_torch.utils.torch_import ref.pt
+out_dir`` (a reference checkpoint into the port's format), ``python -m
+ofasys_torch.launch cfg.json`` or ``cli.train`` (train from a config
+file), ``python -m ofasys_torch.cli.evaluate cfg.json --ckpt <path>`` (the
+tasks' metrics: ``Task.evaluate`` over the task zoo, task/tasks.py).
+
 Attention that meets the dense gate runs the hand-written dense-attention
 forward and backward kernels on the card.
 """

@@ -37,7 +37,7 @@ class CommonConfig(BaseDataclass):
     tensorboard_logdir: Optional[str] = None
     wandb_project: Optional[str] = None
     azureml_logging: bool = False
-    # a profiler trace of the update loop (not ported: ROADMAP Queue A item 9)
+    # a profiler trace of the update loop (not ported: ROADMAP Queue A item 9d)
     profile: bool = False
     profile_dir: str = "ofasys_torch_profile"
     # extra module directory imported before config build
@@ -182,8 +182,8 @@ class TrainerConfig(BaseDataclass):
 
     @classmethod
     def from_yaml(cls, path: str) -> "TrainerConfig":
-        raise NotImplementedError(
-            "TrainerConfig.from_yaml needs the YAML launcher (launch.py, cli/train.py, "
-            "configure/options.py), which is not ported to ofasys_torch yet (ROADMAP Queue A "
-            "item 9); build a TrainerConfig in Python or with config_store.from_dict"
-        )
+        from ofasys_torch.configure.config_store import from_dict
+        from ofasys_torch.launch import load_yaml_config
+
+        data = load_yaml_config(path)
+        return from_dict(cls, data.get("trainer", data))

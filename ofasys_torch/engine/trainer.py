@@ -25,7 +25,7 @@ One CUDA device (``device="cuda"``, the default; the CPU only when asked
 for): a ``ParallelConfig`` that asks for more than one device, ``zero1``,
 ``pipeline`` or ``sequence`` parallelism raises (ROADMAP Queue A item 13),
 ``parallel.remat`` raises through the model's UNPORTED_DEFAULTS, and
-``common.profile`` raises (item 9).
+``common.profile`` raises (item 9d).
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from ofasys_torch.engine.train_step import (
 from ofasys_torch.io.reader.dataset import tree_index
 from ofasys_torch.logging.meters import AverageMeter, MetersDict, TimeMeter
 from ofasys_torch.logging.progress_bar import build_progress_bar
+from ofasys_torch.model.ofa import modal_ids_of_params
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.utils import checkpoint_utils
 from ofasys_torch.utils.device import resolve_device
@@ -73,7 +74,7 @@ def check_parallel(cfg: TrainerConfig):
     if cfg.common.profile:
         raise NotImplementedError(
             "common.profile: the profiler (utils/profiler.py) is not ported to ofasys_torch yet "
-            "(ROADMAP Queue A item 9); run torch.profiler around Trainer.run_updates")
+            "(ROADMAP Queue A item 9d); run torch.profiler around Trainer.run_updates")
 
 
 class Trainer:
@@ -128,39 +129,20 @@ class Trainer:
         total_updates = max_update or cfg.optimization.max_update or 1000
         self._total_updates = total_updates
 
-        # 1) vocab + task initialization (text preprocessors grow the dict)
-        global_dict = Dictionary()
-        for task in tasks:
-            task.initialize(global_dict)
-        global_dict.pad_to_multiple_(128)
-
-        # 2) the union of the tasks' adaptors; the model's remat mode from
-        # the trainer's (an explicit model-level remat wins)
-        adaptors: List[str] = []
-        for task in tasks:
-            for a in task.required_adaptors():
-                if a not in adaptors:
-                    adaptors.append(a)
-        use_bf16 = cfg.common.dtype == "bfloat16" or cfg.common.fp16 or cfg.common.bf16
-        dtype = torch.bfloat16 if use_bf16 else torch.float32
+        # 1) the remat mode from the trainer's (an explicit model-level remat wins)
         if model.cfg.remat == "none" and cfg.parallel.remat != "none":
             model.cfg.remat = {"selective": "dots", "full": "full",
                                "dots": "dots"}[cfg.parallel.remat]
-
-        # 3) one batch per task (the modal_ffn experts follow their slots)
-        first_batch = {t.name: self._peek_batch(t) for t in tasks}
-        model.initialize(global_dict, active_adaptors=tuple(adaptors), dtype=dtype,
-                         device=self.device, seed=cfg.common.seed,
-                         sample_slots=[first_batch[t.name]["net_input"]["slots"] for t in tasks])
+        # 2) vocab, adaptors, dtype, parameters
+        self.init_model(model, tasks)
         optimizer = build_optimizer(cfg.optimization, total_num_update=total_updates)
         lr_sched = build_lr_schedule(cfg.optimization, total_updates)
         self.state = TrainState.create(model.net, optimizer, ema=cfg.ema.store_ema)
         self.model = model
         self.tasks = tasks
-        self.global_dict = global_dict
         self.optimizer = optimizer
 
-        # 4) restore
+        # 3) restore
         start_update = 0
         restored = self._maybe_restore()
         if restored is not None:
@@ -172,7 +154,7 @@ class Trainer:
                 lr_sched = lambda s: base_sched(max(s - off, 0))  # noqa: E731
                 logger.info("reset_lr_scheduler: schedule re-zeroed at update %d", off)
 
-        # 5) step functions
+        # 4) step functions
         self._sum_mode = cfg.optimization.multi_task_mode == "sum" and len(tasks) > 1
         ema_decay = cfg.ema.ema_decay if cfg.ema.store_ema else 0.0
         ema_kw = dict(ema_decay=ema_decay, lr_schedule=lr_sched,
@@ -187,7 +169,7 @@ class Trainer:
                 self._step_fns[task.name] = make_train_step(
                     model, task.criterion, optimizer, update_freq=self._update_freq(task), **ema_kw)
 
-        # 6) loop state
+        # 5) loop state
         self.progress = build_progress_bar(
             cfg.common.log_format, tensorboard_logdir=cfg.common.tensorboard_logdir,
             wandb_project=cfg.common.wandb_project,
@@ -315,6 +297,36 @@ class Trainer:
         if uf == 1:
             return sample_to_device(view, self.device)
         return [sample_to_device(tree_index(view, i), self.device) for i in range(uf)]
+
+    def init_model(self, model, tasks, params: Optional[Dict[str, Any]] = None) -> Dictionary:
+        """The one model build of training and of cli.evaluate: the tasks
+        grow one dictionary, and the model is built on it with the union of
+        their adaptors and the trainer's dtype, seed and device. Under
+        modal_ffn the experts are those of each task's first batch, or with
+        ``params`` (a checkpoint's tree, for evaluation; the tasks then
+        initialize for inference) those the tree holds."""
+        global_dict = Dictionary()
+        for task in tasks:
+            task.initialize(global_dict, is_train=params is None)
+        global_dict.pad_to_multiple_(128)
+        adaptors: List[str] = []
+        for task in tasks:
+            for a in task.required_adaptors():
+                if a not in adaptors:
+                    adaptors.append(a)
+        common = self.cfg.common
+        use_bf16 = common.dtype == "bfloat16" or common.fp16 or common.bf16
+        sample_slots = modal_ids = None
+        if params is None:
+            sample_slots = [self._peek_batch(t)["net_input"]["slots"] for t in tasks]
+        elif model.cfg.modal_ffn:
+            modal_ids = modal_ids_of_params(params)
+        model.initialize(global_dict, active_adaptors=tuple(adaptors),
+                         dtype=torch.bfloat16 if use_bf16 else torch.float32,
+                         device=self.device, seed=common.seed,
+                         sample_slots=sample_slots, modal_ids=modal_ids)
+        self.global_dict = global_dict
+        return global_dict
 
     def _peek_batch(self, task):
         """The task's first batch, then a fresh iterator. The peek runs

@@ -27,7 +27,7 @@ import torch
 
 from ofasys_torch import ModalityType
 from ofasys_torch.generator import SequenceGenerator
-from ofasys_torch.model.ofa import GeneralistModel
+from ofasys_torch.model.ofa import GeneralistModel, modal_ids_of_params
 from ofasys_torch.ops.quant import is_quantized, quantize_for_serving
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.general import GeneralPreprocess
@@ -119,7 +119,7 @@ class OFASys:
                                  "(train with ema.store_ema=True)")
             params = ema
         model.initialize(global_dict, active_adaptors=tuple(meta["active_adaptors"]), dtype=dtype,
-                         device=device, modal_ids=_modal_ids(params) if model.cfg.modal_ffn else None)
+                         device=device, modal_ids=modal_ids_of_params(params) if model.cfg.modal_ffn else None)
 
         # task configs (their generation defaults and templates) back into the store
         ConfigStore().load_state_dict(meta.get("configstore", {}), activate=False)
@@ -202,13 +202,3 @@ class OFASys:
             self.general_preprocess.postprocess(hyps, sample)
         results = [hyps[0] if len(hyps) == 1 else hyps for hyps in outputs]
         return results if batched else results[0]
-
-
-def _modal_ids(params: Dict[str, Any]) -> Dict[str, tuple]:
-    """The modal_ffn expert ids of each stack, in the order the tree holds
-    them (``<stack>/layers_0/ffn/experts_fc1_<id>``)."""
-    out = {}
-    for stack in ("encoder", "decoder"):
-        ffn = params[stack]["layers_0"]["ffn"]
-        out[stack] = tuple(int(k[len("experts_fc1_"):]) for k in ffn if k.startswith("experts_fc1_"))
-    return out

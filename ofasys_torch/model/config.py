@@ -1,8 +1,8 @@
 """GeneralistModel configuration + arch presets (counterpart of
 ofasys_tpu/model/config.py, every default kept).
 
-Plain dataclasses: the port has no config store. Fields that name
-execution features the port does not run yet (MoE, scan-over-layers,
+Plain dataclasses (the ConfigStore holds one as ``ofasys.model/unify``).
+Fields that name execution features the port does not run yet (MoE, scan-over-layers,
 pipeline and sequence parallelism, remat) stay so that a config carried
 over from ofasys_tpu keeps its shape; ``GeneralistModel.initialize`` raises
 when one is set away from its default, and when ``quant_training`` is
@@ -13,7 +13,6 @@ an int8 matmul runs (``ops/quant.int8_matmul``), as in ofasys_tpu.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
 
 
@@ -102,12 +101,11 @@ class GeneralistModelConfig:
             apply_arch(self, self.arch)
 
     def update(self, **kwargs):
-        names = {f.name for f in dataclasses.fields(self)}
-        for k, v in kwargs.items():
-            if k not in names:
-                raise ValueError(f"unknown GeneralistModelConfig field {k!r}")
-            setattr(self, k, v)
-        return self
+        """Set fields by name; a dotted name (``encoder.layers``) reaches
+        into a stack's config, as ofasys_tpu's ``update`` does."""
+        from ofasys_torch.configure.config_store import update_config
+
+        return update_config(self, **kwargs)
 
 
 _ARCH_TABLE = {

@@ -242,6 +242,16 @@ def modal_ids_of(sample_slots: Sequence) -> Dict[str, Tuple[int, ...]]:
     return {k: tuple(v) for k, v in ids.items()}
 
 
+def modal_ids_of_params(params: Dict[str, Any]) -> Dict[str, tuple]:
+    """The modal_ffn expert ids of each stack, in the order the tree holds
+    them (``<stack>/layers_0/ffn/experts_fc1_<id>``)."""
+    out = {}
+    for stack in ("encoder", "decoder"):
+        ffn = params[stack]["layers_0"]["ffn"]
+        out[stack] = tuple(int(k[len("experts_fc1_"):]) for k in ffn if k.startswith("experts_fc1_"))
+    return out
+
+
 @register_config("ofasys.model", "unify", GeneralistModelConfig)
 class GeneralistModel:
     """User-facing model object.

@@ -103,6 +103,12 @@ class Dictionary:
                     f"namespace {prefix!r} already registered with size {end - start}, requested {size}"
                 )
             return start, end
+        names = [fmt.format(prefix=prefix, i=i) for i in range(size)]
+        first = self.indices.get(names[0]) if names else None
+        if first is not None and all(self.indices.get(w) == first + i for i, w in enumerate(names)):
+            # a dictionary read from a file (``load``) holds the block already
+            self._ranges[prefix] = (first, first + size)
+            return first, first + size
         start = len(self.symbols)
         for i in range(size):
             self.add_symbol(fmt.format(prefix=prefix, i=i), n=0)

@@ -8,15 +8,19 @@ the same generators in the same order as ofasys_tpu's: the template choice
 from ``random.Random(1)`` on the train split, then each preprocessor's own
 numpy generator.
 
-Not ported here: object-store and ``.bin`` sources (ROADMAP Queue A item
-11), metrics and ``evaluate`` (item 9), the AR speech generator for audio
-targets (item 10).
+``evaluate`` generates over a split and scores the hypotheses with the
+task's metrics (``evaluation.metrics``, built from the ConfigStore's
+``ofasys.metric`` group). Not ported here: object-store and ``.bin``
+sources (ROADMAP Queue A item 11), the AR speech generator for audio
+targets and the criteria of item 10.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import logging
+import os
 import random
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -42,7 +46,8 @@ logger = logging.getLogger("ofasys_torch.task")
 
 OBJECT_STORE = ("object-store and .bin sources are not ported to ofasys_torch yet (ROADMAP Queue A "
                 "item 11); use local TSV files")
-METRICS = "metrics and Task.evaluate are not ported to ofasys_torch yet (ROADMAP Queue A item 9: metric/)"
+# ROADMAP Queue A item that ports each criterion this slice lacks
+PENDING_CRITERIA = {"speech_pretrain_loss": 10, "ofa_tacotron2": 10, "scst_loss": 10}
 
 
 @dataclass
@@ -137,14 +142,19 @@ class Task:
     # ------------------------------------------------------------ lifecycle
     def initialize(self, global_dict, is_train: bool = True):
         """Build the preprocessors the templates need (they grow the
-        dictionary) and the criterion."""
-        if self.cfg.evaluation.metrics:
-            raise NotImplementedError(f"task {self.name}: evaluation.metrics "
-                                      f"{list(self.cfg.evaluation.metrics)}: {METRICS}")
+        dictionary), the criterion and the metrics."""
         self.general_preprocess = GeneralPreprocess(global_dict, active=self.required_preprocessors())
-        import ofasys_torch.engine.criterion  # noqa: F401  (registers the criteria)
+        # the criterion and metric registries, even where the Trainer was never imported
+        import ofasys_torch.engine.criterion  # noqa: F401
+        import ofasys_torch.metric  # noqa: F401
 
-        crit_node = ConfigStore().get("ofasys.criterion", self.cfg.criterion)
+        store = ConfigStore()
+        if self.cfg.criterion in PENDING_CRITERIA and not store.contains("ofasys.criterion",
+                                                                          self.cfg.criterion):
+            raise NotImplementedError(
+                f"task {self.name}: criterion {self.cfg.criterion!r} is not ported to ofasys_torch "
+                f"yet (ROADMAP Queue A item {PENDING_CRITERIA[self.cfg.criterion]})")
+        crit_node = store.get("ofasys.criterion", self.cfg.criterion)
         crit_cfg = copy.deepcopy(crit_node.config)
         if getattr(self.cfg, "criterion_args", None):
             update_config(crit_cfg, **dict(self.cfg.criterion_args))
@@ -152,6 +162,9 @@ class Task:
         self.criterion.global_dict = global_dict
         self.criterion.eos_id = global_dict.eos()
         self.metrics = []
+        for mname in self.cfg.evaluation.metrics:
+            node = store.get("ofasys.metric", mname)
+            self.metrics.append(node.target_cls(copy.deepcopy(node.config)))
         self.global_dict = global_dict
         return self
 
@@ -377,4 +390,45 @@ class Task:
 
     def evaluate(self, model, params, split: str = "valid", max_batches: Optional[int] = None,
                  rank: int = 0, world_size: int = 1) -> Dict[str, float]:
-        raise NotImplementedError(METRICS)
+        """Generate over a split and score with the task's metrics. Each
+        metric takes its references from the batch's ``target_field`` when
+        a preprocessor put that field there, else from the decoded target;
+        a padded last batch counts its ``n_valid`` records. With
+        ``evaluation.output_dir`` the hypotheses, references and metrics go
+        to ``<output_dir>/<task>_<split>.json``. ``params`` as in
+        ``inference``."""
+        if params is not None:
+            from ofasys_torch.utils.jax_params import load_jax_params
+
+            load_jax_params(model.net, params)
+        it = self.get_batch_iterator(split, rank=rank, world_size=world_size)
+        text_pre = self.general_preprocess.name2pre["text"]
+        hyps: List[str] = []
+        fields = {m.cfg.target_field for m in self.metrics} or {"target"}
+        refs_by_field: Dict[str, List[Any]] = {f: [] for f in fields}
+        for i, batch in enumerate(it.next_epoch_itr(shuffle=False)):
+            if max_batches is not None and i >= max_batches:
+                break
+            outputs = self.inference(model, None, batch)
+            n_valid = batch.get("n_valid", len(outputs))
+            for b, out in enumerate(outputs[:n_valid]):
+                hyps.append(out[0].text if out[0].text is not None else text_pre.decode(out[0].tokens))
+                decoded = None
+                for name in fields:
+                    raw = batch.get(name) if name != "target" else None
+                    if raw is not None and b < len(raw):
+                        refs_by_field[name].append(raw[b])
+                    else:
+                        if decoded is None:
+                            decoded = text_pre.decode(np.asarray(batch["target"])[b])
+                        refs_by_field[name].append(decoded)
+        results: Dict[str, float] = {}
+        for metric in self.metrics:
+            results.update(metric.compute(hyps, refs_by_field[metric.cfg.target_field]))
+        refs = refs_by_field[self.metrics[0].cfg.target_field if self.metrics else "target"]
+        out_dir = self.cfg.evaluation.output_dir
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f"{self.name}_{split}.json"), "w") as f:
+                json.dump({"hyps": hyps, "refs": [str(r) for r in refs], "metrics": results}, f, indent=1)
+        return results

@@ -126,7 +126,7 @@ def test_task_and_model_groups_serialize_like_ofasys_tpu(task_and_model_nodes):
     assert ConfigStore().get("ofasys.task", "default").active
 
 
-def test_to_dict_from_dict_round_trips():
+def test_to_dict_from_dict_round_trips(tmp_path):
     for cls, jcls in ((TrainerConfig, JTrainerConfig), (GeneralistModelConfig, None)):
         cfg = cls()
         if cls is TrainerConfig:
@@ -146,8 +146,12 @@ def test_to_dict_from_dict_round_trips():
             jd = jcs.to_dict(jcs.from_dict(jcls, d))
             jd["common"]["profile_dir"] = d["common"]["profile_dir"]
             assert jd == d
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TrainerConfig.from_yaml("train.yaml")
+    # from_yaml reads a config file through the launcher, as ofasys_tpu's does
+    path = tmp_path / "train.yaml"
+    path.write_text("trainer:\n  optimization: {lr: [3.0e-4], max_update: 7}\n  common: {seed: 5}\n")
+    got, want = TrainerConfig.from_yaml(str(path)), JTrainerConfig.from_yaml(str(path))
+    assert got.optimization.lr == (3e-4,) and got.optimization.max_update == 7
+    assert tcs.to_dict(got)["optimization"] == jcs.to_dict(want)["optimization"]
 
 
 def _collate(gp, cls, tpl, recs, split):

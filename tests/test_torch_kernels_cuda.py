@@ -30,6 +30,7 @@ Tolerances (bf16), for q scaled as the model scales it:
     dg and db in registers or in shared memory, the two-walk kernel).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -957,3 +958,105 @@ def test_resnet_trunk_bf16_against_fp32_on_card():
     assert y16.dtype == torch.bfloat16 and tuple(y16.shape) == (2, 4, 4, 1024)
     rel = ((y16.float() - y32).norm() / y32.norm()).item()
     assert torch.isfinite(y16.float()).all() and rel <= 5e-2, rel
+
+
+def _glue_task(tmp_path, answers):
+    """A GLUE sst2 task whose candidate answers are ``answers``, initialized
+    on a new dictionary."""
+    import json
+
+    from ofasys_torch.configure import ConfigStore
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+    from ofasys_torch.task.tasks import GlueTask
+
+    path = tmp_path / "ans2label.json"
+    path.write_text(json.dumps({a: i for i, a in enumerate(answers)}))
+    cfg = ConfigStore().get("ofasys.preprocess", "text").config
+    saved, cfg.ans2label_file = cfg.ans2label_file, str(path)
+    try:
+        return GlueTask(subtask="sst2").initialize(Dictionary())
+    finally:
+        cfg.ans2label_file = saved
+
+
+TRAVERSE_SCORE_ATOL = 0.25
+
+
+@pytest.mark.cuda
+def test_rank_answers_under_b1_match_plain_path_on_card(tmp_path):
+    """TraverseTask's candidate scores on a tiny bf16 model (E=256, 4 heads
+    of 64): B1 in every encoder layer (B=32 sources of about 72 tokens, B*T
+    >= 256) and in the decoder self and cross attention of each answer whose
+    pass reaches the dense gate ("maybe not" does), as many launches as
+    MultiheadAttention's routing rule gives; against the same scores with
+    plain attention, each score within TRAVERSE_SCORE_ATOL (bf16 logits
+    summed over the answer's tokens: the bound of chip_smoke's encoder
+    check), the picks equal where the top two part by more than twice that."""
+    _need_card()
+    from ofasys_torch import GeneralistModel
+    from ofasys_torch.model.transformer import attention_route
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    answers = ["no", "yes", "maybe not"]
+    task = _glue_task(tmp_path, answers)
+    g = torch.Generator().manual_seed(0)
+    words = ["good", "bad", "film", "plot", "the", "actors", "were", "dull", "fine"]
+    recs = [{"sentence": " ".join(words[int(i)] for i in torch.randint(0, len(words), (int(n),), generator=g)),
+             "label": answers[int(n) % 2]} for n in torch.randint(3, 6, (32,), generator=g)]
+    gp = task.general_preprocess
+    sample = gp.collate([gp(Instruction(task.templates[0], split="valid").format(**r)) for r in recs])
+    model = GeneralistModel(arch="tiny")
+    model.cfg.dropout = 0.0
+    model.initialize(task.global_dict, device="cuda", seed=0)
+    f0 = tdense.dense_attention_fwd.launches
+    kernel = task.answer_scores(model, sample, answers)
+    launched = tdense.dense_attention_fwd.launches - f0
+    model.cfg.attn_kernel = "xla"
+    plain = task.answer_scores(model, sample, answers)
+    model.cfg.attn_kernel = "auto"
+
+    cfg, H = model.cfg, model.cfg.encoder.attention_heads
+    B = len(recs)
+    Ts = sum(s.value["inputs"].shape[1] for s in sample["net_input"]["slots"] if s.is_src)
+
+    def dense(Tq, Tk):
+        return attention_route(cfg, "cuda", B, Tq, Tk, H, cfg.encoder.embed_dim // H, 0.0,
+                               bias_shape=(1, H, Tq, Tk), mask_shape=(B, 1, 1, Tk)) == "dense"
+
+    pre = gp.name2pre["text"]
+    decoder = [cfg.decoder.layers * (dense(Tt, Tt) + dense(Tt, Ts))
+               for Tt in (len(pre.encode(a)) + 1 for a in answers)]
+    assert dense(Ts, Ts) and any(decoder)
+    assert launched == len(answers) * cfg.encoder.layers + sum(decoder)
+    assert np.isfinite(kernel).all() and np.abs(kernel - plain).max() <= TRAVERSE_SCORE_ATOL
+    top2 = np.sort(plain, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * TRAVERSE_SCORE_ATOL
+    assert (kernel.argmax(1)[clear] == plain.argmax(1)[clear]).all()
+
+
+@pytest.mark.cuda
+def test_import_reference_state_dict_onto_cuda_model_on_card():
+    """A reference state_dict exported from a CPU model imports onto a model
+    on the card bit for bit; the shared embedding's decoder copy is unused."""
+    _need_card()
+    from ofasys_torch import GeneralistModel
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+    from ofasys_torch.utils import torch_import as tti
+    from ofasys_torch.utils.jax_params import export_params
+
+    d = Dictionary()
+    for i in range(300):
+        d.add_symbol(f"<text>_{i}")
+    d.pad_to_multiple_(8)
+    src = GeneralistModel(arch="tiny")
+    src.initialize(d, device="cpu", seed=1)
+    sd = tti.export_reference_state_dict(src)
+    sd["decoder.adaptor.embed_tokens.weight"] = sd["encoder.adaptor.embed_tokens.weight"]
+    dst = GeneralistModel(arch="tiny")
+    dst.initialize(d, device="cuda", seed=2)
+    _, missing, unused = tti.import_reference_state_dict(sd, dst)
+    assert missing == [] and unused == ["decoder.adaptor.embed_tokens.weight"]
+    assert dst.net.embed_tokens.weight.device.type == "cuda"
+    want, got = export_params(src.net), export_params(dst.net)
+    for (p, a), (q, b) in zip(tti._walk(want), tti._walk(got), strict=True):
+        assert p == q and np.array_equal(a, b), p
