@@ -86,7 +86,9 @@ Phases, in order; any failure exits non-zero:
      images and expressions of GROUND_TEXT bytes (every encoder 252 < 256:
      B1) under the hub's BOX defaults, then 4 with the bins as
      constraint_range: B1 launches from the planned shapes, 4 tokens + EOS
-     a request, boxes in [0, 1], tokens against the plain attention path,
+     a request, a 4-vector box in [0, 1] wherever the 4 tokens are bins
+     (the requests without one logged), every box a 4-vector under the
+     range (a planted empty box caught), tokens against the plain attention path,
      the trunk's bf16 output against fp32 and its RMS block by block, p50
      and requests/s beside serve_caption's, the host ms of the image + box
      preprocessing; one dispatch profiled with the trunk's share
@@ -118,6 +120,19 @@ After serve_motion (phase 19), on the serve model:
  28. serve_ensemble: serve's requests on an ensemble of the serve model and
      a second base model from seed 1: B1 in both members' encoders, a
      one-member ensemble is the model bit for bit, p50 beside serve's
+ 38. serve_speculative: OFASys.set_draft with a tiny-arch draft (random
+     weights from SEED + 7), gamma 4: serve's 16 sources as greedy calls
+     (beam 1, no n-gram blocking) one at a time, then one dispatch of 8,
+     each against the target alone in the same run (tokens equal, or
+     parting at a near-tie of the target within SPEC_TIE_TOL, or where one
+     side takes EOS and beam 1's answer scores better); the target steps,
+     tokens per verify, mean acceptance, host syncs per verify, p50 beside
+     the target alone's; B1 once per dense encoder layer of the target and
+     the draft in the dispatch of 8, none at B=1; then the target as its
+     own draft: every proposal accepted but at near-ties
+ 39. nan_check: one backward through the serve model with a NaN planted in
+     one gradient leaf, found by check_tree at its flax path; a NaN planted
+     in one encoder layer's fc1 output, named first by debug_forward
 After train (phase 6), from the same seed:
  29. train_qat: train's updates under quant_training='fwd': B7 in every
      forward projection (4 per encoder and 7 per decoder layer per task,
@@ -175,6 +190,18 @@ After serve_pretrained, on train_fit's files and checkpoints:
      ${var} paths loads to the same dict; one
      `python -m ofasys_torch.cli.train launch.json --set ...` run whose
      overrides reach its TrainerConfig
+ 40. train_profile: train_fit's run with common.profile=True: the Chrome
+     trace the trainer wrote read back, B1 and B2 counted in it by kernel
+     name (36 each an update), each update's wall, busy time and idle share
+     from the trace (the median of updates 2, 4 and 6 beside train_fit's
+     torch.profiler figure), checkpoints and meters bit for bit with
+     train_fit's
+ 41. train_fetch: train_fit's TSVs read as testfs:// URLs through a
+     fetcher the phase registers (a copy of the local file) into a fresh
+     $OFA_CACHE_HOME: checkpoints bit for bit with train_fit's at updates 3
+     and 6, one cache entry with its .json sidecar per fetched file; a
+     seeded .bin token file read through OssTextBinReader, its records
+     the array's blocks
 After serve_ground, on its hub:
  34. import_reference: the grounding model exported as a reference
      state_dict (export_reference_state_dict, plus the decoder's
@@ -213,7 +240,8 @@ every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1, head dims
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
 B2) with the scale and the causal mask inside the kernel at a decoder shape
 and at a shape with Tq < Tk (the causal offset), with two planted faults;
-B1 also at serve_closed's, serve_lexical's, serve_pretrained's and evaluate's dispatch shapes, B1 and
+B1 also at serve_closed's, serve_lexical's, serve_pretrained's and evaluate's dispatch shapes,
+and at the speculative draft's dispatch of 8 (its own 4 heads, D = 64), B1 and
 B2 at every attention shape of train_fit's six updates, and B7 also
 at every shape of train_qat's projections.
 The build phase logs ptxas's registers and spills of every kernel and
@@ -257,7 +285,12 @@ under ``gpt2_text(fx)``): ``evaluate_and_check(fx, efx, "cpu",
 fit["last"], device="cpu")``, ``traverse_kernels_and_check(trav, "cpu")``
 and ``launch_and_check(fx, fit, "cpu", counts, device="cpu",
 arch="tiny")``; phase 34 on the tiny grounding hub with
-``import_reference_and_check(hub, "cpu", None, device="cpu", arch="tiny")``.
+``import_reference_and_check(hub, "cpu", None, device="cpu", arch="tiny")``;
+phases 38-39 on a tiny hub (fp32, ``attn_kernel="pallas"``) with
+``serve_speculative_and_check(hub, "cpu")`` and ``nan_check_and_check(hub,
+"cpu")``; phases 40-41 after train_fit's rehearsal with
+``train_profile_and_check(fx, fit, "cpu", res, device="cpu", arch="tiny")``
+and ``train_fetch_and_check(fx, fit, "cpu", device="cpu", arch="tiny")``.
 """
 
 from __future__ import annotations
@@ -2435,8 +2468,10 @@ def serve_ground_and_check(hub, card, caption_res=None):
     """serve_ground: N_GROUND_REQUESTS refcoco requests through the server
     under the hub's BOX defaults, then N_CONSTRAINED_REQUESTS with the bins
     as constraint range: kernel B1 in every dispatch's encoder, the encoder
-    output against plain attention, every request's 4 bin tokens decoded
-    to a box in [0, 1] (every token a bin under the range), tokens against
+    output against plain attention, every request 4 tokens + EOS, a request
+    whose 4 tokens are bins decoded to a 4-vector box in [0, 1] (the others
+    logged by request: no box; under the range every token a bin and every
+    box a 4-vector, a planted empty box caught), tokens against
     the plain attention path, the trunk's bf16 output against fp32, p50 and
     requests/s beside serve_caption's; first the host time of the image +
     box preprocessing a request."""
@@ -2460,17 +2495,22 @@ def serve_ground_and_check(hub, card, caption_res=None):
     res_c = serve_and_check(hub, card, REFCOCO_TPL, con, "serve_ground_constrained", check_encoder=False)
     eos = hub.global_dict.eos()
     for label, r, constrained in (("serve_ground", res, False), ("serve_ground_constrained", res_c, True)):
-        boxes = [o.box for o in r["outs"]]
-        lengths = [len(o.tokens) for o in r["outs"]]
-        log(f"  {label}: tokens per request {sorted(set(lengths))}; boxes "
-            + "; ".join(np.array2string(b, precision=3, separator=",") for b in boxes))
-        if any(n != 5 for n in lengths) or any(b is None or not ((b >= 0) & (b <= 1)).all() for b in boxes):
-            raise SystemExit(f"{label}: not 4 tokens + EOS a request, or a box outside [0, 1]")
+        outs = list(map(_best, r["outs"]))
+        faults, nobox = _check_boxes(outs, box, eos, constrained)
+        log(f"  {label}: tokens per request {sorted(set(len(o.tokens) for o in outs))}; boxes "
+            + "; ".join(np.array2string(np.asarray(o.box), precision=3, separator=",") for o in outs)
+            + f"; {len(nobox)} of {len(outs)} answers are not four bin tokens and have no box"
+            + (f" (requests {nobox})" if nobox else ""))
+        if faults:
+            raise SystemExit(f"{label}: {faults[:4]}")
         if constrained:
-            toks = np.stack([o.tokens for o in r["outs"]])
-            in_range = ((toks >= box.bin_start) & (toks < box.bin_end)) | (toks == eos)
-            if not in_range.all() or any(b.shape != (4,) for b in boxes):
-                raise SystemExit(f"{label}: a token outside the constraint range")
+            # the check catches an empty box under the constraint range
+            planted = [dataclasses.replace(o) for o in outs]
+            planted[0].box = np.zeros(0, np.float32)
+            caught = _check_boxes(planted, box, eos, True)[0]
+            log(f"  {label}: an empty box planted in request 0 is caught: {caught}")
+            if not caught:
+                raise SystemExit(f"{label}: the box check missed a planted empty box")
     _tokens_vs_plain(hub, res["calls"] + res_c["calls"], "serve_ground")
     res.update(trunk_check(hub, card))
     res["preprocess_ms"] = statistics.median(host)
@@ -3803,8 +3843,9 @@ def gpt2_text(fx):
         cfg.bpe, cfg.encoder_json, cfg.vocab_bpe = saved
 
 
-def fit_tasks(fx):
-    """One Task per spec, reading its TSV (load_dataset_from_path)."""
+def fit_tasks(fx, url=None):
+    """One Task per spec, reading its TSV (load_dataset_from_path), by its
+    path or by ``url(path)``."""
     from ofasys_torch import Task
 
     tasks = []
@@ -3812,7 +3853,7 @@ def fit_tasks(fx):
         t = Task(name=name, instruction=spec["template"])
         t.cfg.dataset.batch_size = spec["batch"]
         t.cfg.dataset.selected_cols = spec["cols"]
-        tasks.append(t.load_dataset_from_path(spec["path"]))
+        tasks.append(t.load_dataset_from_path(spec["path"] if url is None else url(spec["path"])))
     return tasks
 
 
@@ -4746,6 +4787,489 @@ def launch_and_check(fx, fit, card, fit_launches, device="cuda", arch="base"):
     return launches, dict(fit_s=fit_s, per_update=per_update, cli_train_s=train_s)
 
 
+# ------------------------------------------------------------- slice 16
+# serve_speculative: serve's 16 sources as greedy calls (beam 1, no n-gram
+# blocking: the calls set_draft routes) one at a time, then one dispatch of
+# the first 8, with a tiny-arch draft (random weights from SEED + 7) and
+# with the target as its own draft
+SPEC_GAMMA = 4
+SPEC_OPTS = dict(beam_size=1, no_repeat_ngram_size=0, max_len_b=MAX_LEN_B)
+DRAFT_ARCH = "tiny"
+# a request's tokens may part from the target-alone run's where the
+# target's two choices are within this of each other (the verify step's
+# bf16 products round apart from a single step's), as _tokens_vs_plain
+# allows serve_closed
+SPEC_TIE_TOL = 5e-2
+# train_profile: one steady update's idle share from the trainer's trace
+PROFILE_UPDATES = (2, 4, 6)
+# B1's and B2's device kernels by name in a trace (bf16; the fp32 ones for
+# the CPU-free rehearsal names do not occur on the card's bf16 paths)
+B1_KERNEL_NAMES = ("dense_attention_fwd_mma_kernel", "dense_attention_fwd_kernel")
+B2_KERNEL_NAMES = ("bwd_mma_kernel<false, false>", "bwd_mma_kernel<(bool)0, (bool)0>", "bwd_rows_kernel")
+BIN_BLOCK = 512
+BIN_BLOCKS = 64
+
+
+def build_draft_hub(hub, device="cuda", arch=DRAFT_ARCH):
+    """A draft for ``hub``: the ``arch`` model (text adaptor, random weights
+    from SEED + 7) on the hub's dictionary and preprocessors."""
+    from ofasys_torch import GeneralistModel, OFASys
+
+    m = GeneralistModel(arch=arch)
+    m.cfg.dropout = 0.0
+    m.cfg.attn_kernel = hub.model.cfg.attn_kernel
+    m.initialize(hub.global_dict, active_adaptors=("text",), dtype=hub.model.net.dtype, device=device,
+                 seed=SEED + 7)
+    return OFASys(m, None, hub.global_dict, hub.general_preprocess, device=device)
+
+
+def _spec_gen(hub):
+    """The hub's SpeculativeGenerator (made by its first greedy call)."""
+    from ofasys_torch.generator import SpeculativeGenerator
+
+    return next(g for g in hub._generators.values() if isinstance(g, SpeculativeGenerator))
+
+
+@torch.no_grad()
+def _step_logprobs(hub, data, tokens):
+    """The target's log-probs at each step of decoding ``tokens`` for one
+    record, one single step at a time."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+    from ofasys_torch.utils.pytree import SlotBatch, slots_to_device
+
+    gp, net, dev = hub.general_preprocess, hub.model.net, hub.device
+    slots = gp.collate([gp(Instruction(TPL, split="test").format(**data))])["net_input"]["slots"]
+    enc = net.encode(slots_to_device([s for s in slots if s.is_src], dev))
+    tgt = SlotBatch.target_slot(slots)
+    T_buf = MAX_LEN_B + 2
+    dummy = dataclasses.replace(tgt, value={"inputs": torch.zeros((1, T_buf), dtype=torch.long, device=dev)})
+    bias, cb, cache = net.decode_prepare([dummy], enc, T_buf)
+    prev, out = hub.global_dict.bos(), []
+    for step, t in enumerate(tokens):
+        logits, _, cache = net.decode_step(torch.full((1, 1), prev, dtype=torch.long, device=dev), step,
+                                           enc, bias, cb, cache, tgt)
+        out.append(torch.log_softmax(logits[0, -1].float(), dim=-1))
+        prev = int(t)
+    return torch.stack(out)
+
+
+def _spec_partings(hub, records, spec, plain):
+    """Where a speculative answer differs from the target-alone one: (row,
+    position, margin, kind): the target's log-prob gap between the two
+    choices at the first differing position ('tie' when within
+    SPEC_TIE_TOL), or 'eos' where one of them takes EOS there and the
+    beam-1 search's answer scores at least the greedy path's (a beam of one
+    keeps its second candidate alive beside a finished one)."""
+    eos, out = hub.global_dict.eos(), []
+    for i, (data, s, p) in enumerate(zip(records, spec, plain, strict=True)):
+        s, p = _best(s), _best(p)
+        if np.array_equal(s.tokens, p.tokens):
+            continue
+        n = min(len(s.tokens), len(p.tokens))
+        pos = int(np.nonzero(s.tokens[:n] != p.tokens[:n])[0][0])
+        lp = _step_logprobs(hub, data, s.tokens[:pos + 1])[pos]
+        margin = abs(float(lp[int(s.tokens[pos])] - lp[int(p.tokens[pos])]))
+        if margin <= SPEC_TIE_TOL:
+            kind = "tie"
+        elif eos in (int(s.tokens[pos]), int(p.tokens[pos])) and p.score >= s.score:
+            kind = "eos"
+        else:
+            kind = "differs"
+        out.append((i, pos, margin, kind))
+    return out
+
+
+def _spec_run(spec_hub, plain_hub, records, card, label):
+    """Each record alone through both hubs (target-alone, speculative,
+    speculative, target-alone, timed by the host clock ending in a
+    synchronize), then one dispatch of the first 8: the speculative runs'
+    launch counts (the first speculative pass and the dispatch), answers,
+    per-call stats and host syncs, and the p50s."""
+    dev = spec_hub.device
+    spec_hub.inference(TPL, records[:2], **SPEC_OPTS)          # warm-up, makes the generator
+    plain_hub.inference(TPL, records[:2], **SPEC_OPTS)
+    gen = _spec_gen(spec_hub)
+    gen.rejections = []
+    times = {"plain": [], "spec": []}
+    answers = {"plain": [], "spec": []}
+    stats, syncs = [], []
+    launches = None
+    for turn, which in enumerate(("plain", "spec", "spec", "plain")):
+        hub = spec_hub if which == "spec" else plain_hub
+        if turn == 1:
+            reset_counts()
+        for data in records:
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = hub.inference(TPL, data, **SPEC_OPTS)
+            _sync(dev)
+            times[which].append((time.perf_counter() - t0) * 1e3)
+            if turn in (0, 1):
+                answers[which].append(out)
+            if turn == 1:
+                stats.append(dict(gen.last_stats))
+                syncs.append(gen.last_host_syncs)
+        if turn == 1:
+            single = read_counts()
+    reset_counts()
+    batch_spec = spec_hub.inference(TPL, records[:8], **SPEC_OPTS)
+    _sync(dev)
+    batched = read_counts()
+    batch_stats, batch_syncs = dict(gen.last_stats), gen.last_host_syncs
+    batch_plain = plain_hub.inference(TPL, records[:8], **SPEC_OPTS)
+    launches = {k: single[k] + batched[k] for k in KERNELS}
+    iters = [s["target_steps"] - 1 for s in stats]
+    per_verify = [(n - 2) / it for n, it in zip(syncs, iters) if it]
+    res = dict(
+        launches=launches, single_launches=single, batch_launches=batched,
+        p50_ms=statistics.median(times["spec"]), plain_p50_ms=statistics.median(times["plain"]),
+        target_steps=sum(s["target_steps"] for s in stats), tokens=sum(s["tokens"] for s in stats),
+        tokens_per_verify=statistics.mean(s["tokens_per_verify"] for s in stats if s["target_steps"] > 1),
+        mean_accepted=statistics.mean(s["mean_accepted"] for s in stats if s["target_steps"] > 1),
+        host_syncs_per_verify=max(per_verify) if per_verify else 0.0, batch_stats=batch_stats,
+        batch_host_syncs=batch_syncs, rejections=len(gen.rejections),
+        rejection_margins=sorted(gen.rejections)[:8])
+    partings = _spec_partings(spec_hub, records, answers["spec"], answers["plain"]) \
+        + [(f"dispatch row {i}", *rest) for i, *rest in
+           _spec_partings(spec_hub, records[:8], batch_spec, batch_plain)]
+    res["partings"] = partings
+    log(f"  {label}: {len(records)} requests one at a time (gamma {gen.gamma}): target steps "
+        f"{res['target_steps']} for {res['tokens']} tokens, tokens per verify "
+        f"{res['tokens_per_verify']:.3f}, mean accepted {res['mean_accepted']:.3f} of {gen.gamma}, "
+        f"host syncs per verify {res['host_syncs_per_verify']:.2f} (plus the prefill's and the "
+        f"readback); dispatch of 8: {batch_stats}, {batch_syncs} host syncs; {res['rejections']} "
+        f"rejected proposals; p50 {res['p50_ms']:.2f} ms beside target-alone greedy "
+        f"{res['plain_p50_ms']:.2f} ms (same call, B=1) [{card}]")
+    log(f"  {label}: answers against target-alone greedy: "
+        f"{len(records) + 8 - len(partings)} of {len(records) + 8} equal"
+        + (f"; parting (row, position, target margin, kind): {partings}" if partings else ""))
+    if any(kind == "differs" for *_, kind in partings):
+        raise SystemExit(f"{label}: speculative tokens differ from the target's greedy decode")
+    return res
+
+
+def serve_speculative_and_check(hub, card, serve_res=None):
+    """serve_speculative: set_draft with a tiny draft, then the target as
+    its own draft (every proposal accepted but at near-ties); B1 in the
+    dispatch of 8 in the target's and the draft's encoders, none at B=1."""
+    from ofasys_torch import OFASys
+    from ofasys_torch.model.transformer import attention_route
+
+    dev = hub.device
+    records = [r for r, _ in _serve_requests()]
+    draft = build_draft_hub(hub, device=dev)
+    plain = OFASys(hub.model, None, hub.global_dict, hub.general_preprocess, device=dev)
+    spec = OFASys(hub.model, None, hub.global_dict, hub.general_preprocess, device=dev)
+    spec.set_draft(draft, gamma=SPEC_GAMMA)
+    dcfg = draft.model.cfg
+    B, T = _encoder_shape(hub.general_preprocess, records[:8], TPL)
+    routes = {}
+    for who, cfg in (("target", hub.model.cfg), ("draft", dcfg)):
+        H = cfg.encoder.attention_heads
+        routes[who] = {(b, t): attention_route(cfg, dev, b, t, t, H, cfg.encoder.embed_dim // H, 0.0,
+                                          bias_shape=(1, H, t, t), mask_shape=(b, 1, 1, t))
+                       for b, t in [(B, T)] + [_encoder_shape(hub.general_preprocess, [r], TPL)
+                                               for r in records]}
+    expected_b1 = sum(cfg.encoder.layers for who, cfg in (("target", hub.model.cfg), ("draft", dcfg))
+                      if routes[who][(B, T)] == "dense")
+    log(f"serve_speculative: draft {DRAFT_ARCH} arch E={dcfg.encoder.embed_dim} heads="
+        f"{dcfg.encoder.attention_heads} layers={dcfg.encoder.layers}+{dcfg.decoder.layers}, gamma "
+        f"{SPEC_GAMMA}; encoder routes (B, T) target {routes['target']}, draft {routes['draft']}; "
+        f"expected B1 in the dispatch of 8: {expected_b1}")
+    res = _spec_run(spec, plain, records, card, "serve_speculative")
+    b1 = res["batch_launches"]["dense_attention_fwd"]
+    log(f"  serve_speculative: launches at B=1 {({k: v for k, v in res['single_launches'].items() if v})}, "
+        f"in the dispatch of 8 {({k: v for k, v in res['batch_launches'].items() if v})} "
+        f"(B1 {b1}, expected {expected_b1})")
+    if dev.type == "cuda" and (b1 != expected_b1 or expected_b1 == 0
+                               or any(v for v in res["single_launches"].values())):
+        raise SystemExit("serve_speculative: B1 did not run once per dense encoder layer of the dispatch")
+    self_spec = OFASys(hub.model, None, hub.global_dict, hub.general_preprocess, device=dev)
+    self_spec.set_draft(plain, gamma=SPEC_GAMMA)
+    self_res = _spec_run(self_spec, plain, records, card, "serve_speculative self-draft")
+    bad = [m for m in _spec_gen(self_spec).rejections if m > SPEC_TIE_TOL]
+    log(f"  serve_speculative self-draft: {self_res['rejections']} rejected proposals, their target "
+        f"margins {self_res['rejection_margins']} (near-tie tol {SPEC_TIE_TOL})")
+    if bad:
+        raise SystemExit(f"serve_speculative: the self-draft was rejected past a near-tie ({bad[:4]})")
+    if serve_res is not None:
+        log(f"  serve_speculative vs serve: p50 {res['p50_ms']:.2f} ms (B=1 greedy) vs serve's "
+            f"{serve_res['p50_ms']} ms (server, beam 5 mix) [{card}]")
+    res["self_draft"] = {k: v for k, v in self_res.items() if k not in ("launches",)}
+    return res
+
+
+def _check_boxes(outs, box, eos, constrained):
+    """serve_ground's answers: the faults, and the requests whose four
+    tokens are not all bins (no 4-vector box). Every answer is 4 tokens +
+    EOS; where its four tokens are bins, its box is a 4-vector in [0, 1];
+    under the constraint range every answer's are."""
+    faults, nobox = [], []
+    for i, o in enumerate(outs):
+        toks, b = np.asarray(o.tokens), np.asarray(o.box if o.box is not None else [])
+        if len(toks) != 5 or toks[-1] != eos:
+            faults.append(f"request {i}: {len(toks)} tokens, not 4 + EOS")
+            continue
+        bins = ((toks[:4] >= box.bin_start) & (toks[:4] < box.bin_end)).all()
+        if not bins:
+            nobox.append(i)
+            if constrained:
+                faults.append(f"request {i}: a token outside the constraint range")
+        if (bins or constrained) and not (b.shape == (4,) and ((b >= 0) & (b <= 1)).all()):
+            faults.append(f"request {i}: box {b!r} is not a 4-vector in [0, 1]")
+    return faults, nobox
+
+
+@contextlib.contextmanager
+def _testfs(root):
+    """testfs://<path> served from ``root`` by a fetcher that copies the
+    file, registered for the block."""
+    from ofasys_torch.utils import file_utils
+
+    fetched = []
+
+    def fetch(url, dest):
+        fetched.append(url)
+        shutil.copyfile(os.path.join(root, url[len("testfs://"):]), dest)
+
+    saved = file_utils._SCHEME_FETCHERS.get("testfs")
+    file_utils.register_scheme_fetcher("testfs", fetch)
+    try:
+        yield fetched
+    finally:
+        if saved is None:
+            file_utils._SCHEME_FETCHERS.pop("testfs", None)
+        else:
+            file_utils.register_scheme_fetcher("testfs", saved)
+
+
+def _fit_model(arch, device):
+    from ofasys_torch import GeneralistModel
+
+    m = GeneralistModel(arch=arch)
+    if torch.device(device).type == "cpu":
+        m.cfg.attn_kernel = "pallas"
+    return m
+
+
+def _vs_train_fit(run_dir, fit, label):
+    """checkpoint_1_3 and checkpoint_last of ``run_dir`` against train_fit's,
+    params, moments and step bit for bit, with the meters."""
+    from ofasys_torch.utils import checkpoint_utils as cu
+
+    diffs, meters = {}, {}
+    for name, ref in ((f"checkpoint_1_{FIT_SAVE_EVERY}", fit["ck13"]), ("checkpoint_last", fit["last"])):
+        a, meta_a = cu.load_checkpoint(os.path.join(run_dir, name))
+        b, meta_b = cu.load_checkpoint(ref)
+        diffs[name] = _ckpt_trees_equal(a, b)
+        meters[name] = [{k: v for k, (cls, v) in m["meters"].items()
+                         if cls != "TimeMeter" and k not in ("train_wall", "gb_free")} for m in (meta_a, meta_b)]
+    same = not any(diffs.values()) and all(m[0] == m[1] for m in meters.values())
+    log(f"  {label}: checkpoints against train_fit's: "
+        + "; ".join(f"{n} {'bit for bit' if not d else d[:6]}, meters equal {meters[n][0] == meters[n][1]}"
+                    for n, d in diffs.items()))
+    if not same:
+        raise SystemExit(f"{label}: the run differs from train_fit's")
+
+
+def _trace_updates(trace):
+    """Per profiled update (the trainer's 'update <n>' ranges): its device
+    events (kernels, copies, sets) by the launches made inside the range
+    (CUDA correlation ids; a kernel without a correlated launch goes with
+    the update of the launch before it on the stream), wall (from the
+    range's start to the later of its end and its last device event's),
+    busy (the union of its device events) and the launches by name."""
+    events = trace["traceEvents"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], int(e["name"].split()[1])) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("update "))
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    device = sorted((e for e in events if e.get("ph") == "X"
+                     and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+
+    def owner(ts):
+        for lo, hi, n in ranges:
+            if lo <= ts <= hi:
+                return n
+        return None
+
+    out, current = {}, None
+    for e in device:
+        n = owner(launch_ts.get(e.get("args", {}).get("correlation"), -1.0))
+        current = n if n is not None else current
+        if current is not None:
+            out.setdefault(current, []).append(e)
+    res = {}
+    for lo, hi, n in ranges:
+        evs = out.get(n, [])
+        end = max([hi] + [e["ts"] + e["dur"] for e in evs])
+        busy, last = 0.0, lo
+        for e in evs:                         # the union of the intervals
+            s, f = max(e["ts"], last), e["ts"] + e["dur"]
+            if f > s:
+                busy += f - s
+                last = f
+            last = max(last, f)
+        names = {}
+        for e in evs:
+            if e.get("cat") == "kernel":
+                names[e["name"]] = names.get(e["name"], 0) + 1
+        res[n] = dict(wall_ms=(end - lo) / 1e3, busy_ms=busy / 1e3, idle=1 - busy / max(end - lo, 1e-9),
+                      launches=sum(e.get("cat") == "kernel" for e in evs), kernels=names)
+    return res
+
+
+def _count_named(kernels, names):
+    return sum(c for k, c in kernels.items() if any(n in k for n in names))
+
+
+def train_profile_and_check(fx, fit, card, fit_res=None, device="cuda", arch="base"):
+    """train_profile: train_fit's run with common.profile=True: the trace
+    the trainer wrote, B1 and B2 counted in it by kernel name (36 each an
+    update), one steady update's idle share from it beside train_fit's
+    torch.profiler figure; its checkpoints bit for bit with train_fit's."""
+    from ofasys_torch import Trainer
+    from ofasys_torch.utils import profiler
+
+    cfg = fit_config(fx, "profile")
+    cfg.common.profile = True
+    cfg.common.profile_dir = os.path.join(fx["root"], "profile_trace")
+    reset_counts()
+    t0 = time.perf_counter()
+    Trainer(cfg, device=device).fit(_fit_model(arch, device), fit_tasks(fx), max_update=FIT_UPDATES)
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    path = os.path.join(cfg.common.profile_dir, profiler.TRACE_FILE)
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    with open(path) as f:
+        trace = json.load(f)
+    updates = _trace_updates(trace)
+    read_s = time.perf_counter() - t0
+    b1 = {n: _count_named(u["kernels"], B1_KERNEL_NAMES) for n, u in updates.items()}
+    b2 = {n: _count_named(u["kernels"], B2_KERNEL_NAMES) for n, u in updates.items()}
+    steady = {n: updates[n] for n in PROFILE_UPDATES if n in updates}
+    idle = statistics.median(u["idle"] for u in steady.values()) if steady else float("nan")
+    fit_idle = ((fit_res or {}).get("profile") or {}).get("idle")
+    log(f"train_profile: Trainer.fit with common.profile=True, {FIT_UPDATES} updates in {fit_s:.1f} s; "
+        f"trace {path} ({nbytes} bytes, read in {read_s:.1f} s), update ranges {sorted(updates)}; "
+        f"per update wall/busy ms, idle, launches: "
+        + "; ".join(f"{n}: {u['wall_ms']:.2f}/{u['busy_ms']:.2f}, {100 * u['idle']:.1f}%, {u['launches']}"
+                    for n, u in sorted(updates.items()))
+        + f"; steady updates {sorted(steady)} median idle {100 * idle:.1f}% (train_fit's one profiled "
+        f"update {'not measured' if fit_idle is None else f'{100 * fit_idle:.1f}%'}) [{card}]")
+    log(f"  train_profile: B1 by kernel name an update {b1}, B2 {b2}; wrapper counts {launches}")
+    if torch.device(device).type == "cuda":
+        if sorted(updates) != list(range(1, FIT_UPDATES + 1)) or set(b1.values()) != {36} \
+                or set(b2.values()) != {36} or launches["dense_attention_fwd"] != 36 * FIT_UPDATES:
+            raise SystemExit("train_profile: the trace does not show 36 B1 and 36 B2 in every update")
+    _vs_train_fit(os.path.join(fx["root"], "profile"), fit, "train_profile")
+    return launches, dict(fit_s=fit_s, trace_bytes=nbytes, idle_steady=idle, train_fit_idle=fit_idle,
+                          updates={n: {k: v for k, v in u.items() if k != "kernels"}
+                                   for n, u in updates.items()},
+                          b1_by_update=b1, b2_by_update=b2)
+
+
+def train_fetch_and_check(fx, fit, card, device="cuda", arch="base"):
+    """train_fetch: train_fit's TSVs read as testfs:// URLs through a
+    registered fetcher into a fresh $OFA_CACHE_HOME, bit for bit with
+    train_fit at updates 3 and 6, one cache entry per file with its
+    sidecar; then a .bin token file read by OssTextBinReader."""
+    from ofasys_torch import Trainer
+    from ofasys_torch.io.reader.object_store import OssTextBinReader
+
+    saved = os.environ.get("OFA_CACHE_HOME")
+    cache = tempfile.mkdtemp(prefix="cache_", dir=fx["root"])
+    os.environ["OFA_CACHE_HOME"] = cache
+    try:
+        with _testfs(fx["root"]) as fetched:
+            tasks = fit_tasks(fx, url=lambda p: "testfs://" + os.path.relpath(p, fx["root"]))
+            reset_counts()
+            t0 = time.perf_counter()
+            Trainer(fit_config(fx, "fetch"), device=device).fit(_fit_model(arch, device), tasks,
+                                                                 max_update=FIT_UPDATES)
+            fit_s = time.perf_counter() - t0
+            launches = read_counts()
+            rng = np.random.default_rng(SEED + 16)
+            ids = rng.integers(0, 50_000, size=BIN_BLOCKS * BIN_BLOCK + 100).astype(np.int32)
+            ids.tofile(os.path.join(fx["root"], "lm.bin"))
+            reader = OssTextBinReader("testfs://lm.bin", block_tokens=BIN_BLOCK)
+            blocks = [reader.read(i) for i in range(len(reader))]
+        entries = sorted(os.listdir(cache))
+    finally:
+        if saved is None:
+            os.environ.pop("OFA_CACHE_HOME", None)
+        else:
+            os.environ["OFA_CACHE_HOME"] = saved
+    data = [e for e in entries if not e.endswith((".json", ".lock"))]
+    sidecars = {e: json.load(open(os.path.join(cache, e + ".json")))["url"] for e in data
+                if os.path.exists(os.path.join(cache, e + ".json"))}
+    want = sorted([f"testfs://{os.path.relpath(s['path'], fx['root'])}" for s in fx["tasks"].values()]
+                  + ["testfs://lm.bin"])
+    bin_ok = len(blocks) == BIN_BLOCKS and all(
+        np.array_equal(b, ids[i * BIN_BLOCK:(i + 1) * BIN_BLOCK]) for i, b in enumerate(blocks))
+    log(f"train_fetch: {len(tasks)} TSVs as testfs:// URLs, {FIT_UPDATES} updates in {fit_s:.1f} s, "
+        f"launches {({k: v for k, v in launches.items() if v})}; fetched {fetched}; cache entries "
+        f"{entries}; sidecars {sidecars}; .bin: {len(blocks)} blocks of {BIN_BLOCK} ids equal the "
+        f"array's: {bin_ok} [{card}]")
+    if sorted(fetched) != want or sorted(sidecars.values()) != want or len(data) != len(want):
+        raise SystemExit("train_fetch: not one cache entry and sidecar per fetched file")
+    if not bin_ok:
+        raise SystemExit("train_fetch: OssTextBinReader's records differ from the .bin array")
+    if torch.device(device).type == "cuda" and (launches["dense_attention_fwd"] != 36 * FIT_UPDATES
+                                                or launches["dense_attention_bwd"] != 36 * FIT_UPDATES):
+        raise SystemExit("train_fetch: B1/B2 did not run 36 times an update")
+    _vs_train_fit(os.path.join(fx["root"], "fetch"), fit, "train_fetch")
+    return launches, dict(fit_s=fit_s, cache_entries=len(entries), bin_blocks=len(blocks))
+
+
+def nan_check_and_check(hub, card):
+    """nan_check: gradients of one backward through the hub's net (the
+    first serve dispatch's records, a sum of the log-partition of every
+    logit row) with a NaN planted in one leaf: check_tree names its flax
+    path; a NaN planted in one encoder layer's fc1 output: debug_forward
+    names that module first."""
+    from ofasys_torch.engine import nan_detector
+    from ofasys_torch.preprocessor.instruction import Instruction
+    from ofasys_torch.utils.pytree import slots_to_device
+
+    gp, net = hub.general_preprocess, hub.model.net
+    recs = [r for r, _ in _serve_requests()[:8]]
+    sample = gp.collate([gp(Instruction(TPL, split="train").format(**r)) for r in recs])
+    slots = slots_to_device(sample["net_input"]["slots"], hub.device)
+    t0 = time.perf_counter()
+    logits, _ = net(slots)
+    logits.float().logsumexp(-1).mean().backward()
+    grads = {n: p.grad for n, p in net.named_parameters()}
+    clean = nan_detector.check_tree(grads, "grads", net=net)
+    leaf = f"decoder.layers_{net.cfg.decoder.layers // 2}.self_attn.k_proj.weight"
+    grads[leaf][3, 5] = float("nan")
+    found = nan_detector.check_tree(grads, "grads", net=net)
+    net.zero_grad(set_to_none=True)
+    layer = f"encoder.layers_{net.cfg.encoder.layers // 2}.ffn.fc1"
+
+    def plant(_m, _i, out):
+        out = out.clone()
+        out[0, 0, 0] = float("nan")
+        return out
+
+    handle = net.get_submodule(layer).register_forward_hook(plant)
+    try:
+        bad = nan_detector.debug_forward(hub.model, sample["net_input"]["slots"])
+    finally:
+        handle.remove()
+    clean_fwd = nan_detector.debug_forward(hub.model, sample["net_input"]["slots"])
+    want_leaf = leaf.replace(".", "/").replace("/weight", "/kernel")
+    log(f"nan_check: E={net.cfg.encoder.embed_dim} gradients of {len(grads)} leaves: clean {clean}; NaN planted in {leaf}: "
+        f"check_tree gives {found}; NaN planted in {layer}'s output: debug_forward's first module "
+        f"{bad[:1]} of {len(bad)}, none after removing it: {clean_fwd == []} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    if clean or found != [want_leaf] or not bad or bad[0] != layer.replace(".", "/") or clean_fwd:
+        raise SystemExit("nan_check: the planted non-finite values were not found where they are")
+    return dict(found=found, first=bad[0], n_bad=len(bad))
+
+
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
     """One kernel's entry of the ``{"kernels": [...]}`` line: ``launches`` by
     path (the counts of each path's run), the error over every checked
@@ -4871,6 +5395,14 @@ def main() -> int:
         + [c for c in ground_calls if ground_routes[c[0]] == "dense" and c[0] not in same_as_mm]
         + fit_calls,
         motion_calls + eval_calls)
+    # B1 at the speculative draft's dispatch of 8 (its own heads, D = 64)
+    from ofasys_torch import GeneralistModel
+
+    dcfg = GeneralistModel(arch=DRAFT_ARCH).cfg
+    sB, sT = planned_dispatch_shapes()[0]
+    fres.append(check_fwd("serve_speculative_draft_dispatch",
+                          (sB, sT, sT, dcfg.encoder.attention_heads,
+                           dcfg.encoder.embed_dim // dcfg.encoder.attention_heads)))
     mark("dense kernels")
     long_serve = planned_dispatch_shapes(long_gp, _long_requests(), SUMMARY_TPL)
     flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
@@ -4919,6 +5451,12 @@ def main() -> int:
     ensemble_res = serve_ensemble_and_check(hub, card, serve_res)
     counts["serve_ensemble"] = ensemble_res["launches"]
     mark("serve_ensemble")
+    spec_res = serve_speculative_and_check(hub, card, serve_res)
+    counts["serve_speculative"] = spec_res["launches"]
+    mark("serve_speculative")
+    nan_res = nan_check_and_check(hub, card)
+    torch.cuda.empty_cache()
+    mark("nan_check")
 
     model = build_train_model(d, "cuda")
     counts["train"], train_res, (step, state, dev) = train_and_check(
@@ -5009,6 +5547,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         mark("traverse_kernels")
         counts["launch"], launch_res = launch_and_check(fx, fit, card, counts["train_fit"])
+        mark("launch")
+        counts["train_profile"], profile_res = train_profile_and_check(fx, fit, card, fit_res)
+        torch.cuda.empty_cache()
+        mark("train_profile")
+        counts["train_fetch"], fetch_res = train_fetch_and_check(fx, fit, card)
         del fit
     torch.cuda.empty_cache()
     shutil.rmtree(fit_root, ignore_errors=True)
@@ -5016,7 +5559,7 @@ def main() -> int:
         os.environ.pop("OFA_CACHE_HOME", None)
     else:
         os.environ["OFA_CACHE_HOME"] = saved_cache
-    mark("launch")
+    mark("train_fetch")
     ground_hub = build_ground_hub(ground_d, ground_gp)
     ground_res = serve_ground_and_check(ground_hub, card, caption_res)
     counts["serve_ground"] = ground_res["launches"]
@@ -5090,9 +5633,14 @@ def main() -> int:
     log(f"traverse_kernels: {json.dumps(trav_res)}")
     log(f"launch: {json.dumps(launch_res)}")
     log(f"serve_lexical: {json.dumps(lexical_res)}")
+    log(f"serve_speculative: {json.dumps({k: v for k, v in spec_res.items() if k != 'launches'})}")
+    log(f"nan_check: {json.dumps(nan_res)}")
+    log(f"train_profile: {json.dumps(profile_res)}")
+    log(f"train_fetch: {json.dumps(fetch_res)}")
     log("serve p50 ms: " + json.dumps({k: r["p50_ms"] for k, r in (
         ("serve", serve_res), ("serve_closed", closed_res), ("serve_sample", sample_res),
-        ("serve_sample_topp", topp_res), ("serve_ensemble", ensemble_res))}))
+        ("serve_sample_topp", topp_res), ("serve_ensemble", ensemble_res),
+        ("serve_speculative", spec_res))}))
     for label, (_, res) in ln.items():
         log(f"{label}: {json.dumps(res)}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -37,7 +37,7 @@ class CommonConfig(BaseDataclass):
     tensorboard_logdir: Optional[str] = None
     wandb_project: Optional[str] = None
     azureml_logging: bool = False
-    # a profiler trace of the update loop (not ported: ROADMAP Queue A item 9d)
+    # a torch.profiler trace of the update loop -> profile_dir/trace.json
     profile: bool = False
     profile_dir: str = "ofasys_torch_profile"
     # extra module directory imported before config build

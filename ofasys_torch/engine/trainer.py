@@ -24,8 +24,11 @@ epoch 1 (ROADMAP Queue C).
 One CUDA device (``device="cuda"``, the default; the CPU only when asked
 for): a ``ParallelConfig`` that asks for more than one device, ``zero1``,
 ``pipeline`` or ``sequence`` parallelism raises (ROADMAP Queue A item 13),
-``parallel.remat`` raises through the model's UNPORTED_DEFAULTS, and
-``common.profile`` raises (item 9d).
+and ``parallel.remat`` raises through the model's UNPORTED_DEFAULTS.
+
+``common.profile=True`` traces the update loop with torch.profiler
+(utils/profiler.py) into ``common.profile_dir/trace.json``, each update
+inside a ``record_function`` range named ``update <n>``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ofasys_torch.logging.meters import AverageMeter, MetersDict, TimeMeter
 from ofasys_torch.logging.progress_bar import build_progress_bar
 from ofasys_torch.model.ofa import modal_ids_of_params
 from ofasys_torch.preprocessor.dictionary import Dictionary
-from ofasys_torch.utils import checkpoint_utils
+from ofasys_torch.utils import checkpoint_utils, profiler
 from ofasys_torch.utils.device import resolve_device
 from ofasys_torch.utils.pytree import sample_to_device
 
@@ -71,10 +74,6 @@ def check_parallel(cfg: TrainerConfig):
         raise NotImplementedError(
             f"parallel {many or {'zero1': True}}: ofasys_torch trains on one device; "
             f"multi-device training waits for {PARALLEL}")
-    if cfg.common.profile:
-        raise NotImplementedError(
-            "common.profile: the profiler (utils/profiler.py) is not ported to ofasys_torch yet "
-            "(ROADMAP Queue A item 9d); run torch.profiler around Trainer.run_updates")
 
 
 class Trainer:
@@ -188,13 +187,26 @@ class Trainer:
         return self._update_freqs[task.name]
 
     def run_updates(self, start_update: int, end_update: int):
+        """Updates ``start_update`` to ``end_update`` (under a profiler
+        trace when ``common.profile``)."""
+        if not self.cfg.common.profile:
+            return self._run_updates(start_update, end_update)
+        with profiler.profile(self.cfg.common.profile_dir):
+            logger.info("torch.profiler trace -> %s", self.cfg.common.profile_dir)
+            return self._run_updates(start_update, end_update)
+
+    def _run_updates(self, start_update: int, end_update: int):
         cfg = self.cfg
         ck = cfg.checkpoint
         if getattr(self, "_wall_start", None) is None:
             self._wall_start = time.time()
         last_epoch = self._cur_epoch()
         for update in range(start_update, end_update):
-            self.train_one_update()
+            if cfg.common.profile:
+                with profiler.annotate(f"update {update + 1}"):
+                    self.train_one_update()
+            else:
+                self.train_one_update()
             self.meters["ups"].update(1)
             if cfg.common.log_interval and (update + 1) % cfg.common.log_interval == 0:
                 self._print_progress(update + 1, end_update)

@@ -13,10 +13,13 @@
 
     hub.quantize()        # int8 serving in place (ops/quant.py), kernel B7
 
+    hub.set_draft(OFASys(draft_model, None, global_dict, gp), gamma=4)
+                          # greedy calls decode speculatively (same tokens)
+
 Generation options go to ``SequenceGenerator`` (sampling, a closed-set
 ``constraint_trie``, ``search_strategy``, ...); ``seed`` seeds the sampling
-draws. ``shard`` and ``set_draft`` wait for later slices (ROADMAP Queue A
-items 13, 10).
+draws. With a draft attached, calls that resolve to greedy decoding go to
+``SpeculativeGenerator``. ``shard`` waits for ROADMAP Queue A item 13.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from ofasys_torch import ModalityType
-from ofasys_torch.generator import SequenceGenerator
+from ofasys_torch.generator import SequenceGenerator, SpeculativeGenerator
 from ofasys_torch.model.ofa import GeneralistModel, modal_ids_of_params
 from ofasys_torch.ops.quant import is_quantized, quantize_for_serving
 from ofasys_torch.preprocessor.dictionary import Dictionary
@@ -79,6 +82,7 @@ class OFASys:
         self.tasks = tasks or {}
         self._generators: Dict[Any, SequenceGenerator] = {}
         self._ensemble: Optional[List[GeneralistModel]] = None   # models, when > 1 checkpoint
+        self._draft = None                   # (draft GeneralistModel, gamma) after set_draft
 
     # ------------------------------------------------------------- loading
     @classmethod
@@ -162,6 +166,21 @@ class OFASys:
         self._generators.clear()
         return self
 
+    def set_draft(self, draft: "OFASys", gamma: int = 4) -> "OFASys":
+        """Attach a DRAFT model (a smaller OFASys sharing this model's
+        vocabulary) for speculative greedy decoding: ``inference`` calls
+        that resolve to greedy generation (beam_size=1, no sampling, no
+        n-gram blocking, no trie, no prefix) go through
+        ``SpeculativeGenerator``, with identical tokens and fewer sequential
+        target steps. Other calls are unaffected. ``gamma``: draft tokens
+        proposed per target verification."""
+        if len(draft.global_dict) != len(self.global_dict):
+            raise ValueError("draft vocabulary differs from the target's "
+                             f"({len(draft.global_dict)} vs {len(self.global_dict)})")
+        self._draft = (draft.model, gamma)
+        self._generators.clear()
+        return self
+
     def build_generator(self, **gen_kwargs) -> SequenceGenerator:
         """The generator ``inference`` runs for these options (cached per
         target modality and options); over every member of an ensemble."""
@@ -193,11 +212,30 @@ class OFASys:
         gen_kwargs.update(gen_overrides)
         prefix = sample.get("prefix_tokens")
         has_prefix = prefix is not None and prefix.size
-        key = (target_modality, tuple(sorted(gen_kwargs.items())))
+        speculative = (
+            self._draft is not None
+            and self._ensemble is None
+            and gen_kwargs.get("beam_size", 5) == 1
+            and not gen_kwargs.get("sampling", False)
+            and not gen_kwargs.get("no_repeat_ngram_size", 0)
+            and "constraint_trie" not in gen_kwargs
+            and not has_prefix
+        )
+        key = (target_modality, speculative, tuple(sorted(gen_kwargs.items())))
         if key not in self._generators:
-            self._generators[key] = self.build_generator(**gen_kwargs)
-        outputs = self._generators[key].generate(sample, prefix_tokens=prefix if has_prefix else None,
-                                                 seed=seed)
+            if speculative:
+                draft_model, gamma = self._draft
+                spec_kwargs = {k: v for k, v in gen_kwargs.items()
+                               if k in ("max_len_a", "max_len_b", "min_len", "lenpen", "constraint_range")}
+                self._generators[key] = SpeculativeGenerator(self.model, draft_model, self.global_dict,
+                                                             gamma=gamma, **spec_kwargs)
+            else:
+                self._generators[key] = self.build_generator(**gen_kwargs)
+        gen = self._generators[key]
+        if speculative:
+            outputs = gen.generate(sample)
+        else:
+            outputs = gen.generate(sample, prefix_tokens=prefix if has_prefix else None, seed=seed)
         for hyps in outputs:
             self.general_preprocess.postprocess(hyps, sample)
         results = [hyps[0] if len(hyps) == 1 else hyps for hyps in outputs]

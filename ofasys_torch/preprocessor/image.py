@@ -10,8 +10,9 @@ PIL is imported inside the functions that need it, and an ndarray that
 already is ``size x size`` does not go through it: ``resize_image`` then
 only truncates to uint8 as PIL's same-size resize (a copy) would, so the
 result equals ofasys_tpu's bit for bit and such inputs need no PIL at all.
-Remote image sources (ROADMAP Queue A item 11) are not ported: they raise
-``NotImplementedError``.
+Remote image sources (http, https, oss) are fetched into the cache by
+``utils/file_utils.cached_path`` (an oss:// source needs a registered
+fetcher).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ofasys_torch.preprocessor.base import (
     PreprocessSkipException,
 )
 from ofasys_torch.preprocessor.instruction import Slot
+from ofasys_torch.utils.file_utils import cached_path
 
 
 @dataclass
@@ -61,10 +63,9 @@ def load_image(value: Any):
         img = Image.open(io.BytesIO(value))
     elif isinstance(value, str):
         if value.startswith(("http://", "https://", "oss://")):
-            raise NotImplementedError(
-                "remote image sources (ofasys_tpu's file_utils.cached_path) are not ported to "
-                "ofasys_torch yet (ROADMAP Queue A item 11)")
-        if value.startswith("/") or value.startswith("./") or value.startswith("~"):
+            # a remote source through cached_path's scheme fetchers
+            img = Image.open(cached_path(value))
+        elif value.startswith("/") or value.startswith("./") or value.startswith("~"):
             img = Image.open(value)
         else:
             try:

@@ -8,11 +8,15 @@ the same generators in the same order as ofasys_tpu's: the template choice
 from ``random.Random(1)`` on the train split, then each preprocessor's own
 numpy generator.
 
+``load_dataset_from_path`` reads local TSVs, remote TSVs (``scheme://``
+URLs, fetched once into the cache through ``cached_path``'s registered
+fetchers, utils/file_utils.py) and ``.bin`` token files (fixed blocks of
+``dataset.text_bin_length`` ids, io/reader/object_store.py).
+
 ``evaluate`` generates over a split and scores the hypotheses with the
 task's metrics (``evaluation.metrics``, built from the ConfigStore's
-``ofasys.metric`` group). Not ported here: object-store and ``.bin``
-sources (ROADMAP Queue A item 11), the AR speech generator for audio
-targets and the criteria of item 10.
+``ofasys.metric`` group). Not ported here: the AR speech generator for
+audio targets and the criteria of item 10.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ofasys_torch.configure.config_store import ConfigStore, register_config, up
 from ofasys_torch.configure.configs import BaseDataclass, DatasetConfig, GenerationConfig
 from ofasys_torch.io.reader.base_reader import BaseReader
 from ofasys_torch.io.reader.dataset import EpochBatchIterator, parse_dataset_paths
+from ofasys_torch.io.reader.object_store import ObjectStoreLineReader, OssTextBinReader
 from ofasys_torch.io.reader.readers import (
     CachedReader,
     ConcatReader,
@@ -44,8 +49,6 @@ from ofasys_torch.preprocessor.instruction import Instruction
 
 logger = logging.getLogger("ofasys_torch.task")
 
-OBJECT_STORE = ("object-store and .bin sources are not ported to ofasys_torch yet (ROADMAP Queue A "
-                "item 11); use local TSV files")
 # ROADMAP Queue A item that ports each criterion this slice lacks
 PENDING_CRITERIA = {"speech_pretrain_loss": 10, "ofa_tacotron2": 10, "scst_loss": 10}
 
@@ -183,8 +186,10 @@ class Task:
         files = parse_dataset_paths(path)[0]
 
         def open_one(f):
-            if f.endswith(".bin") or ("://" in f and not f.startswith("file://")):
-                raise NotImplementedError(f"{f}: {OBJECT_STORE}")
+            if f.endswith(".bin"):
+                return OssTextBinReader(f, block_tokens=self.cfg.dataset.text_bin_length)
+            if "://" in f:
+                return TsvReader(ObjectStoreLineReader(f), selected_cols=self.cfg.dataset.selected_cols)
             return TsvReader(f, selected_cols=self.cfg.dataset.selected_cols)
 
         readers = [open_one(f) for f in files]

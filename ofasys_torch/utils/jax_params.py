@@ -103,6 +103,27 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     return net
 
 
+def _flax_leaf(net: nn.Module, name: str) -> Tuple[str, str]:
+    """(module path, flax leaf name) of the net's parameter ``name``."""
+    path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    if leaf == "weight":
+        module = net.get_submodule(path) if path else net
+        if isinstance(module, nn.Linear):
+            leaf = "kernel"
+        elif isinstance(module, nn.LayerNorm):
+            leaf = "scale"
+        elif isinstance(module, nn.Embedding):
+            leaf = "embedding"
+    return path, leaf
+
+
+def flax_path(net: nn.Module, name: str) -> str:
+    """The '/'-joined flax tree path of the net's parameter ``name``
+    (``encoder.layers_0.fc1.weight`` -> ``encoder/layers_0/fc1/kernel``)."""
+    path, leaf = _flax_leaf(net, name)
+    return "/".join(path.split(".") + [leaf]) if path else leaf
+
+
 def _set(tree: Dict[str, Any], path: str, leaf: str, arr: np.ndarray):
     node = tree
     for k in path.split(".") if path else ():
@@ -120,16 +141,9 @@ def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = N
     tree: Dict[str, Any] = {}
     for name, p in net.named_parameters():
         value = p if tensors is None else tensors[name]
-        path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
-        module = net.get_submodule(path) if path else net
+        path, leaf = _flax_leaf(net, name)
         arr = value.detach().float().cpu().numpy()
-        if leaf == "weight" and isinstance(module, nn.Linear):
-            leaf, arr = "kernel", arr.T
-        elif leaf == "weight" and isinstance(module, nn.LayerNorm):
-            leaf = "scale"
-        elif leaf == "weight" and isinstance(module, nn.Embedding):
-            leaf = "embedding"
-        _set(tree, path, leaf, arr)
+        _set(tree, path, leaf, arr.T if leaf == "kernel" and name.endswith(".weight") else arr)
     quantized = [(n, m) for n, m in net.named_modules() if is_quantized(m)]
     if tensors is not None or not quantized:
         return tree

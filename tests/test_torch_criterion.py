@@ -42,6 +42,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes gain nothing from intra-op threads, and test workers
+    running side by side would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _data(seed=0):
     rng = np.random.default_rng(seed)
     logits = (3.0 * rng.standard_normal((B, T, V))).astype(np.float32)

@@ -14,7 +14,9 @@ import pytest
 
 from ofasys_torch.generator import SequenceGenerator
 
-from test_torch_search import SRCS, assert_same_hypotheses, jax_generate, make_env, samples
+from test_torch_search import (  # noqa: F401  (fixture)
+    SRCS, _one_torch_thread, assert_same_hypotheses, jax_generate, make_env, samples,
+)
 
 
 @pytest.fixture(scope="module")

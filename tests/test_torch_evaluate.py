@@ -37,6 +37,17 @@ IMAGE = 64
 ANSWERS = {"sst2": ["no", "yes"], "mnli": ["yes", "maybe", "no"]}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes gain nothing from intra-op threads, and test workers
+    running side by side would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _words(rng, lo, hi):
     return " ".join(rng.choice(WORDS, int(rng.integers(lo, hi))))
 

@@ -42,6 +42,17 @@ from ofasys_torch.utils.jax_params import export_params, load_jax_params
 from ofasys_torch.utils.pytree import SlotBatch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes gain nothing from intra-op threads, and test workers
+    running side by side would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.mark.parametrize("V", [50048, 51200, 1024, 127, 128, 384, 50000, 4096 * 3])
 def test_pick_chunks_matches(V):
     assert pick_chunks(V) == jpick(V)

@@ -165,13 +165,33 @@ def test_array_at_size_needs_no_pil(monkeypatch):
         tpimage.resize_image(_image(np.random.default_rng(1), 40, 40), 32)
 
 
-def test_unported_image_options_raise():
-    """Remote image sources still raise; RandAugment, the box preprocessor
-    and image_resnet (Queue A item 7) now build."""
+def test_unported_image_options_raise(tmp_path, monkeypatch):
+    """A remote image source goes through cached_path's fetchers: an oss://
+    source without a registered fetcher raises, with one it loads as the
+    local file does, as in ofasys_tpu. RandAugment, the box preprocessor
+    and image_resnet (Queue A item 7) build."""
+    from ofasys_tpu.utils import file_utils as jfu
+    from ofasys_torch.utils import file_utils as tfu
+
     pre = tpimage.ImagePreprocess(None, tpimage.ImagePreprocessConfig(rand_augment=True))
     assert (pre._rand_augment.n, pre._rand_augment.m, pre._rand_augment.rng) == (2, 9, pre.rng)
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        tpimage.load_image("https://example.invalid/cat.png")
+    monkeypatch.setenv("OFA_CACHE_HOME", str(tmp_path / "cache"))
+    for fu in (jfu, tfu):
+        monkeypatch.delitem(fu._SCHEME_FETCHERS, "oss", raising=False)
+    with pytest.raises(ValueError, match="no fetcher for scheme 'oss'"):
+        tpimage.load_image("oss://bucket/cat.png")
+    local = tmp_path / "cat.png"
+    Image.fromarray(_image(np.random.default_rng(2), 20, 24).astype(np.uint8)).save(local)
+
+    def fetch(url, dest):
+        with open(local, "rb") as a, open(dest, "wb") as b:
+            b.write(a.read())
+
+    for fu in (jfu, tfu):
+        monkeypatch.setitem(fu._SCHEME_FETCHERS, "oss", fetch)
+    got = tpimage.load_image("oss://bucket/cat.png")
+    np.testing.assert_array_equal(got, tpimage.load_image(str(local)))
+    np.testing.assert_array_equal(got, jpimage.load_image("oss://bucket/cat.png"))
     d = Dictionary()
     gp = GeneralPreprocess(d, active=["text", "image", "imagenet", "imagepretrain"])
     assert gp.name2pre["imagenet"].cfg.random_crop and not gp.name2pre["image"].cfg.random_crop

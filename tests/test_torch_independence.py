@@ -1,7 +1,7 @@
 """ofasys_torch stands alone: importing every one of its modules loads no
 jax, flax, optax or ofasys_tpu module, and its entry points refuse to run on an
 absent card unless the CPU is asked for explicitly (the hub, the server,
-Trainer.fit and OFASys.from_pretrained)."""
+Trainer.fit, OFASys.from_pretrained and utils/profiler.time_fn)."""
 
 import json
 import os
@@ -72,6 +72,12 @@ if not torch.cuda.is_available():
     except RuntimeError:
         raised["OFASys.from_pretrained"] = True
     OFASys.from_pretrained(root + "/checkpoint_last", device="cpu")
+    from ofasys_torch.utils import profiler
+    try:
+        profiler.time_fn(lambda: None)
+        raised["time_fn"] = False
+    except RuntimeError:
+        raised["time_fn"] = True
     out["raised"] = raised
 print(json.dumps(out))
 """
@@ -97,9 +103,14 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
                 "ofasys_torch.io.reader.file_reader", "ofasys_torch.io.reader.readers",
                 "ofasys_torch.io.reader.dataset", "ofasys_torch.task.base", "ofasys_torch.logging.meters",
                 "ofasys_torch.logging.metrics", "ofasys_torch.logging.progress_bar",
-                "ofasys_torch.utils.checkpoint_utils", "ofasys_torch.engine.trainer"}
+                "ofasys_torch.utils.checkpoint_utils", "ofasys_torch.engine.trainer",
+                "ofasys_torch.engine.nan_detector", "ofasys_torch.utils.profiler", "ofasys_torch.draw",
+                "ofasys_torch.tools.preprocess_text", "ofasys_torch.tools.create_tsv_cache",
+                "ofasys_torch.tools.create_oss_list_objects", "ofasys_torch.ms_wrapper",
+                "ofasys_torch.io.reader.object_store", "ofasys_torch.io.reader.streaming",
+                "ofasys_torch.generator.speculative"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
     if "raised" in out:
         assert out["raised"] == {"initialize": True, "OFASys": True, "InferenceServer": True,
-                                 "Trainer.fit": True, "OFASys.from_pretrained": True}
+                                 "Trainer.fit": True, "OFASys.from_pretrained": True, "time_fn": True}

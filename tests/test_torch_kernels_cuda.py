@@ -1060,3 +1060,82 @@ def test_import_reference_state_dict_onto_cuda_model_on_card():
     want, got = export_params(src.net), export_params(dst.net)
     for (p, a), (q, b) in zip(tti._walk(want), tti._walk(got), strict=True):
         assert p == q and np.array_equal(a, b), p
+
+
+SPEC_TIE_TOL = 5e-2
+
+
+@pytest.mark.cuda
+def test_speculative_batch_on_card_equals_the_target_alone():
+    """A hub with a tiny draft serves a dispatch of 8 greedy requests on the
+    card: B1 once per encoder layer of the target and of the draft (8
+    sources of about 40 tokens: B*T >= 256), none in the verify and draft
+    steps (cached); every answer equals the target alone's greedy one, or
+    parts from it where the target's two choices are within SPEC_TIE_TOL
+    (the verify step's bf16 products round apart from a single step's) or
+    where one of them takes EOS."""
+    _need_card()
+    from ofasys_torch import GeneralistModel, OFASys
+    from ofasys_torch.model.transformer import attention_route
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+    from ofasys_torch.preprocessor.general import GeneralPreprocess
+
+    d = Dictionary()
+    gp = GeneralPreprocess(d, active=["text"])
+    models = []
+    for layers, seed in ((3, 0), (1, 7)):
+        m = GeneralistModel(arch="tiny")
+        m.cfg.encoder.layers = m.cfg.decoder.layers = layers
+        m.cfg.dropout = 0.0
+        m.initialize(d, device="cuda", seed=seed)
+        models.append(m)
+    target, draft = (OFASys(m, None, d, gp) for m in models)
+    words = ["the", "storm", "moved", "north", "over", "coast", "on", "monday"]
+    g = torch.Generator().manual_seed(0)
+    data = [{"src": " ".join(words[int(i)] for i in torch.randint(0, len(words), (8,), generator=g))}
+            for _ in range(8)]
+    opts = dict(beam_size=1, no_repeat_ngram_size=0, max_len_b=12)
+    plain = target.inference("[TEXT:src] -> [TEXT:tgt]", data, **opts)
+    spec = OFASys(models[0], None, d, gp).set_draft(draft, gamma=4)
+    f0 = tdense.dense_attention_fwd.launches
+    got = spec.inference("[TEXT:src] -> [TEXT:tgt]", data, **opts)
+    launched = tdense.dense_attention_fwd.launches - f0
+    T = max(len(gp.name2pre["text"].encode(r["src"])) for r in data) + 2
+    routes = [attention_route(m.cfg, "cuda", 8, T, T, 4, 64, 0.0, bias_shape=(1, 4, T, T),
+                              mask_shape=(8, 1, 1, T)) for m in models]
+    assert routes == ["dense", "dense"]
+    assert launched == sum(m.cfg.encoder.layers for m in models)
+    eos = d.eos()
+    for rec, a, b in zip(data, plain, got):
+        if np.array_equal(a.tokens, b.tokens):
+            continue
+        n = min(len(a.tokens), len(b.tokens))
+        p = int(np.nonzero(a.tokens[:n] != b.tokens[:n])[0][0])
+        lp = _target_logprobs(target, rec, b.tokens[:p + 1])[p]
+        margin = abs(float(lp[int(a.tokens[p])] - lp[int(b.tokens[p])]))
+        assert eos in (a.tokens[p], b.tokens[p]) or margin <= SPEC_TIE_TOL, (p, margin)
+
+
+@torch.no_grad()
+def _target_logprobs(hub, rec, tokens):
+    """The hub model's log-probs at each step of decoding ``tokens`` for one
+    record, one single step at a time."""
+    import dataclasses
+
+    from ofasys_torch.preprocessor.instruction import Instruction
+    from ofasys_torch.utils.pytree import SlotBatch, slots_to_device
+
+    gp, net = hub.general_preprocess, hub.model.net
+    slots = gp.collate([gp(Instruction("[TEXT:src] -> [TEXT:tgt]", split="test").format(**rec))])
+    slots = slots["net_input"]["slots"]
+    enc = net.encode(slots_to_device([s for s in slots if s.is_src], "cuda"))
+    tgt = SlotBatch.target_slot(slots)
+    dummy = dataclasses.replace(tgt, value={"inputs": torch.zeros((1, 16), dtype=torch.long, device="cuda")})
+    bias, cb, cache = net.decode_prepare([dummy], enc, 16)
+    prev, out = hub.global_dict.bos(), []
+    for step, t in enumerate(tokens):
+        logits, _, cache = net.decode_step(torch.full((1, 1), prev, dtype=torch.long, device="cuda"),
+                                           step, enc, bias, cb, cache, tgt)
+        out.append(torch.log_softmax(logits[0, -1].float(), dim=-1))
+        prev = int(t)
+    return torch.stack(out)

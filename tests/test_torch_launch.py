@@ -40,7 +40,7 @@ from ofasys_torch.configure import to_dict
 from ofasys_torch.configure.options import parse_flags
 from ofasys_torch.utils import checkpoint_utils as tcu
 from ofasys_torch.utils.jax_params import export_params
-from test_torch_trainer import LR, SUMMARY, orbax_to_torch, write_data
+from test_torch_trainer import LR, SUMMARY, _one_torch_thread, orbax_to_torch, write_data  # noqa: F401
 
 N = 2
 LOSS_RTOL = 1e-4

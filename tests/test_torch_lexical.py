@@ -25,7 +25,9 @@ import torch
 from ofasys_tpu.generator import search as jsearch
 from ofasys_torch.generator import SequenceGenerator, search
 
-from test_torch_search import SRCS, assert_same_hypotheses, env, jax_generate, samples  # noqa: F401
+from test_torch_search import (  # noqa: F401  (fixtures)
+    SRCS, _one_torch_thread, assert_same_hypotheses, env, jax_generate, samples,
+)
 
 REPRESENTATIONS = ["pointer", "ordered", "unordered"]
 CONSTRAINTS = [[[5, 6], [7]], [[8, 9, 10]], [[5], [6, 7], [5, 8]]]

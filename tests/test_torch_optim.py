@@ -34,6 +34,17 @@ from ofasys_torch.engine import train_step as tts
 from ofasys_torch.engine.optim import build_lr_schedule, build_optimizer, polynomial_decay_schedule
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes gain nothing from intra-op threads, and test workers
+    running side by side would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.mark.parametrize("kw", [
     dict(lr=1e-3, total_num_update=100, warmup_updates=10),
     dict(lr=5e-4, total_num_update=50, warmup_ratio=0.1, end_learning_rate=1e-5, power=2.0),

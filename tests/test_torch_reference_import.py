@@ -38,6 +38,17 @@ TPL = "[TEXT:src] -> [TEXT:tgt]"
 RECS = [{"src": "the storm moved north"}, {"src": "a short article about the weather today"}]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes gain nothing from intra-op threads, and test workers
+    running side by side would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def resnet50():
     """Both stores' image_resnet at resnet50 for the module; restored after."""

@@ -23,7 +23,9 @@ from ofasys_tpu import OFASys as JOFASys
 from ofasys_torch import OFASys
 from ofasys_torch.generator import SequenceGenerator, search
 
-from test_torch_search import SRCS, TPL, assert_same_hypotheses, env, jax_generate, samples  # noqa: F401
+from test_torch_search import (  # noqa: F401  (fixtures)
+    SRCS, TPL, _one_torch_thread, assert_same_hypotheses, env, jax_generate, samples,
+)
 
 
 def _hub(env):

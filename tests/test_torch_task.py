@@ -34,6 +34,17 @@ TWO = "[TEXT:src] -> [TEXT:tgt] ||| summarize: [TEXT:src] -> [TEXT:tgt]"
 WORDS = ["the", "storm", "moved", "north", "over", "coast", "and", "schools", "stay", "closed"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes gain nothing from intra-op threads, and test workers
+    running side by side would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _recs(n, seed=0):
     rng = np.random.default_rng(seed)
     return [{"src": " ".join(rng.choice(WORDS, int(rng.integers(3, 9)))),
@@ -154,12 +165,22 @@ def test_inference_matches_ofasys_tpu():
         assert a[0].text == b[0].text
 
 
-def test_unported_sources_metrics_and_generators_raise(tmp_path):
+def test_unported_sources_metrics_and_generators_raise(tmp_path, tmp_path_factory, monkeypatch):
+    """Remote and .bin sources read (tests/test_torch_fetchers.py); a remote
+    scheme without a registered fetcher raises when its reader opens."""
+    from ofasys_torch.utils import file_utils
+
+    src_dir = tmp_path_factory.mktemp("sources")
+    monkeypatch.setenv("OFA_CACHE_HOME", str(src_dir / "cache"))
+    monkeypatch.delitem(file_utils._SCHEME_FETCHERS, "oss", raising=False)
     d = Dictionary()
     task = Task(name="x", instruction="[TEXT:src] -> [TEXT:tgt]").initialize(d)
-    for path in ("oss://bucket/train.tsv", str(tmp_path / "blocks.bin")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            task.load_dataset_from_path(path)
+    sources = Task(name="s", instruction="[TEXT:src] -> [TEXT:tgt]").initialize(Dictionary())
+    with pytest.raises(ValueError, match="no fetcher for scheme 'oss'"):
+        sources.load_dataset_from_path("oss://bucket/train.tsv", split="valid").datasets["valid"].open()
+    np.arange(1030, dtype=np.int32).tofile(src_dir / "blocks.bin")
+    blocks = sources.load_dataset_from_path(str(src_dir / "blocks.bin"), split="valid").datasets["valid"]
+    assert len(blocks) == 2 and blocks.read(1).tolist() == list(range(512, 1024))
     with pytest.raises(ValueError, match="no dataset"):
         task.evaluate(None, None)
     # metrics build (test_torch_metrics.py); the Spider SQL evaluators raise naming item 11

@@ -25,7 +25,9 @@ from ofasys_torch import OFASys
 from ofasys_torch.generator import search
 from ofasys_torch.utils.trie import Trie
 
-from test_torch_search import MARGIN, SRCS, assert_same_hypotheses, make_env, recording_top_k, samples
+from test_torch_search import (  # noqa: F401  (fixture)
+    MARGIN, SRCS, _one_torch_thread, assert_same_hypotheses, make_env, recording_top_k, samples,
+)
 
 WORDS = ["red", "blue", "two", "yes", "no", "cat", "on", "table", "a", "dog", "three", "green"]
 CLOSED_TPL = "[TEXT:src] -> [TEXT:tgt,closed_set]"
