@@ -215,6 +215,34 @@ After serve_ground, on its hub:
      convert and load seconds, p50 beside serve_ground's; with
      OFASYS_MULTITASK_CKPT naming a released checkpoint, it is converted
      and one caption decoded greedily
+After train_ground_modal_ffn, on a speech model (adaptors text, image_vit,
+audio_fbank, audio_tgt_fbank; random weights from SEED):
+ 42. serve_tts: 8 text-to-speech requests (serve's sources) in one dispatch
+     through the hub, at the EOS threshold and for a full 256 frames:
+     frames, lengths, Griffin-Lim waveforms, B1 once per encoder layer a
+     dispatch, the first 8 frames against the plain attention path with
+     the same prenet draws (TTS_REL_TOL)
+ 43. train_tts: 5 updates of TTS B=16 (1.0-3.0 s targets) under
+     ofa_tacotron2 with guided attention: B1/B2 in the encoder, B3 and
+     the flash backward in the decoder's self-attention, a falling loss,
+     gradients against the plain attention path
+ 44. train_audio_pretrain: 5 updates of audio pretraining B=32 (serve_asr's
+     wavs) under speech_pretrain_loss at mask_prob 0.65: B1 also in the
+     teacher's encoder, gradients as above
+ 45. train_scst: one scst_train_step on a caption batch of 16 (224 px) with
+     5 samples each at top-k 50: B1 in every sampling encoder and in the
+     policy pass, B2 in its backward; the policy gradient on the same
+     samples against the plain attention path; B1 and B2 held at the
+     pass's shapes
+Then, on an image-code model (the 8,192 <code>_i in its dictionary, the
+image_vqgan preprocessor's VQGAN at 256 px on the card; adaptors text,
+image_vit, image_vqgan):
+ 46. serve_image_gen: 2 prompts best-of-2 through Task("image_gen"): 1,024
+     codes each, every token a <code>, 256 x 256 images, the rerank skipped
+     without CLIP weights (logged), B1 in the encoder
+ 47. train_image_infilling: 5 updates of B=8 with targets encoded to codes
+     on the card: B3 and the flash backward in the decoder at T = 1,025,
+     gradients against the plain attention path, peak memory
 The kernel phase holds B1 and B2 at the shapes of the new paths too (the
 asr encoder, causal decoder and cross attention, the motion decoder in full
 context and its cross attention, serve_asr's dispatches and serve_motion's
@@ -240,7 +268,11 @@ every training shape and at EDGE_SHAPES (ragged Tq != Tk, B=1, head dims
 twice for equal bits and with a planted key-tile fault, and B1 and B2r (and
 B2) with the scale and the causal mask inside the kernel at a decoder shape
 and at a shape with Tq < Tk (the causal offset), with two planted faults;
-B1 also at serve_closed's, serve_lexical's, serve_pretrained's and evaluate's dispatch shapes,
+B1 also at serve_closed's, serve_lexical's, serve_pretrained's, evaluate's,
+serve_tts's and serve_image_gen's dispatch shapes, B1 and B2 at the
+encoders of train_tts, train_audio_pretrain (and its decoder) and
+train_image_infilling, B3 and the flash backward at their decoders' flash
+calls (with both planted faults),
 and at the speculative draft's dispatch of 8 (its own 4 heads, D = 64), B1 and
 B2 at every attention shape of train_fit's six updates, and B7 also
 at every shape of train_qat's projections.
@@ -290,7 +322,9 @@ phases 38-39 on a tiny hub (fp32, ``attn_kernel="pallas"``) with
 ``serve_speculative_and_check(hub, "cpu")`` and ``nan_check_and_check(hub,
 "cpu")``; phases 40-41 after train_fit's rehearsal with
 ``train_profile_and_check(fx, fit, "cpu", res, device="cpu", arch="tiny")``
-and ``train_fetch_and_check(fx, fit, "cpu", device="cpu", arch="tiny")``.
+and ``train_fetch_and_check(fx, fit, "cpu", device="cpu", arch="tiny")``;
+phases 42-47 as the README's rehearsal paragraph shows (a tiny fp32 speech
+model and image-code model at 32 px, ``flash_available`` patched).
 """
 
 from __future__ import annotations
@@ -566,7 +600,10 @@ TRAIN_LR = 1e-4
 # attention path differ by bf16 rounding carried through 12 layers forward
 # and back (the flash route also rounds the bias and its gradient to bf16):
 # the position leaves by up to 4e-2 even between the plain path with bf16
-# and with fp32 scores. The worst leaf (0.148) is the flash dd below. The
+# and with fp32 scores. The worst leaf was the flash dd from the bf16
+# output (0.148 on the long path, 0.261 at the image_infilling decoder's
+# T = 1,032): the port takes it from B3's fp32 output (``out32``), which
+# check_flash holds against the plain version's fp32 output. The
 # key-side biases (k_proj, pos_k_linear, cross_pos_k_linear) shift every
 # score of a softmax row alike: their gradient is 0 in exact arithmetic and
 # rounding noise on both paths, so the per-leaf check leaves them out.
@@ -578,14 +615,6 @@ NOISE_MODULES = ("k_proj", "pos_k_linear", "cross_pos_k_linear")
 # scores, as the kernels keep them)
 GRAD_PLAIN_LOGITS = ("compute", "fp32")
 GRAD_REF_LOGITS = "fp32"
-# The flash backward takes dd = rowsum(do * o) from the bf16 output o, as
-# ofasys_tpu's _flash_backward does, where the plain path's softmax
-# backward sums p * dp exactly: per row, ds then sums to a small nonzero
-# amount that dq carries along the mean key. Leaves that sum dq over every
-# query row (a cross attention's q_proj.bias, the LayerNorm before it) are
-# off by up to 0.15 on the long path. With dd from the unrounded output
-# (_dd_from_unrounded_output) every leaf must agree within DD_LEAF_TOL.
-DD_LEAF_TOL = 5e-2
 # Kernel B6 vs its plain version (same inputs on the card): y (bf16) within
 # one bf16 ulp, |y - ref| <= 2^-7 |ref| + 1e-3 (a reordered fp32 row sum can
 # move the value before rounding across a rounding boundary); mu and rstd
@@ -1068,14 +1097,15 @@ def _flash_inputs(B, Tq, Tk, H, D, seed, per_bh=False):
     return q, k, v, bias, keep.to(torch.int8), do
 
 
-def _flash_bounds(B, Tq, Tk, H, D, nb, causal):
+def _flash_bounds(B, Tq, Tk, H, D, nb, causal, out32=False):
     """(bytes, FLOP) of kernel B3 and of the whole backward (the one pass of
     B4-dq, B4-dkv and B5) at one shape: each input read once, each output
     written once (the bias gradient in full: (H, Tq, Tk) for a shared bias,
-    ds (B H, Tq, Tk) for one per (b, h)); FLOP 2 B H Tq Tk D for each (Tq,
-    Tk, D) product the function needs: B3 two (q.k, p.v), the backward five
-    (q.k, do.v, p.do, ds.q, ds.k). Causal skips the tiles above the
-    diagonal: half the FLOP and half the bias read."""
+    ds (B H, Tq, Tk) for one per (b, h); with ``out32`` B3's fp32 copy of
+    its output too); FLOP 2 B H Tq Tk D for each (Tq, Tk, D) product the
+    function needs: B3 two (q.k, p.v), the backward five (q.k, do.v, p.do,
+    ds.q, ds.k). Causal skips the tiles above the diagonal: half the FLOP
+    and half the bias read."""
     E = H * D
     frac = 0.5 if causal else 1.0
     bias = int(2 * nb * Tq * Tk * frac)
@@ -1084,7 +1114,8 @@ def _flash_bounds(B, Tq, Tk, H, D, nb, causal):
     reads = qkv + 2 * B * Tq * E + 8 * B * H * Tq + bias + B * Tk      # q, k, v, do, lse, dd
     writes = 2 * (B * Tq * E + 2 * B * Tk * E) + 4 * nb * Tq * Tk      # dq, dk, dv, bias gradient
     return {
-        "flash_attention_fwd": (qkv + bias + B * Tk + 2 * B * Tq * E + 4 * B * H * Tq, int(4 * core)),
+        "flash_attention_fwd": (qkv + bias + B * Tk + (6 if out32 else 2) * B * Tq * E + 4 * B * H * Tq,
+                                int(4 * core)),
         "flash_attention_bwd": (reads + writes, int(10 * core)),
     }
 
@@ -1159,7 +1190,11 @@ def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_f
     and the bias gradient: B4-dq, B4-dkv and B5, or ds for a per-(b, h)
     bias) against their plain versions at one shape, each run twice for
     equal bits, with their times; with ``plant_faults`` also shows that the
-    gradient limits fail the pass run on wrong inputs. Returns one row per
+    gradient limits fail the pass run on wrong inputs. With ``backward`` B3
+    runs as FlashAttentionFunction launches it on a training path: it also
+    writes its fp32 output (``out32``, the backward's dd), held against the
+    plain version's fp32 output, timed and counted in the bound with it
+    (and timed without it, as serving launches it). Returns one row per
     kernel."""
     import torch.nn.functional as F
 
@@ -1171,33 +1206,54 @@ def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_f
     nb = bias.shape[0]
     tag = f"[{label} B={B} Tq={Tq} Tk={Tk} H={H} D={D}{' causal' if causal else ''}" \
           f"{' per-(b,h) bias' if per_bh else ''}]"
-    out, lse = fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+
+    def fp32_out():
+        return torch.empty(q.shape, dtype=torch.float32, device="cuda") if backward else None
+
+    out32, ref32 = fp32_out(), fp32_out()
+    out, lse = fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal, out32)
     torch.cuda.synchronize()
-    ref, ref_lse = fl.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal)
+    ref, ref_lse = fl.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal, ref32)
     err_out = (out.float() - ref.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     ok = bool(torch.isfinite(out.float()).all()) and err_out <= OUT_ATOL and err_lse <= LSE_ATOL
-    again = fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    again32 = fp32_out()
+    again = fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal, again32)
     same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    msg32 = ""
+    if backward:
+        # the fp32 output: within OUT_ATOL of the plain version's, and out
+        # is exactly its rounding to bf16
+        err_out32 = (out32 - ref32).abs().max().item()
+        rounded = torch.equal(out32.to(out.dtype), out)
+        ok = ok and bool(torch.isfinite(out32).all()) and err_out32 <= OUT_ATOL and rounded
+        same = same and torch.equal(out32, again32)
+        msg32 = f" max|out32-plain fp32|={err_out32:.3e} (atol {OUT_ATOL}), out = out32 in bf16: {rounded}"
     log(f"kernel flash_attention_fwd {tag}: max|out-plain|={err_out:.3e} (atol {OUT_ATOL}) "
-        f"max|lse-plain|={err_lse:.3e} (atol {LSE_ATOL}), the same bits twice: {same} "
+        f"max|lse-plain|={err_lse:.3e} (atol {LSE_ATOL}){msg32}, the same bits twice: {same} "
         f"-> {'ok' if ok and same else 'FAIL'}")
     if not ok or not same:
         raise SystemExit(f"flash_attention_fwd disagrees with its plain version at {label}")
     # planted fault: the kernel with keys 64-127 left out (a skipped key
-    # tile) must fail the out or the lse limit
+    # tile) must fail the out or the lse limit, and the out32 limit
     hidden = mask.clone()
     hidden[:, :, 64:128] = 0
-    f_out, f_lse = fl.flash_attention_fwd(q, k, v, bias, hidden, H, scale, causal)
+    f_out32 = fp32_out()
+    f_out, f_lse = fl.flash_attention_fwd(q, k, v, bias, hidden, H, scale, causal, f_out32)
     f_err_out = (f_out.float() - ref.float()).abs().max().item()
     f_err_lse = (f_lse - ref_lse).abs().max().item()
     caught = f_err_out > OUT_ATOL or f_err_lse > LSE_ATOL
+    msg32 = ""
+    if backward:
+        f_err_out32 = (f_out32 - ref32).abs().max().item()
+        caught = caught and f_err_out32 > OUT_ATOL
+        msg32 = f" max|out32-plain fp32|={f_err_out32:.3e}"
     log(f"  planted fault keys 64-127 left out: max|out-plain|={f_err_out:.3e} "
-        f"max|lse-plain|={f_err_lse:.3e} -> {'fails the limits' if caught else 'PASSES the limits'}")
+        f"max|lse-plain|={f_err_lse:.3e}{msg32} -> {'fails the limits' if caught else 'PASSES the limits'}")
     if not caught:
         raise SystemExit(f"{label}: the out/lse limits pass B3 with a key tile left out")
-    del again, hidden, f_out, f_lse
-    bounds = _flash_bounds(B, Tq, Tk, H, D, nb, causal)
+    del again, again32, hidden, f_out, f_lse, f_out32
+    bounds = _flash_bounds(B, Tq, Tk, H, D, nb, causal, out32=backward)
     rows = {}
 
     def row(name, err, kernel_ms, plain_ms, library_ms):
@@ -1210,18 +1266,30 @@ def check_flash(label, shape, causal=False, per_bh=False, backward=True, plant_f
             f"{lib}, bound {bound_ms:.5f} ms ({bound_by}; {bounds[name][0]} B, {bounds[name][1]} FLOP)")
 
     q4, k4, v4, add = _flash_sdpa(q, k, v, bias, mask, H, D, causal)
-    row("flash_attention_fwd", err_out,
-        time_ms(lambda: fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal), **FLASH_TIMING),
-        time_ms(lambda: fl.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal),
+    row("flash_attention_fwd", max(err_out, err_out32) if backward else err_out,
+        time_ms(lambda: fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal, out32),
+                **FLASH_TIMING),
+        time_ms(lambda: fl.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal, ref32),
                 **FLASH_TIMING),
         time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=add, scale=scale),
                 **FLASH_TIMING))
     rows["flash_attention_fwd"]["err_lse"] = err_lse
+    if backward:
+        # the same kernel without the fp32 write, as serving launches it
+        rows["flash_attention_fwd"].update(
+            out32=True, err_out32=err_out32,
+            kernel_ms_without_out32=time_ms(
+                lambda: fl.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal), **FLASH_TIMING),
+            bound_ms_without_out32=_bound(*_flash_bounds(B, Tq, Tk, H, D, nb, causal)["flash_attention_fwd"])[0])
+        log(f"  times flash_attention_fwd {tag} without out32: kernel "
+            f"{rows['flash_attention_fwd']['kernel_ms_without_out32']:.4f} ms, bound "
+            f"{rows['flash_attention_fwd']['bound_ms_without_out32']:.5f} ms")
     del q4, k4, v4, add
     if not backward:
         return rows
 
-    dd = (do.float() * out.float()).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1).contiguous()
+    # dd as FlashAttentionFunction forms it, from the fp32 output
+    dd = (do.float() * out32).reshape(B, Tq, H, D).sum(-1).permute(0, 2, 1).contiguous()
     args = (q, k, v, do, lse, dd, bias, mask, H, scale, causal)
     ref_grads = fl.flash_attention_bwd_reference(*args)
     plan = fl.backward_plan(B, H, Tq, Tk, D, nb != B * H,
@@ -2849,14 +2917,16 @@ def make_train_batches(gp, tasks=None):
     A task's spec names its text columns with their lengths in bytes and,
     under ``image``, the side of the ``img`` column's square images, under
     ``audio`` the seconds of the ``wav`` column's wavs, under ``motion``
-    the frames of the ``bvh`` column's (frames, MOTION_FEAT) features."""
+    the frames of the ``bvh`` column's (frames, MOTION_FEAT) features, under
+    ``code_image`` the side of the ``code`` column's square images (an
+    image_vqgan target, encoded to codes by the preprocessor's VQGAN)."""
     from ofasys_torch.preprocessor.instruction import Instruction
 
     rng = np.random.default_rng(SEED + 1)
     out = {}
     for name, spec in (tasks or TRAIN_TASKS).items():
         columns = [c for c in spec if c not in ("template", "batch", "image", "audio", "motion",
-                                                "criterion", "region")]
+                                                "criterion", "region", "code_image")]
         recs = [{c: _text(rng, *spec[c]) for c in columns} for _ in range(spec["batch"])]
         if isinstance(spec.get("image"), tuple):
             for r in recs:
@@ -2867,6 +2937,9 @@ def make_train_batches(gp, tasks=None):
         elif "image" in spec:
             for r, a in zip(recs, _images(rng, len(recs), spec["image"])):
                 r["img"] = a
+        if "code_image" in spec:
+            for r, a in zip(recs, _images(rng, len(recs), spec["code_image"])):
+                r["code"] = a
         for r in recs:
             if "audio" in spec:
                 r["wav"] = _wav_bytes(rng, rng.uniform(*spec["audio"]))
@@ -2918,43 +2991,57 @@ def train_shapes(batches):
     return shapes
 
 
-def make_criteria(batches, pad, tasks=None, ce_kw=None):
+def make_criteria(batches, pad, tasks=None, ce_kw=None, global_dict=None):
     """Each task's criterion: label-smoothed CE (its config fields
     ``ce_kw``, e.g. ``chunked_vocab``), or the spec's ``criterion``:
-    'speech_to_text' (speech_to_text_loss) or 'diffusion'
-    (diffusion_criterion)."""
+    'speech_to_text' (speech_to_text_loss), 'diffusion'
+    (diffusion_criterion), 'tacotron2' (ofa_tacotron2 with the guided
+    attention loss) or 'speech_pretrain' (speech_pretrain_loss at its
+    mask_prob of 0.65, projecting onto ``global_dict``'s <phone> rows: with
+    none there, as in ofasys_tpu, its KL term is 0 and the teacher's
+    encoder still runs)."""
     from ofasys_torch.engine.criterion import (
         DiffusionCriterion,
         DiffusionCriterionConfig,
         LabelSmoothedCrossEntropyCriterion,
         LabelSmoothedCrossEntropyCriterionConfig,
+        SpeechPretrainCriterion,
+        SpeechPretrainCriterionConfig,
         SpeechToTextCriterion,
         SpeechToTextCriterionConfig,
+        Tacotron2Criterion,
+        Tacotron2CriterionConfig,
     )
 
-    kinds = {"speech_to_text": (SpeechToTextCriterion, SpeechToTextCriterionConfig),
-             "diffusion": (DiffusionCriterion, DiffusionCriterionConfig),
-             None: (LabelSmoothedCrossEntropyCriterion, LabelSmoothedCrossEntropyCriterionConfig)}
+    kinds = {"speech_to_text": (SpeechToTextCriterion, SpeechToTextCriterionConfig, {}),
+             "diffusion": (DiffusionCriterion, DiffusionCriterionConfig, {}),
+             "tacotron2": (Tacotron2Criterion, Tacotron2CriterionConfig,
+                           dict(use_guided_attention_loss=True)),
+             "speech_pretrain": (SpeechPretrainCriterion, SpeechPretrainCriterionConfig, {}),
+             None: (LabelSmoothedCrossEntropyCriterion, LabelSmoothedCrossEntropyCriterionConfig,
+                    ce_kw or {})}
     out = {}
     for name in batches:
         kind = (tasks or {}).get(name, {}).get("criterion")
-        cls, cfg = kinds[kind]
-        out[name] = cls(cfg(**(ce_kw or {}) if kind is None else {}), pad_id=pad)
+        cls, cfg, kw = kinds[kind]
+        out[name] = cls(cfg(**kw), pad_id=pad)
+        out[name].global_dict = global_dict
     return out
 
 
-def _expected_train_launches(batches, cfg, net=None):
+def _expected_train_launches(batches, cfg, net=None, tasks=None):
     """Launches of each kernel one update should make: every attention call
     (encoder self, decoder self, cross) on the flash route runs B3 and the
     one backward pass that stands for B4-dq, B4-dkv and B5
     (flash_attention_bwd; the part wrappers launch nothing of their own);
     on the dense route B1 and B2
     (``_route``, as MultiheadAttention decides), or B1 and B2r while
-    OFASYS_DENSE_BWD=rowmajor is set."""
+    OFASYS_DENSE_BWD=rowmajor is set. A task under speech_pretrain_loss
+    (``tasks``) also runs its teacher's encoder, forward only."""
     n = dict.fromkeys(KERNELS, 0)
     dense_bwd = "dense_attention_bwd_rowmajor" if os.environ.get("OFASYS_DENSE_BWD") == "rowmajor" \
         else "dense_attention_bwd"
-    for b in batches.values():
+    for name, b in batches.items():
         B, Ts, Tt = _task_shapes(b)
         calls = [(Ts, Ts, cfg.encoder.layers), (Tt, Tt, cfg.decoder.layers),
                  (Tt, Ts, cfg.decoder.layers)]
@@ -2966,6 +3053,10 @@ def _expected_train_launches(batches, cfg, net=None):
             elif route == "flash":
                 n["flash_attention_fwd"] += layers
                 n["flash_attention_bwd"] += layers
+        if (tasks or {}).get(name, {}).get("criterion") == "speech_pretrain":
+            route = _route(cfg, B, Ts, Ts)
+            if route != "plain":
+                n[f"{route}_attention_fwd"] += cfg.encoder.layers
     if cfg.quant_training == "fwd":
         n["int8_matmul_fwd"] += len(batches) * qat_projections(cfg)
     if net is not None:
@@ -3044,36 +3135,6 @@ def _top_leaves(leaves, n=3):
     return ", ".join(f"{k} {r:.3e}" for k, r in sorted(leaves.items(), key=lambda kv: -kv[1])[:n])
 
 
-@contextlib.contextmanager
-def _dd_from_unrounded_output():
-    """Diagnostic: FlashAttentionFunction's backward with dd = rowsum(do * o)
-    taken from the output recomputed unrounded (the plain B3 version on the
-    same inputs in fp32) instead of the kernel's bf16 output. The change
-    enters as an lse cotangent (dd - g_lse), so the kernels run as they are."""
-    from ofasys_torch.ops import flash_attention as fl
-
-    cls = fl.FlashAttentionFunction
-    orig = cls.__dict__["backward"]
-
-    def backward(ctx, g_out, g_lse):
-        q, k, v, bias, mask, out, _ = ctx.saved_tensors
-        H, scale, causal = ctx.args
-        if g_out is not None:
-            o32, _ = fl.flash_attention_fwd_reference(q.float(), k.float(), v.float(), bias, mask, H,
-                                                      scale, causal)
-            B, Tq, E = q.shape
-            corr = (g_out.float() * (o32 - out.float())).reshape(B, Tq, H, E // H).sum(-1)
-            corr = corr.permute(0, 2, 1)
-            g_lse = -corr if g_lse is None else g_lse.float() - corr
-        return orig.__func__(ctx, g_out, g_lse)
-
-    cls.backward = staticmethod(backward)
-    try:
-        yield
-    finally:
-        cls.backward = orig
-
-
 def train_and_check(model, gp, card, tasks=None, batches=None, label="train", grad_batches=None,
                     grad_ref=None, n_updates=N_UPDATES, ce_kw=None):
     """Drive the training path: ``n_updates`` summed multi-task updates
@@ -3094,7 +3155,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
         B, Ts, Tt = _task_shapes(b)
         log(f"  task {name}: B={B} encoder T={Ts} decoder T={Tt} target tokens={b['ntokens']}")
     dev = {n: sample_to_device(b, device) for n, b in batches.items()}
-    crit = make_criteria(batches, model.global_dict.pad(), tasks, ce_kw)
+    crit = make_criteria(batches, model.global_dict.pad(), tasks, ce_kw, model.global_dict)
     opt = build_optimizer(OptimizationConfig(lr=(TRAIN_LR,)))
     state = TrainState.create(model.net, opt)
     step = make_multitask_train_step(model, crit, opt)
@@ -3134,12 +3195,14 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     step_ms = statistics.median(times) * 1e3
     n_tokens = sum(int(b["ntokens"]) + _task_shapes(b)[0] * _task_shapes(b)[1]
                    for b in batches.values())
+    if peak_gib is not None:
+        log(f"  {label}: peak device memory over the {n_updates} updates {peak_gib:.3f} GiB [{card}]")
     log(f"  {label}: step time {step_ms:.2f} ms (median of {n_updates}; all "
         f"{[round(t * 1e3, 2) for t in times]}), {n_samples} samples per update = "
         f"{n_samples / (step_ms / 1e3):.1f} samples/s, {n_tokens} source+target tokens per "
         f"update [{card}]")
 
-    per_update = _expected_train_launches(batches, cfg, model.net)
+    per_update = _expected_train_launches(batches, cfg, model.net, tasks)
     expected = {n: n_updates * c for n, c in per_update.items()}
     log(f"  {label}: launches {launches} (expected {expected}; per update {per_update})")
     if device.type == "cuda":
@@ -3159,12 +3222,9 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
             (step, state, dev)
     saved = cfg.dropout, cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
     cfg.dropout = 0.0
-    g_plain, g_exact_dd = {}, None
+    g_plain = {}
     try:
         g_kernel = _grads(model, crit, state.params, state.step, gdev)
-        if per_update["flash_attention_bwd"]:
-            with _dd_from_unrounded_output():
-                g_exact_dd = _grads(model, crit, state.params, state.step, gdev)
         cfg.attn_kernel, cfg.use_flash_attention = "xla", False
         for logits in GRAD_PLAIN_LOGITS:
             cfg.attn_logits = logits
@@ -3181,14 +3241,6 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     _, _, own = _grad_diff(names, g_plain["compute"], g_plain["fp32"])
     log(f"  {label}: plain 'compute' vs plain 'fp32' logits: at {worst_c} {own[worst_c]:.3e}; "
         f"worst leaves {_top_leaves(own)}")
-    if g_exact_dd is not None:
-        rel_d, _, dleaves = _grad_diff(names, g_exact_dd, g_plain[GRAD_REF_LOGITS])
-        log(f"  {label}: the kernels with dd from the unrounded (fp32) output vs plain "
-            f"attn_logits={GRAD_REF_LOGITS!r}: rel {rel_d:.3e}, at {worst_c} {dleaves[worst_c]:.3e}, "
-            f"worst leaves {_top_leaves(dleaves)} (tol {DD_LEAF_TOL})")
-        if not max(dleaves.values()) <= DD_LEAF_TOL:
-            raise SystemExit(f"{label}: with dd from the unrounded output a gradient leaf still "
-                             "disagrees with the plain attention path")
     rel, norm_rel, leaves = cmp[GRAD_REF_LOGITS]
     worst_name = max(leaves, key=leaves.get)
     worst = leaves[worst_name]
@@ -5270,6 +5322,401 @@ def nan_check_and_check(hub, card):
     return dict(found=found, first=bad[0], n_bad=len(bad))
 
 
+# --------------------------------------- speech targets, SCST, image codes
+# text to speech and audio pretraining: ofasys_tpu's text_to_speech and
+# audio_pretraining templates (task/tasks.py:360-370); the TTS targets are
+# 16 kHz wavs of 1.0-3.0 s (100-300 fbank frames: the decoder's
+# self-attention at T >= 256 takes the flash kernels, its cross-attention
+# over the text stays plain), the pretraining sources serve_asr's wavs. The
+# speech model adds audio_tgt_fbank to the text, image_vit (SCST's caption
+# task) and audio_fbank adaptors; random weights from SEED, dropout 0.1 in
+# its training calls, the TTS prenet's dropout 0.5 (on at inference too)
+SPEECH_ADAPTORS = ("text", "image_vit", "audio_fbank", "audio_tgt_fbank")
+TTS_TPL = "[TEXT:text] -> [AUDIO:wav,adaptor=audio_tgt_fbank]"
+PRETRAIN_TPL = "[AUDIO:wav,mask=true] -> [TEXT:text]"
+N_TTS_REQUESTS = 8
+TTS_MAX_ITER = 256
+TTS_TRAIN_TASKS = {"tts": dict(template=TTS_TPL, batch=16, text=(40, 80), audio=(1.0, 3.0),
+                               criterion="tacotron2")}
+TINY_TTS_TRAIN_TASKS = {"tts": dict(TTS_TRAIN_TASKS["tts"], batch=2, audio=(0.3, 0.5))}
+PRETRAIN_TRAIN_TASKS = {"audio_pretrain": dict(template=PRETRAIN_TPL, batch=32, audio=ASR_SECONDS,
+                                               text=(26, 30), criterion="speech_pretrain")}
+TINY_PRETRAIN_TRAIN_TASKS = {"audio_pretrain": dict(PRETRAIN_TRAIN_TASKS["audio_pretrain"], batch=2,
+                                                    audio=(1.0, 1.2))}
+# serve_tts: the first decode steps' frames under the kernels against the
+# plain attention path with the same prenet dropout draws: the encoder
+# states differ by ENC_REL_TOL-sized bf16 rounding (B1 vs bf16 scores), and
+# each frame is fp32 Dense and convolutions of them, so the frames differ
+# by about as much: relative Frobenius error <= TTS_REL_TOL
+TTS_FRAME_STEPS = 8
+TTS_REL_TOL = 5e-2
+# train_scst: the caption task on image_vit at 224 px, B=16, 5 samples a
+# source at top-k 50 (ofasys_tpu's scst_reward_criterion defaults), decoded
+# up to MAX_LEN_B tokens, CIDEr-D against 2 seeded references an image
+SCST_BATCH = 16
+SCST_SAMPLES = 5
+SCST_TOPK = 50
+# image codes: a second model on a dictionary with the 8,192 <code>_i of the
+# image_vqgan preprocessor (taming's gumbel f8 VQGAN at 256 px: 1,024 codes
+# an image, random weights from seed 0, run by the preprocessor on the card)
+# and adaptors text, image_vit and image_vqgan. image_gen's template
+# (task/tasks.py:100) with prompts long enough that a dispatch of two meets
+# B1's gate (B * T >= 256), best-of-2 as two sampling beams under the hub's
+# IMAGE defaults (top-k 256, exactly 1,024 codes); image_infilling's
+# template (task/tasks.py:83), B=8, its targets 1,024 codes and EOS: the
+# preprocessor's max_tgt_length raised from 256 to 1,025 (at 256 the text
+# group cuts a target to 256 codes, as in ofasys_tpu), so the decoder's
+# self-attention runs the flash kernels at T = 1,025 (padded to 1,032) and
+# its cross-attention over the 196 patches and prompt stays plain
+VQGAN_ADAPTORS = ("text", "image_vit", "image_vqgan")
+IMAGE_GEN_TPL = "[TEXT:cap] -> [IMAGE:code,preprocess=image_vqgan,adaptor=image_vqgan]"
+IMAGE_INFILL_TPL = ("what is the complete image? [IMAGE:img,mask_ratio=0.5] -> "
+                    "[IMAGE:code,preprocess=image_vqgan,adaptor=image_vqgan]")
+CODE_IMAGE_SIZE = 256
+IMAGE_GEN_PROMPT = (130, 160)
+N_IMAGE_GEN_PROMPTS = 2
+IMAGE_GEN_BEST_OF = 2
+INFILL_TRAIN_TASKS = {"image_infilling": dict(template=IMAGE_INFILL_TPL, batch=8, image=IMAGE_SIZE,
+                                              code_image=CODE_IMAGE_SIZE)}
+TINY_INFILL_TRAIN_TASKS = {"image_infilling": dict(INFILL_TRAIN_TASKS["image_infilling"], batch=2,
+                                                   code_image=32)}
+
+
+def vqgan_preprocess(device="cuda", code_image_size=CODE_IMAGE_SIZE):
+    """The image-code model's dictionary and preprocessors: the byte
+    symbols and <mask> (text), the 8,192 <code>_i (image_vqgan), then
+    <text>_256 .. 49,999, padded to a multiple of 8; the image_vqgan
+    preprocessor at ``code_image_size`` with whole images and EOS as
+    targets (max_tgt_length = its codes + 1), its VQGAN on ``device``."""
+    from ofasys_torch.configure.config_store import ConfigStore
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+    from ofasys_torch.preprocessor.general import GeneralPreprocess
+
+    node = ConfigStore().get("ofasys.preprocess", "image_vqgan").config
+    saved, node.code_image_size = node.code_image_size, code_image_size
+    try:
+        d = Dictionary()
+        gp = GeneralPreprocess(d, active=["text", "image", "image_vqgan"]).to(device)
+    finally:
+        node.code_image_size = saved
+    pre = gp.name2pre["image_vqgan"]
+    pre.cfg.max_tgt_length = pre.tokenizer.codes_per_image + 1      # the codes and EOS
+    for i in range(256, 50000):
+        d.add_symbol(f"<text>_{i}")
+    d.pad_to_multiple_(8)
+    return d, gp
+
+
+def build_vqgan_model(d, device="cuda", arch="base", dtype=torch.bfloat16, adaptors=VQGAN_ADAPTORS,
+                      code_image_size=CODE_IMAGE_SIZE):
+    """The image-code model (random weights from SEED), its image_vqgan
+    adaptor at the preprocessor's code size."""
+    from ofasys_torch import GeneralistModel
+    from ofasys_torch.adaptor.image_vqgan import ImageVqganAdaptorConfig
+
+    t0 = time.perf_counter()
+    model = GeneralistModel(arch=arch)
+    model.initialize(d, active_adaptors=adaptors, dtype=dtype, device=device, seed=SEED,
+                     adaptor_cfgs={"image_vqgan": ImageVqganAdaptorConfig(code_image_size=code_image_size)})
+    cfg = model.cfg
+    log(f"image codes: {arch} arch E={cfg.encoder.embed_dim} layers={cfg.encoder.layers}+"
+        f"{cfg.decoder.layers} vocab={len(d)} adaptors={adaptors} "
+        f"params={sum(p.numel() for p in model.net.parameters())} built in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def _tts_requests():
+    """serve_tts: the first 8 of serve's sources as texts to speak."""
+    return [{"text": r["src"]} for r, _ in _serve_requests()[:N_TTS_REQUESTS]]
+
+
+def serve_tts_and_check(model, gp, card):
+    """serve_tts: text_to_speech through the hub, 8 requests in one
+    dispatch: at the default EOS threshold (0.5), then a full decode of
+    TTS_MAX_ITER frames (threshold 1.0: no sample stops); every frame
+    finite with 80 bins, lengths in [1, TTS_MAX_ITER], a Griffin-Lim
+    waveform each; B1 once per encoder layer of each dispatch where its
+    route is dense, no other kernel (the decode steps run the KV cache);
+    then the first TTS_FRAME_STEPS frames under the kernels against the
+    plain attention path with the same prenet draws (TTS_REL_TOL)."""
+    from ofasys_torch import OFASys
+    from ofasys_torch.generator import AutoRegressiveSpeechGenerator
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    hub = OFASys(model, None, model.global_dict, gp, device=model.net.device)
+    data = _tts_requests()
+    device, cfg = hub.device, model.cfg
+    sample = gp.collate([gp(Instruction(TTS_TPL, split="test").format(**r)) for r in data])
+    B, T = _encoder_tokens(sample["net_input"]["slots"])
+    route = _route(cfg, B, T, T)
+    hub.inference(TTS_TPL, data[:2], max_iter=4)                  # warm-up
+    _sync(device)
+    reset_counts()
+    runs = {}
+    for label, opts in (("eos 0.5", {}), ("full", dict(eos_prob_threshold=1.0))):
+        t0 = time.perf_counter()
+        outs = hub.inference(TTS_TPL, data, max_iter=TTS_MAX_ITER, **opts)
+        _sync(device)
+        runs[label] = (outs, (time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    for label, (outs, ms) in runs.items():
+        lengths = [len(o.feature) for o in outs]
+        ok = (len(outs) == len(data)
+              and all(o.feature.shape[1] == 80 and np.isfinite(o.feature).all() for o in outs)
+              and all(1 <= n <= TTS_MAX_ITER for n in lengths)
+              and all(o.waveform is not None and o.waveform.ndim == 1 and np.isfinite(o.waveform).all()
+                      for o in outs))
+        log(f"  serve_tts ({label}): {len(outs)} requests, encoder B={B} T={T} ({route}), frames "
+            f"{lengths}, waveform samples {[len(o.waveform) for o in outs]}, {ms:.1f} ms for the "
+            f"dispatch ({ms / max(lengths):.2f} ms a frame step, Griffin-Lim included) [{card}]")
+        if not ok:
+            raise SystemExit(f"serve_tts ({label}): an output is missing, malformed or not finite")
+    if min(len(o.feature) for o in runs["full"][0]) != TTS_MAX_ITER:
+        raise SystemExit("serve_tts: at threshold 1.0 a sample stopped before max_iter")
+    per = cfg.encoder.layers if route == "dense" else 0
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["dense_attention_fwd"] = 2 * per
+    log(f"  serve_tts: launches {launches} (expected {expected}: B1 once per encoder layer a dispatch)")
+    if device.type == "cuda" and (launches != expected or not per):
+        raise SystemExit("serve_tts: B1 did not run once per encoder layer of each dispatch")
+
+    gen = AutoRegressiveSpeechGenerator(model, max_iter=TTS_FRAME_STEPS, eos_prob_threshold=1.0)
+    kernel, _, _ = gen.decode(sample, seed=SEED)
+    saved = cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
+    cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = "xla", False, "fp32"
+    try:
+        plain, _, _ = gen.decode(sample, seed=SEED)
+    finally:
+        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
+    rel = ((kernel - plain).norm() / plain.norm()).item()
+    log(f"  serve_tts: the first {TTS_FRAME_STEPS} frames, kernels vs plain attention (fp32 scores, the "
+        f"same prenet draws): relative Frobenius error {rel:.3e} (tol {TTS_REL_TOL})")
+    if not rel <= TTS_REL_TOL:
+        raise SystemExit("serve_tts: the frames under the kernels disagree with the plain attention path")
+    return launches, dict(shape=(B, T), route=route, frames_rel=rel,
+                          dispatch_ms={k: ms for k, (_, ms) in runs.items()},
+                          lengths={k: [len(o.feature) for o in outs] for k, (outs, _) in runs.items()})
+
+
+def _scst_batch(gp):
+    """train_scst's caption batch (SCST_BATCH images at 224 px) and two
+    seeded references an image."""
+    spec = dict(template=CAPTION_TPL, batch=SCST_BATCH, image=IMAGE_SIZE, cap=(20, 24))
+    batch = make_train_batches(gp, {"caption_scst": spec})["caption_scst"]
+    rng = np.random.default_rng(SEED + 17)
+    refs = [[_text(rng, 20, 24), _text(rng, 20, 24)] for _ in range(SCST_BATCH)]
+    return batch, refs
+
+
+def train_scst_and_check(model, gp, card):
+    """train_scst: one scst_train_step (adamw at TRAIN_LR) on the caption
+    batch: SCST_SAMPLES sampled captions a source (top-k SCST_TOPK, one
+    dispatch each), CIDEr-D rewards, the policy gradient through one
+    teacher-forced pass of the n * B samples; B1 in every sampling
+    dispatch's encoder and in each attention call of the pass on the dense
+    route, B2 in its backward. Then, on the same samples, the policy loss
+    and gradients under the kernels against the plain attention path:
+    ofasys_tpu's per-sample CIDEr-D is 0 for every sample (its one-document
+    idf), so the check scores the samples with seeded advantages in [-0.5,
+    0.5]. Returns the launches, results and the rows of B1 and B2 at the
+    pass's shapes (and B2r's beside them)."""
+    from ofasys_torch.configure.configs import OptimizationConfig
+    from ofasys_torch.engine.criterion import ScstRewardCriterion, ScstRewardCriterionConfig, scst_train_step
+    from ofasys_torch.engine.optim import build_optimizer
+    from ofasys_torch.engine.train_step import TrainState
+    from ofasys_torch.generator import SequenceGenerator
+    from ofasys_torch.preprocessor.utils import collate_tokens
+
+    cfg, device = model.cfg, model.net.device
+    batch, refs = _scst_batch(gp)
+    crit = ScstRewardCriterion(ScstRewardCriterionConfig(scst_n_samples=SCST_SAMPLES,
+                                                         sampling_topk=SCST_TOPK),
+                               pad_id=model.global_dict.pad())
+    crit.setup(SequenceGenerator(model, model.global_dict, beam_size=1, sampling=True,
+                                 sampling_topk=SCST_TOPK, max_len_b=MAX_LEN_B), gp.name2pre["text"])
+    draws = {}
+    sample_and_reward = crit.sample_and_reward
+
+    def keep(*a, **k):
+        draws["d"] = sample_and_reward(*a, **k)
+        return draws["d"]
+
+    crit.sample_and_reward = keep
+    opt = build_optimizer(OptimizationConfig(lr=(TRAIN_LR,)))
+    state = TrainState.create(model.net, opt)
+    before = [p.detach().clone() for p in state.params]
+    _sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, out = scst_train_step(crit, model, state, opt, batch, refs, seed=SEED)
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    crit.sample_and_reward = sample_and_reward
+    tokens, rewards, advantage = draws["d"]
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, state.params))
+    B, Ts = _encoder_tokens(batch["net_input"]["slots"])
+    nB = SCST_SAMPLES * B
+    Tt = collate_tokens(tokens, pad_idx=model.global_dict.pad(), pad_to_multiple=8).shape[1]
+    log(f"  train_scst: {len(tokens)} samples of {min(map(len, tokens))}-{max(map(len, tokens))} tokens, "
+        f"rewards mean {rewards.mean():.4f} (all zero: {not rewards.any()}), loss {out['loss']:.4e}, "
+        f"{moved} of {len(before)} leaves moved (adamw's decay), step {step_ms:.1f} ms (sampling "
+        f"included) [{card}]")
+    if not (np.isfinite(out["loss"]) and np.isfinite(out["reward"]) and moved):
+        raise SystemExit("train_scst: the update's loss or reward is not finite, or nothing moved")
+    calls = [("scst_sample_encoder", (B, Ts, Ts), False, SCST_SAMPLES, False),
+             ("scst_encoder", (nB, Ts, Ts), False, 1, True),
+             ("scst_decoder_causal", (nB, Tt, Tt), True, 1, True),
+             ("scst_cross", (nB, Tt, Ts), False, 1, True)]
+    expected = dict.fromkeys(KERNELS, 0)
+    for _, (b, tq, tk), _, times, backward in calls:
+        route = _route(cfg, b, tq, tk)
+        layers = cfg.encoder.layers
+        if route != "plain":
+            expected[f"{route}_attention_fwd"] += times * layers
+            if backward:
+                expected["dense_attention_bwd" if route == "dense" else "flash_attention_bwd"] += layers
+    log(f"  train_scst: attention calls (label, (B, Tq, Tk), causal, passes) "
+        f"{[(c[0], c[1], c[2], c[3]) for c in calls]}; launches {launches} (expected {expected})")
+    if device.type == "cuda" and (launches != expected or not expected["dense_attention_fwd"]):
+        raise SystemExit("train_scst: a kernel did not run once per attention call of its route")
+
+    # the policy gradient on the same samples, kernels vs plain attention
+    spread = np.random.default_rng(SEED + 18).uniform(-0.5, 0.5, advantage.shape).astype(np.float32)
+    names = [n for n, _ in model.net.named_parameters()]
+
+    def grads():
+        loss, _ = crit.policy_gradient_loss(model, batch, tokens, spread)
+        return loss.detach(), torch.autograd.grad(loss, list(model.net.parameters()), allow_unused=True)
+
+    saved = cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
+    lk, gk = grads()
+    cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = "xla", False, GRAD_REF_LOGITS
+    try:
+        lp, gp_ = grads()
+    finally:
+        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
+    zero = [torch.zeros_like(p) for p in model.net.parameters()]
+    gk = [z if g is None else g for g, z in zip(gk, zero)]
+    gp_ = [z if g is None else g for g, z in zip(gp_, zero)]
+    rel, norm_rel, leaves = _grad_diff(names, gk, gp_)
+    worst = max(leaves, key=leaves.get)
+    loss_rel = abs((lk - lp) / lp).item()
+    log(f"  train_scst: policy loss {lk.item():.6e} vs plain {lp.item():.6e} (rel {loss_rel:.3e}); "
+        f"gradients rel {rel:.3e} (tol {GRAD_REL_TOL}), global norm rel err {norm_rel:.3e}, worst leaves "
+        f"{_top_leaves(leaves)} (tol {LEAF_REL_TOL})")
+    if not (rel <= GRAD_REL_TOL and leaves[worst] <= LEAF_REL_TOL and loss_rel <= GRAD_REL_TOL):
+        raise SystemExit("train_scst: the policy gradient under the kernels disagrees with the plain path")
+    fwd, bwd, row = [], [], []
+    for label, (b, tq, tk), causal, _, backward in calls:
+        if device.type == "cuda" and _route(cfg, b, tq, tk) == "dense":
+            fwd.append(check_fwd(label, (b, tq, tk, 12, 64), causal))
+            if backward:
+                b2, b2r = check_bwd(label, (b, tq, tk, 12, 64), causal)
+                bwd.append(b2)
+                row.append(b2r)
+    return launches, dict(step_ms=step_ms, loss=out["loss"], reward=out["reward"], grad_rel=rel,
+                          grad_worst_leaf=leaves[worst], grad_worst_leaf_name=worst,
+                          policy_loss_rel=loss_rel, shapes=[c[1] for c in calls]), (fwd, bwd, row)
+
+
+def _image_gen_prompts():
+    rng = np.random.default_rng(SEED + 19)
+    return [{"cap": _text(rng, *IMAGE_GEN_PROMPT)} for _ in range(N_IMAGE_GEN_PROMPTS)]
+
+
+def serve_image_gen_and_check(model, card):
+    """serve_image_gen: Task("image_gen") on the image-code model, 2
+    prompts best-of-2 in one dispatch through ImageGenTask.inference: two
+    sampling beams a prompt (the hub's IMAGE defaults: top-k 256, exactly
+    1,024 codes), every candidate's image in one VQGAN pass, the rerank
+    (skipped: no scorer and no CLIP weights, logged); every generated token
+    a <code>, every image (256, 256, 3) in [0, 1]; B1 once per encoder
+    layer where the dispatch's route is dense."""
+    from ofasys_torch.configure.config_store import ConfigStore
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    d, device = model.global_dict, model.net.device
+    n_symbols = len(d)
+    task = ConfigStore().get("ofasys.task", "image_gen").target_cls()
+    task.initialize(d)
+    if len(d) != n_symbols:
+        raise SystemExit("serve_image_gen: the task's preprocessors grew the model's dictionary")
+    gp = task.general_preprocess.to(device)
+    pre = gp.name2pre["image_vqgan"]
+    n_codes = pre.tokenizer.codes_per_image
+    g = task.cfg.generation
+    g.max_len_b = g.min_len = n_codes
+    g.sampling_topk, g.return_n_best = 256, IMAGE_GEN_BEST_OF
+    sample = gp.collate([gp(Instruction(IMAGE_GEN_TPL, split="test").format(**r))
+                         for r in _image_gen_prompts()])
+    B, T = _encoder_tokens(sample["net_input"]["slots"])
+    route = _route(model.cfg, B, T, T)
+    _sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = task.inference(model, None, sample)
+    _sync(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    t1 = time.perf_counter()
+    pre.decode_batch([h.tokens for hyps in outs for h in hyps])
+    _sync(device)
+    vq_ms = (time.perf_counter() - t1) * 1e3
+    ok = len(outs) == N_IMAGE_GEN_PROMPTS
+    for hyps in outs:
+        ok &= len(hyps) == IMAGE_GEN_BEST_OF
+        for h in hyps:
+            codes = h.tokens[:-1]
+            ok &= (len(codes) == n_codes and h.tokens[-1] == d.eos()
+                   and bool(((codes >= pre.code_start) & (codes < pre.code_end)).all())
+                   and h.image.shape == (pre.cfg.code_image_size,) * 2 + (3,)
+                   and bool(np.isfinite(h.image).all()) and h.image.min() >= 0 and h.image.max() <= 1)
+    reranked = any("rerank_score" in (h.extra or {}) for hyps in outs for h in hyps)
+    rerank = "applied" if reranked else \
+        f"skipped (no scorer; rerank={pre.cfg.rerank!r}, no CLIP weights)"
+    log(f"  serve_image_gen: {N_IMAGE_GEN_PROMPTS} prompts x best-of-{IMAGE_GEN_BEST_OF}, encoder B={B} "
+        f"T={T} ({route}), {n_codes} codes + EOS a candidate, every token a <code> and every image "
+        f"{(pre.cfg.code_image_size,) * 2 + (3,)} in [0, 1]: {ok}; rerank "
+        f"{rerank}; "
+        f"{wall_ms:.1f} ms for the dispatch ({wall_ms / (n_codes + 1):.2f} ms a decode step), the "
+        f"{N_IMAGE_GEN_PROMPTS * IMAGE_GEN_BEST_OF} images' VQGAN decode alone {vq_ms:.1f} ms [{card}]")
+    if not ok or reranked:
+        raise SystemExit("serve_image_gen: a candidate is malformed, or a rerank ran without a scorer")
+    per = model.cfg.encoder.layers if route == "dense" else 0
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["dense_attention_fwd"] = per
+    log(f"  serve_image_gen: launches {launches} (expected {expected})")
+    if device.type == "cuda" and (launches != expected or not per):
+        raise SystemExit("serve_image_gen: B1 did not run once per encoder layer of the dispatch")
+    return launches, dict(shape=(B, T), route=route, wall_ms=wall_ms, vqgan_decode_ms=vq_ms,
+                          step_ms=wall_ms / (n_codes + 1))
+
+
+def infill_batches(gp, card, tasks=None):
+    """train_image_infilling's batch, its targets encoded to codes by the
+    preprocessor's VQGAN on its device, with the host and VQGAN time."""
+    pre = gp.name2pre["image_vqgan"]
+    size = pre.cfg.code_image_size
+    imgs = np.stack(_images(np.random.default_rng(SEED), 8, size)) / 255.0
+    pre.tokenizer.encode(imgs[:1])                         # warm-up
+    t0 = time.perf_counter()
+    pre.tokenizer.encode(imgs)
+    vq_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batches = make_train_batches(gp, tasks or INFILL_TRAIN_TASKS)
+    prep_s = time.perf_counter() - t0
+    b = next(iter(batches.values()))
+    codes = b["target"][b["target"] != gp.global_dict.pad()]
+    inside = ((codes >= pre.code_start) & (codes < pre.code_end)) | (codes == gp.global_dict.eos())
+    log(f"train_image_infilling batch: {b['nsentences']} samples preprocessed in {prep_s:.2f} s, the "
+        f"VQGAN encoding 8 images of {size} px in {vq_ms:.1f} ms on {pre.tokenizer.device}; "
+        f"targets {_task_shapes(b)[2]} tokens, every one a <code> or EOS: {bool(inside.all())} [{card}]")
+    if not inside.all():
+        raise SystemExit("train_image_infilling: a target token is not a <code>")
+    return batches, vq_ms
+
+
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
     """One kernel's entry of the ``{"kernels": [...]}`` line: ``launches`` by
     path (the counts of each path's run), the error over every checked
@@ -5314,7 +5761,7 @@ def main() -> int:
     phase_build()
     mark("build")
     hub = build_base_hub()
-    cfg, d = hub.model.cfg, hub.global_dict
+    cfg, d, base_gp = hub.model.cfg, hub.global_dict, hub.general_preprocess
     train_batches = make_train_batches(hub.general_preprocess)
     long_gp = long_preprocess(d)
     long_batches = make_train_batches(long_gp, LONG_TRAIN_TASKS)
@@ -5375,6 +5822,18 @@ def main() -> int:
     log(f"train_ground and serve_ground attention shapes (B, Tq, Tk) and routes: "
         f"{[(lb, sh) for lb, sh, _ in ground_calls]} serve_ground dispatches {ground_serve}: "
         f"{ground_routes}; held at train_mm's rows where the shape is the same: {same_as_mm}")
+    # speech targets and image codes: the training batches and serving dispatches of their phases
+    tts_batches = make_train_batches(base_gp, TTS_TRAIN_TASKS)
+    pretrain_batches = make_train_batches(base_gp, PRETRAIN_TRAIN_TASKS)
+    code_d, code_gp = vqgan_preprocess()
+    infill, infill_vq_ms = infill_batches(code_gp, card)
+    slice_calls = train_shapes(tts_batches) + train_shapes(pretrain_batches) + train_shapes(infill)
+    slice_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in slice_calls}
+    slice_serve = [("serve_tts_dispatch", _encoder_shape(base_gp, _tts_requests(), TTS_TPL)),
+                   ("serve_image_gen_dispatch", _encoder_shape(code_gp, _image_gen_prompts(), IMAGE_GEN_TPL))]
+    log(f"train_tts, train_audio_pretrain and train_image_infilling attention shapes (B, Tq, Tk) and "
+        f"routes: {[(lb, sh) for lb, sh, _ in slice_calls]}: {slice_routes}; serve_tts and "
+        f"serve_image_gen dispatches {slice_serve}: {[_route(cfg, B, T, T) for _, (B, T) in slice_serve]}")
     closed_serve = closed_dispatch_shapes(hub.general_preprocess)
     lexical_serve = lexical_dispatch_shapes(hub.general_preprocess)
     log(f"serve_closed and serve_lexical dispatches (B, T) and routes: "
@@ -5387,13 +5846,13 @@ def main() -> int:
         + [(f"serve_closed_dispatch{i}", s) for i, s in enumerate(closed_serve)] \
         + [(f"serve_lexical_dispatch{i}", s) for i, s in enumerate(lexical_serve)] \
         + [(f"serve_pretrained_dispatch{i}", s) for i, s in enumerate(pretrained_serve)] \
-        + eval_serve
+        + eval_serve + slice_serve
     fres, bres, rres = phase_kernels(
         dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
         + [c for c in mm_calls if mm_routes[c[0]] == "dense"]
         + [c for c in full_calls if new_routes[c[0]] == "dense"]
         + [c for c in ground_calls if ground_routes[c[0]] == "dense" and c[0] not in same_as_mm]
-        + fit_calls,
+        + fit_calls + [c for c in slice_calls if slice_routes[c[0]] == "dense"],
         motion_calls + eval_calls)
     # B1 at the speculative draft's dispatch of 8 (its own heads, D = 64)
     from ofasys_torch import GeneralistModel
@@ -5408,7 +5867,8 @@ def main() -> int:
     flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
     flash_serve.append(("serve_truncated", planned_dispatch_shapes(
         hub.general_preprocess, _truncated_requests(), SUMMARY_TPL)[0]))
-    flash_rows = phase_flash_kernels(flash_serve, [c for c in long_calls if routes[c[0]] == "flash"])
+    flash_rows = phase_flash_kernels(flash_serve, [c for c in long_calls if routes[c[0]] == "flash"]
+                                     + [c for c in slice_calls if slice_routes[c[0]] == "flash"])
     mark("flash kernels")
     int8_rows = phase_int8_kernels(max(B * T for B, T in planned_dispatch_shapes()), len(d), train_batches)
     ln_rows = phase_ln_kernels(train_batches)
@@ -5580,7 +6040,40 @@ def main() -> int:
     mark("train_ground")
     counts["train_ground_modal_ffn"], mf_res = train_ground_modal_ffn_and_check(
         ground_d, ground_gp, card, ground_batches)
+    torch.cuda.empty_cache()
     mark("train_ground_modal_ffn")
+
+    speech = build_train_model(d, "cuda", adaptors=SPEECH_ADAPTORS)
+    counts["serve_tts"], tts_res = serve_tts_and_check(speech, base_gp, card)
+    mark("serve_tts")
+    counts["train_tts"], train_tts_res, _ = train_and_check(speech, base_gp, card, tasks=TTS_TRAIN_TASKS,
+                                                            batches=tts_batches, label="train_tts")
+    torch.cuda.empty_cache()
+    mark("train_tts")
+    counts["train_audio_pretrain"], pretrain_res, _ = train_and_check(
+        speech, base_gp, card, tasks=PRETRAIN_TRAIN_TASKS, batches=pretrain_batches,
+        label="train_audio_pretrain")
+    torch.cuda.empty_cache()
+    mark("train_audio_pretrain")
+    counts["train_scst"], scst_res, (sf, sb, sr) = train_scst_and_check(speech, base_gp, card)
+    fres, bres, rres = fres + sf, bres + sb, rres + sr
+    del speech
+    torch.cuda.empty_cache()
+    mark("train_scst")
+    code_model = build_vqgan_model(code_d)
+    counts["serve_image_gen"], image_gen_res = serve_image_gen_and_check(code_model, card)
+    torch.cuda.empty_cache()
+    mark("serve_image_gen")
+    torch.cuda.reset_peak_memory_stats()
+    counts["train_image_infilling"], infill_res, _ = train_and_check(
+        code_model, code_gp, card, tasks=INFILL_TRAIN_TASKS, batches=infill, label="train_image_infilling")
+    infill_res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    infill_res["vqgan_encode_ms"] = infill_vq_ms
+    log(f"train_image_infilling: peak device memory {infill_res['peak_memory_gib']:.2f} GiB (updates and "
+        f"gradient checks) [{card}]")
+    del code_model
+    torch.cuda.empty_cache()
+    mark("train_image_infilling")
 
     def by_path(kernel):
         return {path: c[kernel] for path, c in counts.items()}
@@ -5637,6 +6130,10 @@ def main() -> int:
     log(f"nan_check: {json.dumps(nan_res)}")
     log(f"train_profile: {json.dumps(profile_res)}")
     log(f"train_fetch: {json.dumps(fetch_res)}")
+    for label, res in (("serve_tts", tts_res), ("train_tts", train_tts_res),
+                       ("train_audio_pretrain", pretrain_res), ("train_scst", scst_res),
+                       ("serve_image_gen", image_gen_res), ("train_image_infilling", infill_res)):
+        log(f"{label}: {json.dumps(res)}")
     log("serve p50 ms: " + json.dumps({k: r["p50_ms"] for k, r in (
         ("serve", serve_res), ("serve_closed", closed_res), ("serve_sample", sample_res),
         ("serve_sample_topp", topp_res), ("serve_ensemble", ensemble_res),

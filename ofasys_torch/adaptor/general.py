@@ -9,8 +9,9 @@ when positions are sample-independent.
 
 flax creates an adaptor's parameters only on the side where a slot calls it,
 so a param tree of ofasys_tpu holds ``image_vit`` and ``audio_fbank`` under
-``encoder_adaptor`` alone and ``motion_6d`` under ``decoder_adaptor``
-alone. Modules here are built eagerly: the source-only adaptors
+``encoder_adaptor`` alone and ``motion_6d``, ``audio_tgt_fbank`` and
+``image_vqgan`` under ``decoder_adaptor`` alone. Modules here are built
+eagerly: the source-only adaptors
 (``SOURCE_ONLY``) are built on the encoder side only and the target-only
 ones (``TARGET_ONLY``) on the decoder side only, so that
 utils/jax_params.load_jax_params finds every parameter in the tree.
@@ -26,10 +27,12 @@ import torch
 from torch import nn
 
 from ofasys_torch import ModalityType
-from ofasys_torch.adaptor.audio import AudioFbankAdaptor, AudioFbankAdaptorConfig
+from ofasys_torch.adaptor.audio import (AudioFbankAdaptor, AudioFbankAdaptorConfig,
+                                        AudioTgtFbankAdaptor, AudioTgtFbankAdaptorConfig)
 from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor, BaseAdaptorConfig
 from ofasys_torch.adaptor.image import (ImagePatchEmbedAdaptor, ImageResnetAdaptor,
                                         ImageResnetAdaptorConfig, ImageVitAdaptor)
+from ofasys_torch.adaptor.image_vqgan import ImageVqganAdaptor, ImageVqganAdaptorConfig
 from ofasys_torch.adaptor.motion import Motion6dAdaptor, Motion6dAdaptorConfig
 from ofasys_torch.adaptor.text import TextAdaptor
 from ofasys_torch.configure.config_store import ConfigStore
@@ -65,29 +68,31 @@ def resolve_adaptor_name(slot: SlotBatch, is_src: bool) -> str:
 
 ADAPTORS = {"text": TextAdaptor, "image_resnet": ImageResnetAdaptor, "image_vit": ImageVitAdaptor,
             "image_patch_embed": ImagePatchEmbedAdaptor, "audio_fbank": AudioFbankAdaptor,
-            "motion_6d": Motion6dAdaptor}
+            "motion_6d": Motion6dAdaptor, "audio_tgt_fbank": AudioTgtFbankAdaptor,
+            "image_vqgan": ImageVqganAdaptor}
 # input adaptors no target slot resolves to: built on the encoder side only
 SOURCE_ONLY = ("image_resnet", "image_vit", "image_patch_embed", "audio_fbank")
-# the diffusion target's adaptor, which no source slot of the ported tasks
-# resolves to: built on the decoder side only
-TARGET_ONLY = ("motion_6d",)
+# output adaptors of the diffusion, TTS and image-code targets, which no
+# source slot of the ported tasks resolves to: built on the decoder side only
+TARGET_ONLY = ("motion_6d", "audio_tgt_fbank", "image_vqgan")
 
 
 # ROADMAP Queue A item that ports each adaptor this slice lacks
-_PENDING = {"audio_tgt_fbank": 10, "image_vqgan": 11, "video_image_sequence": 11}
+_PENDING = {"video_image_sequence": 11}
 
 
 # adaptors that take a config of their own; the store holds it under
 # ofasys.adaptor/<name> (the others register the empty BaseAdaptorConfig)
 CONFIGURED = {"image_resnet": ImageResnetAdaptorConfig, "audio_fbank": AudioFbankAdaptorConfig,
-              "motion_6d": Motion6dAdaptorConfig}
+              "motion_6d": Motion6dAdaptorConfig, "audio_tgt_fbank": AudioTgtFbankAdaptorConfig,
+              "image_vqgan": ImageVqganAdaptorConfig}
 for _name, _cls in ADAPTORS.items():
     ConfigStore().store("ofasys.adaptor", _name, CONFIGURED.get(_name, BaseAdaptorConfig), _cls)
 
 
 def build_adaptor(name: str, cfg, is_src, embed_tokens, pad_id, dtype, acfg=None) -> BaseAdaptor:
-    """``acfg``: the adaptor's own config (image_resnet's, audio_fbank's,
-    motion_6d's), else the one the ConfigStore holds for it."""
+    """``acfg``: the adaptor's own config (``CONFIGURED``), else the one the
+    ConfigStore holds for it."""
     if name in ADAPTORS:
         if acfg is None and name in CONFIGURED:
             acfg = ConfigStore().get("ofasys.adaptor", name).config
@@ -149,10 +154,15 @@ class GeneralAdaptor(nn.Module):
         pos_k = self.pos_k_linear(pos_embed).reshape(B, T, H, -1)
         return torch.matmul(pos_q.permute(0, 2, 1, 3).float(), pos_k.permute(0, 2, 3, 1).float())
 
-    def forward(self, slots: List[SlotBatch],
-                generator: Optional[torch.Generator] = None) -> GeneralAdaptorOutput:
-        """``generator`` turns on training mode (embedding dropout)."""
-        outputs: List[AdaptorOutput] = [self.get_adaptor(slot)(slot, generator) for slot in slots]
+    def forward(self, slots: List[SlotBatch], generator: Optional[torch.Generator] = None,
+                noise_generator: Optional[torch.Generator] = None) -> GeneralAdaptorOutput:
+        """``generator`` turns on training mode (embedding dropout);
+        ``noise_generator`` goes to the adaptors that draw inference-time
+        noise (the TTS prenet's dropout)."""
+        outputs: List[AdaptorOutput] = [
+            self.get_adaptor(slot)(slot, generator) if noise_generator is None
+            else self.get_adaptor(slot)(slot, generator, noise_generator=noise_generator)
+            for slot in slots]
 
         embed = torch.cat([o.embed for o in outputs], dim=1)
         padding_mask = torch.cat([o.padding_mask for o in outputs], dim=1)

@@ -117,8 +117,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bias,
                      const int8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ lse, int H, int Tq, int Tk, int D, int bias_per_bh,
-                     float scale, int causal, int vec, int bias_vec) {
+                     float* __restrict__ out32, float* __restrict__ lse, int H, int Tq, int Tk,
+                     int D, int bias_per_bh, float scale, int causal, int vec, int bias_vec) {
   using namespace dense_mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int lb = KT + 8;
@@ -308,6 +308,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         o[0] = __float2bfloat16_rn(x);
         if (d + 1 < D) o[1] = __float2bfloat16_rn(y);
       }
+      if (out32 != nullptr) {          // the output before rounding (the backward's dd)
+        float* o32 = out32 + q_base + (size_t)rl * E + d;
+        o32[0] = x;
+        if (d + 1 < D) o32[1] = y;
+      }
     }
   }
   if (t == 0) {
@@ -320,8 +325,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 template <int DMAX, int KT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* mask, void* out, void* lse, int B, int H, int Tq, int Tk, int D,
-                   int bias_per_bh, float scale, int causal, cudaStream_t stream) {
+                   const void* mask, void* out, void* out32, void* lse, int B, int H, int Tq,
+                   int Tk, int D, int bias_per_bh, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(KT, D);
   auto kernel = flash_fwd_mma_kernel<DMAX, KT>;
   cudaError_t err = dense_mma::allow_smem_carveout(kernel, smem);
@@ -336,7 +341,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(bias),
       static_cast<const int8_t*>(mask), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, Tq, Tk, D, bias_per_bh, scale, causal, vec, bias_vec);
+      static_cast<float*>(out32), static_cast<float*>(lse), H, Tq, Tk, D, bias_per_bh, scale,
+      causal, vec, bias_vec);
   return cudaGetLastError();
 }
 
@@ -344,12 +350,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 
 // q, k, v and out are bf16 (the kernel is built for bf16 only). bias is bf16
 // (H, Tq, Tk) shared by the batch (bias_per_bh = 0) or (B * H, Tq, Tk)
-// (bias_per_bh = 1), or null; mask is int8 (B, Tk) or null; lse is fp32
+// (bias_per_bh = 1), or null; mask is int8 (B, Tk) or null; out32 is fp32
+// (B, Tq, E), the output before its rounding to bf16, or null; lse is fp32
 // (B, H, Tq). `causal` needs Tq == Tk.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                                   const void* mask, void* out, void* lse, int B, int H, int Tq,
-                                   int Tk, int D, int bias_per_bh, int causal, float scale,
-                                   void* stream) {
+                                   const void* mask, void* out, void* out32, void* lse, int B,
+                                   int H, int Tq, int Tk, int D, int bias_per_bh, int causal,
+                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > 256 || (causal && Tq != Tk))
     return (int)cudaErrorInvalidValue;
@@ -358,10 +365,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   // 0.057 vs 0.097 and 0.058 vs 0.091 ms)
   cudaError_t err;
   if (D <= 64)
-    err = launch<64, 64>(q, k, v, bias, mask, out, lse, B, H, Tq, Tk, D, bias_per_bh, scale, causal, s);
+    err = launch<64, 64>(q, k, v, bias, mask, out, out32, lse, B, H, Tq, Tk, D, bias_per_bh, scale,
+                         causal, s);
   else if (D <= 128)
-    err = launch<128, 32>(q, k, v, bias, mask, out, lse, B, H, Tq, Tk, D, bias_per_bh, scale, causal, s);
+    err = launch<128, 32>(q, k, v, bias, mask, out, out32, lse, B, H, Tq, Tk, D, bias_per_bh, scale,
+                          causal, s);
   else
-    err = launch<256, 32>(q, k, v, bias, mask, out, lse, B, H, Tq, Tk, D, bias_per_bh, scale, causal, s);
+    err = launch<256, 32>(q, k, v, bias, mask, out, out32, lse, B, H, Tq, Tk, D, bias_per_bh, scale,
+                          causal, s);
   return (int)err;
 }

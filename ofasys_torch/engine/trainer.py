@@ -320,6 +320,8 @@ class Trainer:
         global_dict = Dictionary()
         for task in tasks:
             task.initialize(global_dict, is_train=params is None)
+            # a preprocessor that runs a model (image_vqgan) runs it on the trainer's device
+            task.general_preprocess.to(self.device)
         global_dict.pad_to_multiple_(128)
         adaptors: List[str] = []
         for task in tasks:

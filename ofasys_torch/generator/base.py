@@ -27,6 +27,16 @@ class SequenceGeneratorOutput(GeneratorOutput):
 
 
 @dataclass
+class SpeechGeneratorOutput(GeneratorOutput):
+    """AR speech decoding: mel-spectrogram frames and an optional waveform."""
+
+    feature: Optional[np.ndarray] = None
+    eos_prob: Optional[np.ndarray] = None
+    waveform: Optional[np.ndarray] = None
+    targ_feature: Optional[np.ndarray] = None
+
+
+@dataclass
 class MotionOutput(GeneratorOutput):
     """Diffusion text-to-motion output (BVH-convertible features)."""
 

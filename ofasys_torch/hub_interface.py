@@ -18,7 +18,11 @@
 
 Generation options go to ``SequenceGenerator`` (sampling, a closed-set
 ``constraint_trie``, ``search_strategy``, ...); ``seed`` seeds the sampling
-draws. With a draft attached, calls that resolve to greedy decoding go to
+draws. An AUDIO target decodes through ``AutoRegressiveSpeechGenerator``
+(options ``max_iter``, ``eos_prob_threshold``; the audio preprocessor's
+gcmvn stats; ``seed`` seeds the prenet's dropout) and returns one
+``SpeechGeneratorOutput`` with its waveform a request. With a draft
+attached, calls that resolve to greedy decoding go to
 ``SpeculativeGenerator``. ``shard`` waits for ROADMAP Queue A item 13.
 """
 
@@ -29,7 +33,8 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from ofasys_torch import ModalityType
-from ofasys_torch.generator import SequenceGenerator, SpeculativeGenerator
+from ofasys_torch.generator import (AutoRegressiveSpeechGenerator, SequenceGenerator,
+                                    SpeculativeGenerator)
 from ofasys_torch.model.ofa import GeneralistModel, modal_ids_of_params
 from ofasys_torch.ops.quant import is_quantized, quantize_for_serving
 from ofasys_torch.preprocessor.dictionary import Dictionary
@@ -78,7 +83,7 @@ class OFASys:
             load_jax_params(model.net, params)
         self.model = model
         self.global_dict = global_dict
-        self.general_preprocess = general_preprocess
+        self.general_preprocess = general_preprocess.to(self.device)
         self.tasks = tasks or {}
         self._generators: Dict[Any, SequenceGenerator] = {}
         self._ensemble: Optional[List[GeneralistModel]] = None   # models, when > 1 checkpoint
@@ -181,6 +186,13 @@ class OFASys:
         self._generators.clear()
         return self
 
+    def _speech_generator(self, gen_kwargs: Dict[str, Any]) -> AutoRegressiveSpeechGenerator:
+        key = ("speech", tuple(sorted(gen_kwargs.items())))
+        if key not in self._generators:
+            self._generators[key] = AutoRegressiveSpeechGenerator.for_preprocess(
+                self.model, self.general_preprocess, **gen_kwargs)
+        return self._generators[key]
+
     def build_generator(self, **gen_kwargs) -> SequenceGenerator:
         """The generator ``inference`` runs for these options (cached per
         target modality and options); over every member of an ensemble."""
@@ -206,8 +218,13 @@ class OFASys:
             ists.append(self.general_preprocess(ist.format(**rec)))
         sample = self.general_preprocess.collate(ists)
 
-        target_modality = [s for s in sample["net_input"]["slots"] if not s.is_src][-1].modality
+        target = [s for s in sample["net_input"]["slots"] if not s.is_src][-1]
+        target_modality = target.modality
         seed = gen_overrides.pop("seed", 0)
+        if target_modality == ModalityType.AUDIO and target.get_attr("preprocess") != "image_vqgan":
+            outputs = self._speech_generator(gen_overrides).generate(sample, seed=seed)
+            self.general_preprocess.postprocess(outputs, sample)
+            return outputs if batched else outputs[0]
         gen_kwargs = dict(_GEN_DEFAULTS.get(target_modality, {}))
         gen_kwargs.update(gen_overrides)
         prefix = sample.get("prefix_tokens")

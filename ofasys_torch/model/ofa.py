@@ -172,13 +172,17 @@ class GeneralistNet(nn.Module):
 
     def decode_step(self, tokens: torch.Tensor, step: int, enc: EncoderOut,
                     bias_spec: Optional[BiasSpec], cross_bias: Optional[torch.Tensor],
-                    cache: Dict[str, Any], tgt_slot: SlotBatch):
+                    cache: Dict[str, Any], tgt_slot: SlotBatch,
+                    noise_generator: Optional[torch.Generator] = None):
         """One decode step at absolute position ``step``: returns
         (output (B, S, ...), extra, new_cache). As in ofasys_tpu, a step
         passes no modality spans: under ``cfg.modal_ffn`` its FeedForwards
-        take the plain pair (which an init from slot lists does not build)."""
+        take the plain pair (which an init from slot lists does not build).
+        ``noise_generator``: the target adaptor's inference-time noise (the
+        TTS prenet's dropout, which ofasys_tpu draws from the step's dropout
+        rng); the step stays deterministic otherwise."""
         step_slot = dataclasses.replace(tgt_slot, value={"inputs": tokens, "pos_offset": step})
-        d = self.decoder_adaptor([step_slot])
+        d = self.decoder_adaptor([step_slot], noise_generator=noise_generator)
         x, new_cache = self.decoder(
             d.embed,
             enc.x,

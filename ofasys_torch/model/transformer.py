@@ -220,10 +220,42 @@ def attention_route(
     return "plain"
 
 
+class AttentionProbs:
+    """Observer of attention probabilities (ofasys_tpu's ``intermediates``
+    sow, which its guided-attention loss reads).
+
+        with AttentionProbs(net, lambda name: name.endswith("encoder_attn")) as obs:
+            out, extra = net(slots)
+        obs.maps     # [(module name, (B, H, Tq, Tk) fp32 probabilities), ...]
+
+    Inside the block every MultiheadAttention of ``net`` whose qualified
+    name passes ``select`` also computes, on the side and in fp32,
+    ``softmax((q * scaling) @ k^T + bias)`` with masked (and causal)
+    positions at -1e9, keeping its autograd graph. The attention itself
+    keeps its route, kernel or plain. Outside a block nothing is computed."""
+
+    def __init__(self, net: nn.Module, select: Callable[[str], bool]):
+        self.modules = [(n, m) for n, m in net.named_modules()
+                        if isinstance(m, MultiheadAttention) and select(n)]
+        self.maps = []
+
+    def __enter__(self) -> "AttentionProbs":
+        for name, m in self.modules:
+            m.observer = (self, name)
+        return self
+
+    def __exit__(self, *exc):
+        for _, m in self.modules:
+            m.observer = None
+
+
 class MultiheadAttention(nn.Module):
     """QKV attention with additive bias, per-head output scaling and an
     explicit KV cache. Reads ``attn_kernel``, ``attn_logits``, ``fuse_qkv``
-    and ``use_flash_attention`` from the shared config at call time."""
+    and ``use_flash_attention`` from the shared config at call time.
+    ``observer``: set by :class:`AttentionProbs` inside its block."""
+
+    observer = None
 
     def __init__(self, cfg: GeneralistModelConfig, embed_dim: int, num_heads: int,
                  dtype: torch.dtype):
@@ -336,6 +368,15 @@ class MultiheadAttention(nn.Module):
                 dropout_rate=p_drop, generator=generator, dtype=self.dtype,
                 logits_dtype=self.dtype if cfg.attn_logits == "compute" else None,
             )
+        if self.observer is not None:
+            obs, name = self.observer
+            logits = torch.matmul((q * scaling).float().transpose(1, 2), k.float().permute(0, 2, 3, 1))
+            if bias is not None:
+                logits = logits + bias.float()
+            obs_mask = combine_masks(mask, causal_mask(Tq_, Tk_, q.device) if causal else None)
+            if obs_mask is not None:
+                logits = torch.where(obs_mask, logits, torch.full((), -1e9, device=logits.device))
+            obs.maps.append((name, torch.softmax(logits, dim=-1)))
         if cfg.scale_heads:
             x = x * self.c_attn.to(self.dtype)[None, None, :, None]
         x = self.out_proj(x.reshape(B, Tq, self.embed_dim), qtrain)

@@ -190,17 +190,22 @@ def _scores(q, k, bias, mask, H, scale, causal) -> torch.Tensor:
 def flash_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
     mask: Optional[torch.Tensor], num_heads: int, scale: float, causal: bool,
+    out32: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of kernel B3 (whole rows instead of tiles): fp32
     scores, p = exp(s - max) rounded to v's dtype before p.V with an fp32
     sum, l the sum of the unrounded p, out = acc / max(l, 1e-30) in q's
-    dtype and lse = max + log(max(l, 1e-30)) fp32 (B, H, Tq)."""
+    dtype (and in fp32 into ``out32`` when given) and lse = max + log(max(l,
+    1e-30)) fp32 (B, H, Tq)."""
     s = _scores(q, k, bias, mask, num_heads, scale, causal)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     acc = torch.matmul(p.to(v.dtype).float(), _heads(v, num_heads))
-    return _unheads(acc / l, q.dtype), (m + torch.log(l))[..., 0]
+    o32 = _unheads(acc / l, torch.float32)
+    if out32 is not None:
+        out32.copy_(o32)
+    return o32.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def flash_attention_bwd_reference(
@@ -310,23 +315,29 @@ def _dims(q, k, bias, num_heads):
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
     mask: Optional[torch.Tensor], num_heads: int, scale: float, causal: bool,
+    out32: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B3: q (B, Tq, E), k/v (B, Tk, E), bias bf16 (H or B*H, Tq, Tk)
     or None, mask int8 (B, 1, Tk) or None -> out (B, Tq, E) in q's dtype and
-    lse (B, H, Tq) fp32.
+    lse (B, H, Tq) fp32. ``out32``, a contiguous fp32 (B, Tq, E) tensor,
+    also receives the output before its rounding to q's dtype (the
+    backward takes dd from it).
 
     CUDA tensors launch the kernel (counted in ``flash_attention_fwd.launches``);
     CPU tensors run :func:`flash_attention_fwd_reference`."""
     _check(q, k, v, bias, mask, num_heads, causal, "flash_attention_fwd")
+    if out32 is not None and (out32.dtype != torch.float32 or out32.shape != q.shape
+                              or out32.device != q.device or not out32.is_contiguous()):
+        raise ValueError("flash_attention_fwd: out32 must be contiguous fp32, shaped as q")
     if not q.is_cuda:
-        return flash_attention_fwd_reference(q, k, v, bias, mask, num_heads, scale, causal)
-    fn = _bind("flash_attention_fwd", "flash_attention_fwd", 7, 7)
+        return flash_attention_fwd_reference(q, k, v, bias, mask, num_heads, scale, causal, out32)
+    fn = _bind("flash_attention_fwd", "flash_attention_fwd", 8, 7)
     B, H, Tq, Tk, D, per_bh = _dims(q, k, bias, num_heads)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(mask), _ptr(out), _ptr(lse),
-                 B, H, Tq, Tk, D, per_bh, int(causal), scale, _stream(q))
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(mask), _ptr(out), _ptr(out32),
+                 _ptr(lse), B, H, Tq, Tk, D, per_bh, int(causal), scale, _stream(q))
     _raise_on(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -449,20 +460,26 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, num_heads, scale, causal):
-        out, lse = flash_attention_fwd(q, k, v, bias, mask, num_heads, scale, causal)
-        ctx.save_for_backward(q, k, v, bias, mask, out, lse)
+        # the output in fp32 as well, for the backward's dd
+        out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+            if any(ctx.needs_input_grad[:4]) else None
+        out, lse = flash_attention_fwd(q, k, v, bias, mask, num_heads, scale, causal, out32)
+        ctx.save_for_backward(q, k, v, bias, mask, out32, lse)
         ctx.args = (num_heads, scale, causal)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        q, k, v, bias, mask, out, lse = ctx.saved_tensors
+        q, k, v, bias, mask, out32, lse = ctx.saved_tensors
         num_heads, scale, causal = ctx.args
         B, Tq, E = q.shape
-        do = torch.zeros_like(out) if g_out is None else g_out.contiguous()
-        # dd = rowsum(do * out), outside the kernels as in _flash_backward
-        dd = (do.float() * out.float()).reshape(B, Tq, num_heads, E // num_heads).sum(-1)
+        do = torch.zeros_like(q) if g_out is None else g_out.contiguous()
+        # dd = rowsum(do * out), outside the kernels as in _flash_backward, but
+        # from the output before its rounding to bf16 (ofasys_tpu takes the
+        # rounded one; in long causal rows that moved leaves that sum dq over
+        # rows by up to 26%, ROADMAP Queue C)
+        dd = (do.float() * out32).reshape(B, Tq, num_heads, E // num_heads).sum(-1)
         dd = dd.permute(0, 2, 1)
         if g_lse is not None:
             dd = dd - g_lse.float()

@@ -5,11 +5,13 @@ Sample path (pure numpy):
   instruction_map -> map per slot -> merge adjacent same-group slots
   -> per-position collate into SlotBatch arrays.
 
-The TEXT, BOX, IMAGE, AUDIO and MOTION preprocessors are ported (text-like
-modalities share the TEXT group and concatenate into one token run; an
-IMAGE, AUDIO or MOTION slot is a group of its own); a slot of any other
-modality raises ``NotImplementedError`` naming the ROADMAP Queue A item
-that ports it.
+The TEXT, BOX, IMAGE (``image`` and the VQGAN codes of ``image_vqgan``),
+AUDIO and MOTION preprocessors are ported (text-like modalities share the
+TEXT group and concatenate into one token run; an IMAGE, AUDIO or MOTION
+slot is a group of its own); a slot of any other modality raises
+``NotImplementedError`` naming the ROADMAP Queue A item that ports it.
+``to(device)`` gives the preprocessors that run a model (``image_vqgan``'s
+tokenizer) the device to run it on.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ofasys_torch import ModalityType
 from ofasys_torch.configure.config_store import ConfigStore
 # the ported preprocessors register themselves in the ConfigStore
 # (ofasys.preprocess/<name>) when their modules are imported
-from ofasys_torch.preprocessor import audio, box, image, motion  # noqa: F401
+from ofasys_torch.preprocessor import audio, box, image, image_vqgan, motion  # noqa: F401
 from ofasys_torch.preprocessor.base import BasePreprocess, PreprocessSkipException
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.instruction import Instruction, Slot
@@ -42,7 +44,7 @@ DEFAULT_PREPROCESS = {
 
 # ROADMAP Queue A item that ports each preprocessor this slice lacks
 _PENDING = {
-    "phone": 11, "video": 11, "struct": 11, "category": 11, "image_vqgan": 11, "database": 11,
+    "phone": 11, "video": 11, "struct": 11, "category": 11, "database": 11,
     "table": 11, "text_phone": 11,
 }
 
@@ -68,6 +70,7 @@ class GeneralPreprocess:
                  text_cfg: Optional[TextPreprocessConfig] = None):
         self.global_dict = global_dict
         self.text_cfg = text_cfg
+        self.device = None
         self.name2pre: Dict[str, BasePreprocess] = {}
         names = active
         if names is None:
@@ -83,8 +86,19 @@ class GeneralPreprocess:
         node = ConfigStore().get("ofasys.preprocess", name)
         cfg = self.text_cfg if name == "text" and self.text_cfg is not None \
             else copy.deepcopy(node.config)
-        self.name2pre[name] = node.target_cls(self.global_dict, cfg)
-        return self.name2pre[name]
+        pre = self.name2pre[name] = node.target_cls(self.global_dict, cfg)
+        if self.device is not None and hasattr(pre, "to"):
+            pre.to(self.device)
+        return pre
+
+    def to(self, device) -> "GeneralPreprocess":
+        """Run the preprocessors that hold a model on ``device`` (those
+        built later too)."""
+        self.device = device
+        for pre in self.name2pre.values():
+            if hasattr(pre, "to"):
+                pre.to(device)
+        return self
 
     @staticmethod
     def _raise_pending(name: str):

@@ -15,8 +15,9 @@ fetchers, utils/file_utils.py) and ``.bin`` token files (fixed blocks of
 
 ``evaluate`` generates over a split and scores the hypotheses with the
 task's metrics (``evaluation.metrics``, built from the ConfigStore's
-``ofasys.metric`` group). Not ported here: the AR speech generator for
-audio targets and the criteria of item 10.
+``ofasys.metric`` group). ``build_generator`` dispatches on the target
+modality: an AUDIO target decodes through the AR speech generator, every
+token target through ``SequenceGenerator``.
 """
 
 from __future__ import annotations
@@ -48,9 +49,6 @@ from ofasys_torch.preprocessor.general import DEFAULT_PREPROCESS, GeneralPreproc
 from ofasys_torch.preprocessor.instruction import Instruction
 
 logger = logging.getLogger("ofasys_torch.task")
-
-# ROADMAP Queue A item that ports each criterion this slice lacks
-PENDING_CRITERIA = {"speech_pretrain_loss": 10, "ofa_tacotron2": 10, "scst_loss": 10}
 
 
 @dataclass
@@ -152,11 +150,6 @@ class Task:
         import ofasys_torch.metric  # noqa: F401
 
         store = ConfigStore()
-        if self.cfg.criterion in PENDING_CRITERIA and not store.contains("ofasys.criterion",
-                                                                          self.cfg.criterion):
-            raise NotImplementedError(
-                f"task {self.name}: criterion {self.cfg.criterion!r} is not ported to ofasys_torch "
-                f"yet (ROADMAP Queue A item {PENDING_CRITERIA[self.cfg.criterion]})")
         crit_node = store.get("ofasys.criterion", self.cfg.criterion)
         crit_cfg = copy.deepcopy(crit_node.config)
         if getattr(self.cfg, "criterion_args", None):
@@ -315,14 +308,23 @@ class Task:
                 return tgt[-1].modality, tgt[-1]
         return None, None
 
+    def build_speech_generator(self, model, **overrides):
+        """The AR speech generator over continuous fbank targets, with the
+        audio preprocessor's corpus-level CMVN stats for denormalization."""
+        from ofasys_torch.generator import AutoRegressiveSpeechGenerator
+
+        self._generator = AutoRegressiveSpeechGenerator.for_preprocess(
+            model, self.general_preprocess, **overrides)
+        return self._generator
+
     def build_generator(self, model, **overrides):
         from ofasys_torch.generator import SequenceGenerator
 
+        # continuous AUDIO targets decode through the AR speech generator;
+        # token-coded targets (text, boxes, image codes) through the beam loop
         modality, tgt_slot = self._target_modality()
         if modality == ModalityType.AUDIO and tgt_slot.get_attr("preprocess") != "image_vqgan":
-            raise NotImplementedError(
-                "the AR speech generator for audio targets is not ported to ofasys_torch yet "
-                "(ROADMAP Queue A item 10)")
+            return self.build_speech_generator(model, **overrides)
         g = self.cfg.generation
         kwargs = dict(
             beam_size=g.beam, max_len_a=g.max_len_a, max_len_b=g.max_len_b,
@@ -360,14 +362,21 @@ class Task:
                 return text_pre.constraint_trie
         return None
 
-    def inference(self, model, params, sample, **gen_overrides):
-        """Generate + postprocess. ``params``: a flax parameter tree to load
-        into the model first (utils/jax_params.load_jax_params), or None to
-        run the model's own parameters."""
+    def prepare_inference(self, model, params):
+        """Load ``params`` into the model (a flax parameter tree,
+        utils/jax_params.load_jax_params; None keeps the model's own) and
+        run the preprocessors that hold a model on the model's device
+        unless they were given one."""
         if params is not None:
             from ofasys_torch.utils.jax_params import load_jax_params
 
             load_jax_params(model.net, params)
+        if self.general_preprocess.device is None:
+            self.general_preprocess.to(model.net.device)
+
+    def inference(self, model, params, sample, **gen_overrides):
+        """Generate + postprocess. ``params`` as in ``prepare_inference``."""
+        self.prepare_inference(model, params)
         if self._generator is None:
             self.build_generator(model, **gen_overrides)
         prefix = sample.get("prefix_tokens")

@@ -7,9 +7,8 @@ Data columns follow each task's TSV conventions; the templates are
 defaults, overridden by ``Task(..., instruction=...)`` or a config file.
 Every family builds and parses its template. A family whose preprocessor,
 adaptor or criterion is not ported raises at ``initialize`` naming its
-ROADMAP Queue A item: the STRUCT, PHONE, VIDEO and image_vqgan families
-(sudoku, dart, fetaqa, spider, phone_to_text, image_infilling, image_gen,
-the video families) item 11, text_to_speech and audio_pretraining item 10.
+ROADMAP Queue A item: the STRUCT, PHONE and VIDEO families (sudoku, dart,
+fetaqa, spider, phone_to_text, the video families), item 11.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ofasys_torch import ModalityType
 from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.task.base import Task, TaskConfig
 from ofasys_torch.task.traverse_task import TraverseTask, TraverseTaskConfig
@@ -93,9 +93,11 @@ _task("image_text_matching",
 
 @register_config("ofasys.task", "image_gen", TaskConfig)
 class ImageGenTask(Task):
-    """Text-to-image over VQGAN codes with a best-of-N rerank. The VQGAN
-    tokenizer and adaptor wait for ROADMAP Queue A item 11: ``initialize``
-    raises."""
+    """Text-to-image over VQGAN codes with a best-of-N rerank: the N
+    candidates of a prompt are N sampling beams of one decode, every
+    candidate's image decodes in one VQGAN pass, and the image_vqgan
+    preprocessor's scorer (CLIP where its weights resolve) orders each
+    n-best list best-first."""
 
     def __init__(self, cfg=None, **kwargs):
         super().__init__(cfg, **kwargs)
@@ -107,11 +109,6 @@ class ImageGenTask(Task):
             self.cfg.evaluation.metrics = ("clip_ti",)
         if self.cfg.name == "default":
             self.cfg.name = "image_gen"
-
-    def initialize(self, global_dict, is_train: bool = True):
-        raise NotImplementedError(
-            f"task {self.name}: image generation needs the VQGAN tokenizer and the image_vqgan "
-            "adaptor, which are not ported to ofasys_torch yet (ROADMAP Queue A item 11)")
 
     def preprocess(self, data: Dict[str, Any], split: str) -> Optional[Dict[str, Any]]:
         cap = data.get("cap")
@@ -125,6 +122,53 @@ class ImageGenTask(Task):
                 max_words = int(gp.name2pre["text"].cfg.max_src_length)
             data["cap"] = " ".join(cap.split()[:max_words])
         return data
+
+    def build_generator(self, model, **overrides):
+        pre = self.general_preprocess.name2pre["image_vqgan"]
+        # only <code> tokens decode (None when constraint_decoding is off)
+        if pre.constraint_range:
+            overrides.setdefault("constraint_range", f"({pre.constraint_range})")
+        n = overrides.get("return_n_best", self.cfg.generation.return_n_best)
+        if n > 1:
+            # best-of-N: N independent sampling streams in one decode
+            overrides.setdefault("sampling", True)
+            overrides.setdefault("beam_size", n)
+        return super().build_generator(model, **overrides)
+
+    def _source_caption(self, sample, b: int) -> Optional[str]:
+        """The query text of sample ``b``, decoded from its source TEXT slot."""
+        for s in sample["net_input"]["slots"]:
+            if s.is_src and s.modality == ModalityType.TEXT and isinstance(s.value, dict):
+                toks = np.asarray(s.value.get("inputs"))[b]
+                d = self.global_dict
+                toks = toks[(toks != d.pad()) & (toks != d.eos()) & (toks != d.bos())]
+                return self.general_preprocess.name2pre["text"].decode(toks)
+        return None
+
+    def inference(self, model, params, sample, **gen_overrides):
+        """Generate, decode every candidate's image in one VQGAN pass, and
+        rerank each n-best list by the image_vqgan preprocessor's scorer
+        (each hypothesis's ``extra["rerank_score"]``); without a scorer the
+        lists keep the decode's order. ``params`` as in ``Task.inference``."""
+        self.prepare_inference(model, params)
+        if self._generator is None:
+            self.build_generator(model, **gen_overrides)
+        outputs = self._generator.generate(sample)
+        pre = self.general_preprocess.name2pre["image_vqgan"]
+        flat = [h for hyps in outputs for h in hyps]
+        for h, im in zip(flat, pre.decode_batch([h.tokens for h in flat])):
+            h.image = im
+        for b, hyps in enumerate(outputs):
+            if len(hyps) <= 1:
+                continue
+            text = self._source_caption(sample, b)
+            scores = None if text is None else pre.rerank_scores(np.stack([h.image for h in hyps]), text)
+            if scores is None:
+                continue
+            for h, sc in zip(hyps, scores):
+                h.extra = dict(h.extra or {}, rerank_score=float(sc))
+            outputs[b] = [hyps[i] for i in np.argsort(-scores)]
+        return outputs
 
 
 # ------------------------------------------------------------------- box
@@ -293,8 +337,9 @@ _task("audio_pretraining", "[AUDIO:wav,mask=true] -> [TEXT:text]",
 
 @register_config("ofasys.task", "text_to_speech", TaskConfig)
 class TextToSpeechTask(Task):
-    """TTS: its criterion, target adaptor and speech generator wait for
-    ROADMAP Queue A item 10 (``initialize`` raises through the criterion)."""
+    """TTS: the ``audio_tgt_fbank`` target under ``ofa_tacotron2``, decoded
+    by the AR speech generator and turned to waveforms by the audio
+    preprocessor."""
 
     def __init__(self, cfg=None, **kwargs):
         super().__init__(cfg, **kwargs)
@@ -304,6 +349,20 @@ class TextToSpeechTask(Task):
             self.cfg.criterion = "ofa_tacotron2"
         if self.cfg.name == "default":
             self.cfg.name = "text_to_speech"
+
+    def build_generator(self, model, **overrides):
+        # the speech generator even under a custom template
+        return self.build_speech_generator(model, **overrides)
+
+    def inference(self, model, params, sample, **gen_overrides):
+        """One SpeechGeneratorOutput per sample, with its waveform.
+        ``params`` as in ``Task.inference``."""
+        self.prepare_inference(model, params)
+        if self._generator is None:
+            self.build_generator(model, **gen_overrides)
+        outputs = self._generator.generate(sample)
+        self.general_preprocess.postprocess(outputs, sample)
+        return outputs
 
 
 # ----------------------------------------------------------------- video
@@ -319,8 +378,8 @@ _task("video_question_answering_generative",
 class VideoGenerationTask(Task):
     """Conditional frame generation: a per-sample condition index from the
     first frame's hash; the source video's frames from that index on are
-    zeroed and the target is the condition frame. The video and image_vqgan
-    preprocessors wait for ROADMAP Queue A item 11."""
+    zeroed and the target is the condition frame. The video preprocessor
+    waits for ROADMAP Queue A item 11."""
 
     def __init__(self, cfg=None, **kwargs):
         super().__init__(cfg, **kwargs)

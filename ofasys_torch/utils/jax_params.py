@@ -5,7 +5,9 @@
 as follows:
 
   * Dense ``kernel`` (in, out)     -> ``weight`` (out, in), transposed
-  * LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
+  * Conv ``kernel`` (kh, kw, in, out) of an ``nn.Conv2d`` (the VQGAN)
+                                   -> ``weight`` (out, in, kh, kw)
+  * LayerNorm and GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
   * Embed ``embedding``            -> ``weight``
   * PatchEmbed ``kernel`` (p, p, C, E), the ResNet's convolution
     ``kernel`` (kh, kw, Cin, Cout) and its FrozenBatchNorm ``scale`` ->
@@ -91,7 +93,7 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
                 if name not in own:
                     raise KeyError(f"flax param {'/'.join(path)} has no counterpart ({name}) in the net")
                 if leaf == "kernel":
-                    arr = arr.T
+                    arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             p = own[name]
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {arr.shape} vs {name} {tuple(p.shape)}")
@@ -108,9 +110,9 @@ def _flax_leaf(net: nn.Module, name: str) -> Tuple[str, str]:
     path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
     if leaf == "weight":
         module = net.get_submodule(path) if path else net
-        if isinstance(module, nn.Linear):
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
             leaf = "kernel"
-        elif isinstance(module, nn.LayerNorm):
+        elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
             leaf = "scale"
         elif isinstance(module, nn.Embedding):
             leaf = "embedding"
@@ -143,7 +145,9 @@ def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = N
         value = p if tensors is None else tensors[name]
         path, leaf = _flax_leaf(net, name)
         arr = value.detach().float().cpu().numpy()
-        _set(tree, path, leaf, arr.T if leaf == "kernel" and name.endswith(".weight") else arr)
+        if leaf == "kernel" and name.endswith(".weight"):
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        _set(tree, path, leaf, arr)
     quantized = [(n, m) for n, m in net.named_modules() if is_quantized(m)]
     if tensors is not None or not quantized:
         return tree

@@ -73,14 +73,14 @@ def slots_to_device(slots: List[SlotBatch], device) -> List[SlotBatch]:
 
 
 def sample_to_device(sample: dict, device) -> dict:
-    """A copy of a collated sample whose slots, ``target`` and
-    ``constraint_masks`` are tensors on ``device`` (the form the criterion
+    """A copy of a collated sample whose slots, ``target``,
+    ``constraint_masks`` and ``target_lengths`` are tensors on ``device`` (the form the criterion
     and the train step take): token targets int64, feature targets in
     their float dtype, masks boolean."""
     out = dict(sample)
     out["net_input"] = {**sample["net_input"],
                         "slots": slots_to_device(sample["net_input"]["slots"], device)}
-    for key in ("target", "constraint_masks"):
+    for key in ("target", "constraint_masks", "target_lengths"):
         v = sample.get(key)
         if isinstance(v, np.ndarray):
             t = torch.from_numpy(np.ascontiguousarray(v))

@@ -15,6 +15,10 @@ these layout transforms:
   rel-pos ModuleList of L tables  -> one stacked (L, nb, H) param
   BatchNorm running stats         -> FrozenBatchNorm mean/var
 
+``taming_to_flax_params`` maps a taming-transformers GumbelVQ state_dict
+onto the flax-path tree of model/vqgan.py's ``GumbelVQ`` (conv OIHW ->
+HWIO, GroupNorm weight -> scale), which ``load_jax_params`` then loads.
+
 ``import_reference_state_dict`` goes reference names -> the flax-path tree
 -> ``load_jax_params``; ``export_reference_state_dict`` goes
 ``export_params`` -> reference names. ``python -m
@@ -269,6 +273,47 @@ def export_reference_state_dict(model) -> Dict[str, np.ndarray]:
                 out[f"{key}.{i}.weight"] = v[i]
         else:
             out[key] = v
+    return out
+
+
+def taming_to_flax_params(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """A taming-transformers GumbelVQ state_dict (the released
+    vqgan_gumbel_f8_8192 checkpoint) as model/vqgan.py's flax-path tree.
+
+    Names: taming's ModuleList indices (down.{i}.block.{j}) become flat
+    module names (down_{i}_block_{j}); quantize.proj -> quant_proj,
+    quantize.embed -> codebook, post_quant_conv -> post_quant_proj; the
+    loss, temperature and ``used`` entries are left out. Layouts: conv OIHW
+    -> HWIO, GroupNorm weight -> scale."""
+    out: Dict[str, Any] = {}
+    for key, raw in sd.items():
+        k = key[len("model."):] if key.startswith("model.") else key
+        if k.startswith("loss.") or k.endswith(("temperature", "used")):
+            continue
+        v = np.asarray(raw)
+        if k == "quantize.embed.weight":
+            _put(out, "codebook/embedding", v)
+            continue
+        k = (k.replace("quantize.proj", "quant_proj")
+             .replace("post_quant_conv", "post_quant_proj")
+             .replace("mid.block_1", "mid_block_1")
+             .replace("mid.block_2", "mid_block_2")
+             .replace("mid.attn_1", "mid_attn"))
+        k = re.sub(r"(down|up)\.(\d+)\.(block|attn)\.(\d+)", r"\1_\2_\3_\4", k)
+        k = re.sub(r"(down|up)\.(\d+)\.(downsample|upsample)\.conv", r"\1_\2_\3", k)
+        name, leaf = k.rsplit(".", 1)
+        path = name.replace(".", "/")
+        if leaf == "weight":
+            if v.ndim == 4:
+                _put(out, f"{path}/kernel", v.transpose(2, 3, 1, 0))
+            elif v.ndim == 1:                   # GroupNorm affine
+                _put(out, f"{path}/scale", v)
+            else:
+                _put(out, f"{path}/kernel", v.T)
+        elif leaf == "bias":
+            _put(out, f"{path}/bias", v)
+        else:
+            logger.warning("taming_to_flax_params: skipping %s", key)
     return out
 
 

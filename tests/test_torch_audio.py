@@ -283,6 +283,24 @@ def _perturb(params, seed=0, kernel_gain=1.0):
     return jax.tree_util.tree_map_with_path(f, jax.device_get(params))
 
 
+def _port_params(jm, tm, slot_lists, **perturb):
+    """The weights both packages load, without compiling ofasys_tpu's init:
+    the port's seeded init exported to the flax tree, whose paths, shapes
+    and dtypes must be those ofasys_tpu's init traces (``jax.eval_shape``),
+    then perturbed as in :func:`_perturb`; loaded into ``tm``."""
+    shapes = jax.eval_shape(lambda r: jm.init_params(r, slot_lists), jax.random.PRNGKey(0))
+    tree = export_params(tm.net)
+
+    def flat(t):
+        return {jax.tree_util.keystr(p): (tuple(a.shape), np.dtype(a.dtype))
+                for p, a in jax.tree_util.tree_leaves_with_path(t)}
+
+    assert flat(tree) == flat(shapes)
+    params = _perturb(tree, **perturb)
+    load_jax_params(tm.net, params)
+    return params
+
+
 @pytest.mark.parametrize("extra_layers", [0, 1])
 @pytest.mark.parametrize("masks", ["none", "channel", "frames", "both"])
 def test_audio_fbank_adaptor_matches_flax(extra_layers, masks):
@@ -331,10 +349,16 @@ def test_audio_fbank_adaptor_matches_flax(extra_layers, masks):
 
 
 def test_unported_audio_adaptors_raise():
+    """audio_tgt_fbank is ported (tests/test_torch_tts.py): it builds on the
+    decoder side only. The video adaptor still raises naming its item."""
     d = Dictionary()
     m = GeneralistModel(arch="tiny")
-    with pytest.raises(NotImplementedError, match="audio_tgt_fbank.*Queue A item 10"):
-        m.initialize(d, active_adaptors=("text", "audio_tgt_fbank"), device="cpu")
+    m.initialize(d, active_adaptors=("text", "audio_tgt_fbank"), device="cpu")
+    assert hasattr(m.net.decoder_adaptor, "audio_tgt_fbank")
+    assert not hasattr(m.net.encoder_adaptor, "audio_tgt_fbank")
+    with pytest.raises(NotImplementedError, match="video_image_sequence.*Queue A item 11"):
+        GeneralistModel(arch="tiny").initialize(d, active_adaptors=("text", "video_image_sequence"),
+                                                device="cpu")
 
 
 # ------------------------------------------------------------- whole model

@@ -1,7 +1,8 @@
 """ofasys_torch stands alone: importing every one of its modules loads no
 jax, flax, optax or ofasys_tpu module, and its entry points refuse to run on an
 absent card unless the CPU is asked for explicitly (the hub, the server,
-Trainer.fit, OFASys.from_pretrained and utils/profiler.time_fn)."""
+Trainer.fit, OFASys.from_pretrained, utils/profiler.time_fn and the VQGAN
+tokenizer, also as the image_vqgan preprocessor builds it)."""
 
 import json
 import os
@@ -78,6 +79,19 @@ if not torch.cuda.is_available():
         raised["time_fn"] = False
     except RuntimeError:
         raised["time_fn"] = True
+    from ofasys_torch.model.vqgan import VQGANTokenizer
+    try:
+        VQGANTokenizer(code_image_size=32, n_embed=16, ch=32)
+        raised["VQGANTokenizer"] = False
+    except RuntimeError:
+        raised["VQGANTokenizer"] = True
+    VQGANTokenizer(code_image_size=32, n_embed=16, ch=32, device="cpu")
+    vq = GeneralPreprocess(Dictionary(), active=["text", "image_vqgan"]).name2pre["image_vqgan"]
+    try:
+        vq.tokenizer
+        raised["ImageVqganPreprocess.tokenizer"] = False
+    except RuntimeError:
+        raised["ImageVqganPreprocess.tokenizer"] = True
     out["raised"] = raised
 print(json.dumps(out))
 """
@@ -108,9 +122,14 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
                 "ofasys_torch.tools.preprocess_text", "ofasys_torch.tools.create_tsv_cache",
                 "ofasys_torch.tools.create_oss_list_objects", "ofasys_torch.ms_wrapper",
                 "ofasys_torch.io.reader.object_store", "ofasys_torch.io.reader.streaming",
-                "ofasys_torch.generator.speculative"}
+                "ofasys_torch.generator.speculative", "ofasys_torch.generator.speech_generator",
+                "ofasys_torch.engine.criterion.tacotron2_loss",
+                "ofasys_torch.engine.criterion.speech_pretrain_loss",
+                "ofasys_torch.engine.criterion.scst_loss", "ofasys_torch.model.vqgan",
+                "ofasys_torch.adaptor.image_vqgan", "ofasys_torch.preprocessor.image_vqgan"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
     if "raised" in out:
         assert out["raised"] == {"initialize": True, "OFASys": True, "InferenceServer": True,
-                                 "Trainer.fit": True, "OFASys.from_pretrained": True, "time_fn": True}
+                                 "Trainer.fit": True, "OFASys.from_pretrained": True, "time_fn": True,
+                                 "VQGANTokenizer": True, "ImageVqganPreprocess.tokenizer": True}

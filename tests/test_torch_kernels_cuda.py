@@ -17,7 +17,9 @@ Tolerances (bf16), for q scaled as the model scales it:
     as B2 and B1, q unscaled and the scale given to the kernel; B2 and B2r
     give the same bits run to run (partial sums reduced in a fixed order);
   * fp32 tensors (B1's, B2's and B2r's CUDA-core kernels): 1e-4 on every measure;
-  * B3 (flash attention): as B1, the same bits run to run;
+  * B3 (flash attention): as B1, the same bits run to run; its fp32 output
+    (``out32``) rounds to the bf16 one bit for bit, within 5e-3 of the plain
+    version's fp32 output;
   * B7 (int8 GEMM): equal to its plain version bit for bit (an exact
     integer product and the same two fp32 products), at every plan
     (``int8_plan``: small M, large M, each cluster size, the __dp4a kernel);
@@ -36,8 +38,9 @@ import torch
 
 from ofasys_torch.ops import dense_attention as tdense
 
-SHAPES = [(8, 128, 128, 12, 64), (3, 24, 200, 4, 64), (1, 64, 64, 12, 64), (4, 190, 190, 12, 64)]
-IDS = ["serving", "cross", "B1", "gigaword_encoder"]
+SHAPES = [(8, 128, 128, 12, 64), (3, 24, 200, 4, 64), (1, 64, 64, 12, 64), (4, 190, 190, 12, 64),
+          (16, 88, 88, 12, 64)]
+IDS = ["serving", "cross", "B1", "gigaword_encoder", "tts_encoder"]
 
 
 def _inputs(B, Tq, Tk, H, D):
@@ -71,7 +74,7 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES[:2], ids=IDS[:2])
+@pytest.mark.parametrize("shape", SHAPES[:2] + SHAPES[4:], ids=IDS[:2] + IDS[4:])
 def test_kernel_matches_plain_version_on_card(shape):
     _need_card()
     B, Tq, Tk, H, D = shape
@@ -394,6 +397,10 @@ FLASH_SHAPES = {
     "gigaword_long_cross": (16, 64, 1000, 12, 64, "shared", False),
     "infill_long_encoder": (16, 488, 488, 12, 64, "shared", False),
     "infill_long_decoder_causal": (16, 528, 528, 12, 64, "shared", True),
+    # the decoders of train_tts (up to 300 fbank frames) and
+    # train_image_infilling (bos + 1,024 codes)
+    "tts_decoder_causal": (16, 288, 288, 12, 64, "shared", True),
+    "image_infilling_decoder_causal": (8, 1032, 1032, 12, 64, "shared", True),
     # head dims the backward takes in 112- and 48-key ranges, a batch of
     # one (its bias counts as per-(b, h): ds), and T = 4,096, where the dq
     # partials pass SCRATCH_CAP and the samples go one at a time
@@ -611,6 +618,31 @@ def test_flash_kernels_take_bf16_only_on_card():
     q, k, v, _, bias, mask = _flash_inputs(1, 64, 256, 2, 64, "shared")
     with pytest.raises(TypeError):
         tflash.flash_attention_fwd(q.float(), k.float(), v.float(), bias, mask, 2, 0.1, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal", "d80", "per_bh_causal", "image_infilling_decoder_causal"])
+def test_flash_fwd_fp32_output_on_card(case):
+    """B3's ``out32``: the output before its rounding, which the autograd
+    function's backward takes dd from. It rounds to the bf16 output bit for
+    bit and is within 5e-3 of the plain version's fp32 output (p is rounded
+    to bf16 against its tile's max in the kernel, the row's in the plain
+    version); writing it changes neither out nor lse."""
+    _need_card()
+    from ofasys_torch.ops import flash_attention as tflash
+
+    B, Tq, Tk, H, D, bias_kind, causal = FLASH_SHAPES[case]
+    q, k, v, _, bias, mask = _flash_inputs(B, Tq, Tk, H, D, bias_kind)
+    scale = (2 * D) ** -0.5
+    out32 = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+    out, lse = tflash.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal, out32)
+    out_plain, lse_plain = tflash.flash_attention_fwd(q, k, v, bias, mask, H, scale, causal)
+    ref32 = torch.empty_like(out32)
+    tflash.flash_attention_fwd_reference(q, k, v, bias, mask, H, scale, causal, ref32)
+    torch.cuda.synchronize()
+    assert torch.equal(out32.to(torch.bfloat16), out)
+    assert torch.equal(out, out_plain) and torch.equal(lse, lse_plain)
+    assert (out32 - ref32).abs().max().item() <= 5e-3
 
 
 @pytest.mark.cuda

@@ -108,8 +108,20 @@ def test_image_default_on_a_text_target_runs(env):
 
 def test_image_target_needs_image_vqgan(env):
     """An IMAGE target with the hub's IMAGE defaults (sampling, top-k 256)
-    no longer stops in the generator: it stops at the image_vqgan
-    preprocessor, which names the item that ports it."""
-    with pytest.raises(NotImplementedError, match="image_vqgan.*Queue A item 11"):
-        _hub(env).inference("[TEXT:src] -> [IMAGE:code,preprocess=image_vqgan,adaptor=image_vqgan]",
-                            {"src": "a cat"})
+    preprocesses through the image_vqgan preprocessor and then needs the
+    image_vqgan adaptor: a model built without it raises naming the
+    adaptor (tests/test_torch_vqgan.py decodes codes with it). The model is
+    a fresh one on its own dictionary: the preprocessor adds the <code>
+    namespace."""
+    from ofasys_torch import GeneralistModel
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+    from ofasys_torch.preprocessor.general import GeneralPreprocess
+
+    d = Dictionary()
+    gp = GeneralPreprocess(d, active=["text", "image_vqgan"])
+    m = GeneralistModel(arch="tiny")
+    m.cfg.encoder.layers = m.cfg.decoder.layers = 1
+    m.initialize(d, device="cpu")
+    with pytest.raises(KeyError, match="adaptor 'image_vqgan' needed by slot 'code' is not active"):
+        OFASys(m, None, d, gp, device="cpu").inference(
+            "[TEXT:src] -> [IMAGE:code,preprocess=image_vqgan,adaptor=image_vqgan]", {"src": "a cat"})

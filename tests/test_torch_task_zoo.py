@@ -3,7 +3,8 @@ registry names and class names; each family's templates, criterion,
 metrics, required preprocessors and adaptors; the raw-record
 ``preprocess`` hooks on the same records; the families whose modules are
 not ported raise at ``initialize`` naming their ROADMAP Queue A item, the
-others build their metrics; GLUE's subtasks from a keyword and from the
+others (text_to_speech, audio_pretraining, image_gen and image_infilling
+among them) build their criterion and metrics; GLUE's subtasks from a keyword and from the
 store's flags."""
 
 import numpy as np
@@ -19,10 +20,9 @@ from ofasys_torch.preprocessor.dictionary import Dictionary
 FAMILIES = [n for n in JConfigStore().names("ofasys.task") if n not in ("default", "traverse")]
 # family -> the ROADMAP Queue A item its initialize names
 UNPORTED = {
-    "image_infilling": 11, "image_gen": 11, "sudoku": 11, "dart": 11, "fetaqa": 11, "spider": 11,
+    "sudoku": 11, "dart": 11, "fetaqa": 11, "spider": 11,
     "phone_to_text": 11, "video_caption": 11, "video_classify": 11,
     "video_question_answering_generative": 11, "video_generation": 11,
-    "audio_pretraining": 10, "text_to_speech": 10,
 }
 
 
