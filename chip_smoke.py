@@ -243,6 +243,48 @@ image_vit, image_vqgan):
  47. train_image_infilling: 5 updates of B=8 with targets encoded to codes
      on the card: B3 and the flash backward in the decoder at T = 1,025,
      gradients against the plain attention path, peak memory
+Then, on a video model (the image-code model's dictionary; adaptors text,
+image_vqgan, video_image_sequence; random weights from SEED):
+ 48. serve_video: 8 video_caption requests (12 frames of 224 px sampled
+     to 8: 1,568 patches + the prompt) through the server with beam 5: B3
+     once per encoder layer of each dispatch, as attention_route gives it
+     for the encoder's (B, T), served against direct, the encoder output
+     against plain attention, the tokens against the plain attention path
+     (near-ties within CLOSED_TIE_TOL, at a step's selection or at the pick
+     among the finished hypotheses), the video preprocessor's host ms a
+     request, p50 beside serve's
+ 49. train_video: 5 summed video_caption (B=8) + video_generation (B=4,
+     the condition frame's 1,025 VQGAN codes as target) updates: B3 and the
+     flash backward on the encoders, video_generation's decoder and both
+     cross attentions (the caption encoder's dq partials past SCRATCH_CAP:
+     samples in groups), B1/B2 on the caption decoder, the bias shape (one
+     for the batch: B5's sum), a falling loss, gradients against the plain
+     attention path on VIDEO_GRAD_BATCH samples a task, the relative
+     tables' gradient against the plain gather's, step time, peak memory;
+     one update profiled
+On the serve model, after serve_speculative:
+ 50. serve_spider: Task("spider").evaluate over 16 rows on two sqlite
+     databases built from the seed (the schema read from the file, question
+     words linked to cells): exact_match, sql_match_acc, sql_exec_acc and
+     rows/s, the encoder's route by the schema prompt's length (the 3-table
+     database's batch B1, the 11-table one's B3), the SQL
+     metrics recomputed on the host from the written hypotheses, and the
+     references against themselves 1
+After train_video:
+ 51. train_struct: 5 summed sudoku (9 x 9 grids), dart (tables of
+     triples) and spider (schema prompts) updates of B=32 through the
+     struct, table and database preprocessors: B1/B2, a falling loss,
+     gradients against the plain attention path
+ 52. train_asr_ctc: on a model whose dictionary the text_phone and phone
+     preprocessors built (41 + 2 <phone> rows), 5 updates of
+     speech_to_text B=32 with text_phone targets under speech_to_text_loss
+     at ctc_weight 0.5: ce_loss and ctc_loss finite and falling, B1/B2,
+     gradients against the plain attention path; then phone_to_text served
+     once (8 requests of seeded words' phones, beam 5)
+ 53. heads: HiFi-GAN V1 (random weights from SEED, fp32) over serve_tts's
+     frames on the card, ms a second of audio, the first two against the
+     CPU; the pooling head in each mode over serve's encoder output, card
+     against CPU
 The kernel phase holds B1 and B2 at the shapes of the new paths too (the
 asr encoder, causal decoder and cross attention, the motion decoder in full
 context and its cross attention, serve_asr's dispatches and serve_motion's
@@ -275,7 +317,12 @@ train_image_infilling, B3 and the flash backward at their decoders' flash
 calls (with both planted faults),
 and at the speculative draft's dispatch of 8 (its own 4 heads, D = 64), B1 and
 B2 at every attention shape of train_fit's six updates, and B7 also
-at every shape of train_qat's projections.
+at every shape of train_qat's projections. B3 and the flash backward are
+held at train_video's flash calls (the caption encoder at 8 x 1,600,
+video_generation's encoder, causal decoder and its 1,032 x 1,568 cross)
+with both planted faults, B3 at serve_video's dispatch and serve_spider's
+second batch; B1 and B2 at train_video's caption decoder and every call of
+train_struct and train_asr_ctc, B1 at serve_spider's first batch.
 The build phase logs ptxas's registers and spills of every kernel and
 fails if B6-bwd's row kernel spills.
 Prints a ``{"kernels": [...]}`` line, then, last,
@@ -324,7 +371,16 @@ phases 38-39 on a tiny hub (fp32, ``attn_kernel="pallas"``) with
 ``train_profile_and_check(fx, fit, "cpu", res, device="cpu", arch="tiny")``
 and ``train_fetch_and_check(fx, fit, "cpu", device="cpu", arch="tiny")``;
 phases 42-47 as the README's rehearsal paragraph shows (a tiny fp32 speech
-model and image-code model at 32 px, ``flash_available`` patched).
+model and image-code model at 32 px, ``flash_available`` patched); phases
+48-53 the same way on tiny fp32 models: ``serve_video_and_check(vm, gp,
+"cpu")`` and ``train_video_and_check(vm, gp, "cpu", b, b)`` with ``b =
+video_batches(gp, TINY_VIDEO_TRAIN_TASKS)`` (the store's video preprocess
+at 4 frames of 128 px), ``serve_spider_and_check(m, "cpu", root)``,
+``train_and_check(m, gp, "cpu", tasks=TINY_STRUCT_TRAIN_TASKS,
+batches=struct_batches(gp, root, TINY_STRUCT_TRAIN_TASKS))``,
+``train_asr_ctc_and_check(m, gp, "cpu", tasks=TINY_ASR_CTC_TASKS)`` on
+``ctc_preprocess()``'s dictionary, ``serve_phone_and_check`` and
+``heads_and_check(frames, enc, "cpu", device="cpu")``.
 """
 
 from __future__ import annotations
@@ -366,9 +422,11 @@ SERVE_SRC = (40, 200)         # source bytes of the serving run
 N_BEAM_REQUESTS = 12          # the hub's TEXT defaults: beam 5, no-repeat 3-grams
 N_GREEDY_REQUESTS = 4         # beam_size=1
 MAX_LEN_B = 16
-# bf16 tolerances. Kernel vs plain version: p is rounded to bf16 before p.V
-# at a different point (unnormalized vs normalized) -> out atol 2e-2; lse is
-# an fp32 sum of the same products in another order -> atol 1e-3.
+# bf16 tolerances. Kernel vs plain version: B3 rounds p to bf16 before p.V
+# unnormalized (its online softmax), its plain version normalized; B1
+# rounds the normalized p as its plain version does, with the fp32 sums in
+# another order -> out atol 2e-2; lse is an fp32 sum of the same products
+# in another order -> atol 1e-3.
 OUT_ATOL = 2e-2
 LSE_ATOL = 1e-3
 # Encoder output, kernel vs plain attention through 6 bf16 layers: the plain
@@ -609,6 +667,10 @@ TRAIN_LR = 1e-4
 # rounding noise on both paths, so the per-leaf check leaves them out.
 GRAD_REL_TOL = 5e-2
 LEAF_REL_TOL = 0.25
+# the relative-bias tables' gradient through BiasSpec's planned backward
+# against autograd's own backward of the plain gather, both fp32 sums of the
+# same terms in another order: largest error over the largest entry
+GATHER_GRAD_RTOL = 1e-5
 NOISE_MODULES = ("k_proj", "pos_k_linear", "cross_pos_k_linear")
 # the plain path's score dtype (attn_logits) for the gradient comparison:
 # both are computed and logged, the check reads GRAD_REF_LOGITS (fp32
@@ -1796,8 +1858,8 @@ def _truncated_requests():
 
 def _encoder_tokens(slots):
     """(B, T) of the encoder's input: a text slot counts its tokens, an
-    image slot its patches, an audio slot its fbank frames after the 4x
-    subsampling."""
+    image slot its patches, a video slot its frames' patches, an audio slot
+    its fbank frames after the 4x subsampling."""
     from ofasys_torch import ModalityType
     from ofasys_torch.adaptor.audio import AudioFbankAdaptorConfig
     from ofasys_torch.adaptor.image import PATCH_SIZE
@@ -1810,6 +1872,8 @@ def _encoder_tokens(slots):
             B = a.shape[0]
             if s.modality == ModalityType.IMAGE:
                 T += (a.shape[1] // PATCH_SIZE) * (a.shape[2] // PATCH_SIZE)
+            elif s.modality == ModalityType.VIDEO:
+                T += a.shape[1] * (a.shape[2] // PATCH_SIZE) * (a.shape[3] // PATCH_SIZE)
             elif s.modality == ModalityType.AUDIO:
                 T += -(-a.shape[1] // stride)
             else:
@@ -2459,28 +2523,36 @@ def trunk_check(hub, card):
                 trunk_busy_ms=busy)
 
 
-def _selection_log(hub, instruction, data, kw):
+def _selection_log(hub, instruction, data, kw, unconstrained=False):
     """One inference of the batch with every stable top-k of the generator
     recorded: per call, the indices it kept and, per request row, the
     smallest gap between neighbours among the kept and the first dropped
-    real candidates (the margin by which its choice and order were made)."""
+    real candidates (the margin by which its choice and order were made).
+    With ``unconstrained`` also the plain beam's choice of its 2K
+    candidates from all K x V (``sg._full_top_k``, not the stable top-k).
+    Only the generator's two top-k functions are wrapped; each wrapper
+    calls the function it replaces with the arguments as given."""
     from ofasys_torch.generator import sequence_generator as sg
 
-    orig, log_ = sg._top_k, []
+    saved, log_ = (sg._top_k, sg._full_top_k), []
 
-    def record(x, k):
-        vals, idx = orig(x, k)
-        v = torch.topk(x, min(k + 1, x.shape[-1]), dim=-1).values
-        gap = torch.where(v[..., 1:] > NEG_SCORE, v[..., :-1] - v[..., 1:], float("inf"))
-        log_.append((idx.reshape(x.shape[0], -1).cpu(),
-                     gap.reshape(x.shape[0], -1).min(dim=-1).values.cpu() if gap.numel() else None))
-        return vals, idx
+    def recorder(fn):
+        def record(x, k):
+            vals, idx = fn(x, k)
+            v = torch.topk(x, min(k + 1, x.shape[-1]), dim=-1).values
+            gap = torch.where(v[..., 1:] > NEG_SCORE, v[..., :-1] - v[..., 1:], float("inf"))
+            log_.append((idx.reshape(x.shape[0], -1).cpu(),
+                         gap.reshape(x.shape[0], -1).min(dim=-1).values.cpu() if gap.numel() else None))
+            return vals, idx
+        return record
 
-    sg._top_k = record
+    sg._top_k = recorder(saved[0])
+    if unconstrained:
+        sg._full_top_k = recorder(saved[1])
     try:
         hub.inference(instruction, data, **kw)
     finally:
-        sg._top_k = orig
+        sg._top_k, sg._full_top_k = saved
     return log_
 
 
@@ -2494,13 +2566,43 @@ def _parting_margin(log_a, log_b, row):
     return float("inf")
 
 
-def _tokens_vs_plain(hub, calls, label, tie_tol=0.0):
+def _final_pick_margins(hub, instruction, data, kw, rows, saved):
+    """For requests whose two searches selected alike at every step but
+    returned other answers (the pick among finished hypotheses by
+    normalized score parted), the margin of that pick: the score gap in one
+    run between its best hypothesis and the other run's best, which it also
+    finished; inf where neither run finished the other's answer. Both runs
+    return their beam's n-best; the attention config ends as ``saved``."""
+    cfg = hub.model.cfg
+    kw_n = dict(kw, return_n_best=kw.get("beam_size", 5))
+    runs = {}
+    for name, setting in (("plain", ("xla", False, GRAD_REF_LOGITS)), ("kernel", saved)):
+        cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = setting
+        out = hub.inference(instruction, data, **kw_n)
+        runs[name] = out if isinstance(data, list) else [out]
+    out = {}
+    for i in rows:
+        gaps = []
+        for mine, other in ((runs["kernel"][i], runs["plain"][i]), (runs["plain"][i], runs["kernel"][i])):
+            match = [h for h in mine if np.array_equal(h.tokens, other[0].tokens)]
+            if match:
+                gaps.append(float(mine[0].score - match[0].score))
+        out[i] = min(gaps) if gaps else float("inf")
+    return out
+
+
+def _tokens_vs_plain(hub, calls, label, tie_tol=0.0, unconstrained=False):
     """Each recorded dispatch again on the plain attention path (fp32
     scores), the same batch composition: the tokens must be equal, or, with
     ``tie_tol``, a request may differ where the two searches first part at
     a selection whose margin (between neighbouring candidates, in either
     run) is at most ``tie_tol``, a near-tie that bf16 rounding can swap.
-    Returns the plain path's best hypotheses."""
+    ``unconstrained`` (a beam without a trie or constraints): the log also
+    holds each step's choice of candidates from the whole vocabulary, and a
+    request whose searches never part there may differ where the pick among
+    the finished hypotheses does, by at most ``tie_tol``
+    (:func:`_final_pick_margins`). Returns the plain path's best
+    hypotheses."""
     cfg = hub.model.cfg
     saved = cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits
     n, plain_outs, differ = 0, [], []
@@ -2515,20 +2617,25 @@ def _tokens_vs_plain(hub, calls, label, tie_tol=0.0):
             n += len(out)
             plain_outs += list(map(_best, plain))
             if rows and tie_tol:
-                log_plain = _selection_log(hub, instruction, data, kw)
+                log_plain = _selection_log(hub, instruction, data, kw, unconstrained)
                 cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
-                log_kernel = _selection_log(hub, instruction, data, kw)
-                differ += [_parting_margin(log_kernel, log_plain, i) for i in rows]
+                log_kernel = _selection_log(hub, instruction, data, kw, unconstrained)
+                margins = [_parting_margin(log_kernel, log_plain, i) for i in rows]
+                final = [i for i, g in zip(rows, margins) if g == float("inf")]
+                if final and unconstrained:
+                    picks = _final_pick_margins(hub, instruction, data, kw, final, saved)
+                    margins = [picks.get(i, g) for i, g in zip(rows, margins)]
+                differ += margins
             else:
                 differ += [float("inf")] * len(rows)
     finally:
         cfg.attn_kernel, cfg.use_flash_attention, cfg.attn_logits = saved
-    log(f"  {label}: tokens under B1 vs the plain attention path (attn_logits={GRAD_REF_LOGITS!r}) on "
+    log(f"  {label}: tokens under the kernels vs the plain attention path (attn_logits={GRAD_REF_LOGITS!r}) on "
         f"the same batches: {len(differ)} of {n} requests differ"
         + (f", their searches parting at selections with margins {[round(g, 5) for g in differ]} "
            f"(near-tie tol {tie_tol})" if differ and tie_tol else ""))
     if any(not g <= tie_tol for g in differ):
-        raise SystemExit(f"{label}: tokens under B1 differ from the plain attention path")
+        raise SystemExit(f"{label}: tokens under the kernels differ from the plain attention path")
     return plain_outs
 
 
@@ -2994,7 +3101,8 @@ def train_shapes(batches):
 def make_criteria(batches, pad, tasks=None, ce_kw=None, global_dict=None):
     """Each task's criterion: label-smoothed CE (its config fields
     ``ce_kw``, e.g. ``chunked_vocab``), or the spec's ``criterion``:
-    'speech_to_text' (speech_to_text_loss), 'diffusion'
+    'speech_to_text' (speech_to_text_loss), 'speech_to_text_ctc' (the same
+    with ctc_weight CTC_WEIGHT on text_phone targets), 'diffusion'
     (diffusion_criterion), 'tacotron2' (ofa_tacotron2 with the guided
     attention loss) or 'speech_pretrain' (speech_pretrain_loss at its
     mask_prob of 0.65, projecting onto ``global_dict``'s <phone> rows: with
@@ -3014,6 +3122,8 @@ def make_criteria(batches, pad, tasks=None, ce_kw=None, global_dict=None):
     )
 
     kinds = {"speech_to_text": (SpeechToTextCriterion, SpeechToTextCriterionConfig, {}),
+             "speech_to_text_ctc": (SpeechToTextCriterion, SpeechToTextCriterionConfig,
+                                    dict(ctc_weight=CTC_WEIGHT)),
              "diffusion": (DiffusionCriterion, DiffusionCriterionConfig, {}),
              "tacotron2": (Tacotron2Criterion, Tacotron2CriterionConfig,
                            dict(use_guided_attention_loss=True)),
@@ -3193,6 +3303,8 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     if n_updates > 1 and not losses[-1] < losses[0]:
         raise SystemExit(f"the loss did not fall over {n_updates} updates on repeated batches")
     step_ms = statistics.median(times) * 1e3
+    task_logs = {n: {k: [float(o["tasks"][n][k]) for o in outs] for k in outs[0]["tasks"][n]
+                     if k in ("ce_loss", "ctc_loss")} for n in dev}
     n_tokens = sum(int(b["ntokens"]) + _task_shapes(b)[0] * _task_shapes(b)[1]
                    for b in batches.values())
     if peak_gib is not None:
@@ -3216,7 +3328,7 @@ def train_and_check(model, gp, card, tasks=None, batches=None, label="train", gr
     gdev = dev if grad_batches is None else {n: sample_to_device(b, device)
                                              for n, b in grad_batches.items()}
     result = dict(step_ms=step_ms, samples_per_s=n_samples / (step_ms / 1e3), losses=losses,
-                  peak_updates_gib=peak_gib)
+                  peak_updates_gib=peak_gib, task_logs={n: v for n, v in task_logs.items() if v})
     if grad_ref is not None:
         return launches, {**result, **_grads_vs(model, grad_ref, crit, state, gdev, label)}, \
             (step, state, dev)
@@ -5495,7 +5607,8 @@ def serve_tts_and_check(model, gp, card):
         raise SystemExit("serve_tts: the frames under the kernels disagree with the plain attention path")
     return launches, dict(shape=(B, T), route=route, frames_rel=rel,
                           dispatch_ms={k: ms for k, (_, ms) in runs.items()},
-                          lengths={k: [len(o.feature) for o in outs] for k, (outs, _) in runs.items()})
+                          lengths={k: [len(o.feature) for o in outs] for k, (outs, _) in runs.items()},
+                          frames=np.stack([o.feature for o in runs["full"][0]]))
 
 
 def _scst_batch(gp):
@@ -5717,6 +5830,545 @@ def infill_batches(gp, card, tasks=None):
     return batches, vq_ms
 
 
+# ----------------------------------------- video, STRUCT and PHONE paths, the heads
+VIDEO_ADAPTORS = ("text", "image_vqgan", "video_image_sequence")
+VIDEO_CAPTION_TPL = "[VIDEO:video] what does the video describe? -> [TEXT:cap]"
+VIDEO_GEN_TPL = "[VIDEO:video] -> [IMAGE:frame,preprocess=image_vqgan,adaptor=image_vqgan]"
+VIDEO_CLIP = (12, IMAGE_SIZE)     # frames a clip (sampled to the preprocessor's 8) and their side
+N_VIDEO_REQUESTS = 8
+VIDEO_TRAIN_TASKS = {"video_caption": dict(template=VIDEO_CAPTION_TPL, batch=8, video=VIDEO_CLIP,
+                                           cap=(20, 40)),
+                     "video_generation": dict(template=VIDEO_GEN_TPL, batch=4, video=VIDEO_CLIP)}
+VIDEO_GRAD_BATCH = 2              # samples a task in the gradient check (plain attention at T ~ 1,600)
+TINY_VIDEO_TRAIN_TASKS = {n: dict(spec, batch=2, video=(4, 128)) for n, spec in VIDEO_TRAIN_TASKS.items()}
+SPIDER_TPL = ('" [TEXT:question] " ; structured knowledge: '
+              '" [STRUCT:database,preprocess=database] " -> [TEXT:query]')
+SUDOKU_TPL = '" [STRUCT:puzzle,preprocess=struct] " solve the sudoku. -> [STRUCT:solution,preprocess=struct]'
+DART_TPL = 'what is the description of table " [STRUCT:table,preprocess=struct] "? -> [TEXT:text]'
+N_SPIDER_ROWS = 16
+SPIDER_MAX_LEN = 48
+STRUCT_TRAIN_TASKS = {"sudoku": dict(template=SUDOKU_TPL, batch=32),
+                      "dart": dict(template=DART_TPL, batch=32, text=(40, 80)),
+                      "spider": dict(template=SPIDER_TPL, batch=32)}
+TINY_STRUCT_TRAIN_TASKS = {n: dict(spec, batch=2) for n, spec in STRUCT_TRAIN_TASKS.items()}
+CTC_WEIGHT = 0.5
+ASR_CTC_TPL = "[AUDIO:wav] what is the transcription? -> [TEXT:text,preprocess=text_phone]"
+PHONE_TPL = "[PHONE:phone,preprocess=phone] -> [TEXT:text]"
+ASR_CTC_TASKS = {"asr_ctc": dict(template=ASR_CTC_TPL, batch=32, text=(20, 40), audio=ASR_SECONDS,
+                                 criterion="speech_to_text_ctc")}
+TINY_ASR_CTC_TASKS = {"asr_ctc": dict(ASR_CTC_TASKS["asr_ctc"], batch=2, audio=(0.3, 0.5))}
+N_PHONE_REQUESTS = 8
+HIFIGAN_RATE = 22050              # HiFi-GAN V1's sample rate: 256 samples a frame
+HEADS_CPU_ROWS = 2                # vocoded on the CPU too
+# the vocoder on the card against the same module on the CPU, both fp32
+# (TF32 off): relative Frobenius error of the waveforms
+HIFIGAN_REL_TOL = 1e-4
+# the pooling head (fp32) on the card against the CPU, on the same encoder output
+POOL_ATOL = 1e-4
+COWS = ["bessie", "daisy", "mabel", "clover", "buttercup", "rosie", "molly", "penny", "hazel",
+        "ginger", "lulu", "maple"]
+BREEDS = ["holstein", "jersey", "angus", "hereford", "guernsey"]
+SPIDER_QUERIES = [
+    ("what is the breed of {name}?", "select breed from cows where name = '{name}'"),
+    ("how many cows are older than {n}?", "select count(*) from cows where age > {n}"),
+    ("list the names of {breed} cows", "select name from cows where breed = '{breed}'"),
+    ("which barn holds {name}?",
+     "select t2.id from cows as t1 join barns as t2 on t1.id = t2.cow_id where t1.name = '{name}'"),
+    ("how many liters did {name} give?",
+     "select sum(t2.liters) from cows as t1 join milk as t2 on t1.id = t2.cow_id where t1.name = '{name}'"),
+    ("what is the average age of the cows of each breed?", "select breed, avg(age) from cows group by breed"),
+    ("list the cows from the oldest", "select name from cows order by age desc"),
+    ("how many barns are large?", "select count(*) from barns where size = 'large'"),
+]
+# serve_spider's second database: the farm's tables and a cooperative's, so
+# that its schema prompt (truncated at the text preprocessor's 256 source
+# tokens, as a Spider database with many tables is) takes B3
+SPIDER_WIDE_DB = "dairy_cooperative"
+SPIDER_WIDE_TABLES = {
+    "farmers": ["farmer_id", "first_name", "last_name", "age", "home_county", "years_of_experience",
+                "phone_number"],
+    "feed_suppliers": ["supplier_id", "company_name", "contact_name", "city", "delivery_day",
+                       "price_per_ton"],
+    "feed_deliveries": ["delivery_id", "supplier_id", "barn_id", "delivery_date", "tons_delivered",
+                        "feed_type"],
+    "veterinarians": ["vet_id", "full_name", "clinic_name", "license_year", "specialty"],
+    "health_checks": ["check_id", "cow_id", "vet_id", "check_date", "weight_kg", "temperature",
+                      "diagnosis"],
+    "milk_buyers": ["buyer_id", "buyer_name", "city", "contract_start_year", "price_per_liter"],
+    "milk_sales": ["sale_id", "buyer_id", "sale_date", "liters_sold", "total_price"],
+    "equipment": ["equipment_id", "equipment_name", "barn_id", "purchase_year", "maintenance_cost"],
+}
+
+
+def _clip(rng, n, size):
+    """``n`` uint8-valued float32 (size, size, 3) frames."""
+    return rng.integers(0, 256, (n, size, size, 3)).astype(np.float32)
+
+
+def video_batches(gp, tasks=None):
+    """One collated batch per video task from seeded clips through the task
+    zoo's ``preprocess`` hook (video_generation: the condition frame, picked
+    by the first frame's hash, becomes the target and the frames from it on
+    are zeroed) -> Instruction -> GeneralPreprocess -> collate; captions of
+    seeded words. A generation target is encoded to VQGAN codes on the
+    preprocessor's device."""
+    import ofasys_torch.task  # noqa: F401  (registers the task zoo)
+    from ofasys_torch.configure.config_store import ConfigStore
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    rng = np.random.default_rng(SEED + 23)
+    out = {}
+    for name, spec in (tasks or VIDEO_TRAIN_TASKS).items():
+        task = ConfigStore().get("ofasys.task", name).target_cls()
+        recs = []
+        for _ in range(spec["batch"]):
+            r = {"video": _clip(rng, *spec["video"])}
+            if "cap" in spec:
+                r["cap"] = _text(rng, *spec["cap"])
+            recs.append(task.preprocess(r, "train"))
+        out[name] = gp.collate([gp(Instruction(spec["template"], split="train").format(**r))
+                                for r in recs])
+    return out
+
+
+def _video_requests():
+    """serve_video: 8 clips with the hub's TEXT defaults (beam 5)."""
+    rng = np.random.default_rng(SEED + 29)
+    return [({"video": _clip(rng, *VIDEO_CLIP)}, {"max_len_b": MAX_LEN_B}) for _ in range(N_VIDEO_REQUESTS)]
+
+
+def serve_video_and_check(model, gp, card, serve_res=None):
+    """serve_video: 8 video_caption requests (12 frames of 224 px, sampled
+    to 8) through the server with beam 5 (serve_and_check: launches, served
+    against direct, the encoder output against plain attention); B3 a
+    dispatch as attention_route gives it for the encoder's (B, T); the
+    tokens against the same hub on the plain attention path (near-ties
+    within CLOSED_TIE_TOL, at a step's selection or at the pick among the
+    finished hypotheses); the video preprocessor's host ms a request."""
+    from ofasys_torch import OFASys
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    hub = OFASys(model, None, model.global_dict, gp, device=model.net.device)
+    reqs = _video_requests()
+    host_ms = []
+    for r, _ in reqs:
+        t0 = time.perf_counter()
+        gp(Instruction(VIDEO_CAPTION_TPL, split="test").format(**r))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    n_frames = gp.name2pre["video"].cfg.num_frames
+    log(f"  serve_video: the video preprocessor's host ms a request ({VIDEO_CLIP[0]} frames of "
+        f"{VIDEO_CLIP[1]} px sampled to {n_frames}): {[round(x, 2) for x in host_ms]} [host CPU]")
+    res = serve_and_check(hub, card, VIDEO_CAPTION_TPL, reqs, "serve_video")
+    per = [(B, T, route, model.cfg.encoder.layers if route == "flash" else 0) for B, T, route in res["shapes"]]
+    log(f"  serve_video: B3 a dispatch by attention_route (B, T, route, launches): {per}; counted "
+        f"{res['launches']['flash_attention_fwd']}")
+    if model.net.device.type == "cuda" and any(route != "flash" for _, _, route, _ in per):
+        raise SystemExit("serve_video: the video encoder did not take the flash route")
+    _tokens_vs_plain(hub, res["calls"], "serve_video", CLOSED_TIE_TOL, unconstrained=True)
+    if serve_res is not None:
+        log(f"  serve_video vs serve: p50 {res['p50_ms']} vs {serve_res['p50_ms']} ms [{card}]")
+    return res["launches"], dict(p50_ms=res["p50_ms"], tokens_per_s=res["tokens_per_s"],
+                                 preprocess_ms=host_ms, shapes=res["shapes"])
+
+
+def rel_bias_grad_check(spec, card, label):
+    """The relative tables' gradient at a layout (``spec``, a BiasSpec):
+    BiasSpec's gather with its planned backward against autograd's own
+    backward of the plain gather ``tables[:, bucket]``, under one seeded
+    upstream gradient, within GATHER_GRAD_RTOL (the zero row, a constant,
+    left out); on the card each backward's time."""
+    from ofasys_torch.model.transformer import BiasSpec
+
+    tables = spec.tables.detach().float().requires_grad_()
+    n, H = tables.shape[0], tables.shape[2]
+    T = spec.bucket.shape[0]
+    g = torch.randn((n, H, T, T), generator=torch.Generator(tables.device).manual_seed(SEED),
+                    device=tables.device)
+
+    def planned():
+        bias = BiasSpec(rel_bucket=spec.rel_bucket, tables=tables).stacked()
+        return torch.autograd.grad(bias, tables, g)[0]
+
+    def plain():
+        bias = tables[:, spec.rel_bucket.index].permute(0, 3, 1, 2)
+        return torch.autograd.grad(bias, tables, g)[0]
+
+    got, want = planned(), plain()
+    err = float((got[:, 1:] - want[:, 1:]).abs().max() / want[:, 1:].abs().max())
+    out = dict(shape=(n, H, T, T), rel_err=err)
+    if tables.device.type == "cuda":
+        out.update(ms=time_ms(planned, n=3, repeats=3), plain_ms=time_ms(plain, n=3, repeats=3))
+    log(f"  {label}: the relative tables' gradient (n_tables, H, T, T) = {out['shape']}, the planned "
+        f"backward against the plain gather's: largest error / largest entry {err:.3g} (tol "
+        f"{GATHER_GRAD_RTOL})" + (f"; forward + backward {out['ms']:.3f} ms vs the plain gather's "
+                                  f"{out['plain_ms']:.3f} ms [{card}]" if "ms" in out else ""))
+    if not err <= GATHER_GRAD_RTOL or bool((got[:, 0] != 0).any()):
+        raise SystemExit(f"{label}: the relative tables' gradient disagrees with the plain gather's")
+    return out
+
+
+def train_video_and_check(model, gp, card, batches, grad_batches):
+    """train_video: 5 summed video_caption (B=8) + video_generation (B=4,
+    1,025 VQGAN codes) updates (train_and_check: B3 and the flash backward
+    by route, a falling loss, gradients against the plain attention path on
+    VIDEO_GRAD_BATCH samples a task); the encoder's bias shape (batch-shared:
+    the backward's bias gradient is B5's batch sum), the backward's launch
+    plan at the caption encoder, the relative tables' gradient against the
+    plain gather's (rel_bias_grad_check), the peak memory; one update
+    profiled."""
+    from ofasys_torch.ops.flash_attention import backward_plan
+    from ofasys_torch.utils.pytree import slots_to_device
+
+    device, cfg = model.net.device, model.cfg
+    src = [s for s in batches["video_caption"]["net_input"]["slots"] if s.is_src]
+    with torch.no_grad():
+        spec = model.net.encoder_adaptor(slots_to_device(src, device)).bias_spec
+        bias = spec.layer_bias(0)
+    gather = rel_bias_grad_check(spec, card, "train_video")
+    del spec
+    B, Ts, _ = _task_shapes(batches["video_caption"])
+    H = cfg.encoder.attention_heads
+    plan = backward_plan(B, H, Ts, Ts, cfg.encoder.embed_dim // H, bias.shape[0] == 1)
+    log(f"  train_video: the encoder's attention bias {tuple(bias.shape)} "
+        f"({'shared by the batch: B5 sums its gradient' if bias.shape[0] == 1 else 'per sample: ds'}); "
+        f"the flash backward's plan at the caption encoder (B={B}, T={Ts}): {plan}")
+    del bias
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    launches, res, (step, state, dev) = train_and_check(model, gp, card, tasks=VIDEO_TRAIN_TASKS,
+                                                        batches=batches, label="train_video",
+                                                        grad_batches=grad_batches)
+    if device.type == "cuda":
+        res["profile"] = phase_profile_train(step, state, dev, card,
+                                             "one video update (video_caption B=8 + video_generation B=4)")
+    del step, state, dev
+    per = _expected_train_launches(batches, cfg)
+    log(f"  train_video: per update B3 {per['flash_attention_fwd']}, the flash backward "
+        f"{per['flash_attention_bwd']}, B1 {per['dense_attention_fwd']}, B2 {per['dense_attention_bwd']}")
+    if device.type == "cuda":
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        log(f"  train_video: peak device memory {res['peak_memory_gib']:.3f} GiB (updates and gradient "
+            f"checks) [{card}]")
+        if not per["flash_attention_fwd"] or not per["flash_attention_bwd"]:
+            raise SystemExit("train_video: the video paths did not take the flash route")
+    res["backward_plan"] = str(plan)
+    res["rel_bias_grad"] = gather
+    return launches, res
+
+
+def spider_db(root, db_id="farm", seed=SEED):
+    """``{root}/{db_id}/{db_id}.sqlite`` from ``seed``: cows (id, name,
+    breed, age), barns (id, cow_id, size), milk (cow_id, day, liters); for
+    SPIDER_WIDE_DB also the SPIDER_WIDE_TABLES, 6 rows each of seeded words
+    and numbers."""
+    import sqlite3
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, db_id), exist_ok=True)
+    path = os.path.join(root, db_id, f"{db_id}.sqlite")
+    if os.path.exists(path):                   # built from the same seed already
+        return path
+    conn = sqlite3.connect(path)
+    conn.execute("CREATE TABLE cows (id INTEGER, name TEXT, breed TEXT, age REAL)")
+    conn.execute("CREATE TABLE barns (id INTEGER, cow_id INTEGER, size TEXT)")
+    conn.execute("CREATE TABLE milk (cow_id INTEGER, day INTEGER, liters REAL)")
+    conn.executemany("INSERT INTO cows VALUES (?, ?, ?, ?)",
+                     [(i, c, BREEDS[int(rng.integers(len(BREEDS)))], round(float(rng.uniform(1, 12)), 1))
+                      for i, c in enumerate(COWS)])
+    conn.executemany("INSERT INTO barns VALUES (?, ?, ?)",
+                     [(i, i % len(COWS), ["small", "large"][int(rng.integers(2))]) for i in range(len(COWS))])
+    conn.executemany("INSERT INTO milk VALUES (?, ?, ?)",
+                     [(int(rng.integers(len(COWS))), d, round(float(rng.uniform(5, 30)), 2)) for d in range(40)])
+    for table, cols in (SPIDER_WIDE_TABLES.items() if db_id == SPIDER_WIDE_DB else ()):
+        conn.execute(f"CREATE TABLE {table} ({', '.join(cols)})")
+        conn.executemany(f"INSERT INTO {table} VALUES ({', '.join('?' * len(cols))})",
+                         [tuple(int(rng.integers(100)) if c.endswith(("_id", "year", "age")) else
+                                (COWS + BREEDS)[int(rng.integers(len(COWS) + len(BREEDS)))] for c in cols) for _ in range(6)])
+    conn.commit()
+    conn.close()
+    return path
+
+
+def spider_records(rng, n, db_id="farm"):
+    """``n`` Spider rows on the database ``db_id``: a question that names
+    cells to link (``name ( bessie )``) and its gold query."""
+    out = []
+    for i in range(n):
+        q, sql = SPIDER_QUERIES[i % len(SPIDER_QUERIES)]
+        kw = dict(name=COWS[int(rng.integers(len(COWS)))], breed=BREEDS[int(rng.integers(len(BREEDS)))],
+                  n=int(rng.integers(2, 9)))
+        out.append({"question": q.format(**kw), "db_id": db_id, "query": sql.format(**kw)})
+    return out
+
+
+def _spider_task(root):
+    import ofasys_torch.task  # noqa: F401  (registers the task zoo)
+    from ofasys_torch.configure.config_store import ConfigStore
+
+    task = ConfigStore().get("ofasys.task", "spider").target_cls()
+    task.cfg.database_path = root
+    return task
+
+
+def _spider_records():
+    """serve_spider's records: half on the farm database, half on
+    SPIDER_WIDE_DB."""
+    rng = np.random.default_rng(SEED + 31)
+    half = N_SPIDER_ROWS // 2
+    return spider_records(rng, half) + spider_records(rng, N_SPIDER_ROWS - half, SPIDER_WIDE_DB)
+
+
+def _spider_rows(root):
+    """serve_spider's rows on its two databases (built in ``root``), as
+    SpiderTask.preprocess gives them to the preprocessors."""
+    spider_db(root)
+    spider_db(root, SPIDER_WIDE_DB)
+    task = _spider_task(root)
+    return [task.preprocess(r, "valid") for r in _spider_records()]
+
+
+def serve_spider_and_check(model, card, root):
+    """serve_spider: Task("spider").evaluate over N_SPIDER_ROWS rows on two
+    seeded databases (the schema read from the sqlite file, the question's
+    cell values linked into it): exact_match, sql_match_acc and
+    sql_exec_acc, rows/s; the encoder's route by the schema prompt's length
+    (the farm's batch B1, the wide database's B3), its kernel once per
+    encoder layer of each batch; sql_exec_acc and
+    sql_match_acc recomputed on the host from the hypotheses and references
+    the evaluation wrote, and sql_exec_acc of the references against
+    themselves 1 (every gold query runs on the database)."""
+    from ofasys_torch.metric.base import MetricConfig
+    from ofasys_torch.metric.metrics import SqlExecAccMetric, SqlExecMetricConfig, SqlMatchAccMetric
+
+    d, device = model.global_dict, model.net.device
+    rows = _spider_rows(root)
+    task = _spider_task(root)
+    task.cfg.dataset.batch_size = 8
+    task.cfg.generation.max_len_b = SPIDER_MAX_LEN
+    task.cfg.evaluation.output_dir = os.path.join(root, "eval")
+    n_symbols = len(d)
+    task.initialize(d)
+    if len(d) != n_symbols:
+        raise SystemExit("serve_spider: the task's preprocessors grew the model's dictionary")
+    recs = _spider_records()
+    task.add_dataset(recs, "valid")
+    gp = task.general_preprocess
+    shapes = [_encoder_shape(gp, rows[i:i + 8], SPIDER_TPL) for i in range(0, len(rows), 8)]
+    routes = [(B, T, _route(model.cfg, B, T, T)) for B, T in shapes]
+    expected = dict.fromkeys(KERNELS, 0)
+    for *_, route in routes:
+        if route != "plain":
+            expected[f"{route}_attention_fwd"] += model.cfg.encoder.layers
+    _sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = task.evaluate(model, None, split="valid")
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    with open(os.path.join(root, "eval", "spider_valid.json")) as f:
+        written = json.load(f)
+    hyps, refs = written["hyps"], written["refs"]
+    exec_m = SqlExecAccMetric(SqlExecMetricConfig(database_path=root))
+    host = {**exec_m.compute(hyps, refs), **SqlMatchAccMetric(MetricConfig()).compute(hyps, refs)}
+    gold = exec_m.compute(refs, refs)["sql_exec_acc"]
+    lin = gp.name2pre["database"].linearize(rows[0]["database"])
+    log(f"  serve_spider: {len(recs)} rows in {wall:.2f} s = {len(recs) / wall:.1f} rows/s; "
+        f"exact_match {results['exact_match']}, sql_match_acc {results['sql_match_acc']}, "
+        f"sql_exec_acc {results['sql_exec_acc']} (host recompute {host}; the references against "
+        f"themselves {gold}) [{card}]")
+    log(f"  serve_spider: the schema prompt of row 0 {lin!r}; encoder batches (B, T, route) {routes}; "
+        f"launches {launches} (expected {expected}); a hypothesis {hyps[0][:60]!r}")
+    if not (host["sql_exec_acc"] == results["sql_exec_acc"]
+            and host["sql_match_acc"] == results["sql_match_acc"] and gold == 1.0
+            and " ( " in lin):
+        raise SystemExit("serve_spider: the SQL metrics disagree with the host, a gold query failed, "
+                         "or no cell value was linked")
+    if device.type == "cuda" and (launches != expected or not expected["dense_attention_fwd"]
+                                  or not expected["flash_attention_fwd"]):
+        raise SystemExit("serve_spider: the encoder's kernel did not run once per layer of each batch, "
+                         "or no batch took B1 or none B3")
+    return launches, dict(rows_per_s=len(recs) / wall, routes=routes,
+                          **{k: results[k] for k in ("exact_match", "sql_match_acc", "sql_exec_acc")})
+
+
+def _sudoku(rng):
+    """A solved 9 x 9 grid (a shifted pattern under a seeded digit
+    permutation) and its puzzle with about half the cells 0, each as rows
+    of space-separated digits joined by ' | '."""
+    perm = rng.permutation(9) + 1
+    grid = np.asarray([[perm[(3 * (r % 3) + r // 3 + c) % 9] for c in range(9)] for r in range(9)])
+    puzzle = np.where(rng.random((9, 9)) < 0.5, 0, grid)
+
+    def lin(g):
+        return " | ".join(" ".join(map(str, row)) for row in g)
+
+    return lin(puzzle), lin(grid)
+
+
+def struct_batches(gp, root, tasks=None):
+    """One collated batch per STRUCT task: sudoku grids, dart tables of 3-5
+    (subject, predicate, object) triples with seeded descriptions, Spider
+    rows through SpiderTask.preprocess on the farm database (schema and
+    linked cell values)."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+
+    spider_db(root)
+    spider = _spider_task(root)
+    rng = np.random.default_rng(SEED + 37)
+    out = {}
+    for name, spec in (tasks or STRUCT_TRAIN_TASKS).items():
+        recs = []
+        for _ in range(spec["batch"]):
+            if name == "sudoku":
+                puzzle, solution = _sudoku(rng)
+                recs.append({"puzzle": puzzle, "solution": solution})
+            elif name == "dart":
+                cow = COWS[int(rng.integers(len(COWS)))]
+                triples = [[cow, p, v] for p, v in (("breed", BREEDS[int(rng.integers(len(BREEDS)))]),
+                                                    ("age", int(rng.integers(1, 12))),
+                                                    ("barn", int(rng.integers(12))),
+                                                    ("milk", f"{rng.uniform(5, 30):.1f} liters"))
+                           ][:int(rng.integers(3, 5))]
+                recs.append({"table": triples, "text": _text(rng, *spec["text"])})
+            else:
+                recs.append(spider.preprocess(spider_records(rng, 1)[0], "train"))
+        out[name] = gp.collate([gp(Instruction(spec["template"], split="train").format(**r))
+                                for r in recs])
+    return out
+
+
+def ctc_preprocess():
+    """The CTC model's dictionary and preprocessors: the byte symbols and
+    <mask> (text), the 41 + 2 <phone> rows (text_phone, phone), then
+    <text>_256 .. 49,999, padded to a multiple of 128."""
+    from ofasys_torch.preprocessor.dictionary import Dictionary
+    from ofasys_torch.preprocessor.general import GeneralPreprocess
+
+    d = Dictionary()
+    gp = GeneralPreprocess(d, active=["text", "audio", "text_phone", "phone"])
+    for i in range(256, 50000):
+        d.add_symbol(f"<text>_{i}")
+    d.pad_to_multiple_(128)
+    return d, gp
+
+
+def train_asr_ctc_and_check(model, gp, card, tasks=None, batches=None):
+    """train_asr_ctc: 5 updates of speech_to_text with text_phone targets
+    under speech_to_text_loss at ctc_weight CTC_WEIGHT (train_and_check:
+    B1/B2 by route, a falling loss, gradients against the plain attention
+    path), and ce_loss and ctc_loss each finite and falling."""
+    tasks = tasks or ASR_CTC_TASKS
+    batches = batches or make_train_batches(gp, tasks)
+    b = next(iter(batches.values()))
+    et = b["encoder_target"]
+    n_phones = (et != model.global_dict.pad()).sum(1) - 1
+    log(f"  train_asr_ctc: phone targets {et.shape}, {int(n_phones.min())}-{int(n_phones.max())} phones "
+        f"a sample (hermetic g2p), encoder T {_task_shapes(b)[1]}")
+    launches, res, _ = train_and_check(model, gp, card, tasks=tasks, batches=batches, label="train_asr_ctc")
+    logs = next(iter(res["task_logs"].values()))
+    log(f"  train_asr_ctc: ce_loss {[round(x, 4) for x in logs['ce_loss']]}, ctc_loss "
+        f"{[round(x, 4) for x in logs['ctc_loss']]}")
+    for key in ("ce_loss", "ctc_loss"):
+        v = logs[key]
+        if not (all(np.isfinite(v)) and v[-1] < v[0]):
+            raise SystemExit(f"train_asr_ctc: {key} is not finite or did not fall")
+    return launches, res
+
+
+def serve_phone_and_check(model, gp, card):
+    """phone_to_text once: 8 requests of seeded words' phones (hermetic
+    g2p) in one dispatch through the hub (beam 5): every answer finite and
+    non-empty; B1 (or B3) once per encoder layer as the route gives it."""
+    from ofasys_torch import OFASys
+
+    hub = OFASys(model, None, model.global_dict, gp, device=model.net.device)
+    rng = np.random.default_rng(SEED + 41)
+    t2p = gp.name2pre["text_phone"]
+    data = [{"phone": " ".join(t2p.text_to_phones(_text(rng, 20, 40)))} for _ in range(N_PHONE_REQUESTS)]
+    B, T = _encoder_shape(gp, data, PHONE_TPL)
+    route = _route(model.cfg, B, T, T)
+    expected = dict.fromkeys(KERNELS, 0)
+    if route != "plain":
+        expected[f"{route}_attention_fwd"] = model.cfg.encoder.layers
+    _sync(hub.device)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = hub.inference(PHONE_TPL, data, max_len_b=MAX_LEN_B)
+    _sync(hub.device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    ok = len(outs) == len(data) and all(np.isfinite(_best(o).score) and _best(o).tokens.size > 0 for o in outs)
+    log(f"  serve_phone: {len(data)} phone_to_text requests, encoder B={B} T={T} ({route}), {wall_ms:.1f} ms, "
+        f"launches {launches} (expected {expected}); an answer {_best(outs[0]).text[:40]!r} [{card}]")
+    if not ok:
+        raise SystemExit("serve_phone: an answer is empty or not finite")
+    if model.net.device.type == "cuda" and launches != expected:
+        raise SystemExit("serve_phone: the encoder's kernel did not run once per layer")
+    return launches, dict(wall_ms=wall_ms, shape=(B, T), route=route)
+
+
+def serve_encoder_output(hub):
+    """The encoder output (fp32, on the CPU) and padding mask of serve's
+    first dispatch of 8, for the pooling head."""
+    from ofasys_torch.preprocessor.instruction import Instruction
+    from ofasys_torch.utils.pytree import slots_to_device
+
+    gp = hub.general_preprocess
+    sample = gp.collate([gp(Instruction(TPL, split="test").format(**r)) for r, _ in _serve_requests()[:8]])
+    src = slots_to_device([s for s in sample["net_input"]["slots"] if s.is_src], hub.device)
+    with torch.no_grad():
+        enc = hub.model.net.encode(src)
+    return enc.x.float().cpu(), enc.padding_mask.cpu()
+
+
+def heads_and_check(frames, enc, card, device="cuda"):
+    """heads: HiFi-GAN V1 (HifiGanVocoder, random weights from SEED, fp32)
+    over serve_tts's frames on the card, with its ms a second of audio, and
+    the first HEADS_CPU_ROWS against the same module on the CPU
+    (HIFIGAN_REL_TOL); the pooling head (fp32, seeded weights) in each mode
+    over serve's encoder output on the card against the CPU (POOL_ATOL)."""
+    import copy
+
+    from ofasys_torch.model.hifigan import HifiGanVocoder
+    from ofasys_torch.model.pooling import OFAPoolingModel, PoolingDecoderConfig
+
+    voc = HifiGanVocoder(seed=SEED, device=device)
+    ref = HifiGanVocoder(seed=SEED, device="cpu")
+    mel = np.asarray(frames, np.float32)
+    voc(mel[:1, :16])                                      # warm-up (cuDNN's algorithm choice)
+    _sync(voc.device)
+    t0 = time.perf_counter()
+    wav = voc(mel)
+    _sync(voc.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    seconds = wav.size / HIFIGAN_RATE
+    want = ref(mel[:HEADS_CPU_ROWS])
+    rel = float(np.linalg.norm(wav[:HEADS_CPU_ROWS] - want) / np.linalg.norm(want))
+    log(f"  heads: HiFi-GAN V1 over serve_tts's frames {mel.shape}: waveforms {wav.shape}, {ms:.1f} ms for "
+        f"{seconds:.2f} s of audio at {HIFIGAN_RATE} Hz = {ms / seconds:.2f} ms a second of audio; the first "
+        f"{HEADS_CPU_ROWS} against the CPU: rel {rel:.3e} (tol {HIFIGAN_REL_TOL}) [{card}]")
+    if not (np.isfinite(wav).all() and rel <= HIFIGAN_REL_TOL and np.linalg.norm(want) > 0):
+        raise SystemExit("heads: HiFi-GAN on the card disagrees with the CPU")
+    x, mask = enc
+    pool = {}
+    g = torch.Generator().manual_seed(SEED)
+    for mode in ("mean", "max", "first"):
+        head = OFAPoolingModel(PoolingDecoderConfig(num_classes=3, pooling=mode), x.shape[-1], torch.float32)
+        with torch.no_grad():
+            for p in head.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+            cpu = head(x, mask)
+            on = copy.deepcopy(head).to(device)(x.to(device), mask.to(device)).cpu()
+        err = (on - cpu).abs().max().item()
+        pool[mode] = err
+        if not (torch.isfinite(on).all() and err <= POOL_ATOL):
+            raise SystemExit(f"heads: the pooling head ({mode}) on the card disagrees with the CPU")
+    log(f"  heads: the pooling head over serve's encoder output {tuple(x.shape)}, card vs CPU max abs "
+        f"error by mode {pool} (tol {POOL_ATOL})")
+    return dict(vocoder_ms=ms, audio_s=seconds, ms_per_audio_s=ms / seconds, vocoder_rel=rel, pooling_err=pool)
+
+
 def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **extra):
     """One kernel's entry of the ``{"kernels": [...]}`` line: ``launches`` by
     path (the counts of each path's run), the error over every checked
@@ -5834,6 +6486,24 @@ def main() -> int:
     log(f"train_tts, train_audio_pretrain and train_image_infilling attention shapes (B, Tq, Tk) and "
         f"routes: {[(lb, sh) for lb, sh, _ in slice_calls]}: {slice_routes}; serve_tts and "
         f"serve_image_gen dispatches {slice_serve}: {[_route(cfg, B, T, T) for _, (B, T) in slice_serve]}")
+    # video, STRUCT and PHONE paths: their batches, dispatches and attention calls
+    spider_root = tempfile.mkdtemp(prefix="ofasys_torch_spider_")
+    atexit.register(shutil.rmtree, spider_root, True)
+    video = video_batches(code_gp)
+    video_grad = video_batches(code_gp, {n: dict(spec, batch=VIDEO_GRAD_BATCH)
+                                         for n, spec in VIDEO_TRAIN_TASKS.items()})
+    struct = struct_batches(base_gp, spider_root)
+    ctc_d, ctc_gp = ctc_preprocess()
+    ctc_batches = make_train_batches(ctc_gp, ASR_CTC_TASKS)
+    item11_calls = train_shapes(video) + train_shapes(struct) + train_shapes(ctc_batches)
+    item11_routes = {label: _route(cfg, B, Tq, Tk) for label, (B, Tq, Tk), _ in item11_calls}
+    video_serve = _encoder_shape(code_gp, [r for r, _ in _video_requests()], VIDEO_CAPTION_TPL)
+    spider_rows = _spider_rows(spider_root)
+    spider_serve = [_encoder_shape(base_gp, spider_rows[i:i + 8], SPIDER_TPL) for i in (0, 8)]
+    log(f"train_video, train_struct and train_asr_ctc attention shapes (B, Tq, Tk) and routes: "
+        f"{[(lb, sh) for lb, sh, _ in item11_calls]}: {item11_routes}; serve_video dispatch {video_serve}: "
+        f"{_route(cfg, *video_serve, video_serve[1])}; serve_spider's batches {spider_serve}: "
+        f"{[_route(cfg, B, T, T) for B, T in spider_serve]}")
     closed_serve = closed_dispatch_shapes(hub.general_preprocess)
     lexical_serve = lexical_dispatch_shapes(hub.general_preprocess)
     log(f"serve_closed and serve_lexical dispatches (B, T) and routes: "
@@ -5846,13 +6516,14 @@ def main() -> int:
         + [(f"serve_closed_dispatch{i}", s) for i, s in enumerate(closed_serve)] \
         + [(f"serve_lexical_dispatch{i}", s) for i, s in enumerate(lexical_serve)] \
         + [(f"serve_pretrained_dispatch{i}", s) for i, s in enumerate(pretrained_serve)] \
-        + eval_serve + slice_serve
+        + eval_serve + slice_serve + [("serve_spider_batch0", spider_serve[0])]
     fres, bres, rres = phase_kernels(
         dispatches, train_shapes(train_batches) + [c for c in long_calls if routes[c[0]] == "dense"]
         + [c for c in mm_calls if mm_routes[c[0]] == "dense"]
         + [c for c in full_calls if new_routes[c[0]] == "dense"]
         + [c for c in ground_calls if ground_routes[c[0]] == "dense" and c[0] not in same_as_mm]
-        + fit_calls + [c for c in slice_calls if slice_routes[c[0]] == "dense"],
+        + fit_calls + [c for c in slice_calls if slice_routes[c[0]] == "dense"]
+        + [c for c in item11_calls if item11_routes[c[0]] == "dense"],
         motion_calls + eval_calls)
     # B1 at the speculative draft's dispatch of 8 (its own heads, D = 64)
     from ofasys_torch import GeneralistModel
@@ -5867,8 +6538,11 @@ def main() -> int:
     flash_serve = [(f"serve_long_dispatch{i}", s) for i, s in enumerate(long_serve)]
     flash_serve.append(("serve_truncated", planned_dispatch_shapes(
         hub.general_preprocess, _truncated_requests(), SUMMARY_TPL)[0]))
+    flash_serve.append(("serve_video_dispatch", video_serve))
+    flash_serve.append(("serve_spider_batch1", spider_serve[1]))
     flash_rows = phase_flash_kernels(flash_serve, [c for c in long_calls if routes[c[0]] == "flash"]
-                                     + [c for c in slice_calls if slice_routes[c[0]] == "flash"])
+                                     + [c for c in slice_calls if slice_routes[c[0]] == "flash"]
+                                     + [c for c in item11_calls if item11_routes[c[0]] == "flash"])
     mark("flash kernels")
     int8_rows = phase_int8_kernels(max(B * T for B, T in planned_dispatch_shapes()), len(d), train_batches)
     ln_rows = phase_ln_kernels(train_batches)
@@ -5914,6 +6588,9 @@ def main() -> int:
     spec_res = serve_speculative_and_check(hub, card, serve_res)
     counts["serve_speculative"] = spec_res["launches"]
     mark("serve_speculative")
+    counts["serve_spider"], spider_res = serve_spider_and_check(hub.model, card, spider_root)
+    serve_enc = serve_encoder_output(hub)
+    mark("serve_spider")
     nan_res = nan_check_and_check(hub, card)
     torch.cuda.empty_cache()
     mark("nan_check")
@@ -6045,6 +6722,7 @@ def main() -> int:
 
     speech = build_train_model(d, "cuda", adaptors=SPEECH_ADAPTORS)
     counts["serve_tts"], tts_res = serve_tts_and_check(speech, base_gp, card)
+    tts_frames = tts_res.pop("frames")
     mark("serve_tts")
     counts["train_tts"], train_tts_res, _ = train_and_check(speech, base_gp, card, tasks=TTS_TRAIN_TASKS,
                                                             batches=tts_batches, label="train_tts")
@@ -6074,6 +6752,28 @@ def main() -> int:
     del code_model
     torch.cuda.empty_cache()
     mark("train_image_infilling")
+
+    video_model = build_vqgan_model(code_d, adaptors=VIDEO_ADAPTORS)
+    counts["serve_video"], video_res = serve_video_and_check(video_model, code_gp, card, serve_res)
+    mark("serve_video")
+    counts["train_video"], train_video_res = train_video_and_check(video_model, code_gp, card, video, video_grad)
+    del video_model
+    torch.cuda.empty_cache()
+    mark("train_video")
+    model = build_train_model(d, "cuda")
+    counts["train_struct"], struct_res, _ = train_and_check(model, base_gp, card, tasks=STRUCT_TRAIN_TASKS,
+                                                            batches=struct, label="train_struct")
+    del model
+    torch.cuda.empty_cache()
+    mark("train_struct")
+    model = build_train_model(ctc_d, "cuda", adaptors=("text", "audio_fbank"))
+    counts["train_asr_ctc"], ctc_res = train_asr_ctc_and_check(model, ctc_gp, card, batches=ctc_batches)
+    counts["serve_phone"], phone_res = serve_phone_and_check(model, ctc_gp, card)
+    del model
+    torch.cuda.empty_cache()
+    mark("train_asr_ctc, serve_phone")
+    heads_res = heads_and_check(tts_frames, serve_enc, card)
+    mark("heads")
 
     def by_path(kernel):
         return {path: c[kernel] for path, c in counts.items()}
@@ -6132,12 +6832,15 @@ def main() -> int:
     log(f"train_fetch: {json.dumps(fetch_res)}")
     for label, res in (("serve_tts", tts_res), ("train_tts", train_tts_res),
                        ("train_audio_pretrain", pretrain_res), ("train_scst", scst_res),
-                       ("serve_image_gen", image_gen_res), ("train_image_infilling", infill_res)):
+                       ("serve_image_gen", image_gen_res), ("train_image_infilling", infill_res),
+                       ("serve_video", video_res), ("train_video", train_video_res),
+                       ("serve_spider", spider_res), ("train_struct", struct_res),
+                       ("train_asr_ctc", ctc_res), ("serve_phone", phone_res), ("heads", heads_res)):
         log(f"{label}: {json.dumps(res)}")
     log("serve p50 ms: " + json.dumps({k: r["p50_ms"] for k, r in (
         ("serve", serve_res), ("serve_closed", closed_res), ("serve_sample", sample_res),
         ("serve_sample_topp", topp_res), ("serve_ensemble", ensemble_res),
-        ("serve_speculative", spec_res))}))
+        ("serve_speculative", spec_res), ("serve_video", video_res))}))
     for label, (_, res) in ln.items():
         log(f"{label}: {json.dumps(res)}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

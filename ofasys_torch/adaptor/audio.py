@@ -31,6 +31,7 @@ At a decode step the postnet sees one frame, zero-padded on both sides.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -40,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor
-from ofasys_torch.model.positional import make_token_bucket_position, token_bucket_count
+from ofasys_torch.model.positional import token_bucket, token_bucket_count
 from ofasys_torch.model.transformer import Dense, TransformerEncoderLayer
 from ofasys_torch.ops.attention import dropout
 from ofasys_torch.utils.pytree import SlotBatch
@@ -146,12 +147,12 @@ class AudioFbankAdaptor(BaseAdaptor):
         positions = torch.arange(Ts, device=x.device)
         pos_embed = self.embed_positions.weight[positions][None].to(self.dtype)   # (1, Ts, E)
         rel_tables = getattr(self, "rel_pos_table", None)
-        rel_bucket = None
+        bucket_of = None
         if rel_tables is not None:
-            rel_bucket = make_token_bucket_position(acfg.token_bucket_size, self.max_pos)[:Ts, :Ts]
+            bucket_of = functools.partial(token_bucket, acfg.token_bucket_size, self.max_pos, Ts)
         out = AdaptorOutput(
             embed=x, padding_mask=padding_mask, pos_embed=pos_embed,
-            rel_bucket=rel_bucket, rel_tables=rel_tables, modal_id=slot.modality.value - 1,
+            rel_tables=rel_tables, modal_id=slot.modality.value - 1, bucket_of=bucket_of,
         )
         return self.finish(slot, out, generator)
 
@@ -205,12 +206,12 @@ class AudioTgtFbankAdaptor(BaseAdaptor):
         positions = pos_offset + torch.arange(T, device=x.device)
         pos_embed = self.embed_positions.weight[positions][None].to(self.dtype)   # (1, T, E)
         rel_tables = getattr(self, "rel_pos_table", None)
-        rel_bucket = None
+        bucket_of = None
         if rel_tables is not None:
-            rel_bucket = make_token_bucket_position(acfg.token_bucket_size, self.max_pos)[:T, :T]
+            bucket_of = functools.partial(token_bucket, acfg.token_bucket_size, self.max_pos, T)
         out = AdaptorOutput(
             embed=x, padding_mask=padding_mask, pos_embed=pos_embed,
-            rel_bucket=rel_bucket, rel_tables=rel_tables, modal_id=slot.modality.value - 1,
+            rel_tables=rel_tables, modal_id=slot.modality.value - 1, bucket_of=bucket_of,
         )
         return self.finish(slot, out, generator)
 

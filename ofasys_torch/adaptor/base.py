@@ -3,15 +3,16 @@
 
 An adaptor has two roles: ``forward`` (input adaptor: slot batch ->
 AdaptorOutput) and ``forward_output`` (output adaptor: hidden states ->
-modality logits). It returns a host-side bucket matrix and stacked
-per-layer bias tables; layers gather the bias lazily
+modality logits). It returns a builder of its host-side bucket matrix and
+stacked per-layer bias tables; layers gather the bias lazily
 (model/transformer.py BiasSpec).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Hashable, Optional
 
 import numpy as np
 import torch
@@ -35,22 +36,34 @@ class AdaptorOutput:
     embed:        (B, T, E)
     padding_mask: (B, T) bool, True = PAD
     pos_embed:    (1 or B, T, E) absolute position embeddings
-    rel_bucket:   (T, T) int32 numpy or None
     rel_tables:   (n_tables, n_buckets, H) or None — per-layer bias tables
     modal_id:     int (ModalityType.value - 1), for modal_ffn expert spans
-                  (modal_ffn itself waits for a later slice)
+    bucket_of:    builder of the (T, T) int32 bucket, set with ``rel_tables``:
+                  a ``functools.partial`` of a pure function of shapes, so its
+                  function and arguments (``bucket_key``) name the bucket and
+                  the general adaptor builds it only where it keeps no copy
     """
 
     embed: torch.Tensor
     padding_mask: torch.Tensor
     pos_embed: torch.Tensor
-    rel_bucket: Optional[np.ndarray] = None
     rel_tables: Optional[torch.Tensor] = None
     modal_id: int = 0
+    bucket_of: Optional[functools.partial] = None
 
     @property
     def seq_length(self) -> int:
         return self.embed.shape[1]
+
+    @property
+    def bucket_key(self) -> Optional[Hashable]:
+        f = self.bucket_of
+        return None if f is None else (f.func, f.args)
+
+    @property
+    def rel_bucket(self) -> Optional[np.ndarray]:
+        """(T, T) int32, built anew."""
+        return None if self.bucket_of is None else self.bucket_of()
 
 
 class BaseAdaptor(nn.Module):

@@ -2,8 +2,9 @@
 their outputs into one sequence (counterpart of ofasys_tpu/adaptor/general.py).
 
 The concat layout is fixed per task template, so the combined relative-bias
-bucket matrix (block-diagonal across slots) is computed host-side, and each
-layer's bias is one gather from a combined table. The absolute-position q/k
+bucket matrix (block-diagonal across slots) is built host-side once per
+layout and kept on the device, and each layer's bias is one gather from a
+combined table. The absolute-position q/k
 bias is computed once per forward and shared by all layers, with batch dim 1
 when positions are sample-independent.
 
@@ -35,10 +36,11 @@ from ofasys_torch.adaptor.image import (ImagePatchEmbedAdaptor, ImageResnetAdapt
 from ofasys_torch.adaptor.image_vqgan import ImageVqganAdaptor, ImageVqganAdaptorConfig
 from ofasys_torch.adaptor.motion import Motion6dAdaptor, Motion6dAdaptorConfig
 from ofasys_torch.adaptor.text import TextAdaptor
+from ofasys_torch.adaptor.video import VideoAdaptorConfig, VideoImageSequenceAdaptor
 from ofasys_torch.configure.config_store import ConfigStore
 from ofasys_torch.model.config import GeneralistModelConfig
 from ofasys_torch.model.positional import block_diag_buckets
-from ofasys_torch.model.transformer import BiasSpec, Dense
+from ofasys_torch.model.transformer import BiasSpec, Dense, RelBucket
 from ofasys_torch.utils.pytree import SlotBatch
 
 # Default adaptor per modality.
@@ -69,23 +71,20 @@ def resolve_adaptor_name(slot: SlotBatch, is_src: bool) -> str:
 ADAPTORS = {"text": TextAdaptor, "image_resnet": ImageResnetAdaptor, "image_vit": ImageVitAdaptor,
             "image_patch_embed": ImagePatchEmbedAdaptor, "audio_fbank": AudioFbankAdaptor,
             "motion_6d": Motion6dAdaptor, "audio_tgt_fbank": AudioTgtFbankAdaptor,
-            "image_vqgan": ImageVqganAdaptor}
+            "image_vqgan": ImageVqganAdaptor, "video_image_sequence": VideoImageSequenceAdaptor}
 # input adaptors no target slot resolves to: built on the encoder side only
-SOURCE_ONLY = ("image_resnet", "image_vit", "image_patch_embed", "audio_fbank")
+SOURCE_ONLY = ("image_resnet", "image_vit", "image_patch_embed", "audio_fbank",
+               "video_image_sequence")
 # output adaptors of the diffusion, TTS and image-code targets, which no
 # source slot of the ported tasks resolves to: built on the decoder side only
 TARGET_ONLY = ("motion_6d", "audio_tgt_fbank", "image_vqgan")
-
-
-# ROADMAP Queue A item that ports each adaptor this slice lacks
-_PENDING = {"video_image_sequence": 11}
 
 
 # adaptors that take a config of their own; the store holds it under
 # ofasys.adaptor/<name> (the others register the empty BaseAdaptorConfig)
 CONFIGURED = {"image_resnet": ImageResnetAdaptorConfig, "audio_fbank": AudioFbankAdaptorConfig,
               "motion_6d": Motion6dAdaptorConfig, "audio_tgt_fbank": AudioTgtFbankAdaptorConfig,
-              "image_vqgan": ImageVqganAdaptorConfig}
+              "image_vqgan": ImageVqganAdaptorConfig, "video_image_sequence": VideoAdaptorConfig}
 for _name, _cls in ADAPTORS.items():
     ConfigStore().store("ofasys.adaptor", _name, CONFIGURED.get(_name, BaseAdaptorConfig), _cls)
 
@@ -93,15 +92,16 @@ for _name, _cls in ADAPTORS.items():
 def build_adaptor(name: str, cfg, is_src, embed_tokens, pad_id, dtype, acfg=None) -> BaseAdaptor:
     """``acfg``: the adaptor's own config (``CONFIGURED``), else the one the
     ConfigStore holds for it."""
-    if name in ADAPTORS:
-        if acfg is None and name in CONFIGURED:
-            acfg = ConfigStore().get("ofasys.adaptor", name).config
-        own = () if acfg is None else (acfg,)
-        return ADAPTORS[name](cfg, is_src, embed_tokens, pad_id, dtype, *own)
-    where = f"ROADMAP Queue A item {_PENDING[name]}" if name in _PENDING else "a later slice"
-    raise NotImplementedError(
-        f"adaptor {name!r} is not ported to ofasys_torch yet ({where}); ported: {sorted(ADAPTORS)}"
-    )
+    if name not in ADAPTORS:
+        raise KeyError(f"unknown adaptor {name!r}; registered: {sorted(ADAPTORS)}")
+    if acfg is None and name in CONFIGURED:
+        acfg = ConfigStore().get("ofasys.adaptor", name).config
+    own = () if acfg is None else (acfg,)
+    return ADAPTORS[name](cfg, is_src, embed_tokens, pad_id, dtype, *own)
+
+
+# combined relative-position buckets kept on the device per general adaptor
+BUCKET_CACHE = 8
 
 
 @dataclasses.dataclass
@@ -129,6 +129,7 @@ class GeneralAdaptor(nn.Module):
         for name in self.active_adaptors:
             self.add_module(name, build_adaptor(name, cfg, is_src, embed_tokens, pad_id, dtype,
                                                 adaptor_cfgs.get(name)))
+        self._bucket_cache: Dict[Any, RelBucket] = {}
         heads = cfg.encoder.attention_heads if is_src else cfg.decoder.attention_heads
         embed_dim = cfg.encoder.embed_dim
         self.num_attention_heads = heads
@@ -194,20 +195,12 @@ class GeneralAdaptor(nn.Module):
             if have_rel:
                 n_tables = have_rel[0].rel_tables.shape[0]
                 heads = have_rel[0].rel_tables.shape[-1]
-                buckets, sizes, table_list = [], [], []
-                for o in outputs:
-                    if o.rel_tables is not None:
-                        buckets.append(o.rel_bucket)
-                        sizes.append(o.rel_tables.shape[1])
-                        table_list.append(o.rel_tables)
-                    else:
-                        buckets.append(np.full((o.seq_length, o.seq_length), -1, np.int32))
-                        sizes.append(0)
-                bucket = block_diag_buckets(buckets, sizes)
+                table_list = [o.rel_tables for o in have_rel]
                 ref = have_rel[0].rel_tables
                 zero_row = torch.zeros((n_tables, 1, heads), dtype=ref.dtype, device=ref.device)
                 tables = torch.cat([zero_row] + table_list, dim=1)
-            bias_spec = BiasSpec(bucket=bucket, tables=tables, abs_bias=abs_bias)
+                bucket = self._combined_bucket(outputs, ref.device)
+            bias_spec = BiasSpec(rel_bucket=bucket, tables=tables, abs_bias=abs_bias)
 
         return GeneralAdaptorOutput(
             embed=embed,
@@ -216,6 +209,23 @@ class GeneralAdaptor(nn.Module):
             bias_spec=bias_spec,
             modal_spans=tuple(spans),
         )
+
+    def _combined_bucket(self, outputs: List[AdaptorOutput], device) -> RelBucket:
+        """The block-diagonal bucket of the slots' outputs on ``device``,
+        built where the layout (each slot's ``bucket_key``, length and table
+        size) is not among the last ``BUCKET_CACHE`` kept: a video clip's
+        bucket is built and copied to the card once."""
+        key = tuple((None, o.seq_length, 0) if o.rel_tables is None
+                    else (o.bucket_key, o.seq_length, o.rel_tables.shape[1]) for o in outputs)
+        entry = self._bucket_cache.get((key, device))
+        if entry is None:
+            buckets = [o.rel_bucket if o.rel_tables is not None
+                       else np.full((o.seq_length, o.seq_length), -1, np.int32) for o in outputs]
+            if len(self._bucket_cache) >= BUCKET_CACHE:
+                self._bucket_cache.pop(next(iter(self._bucket_cache)))
+            entry = RelBucket(block_diag_buckets(buckets, [k[2] for k in key]), device)
+            self._bucket_cache[(key, device)] = entry
+        return entry
 
     def forward_output(self, x: torch.Tensor, extra: Dict[str, Any], slots: List[SlotBatch]):
         """Dispatch hidden states to the (single) target slot's output adaptor."""

@@ -14,6 +14,7 @@ Layout: NHWC (B, H, W, 3) in; flattened (B, h*w, E) out.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -63,6 +64,13 @@ def _grid_positions(h: int, w: int, bucket_size: int) -> np.ndarray:
     return idx.reshape(-1).astype(np.int32)
 
 
+def image_bucket(h: int, w: int, bucket_size: int) -> np.ndarray:
+    """(h*w, h*w) int32: the image bucket of an h x w grid."""
+    pos_ids = _grid_positions(h, w, bucket_size)
+    full = make_image_bucket_position(bucket_size, image_bucket_count(bucket_size))
+    return full[np.ix_(pos_ids, pos_ids)]
+
+
 class _ImageAdaptorMixin(BaseAdaptor):
     """Shared grid-position / rel-bias logic for image trunks."""
 
@@ -84,19 +92,17 @@ class _ImageAdaptorMixin(BaseAdaptor):
         positions = torch.as_tensor(pos_ids, dtype=torch.long, device=feat.device)
         pos_embed = self.embed_image_positions.weight[positions][None].to(self.dtype)  # (1, hw, E)
 
-        rel_tables = rel_bucket = None
+        rel_tables = bucket_of = None
         if self.cfg.use_self_attn_bias:
-            n_rel = image_bucket_count(IMAGE_BUCKET_SIZE)
-            full_bucket = make_image_bucket_position(IMAGE_BUCKET_SIZE, n_rel)
-            rel_bucket = full_bucket[np.ix_(pos_ids, pos_ids)]
+            bucket_of = functools.partial(image_bucket, h, w, IMAGE_BUCKET_SIZE)
             rel_tables = self.image_rel_pos_table
 
         out = AdaptorOutput(
             embed=embed,
             padding_mask=torch.zeros((B, h * w), dtype=torch.bool, device=feat.device),
             pos_embed=pos_embed,
-            rel_bucket=rel_bucket,
             rel_tables=rel_tables,
+            bucket_of=bucket_of,
             modal_id=slot.modality.value - 1,
         )
         return self.finish(slot, out, generator)

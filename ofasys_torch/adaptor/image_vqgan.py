@@ -45,6 +45,14 @@ def code_position_ids(grid: int, bucket_size: int, length: int) -> np.ndarray:
     return ids
 
 
+def code_bucket(grid: int, bucket_size: int, length: int) -> np.ndarray:
+    """(length, length) int32: the image bucket of a code buffer's first
+    ``length`` steps."""
+    ids = code_position_ids(grid, bucket_size, length + 1)[:length]
+    full = make_image_bucket_position(bucket_size, image_bucket_count(bucket_size))
+    return full[np.ix_(ids, ids)]
+
+
 class ImageVqganAdaptor(BaseAdaptor):
     def __init__(self, cfg, is_src, embed_tokens, pad_id, dtype,
                  acfg: Optional[ImageVqganAdaptorConfig] = None):
@@ -72,13 +80,13 @@ class ImageVqganAdaptor(BaseAdaptor):
         pos_embed = self.embed_image_positions.weight[pos][None].to(self.dtype)     # (1, T, E)
 
         rel_tables = getattr(self, "image_rel_pos_table", None)
-        rel_bucket = None
+        bucket_of = None
         if rel_tables is not None:
-            full = make_image_bucket_position(bucket, image_bucket_count(bucket))
-            rel_bucket = full[np.ix_(ids[:T], ids[:T])]
+            bucket_of = functools.partial(code_bucket, acfg.code_image_size // acfg.code_downsample,
+                                          bucket, T)
         out = AdaptorOutput(
             embed=embed, padding_mask=padding_mask, pos_embed=pos_embed,
-            rel_bucket=rel_bucket, rel_tables=rel_tables, modal_id=slot.modality.value - 1,
+            rel_tables=rel_tables, modal_id=slot.modality.value - 1, bucket_of=bucket_of,
         )
         return self.finish(slot, out, generator)
 

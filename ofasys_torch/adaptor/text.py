@@ -7,13 +7,14 @@ its defaults here: bucket size 256, tied projection, no output bias.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from ofasys_torch.adaptor.base import AdaptorOutput, BaseAdaptor
-from ofasys_torch.model.positional import make_token_bucket_position, token_bucket_count
+from ofasys_torch.model.positional import token_bucket, token_bucket_count
 from ofasys_torch.utils.pytree import SlotBatch
 
 
@@ -42,14 +43,13 @@ class TextAdaptor(BaseAdaptor):
         pos_embed = self.embed_positions.weight[positions][None].to(self.dtype)   # (1, T, E)
         embed = self.embed_tokens.weight[tokens].to(self.dtype)
 
-        rel_bucket = make_token_bucket_position(TOKEN_BUCKET_SIZE, self.max_pos)[:T, :T]
         out = AdaptorOutput(
             embed=embed,
             padding_mask=padding_mask,
             pos_embed=pos_embed,
-            rel_bucket=rel_bucket,
             rel_tables=getattr(self, "rel_pos_table", None),
             modal_id=slot.modality.value - 1,
+            bucket_of=functools.partial(token_bucket, TOKEN_BUCKET_SIZE, self.max_pos, T),
         )
         return self.finish(slot, out, generator)
 

@@ -9,8 +9,11 @@
 //   s_j   = -1e9 where mask[b, j] == 0  (the row max includes these values)
 //   s_j   = -1e9 where causal and j > i + (Tk - Tq)
 //   m     = max_j s_j,  p_j = exp(s_j - m),  l = sum_j p_j  (all fp32)
-//   out_i = (sum_j round(p_j) v_j) / l   with round() to the storage dtype,
-//           the sum in fp32, the result stored in the storage dtype
+//   out_i = sum_j round(p_j / l) v_j   with round() to the storage dtype,
+//           the sum in fp32, the result stored in the storage dtype: the
+//           plain version's order (the probabilities rounded after the
+//           normalization, as XLA's reference rounds them; the Pallas
+//           kernel divides by l after the product)
 //   lse_i = m + log(l)                   (fp32; the backward, B2, needs it)
 // q/out are (B, Tq, E) and k/v (B, Tk, E) with E = H * D: heads are sliced
 // inside the kernel, so the projection GEMMs' outputs are used as they are.
@@ -38,9 +41,10 @@
 //      taken on the way. Key columns past Tk (padding to 16) are -inf: out
 //      of the max and the sums, unlike a masked key's -1e9. Under causal,
 //      the 16-key chunks past the warp's last diagonal are skipped.
-//   2. p = exp(s - m) and l = sum p (fp32, unrounded); round(p) is packed in
-//      place as the A fragments of the next product.
-//   3. out = (round(p) V) / l on the tensor cores, 64 output columns at a
+//   2. p = exp(s - m) (back into the scratch) and l = sum p (fp32,
+//      unrounded); a second sweep packs round(p * (1 / l)) in place as the
+//      A fragments of the next product.
+//   3. out = round(p / l) V on the tensor cores, 64 output columns at a
 //      time, and lse = m + log l.
 // What holds it back (PERF.md, section 6): the score scratch (64 KB for 64
 // rows at Tk = 256) keeps a block's warps to 8 per SM, and a tile's phases
@@ -49,7 +53,8 @@
 // slower.
 // The fp32 instantiation (not on the model's path: the model runs bf16 on
 // the card) keeps the first CUDA-core design: one block per 16 query rows,
-// operands staged as fp32, scalar products.
+// operands staged as fp32, scalar products, the sum divided by l at the end
+// (round() is the identity there).
 //
 // C interface, loaded with ctypes; returns cudaGetLastError() so the caller
 // can raise on a refused launch.
@@ -353,8 +358,8 @@ dense_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // 2. V into K's buffer unless it has its own (the copy runs under the
-    //    softmax); p = exp(s - m) and l from the unrounded p; round(p) packed
-    //    as A fragments
+    //    softmax); p = exp(s - m) and l from the unrounded p, then
+    //    round(p * (1 / l)) packed as A fragments
     if (!split_kv) {
       __syncthreads();
       stage_tile(vs, ld, v + kv_base, E, Tk, Tkp, D, vec);
@@ -369,16 +374,23 @@ dense_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   p6 = expf(y.z - m_b), p7 = expf(y.w - m_b);
       l_a += (p0 + p1) + (p4 + p5);
       l_b += (p2 + p3) + (p6 + p7);
-      packed[(2 * c) * 32 + lane] =
-          make_uint4(pack_bf16(p0, p1), pack_bf16(p2, p3), pack_bf16(p4, p5), pack_bf16(p6, p7));
+      scratch[(2 * c) * 32 + lane] = make_float4(p0, p1, p2, p3);
+      scratch[(2 * c + 1) * 32 + lane] = make_float4(p4, p5, p6, p7);
     }
   #pragma unroll
     for (int o = 1; o < 4; o <<= 1) {
       l_a += __shfl_xor_sync(0xffffffffu, l_a, o);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, o);
     }
+    const float ia = 1.f / l_a, ib = 1.f / l_b;
+  #pragma unroll 2
+    for (int c = 0; c < nc; ++c) {
+      const float4 x = scratch[(2 * c) * 32 + lane], y = scratch[(2 * c + 1) * 32 + lane];
+      packed[(2 * c) * 32 + lane] = make_uint4(pack_bf16(x.x * ia, x.y * ia), pack_bf16(x.z * ib, x.w * ib),
+                                               pack_bf16(y.x * ia, y.y * ia), pack_bf16(y.z * ib, y.w * ib));
+    }
 
-    // 3. out = round(p) V / l
+    // 3. out = round(p / l) V
     cp_async_wait_all();
     __syncthreads();
     if (!active) continue;
@@ -405,9 +417,8 @@ dense_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = half ? rb : ra;
-          const float l = half ? l_b : l_a;
           if (row >= Tq || d >= D) continue;
-          const float x = acc[nt][2 * half] / l, y = acc[nt][2 * half + 1] / l;
+          const float x = acc[nt][2 * half], y = acc[nt][2 * half + 1];
           __nv_bfloat16* o = out + ((size_t)b * Tq + row) * E + (size_t)h * D + d;
           if ((D & 1) == 0) {
             *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x, y);

@@ -3,23 +3,24 @@ ofasys_tpu/engine/criterion/cross_entropy.py).
 
 ``CrossEntropyCriterion`` is label-smoothed CE at smoothing 0.
 ``SpeechToTextCriterion`` (``speech_to_text_loss``, the asr task's
-criterion) is label-smoothed CE over the transcript tokens, plus, in
-ofasys_tpu, ``ctc_weight`` times a CTC loss of the encoder states against
-the phone targets that the PHONE preprocessor puts in
-``sample["encoder_target"]``. That preprocessor is not ported (ROADMAP
-Queue A item 11): where the CTC branch would run, this criterion raises;
-everywhere else it computes what ofasys_tpu computes.
+criterion) is label-smoothed CE over the transcript tokens, plus
+``ctc_weight`` times a CTC loss of the encoder states against the phone
+targets that the ``text_phone`` preprocessor puts in
+``sample["encoder_target"]``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.engine.criterion.label_smoothed_cross_entropy import (
     LabelSmoothedCrossEntropyCriterion,
     LabelSmoothedCrossEntropyCriterionConfig,
 )
+from ofasys_torch.ops.losses import ctc_loss
 
 
 @dataclass
@@ -41,13 +42,37 @@ class SpeechToTextCriterionConfig(LabelSmoothedCrossEntropyCriterionConfig):
 
 @register_config("ofasys.criterion", "speech_to_text_loss", SpeechToTextCriterionConfig)
 class SpeechToTextCriterion(LabelSmoothedCrossEntropyCriterion):
-    """ASR: token CE over transcripts (``ce_weight * CE + ctc_weight * CTC``
-    in ofasys_tpu, the CTC term only where the sample has phone targets)."""
+    """ASR: ``ce_weight * CE + ctc_weight * CTC``, the CTC term only where
+    the sample has phone targets.
+
+    The CTC logits are the encoder states, in fp32, against the shared
+    token embedding's ``<phone>`` rows; class 0 (the namespace's first row)
+    is the blank. The labels are ``sample["encoder_target"]`` with pad and
+    eos dropped, the loss ``ops.losses.ctc_loss`` (optax's, summed over the
+    batch). ``ce_loss`` and ``ctc_loss`` are logged apart."""
+
+    global_dict = None  # attached by Task.initialize
 
     def __call__(self, model, sample, generator=None, train: bool = True):
-        if self.cfg.ctc_weight > 0.0 and "encoder_target" in sample:
-            raise NotImplementedError(
-                "speech_to_text_loss with ctc_weight > 0 (the CTC loss on encoder states against "
-                "the PHONE preprocessor's encoder_target) is not ported yet (ROADMAP Queue A item 11)"
-            )
-        return super().__call__(model, sample, generator, train=train)
+        cfg = self.cfg
+        if cfg.ctc_weight <= 0.0 or "encoder_target" not in sample:
+            return super().__call__(model, sample, generator, train=train)
+        logits, extra = model.apply_train(sample["net_input"]["slots"], deterministic=not train,
+                                          generator=generator)
+        loss_ce, sample_size, logging = self.compute_loss(logits, sample, train=train)
+
+        enc = extra["encoder_out"]
+        start, end = self.global_dict.get_start_end_idx("<phone>")
+        rows = model.net.embed_tokens.weight[start:end].float()          # (K, E)
+        ctc_logits = torch.einsum("bte,ke->btk", enc.x.float(), rows)     # (B, Ts, K)
+        tgt = torch.as_tensor(sample["encoder_target"], device=ctc_logits.device)
+        valid = (tgt != self.pad_id) & (tgt != self.global_dict.eos())
+        labels = torch.where(valid, tgt - start, torch.zeros_like(tgt))
+        loss_ctc = ctc_loss(ctc_logits, enc.padding_mask.float(), labels,
+                            1.0 - valid.float(), blank_id=0).sum()
+
+        loss = cfg.ce_weight * loss_ce + cfg.ctc_weight * loss_ctc
+        logging = dict(logging)
+        logging["ce_loss"] = loss_ce.detach()
+        logging["ctc_loss"] = loss_ctc.detach()
+        return loss, sample_size, logging

@@ -45,6 +45,12 @@ SEARCH_STRATEGIES = ("beam", "diverse_beam", "diverse_siblings", "lexical")
 _top_k = search.top_k
 
 
+def _full_top_k(x: torch.Tensor, k: int):
+    """The plain beam's top-k of its K x V candidates: ``torch.topk``, not
+    the stable top-k (see the call)."""
+    return torch.topk(x, k, dim=1)
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, M, ...) rows picked per batch by idx (B, K) -> (B, K, ...)."""
     view = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(idx.shape + x.shape[2:])
@@ -342,7 +348,7 @@ class SequenceGenerator:
             else:
                 # the 2K best of K*V candidates: ties here sit at NEG_INF, below
                 # at least 2K real candidates, so the fast unstable top-k is exact
-                topk_lp, topk_idx = torch.topk(flat, 2 * K, dim=1)
+                topk_lp, topk_idx = _full_top_k(flat, 2 * K)
                 cand_beam, cand_tok = topk_idx // V, topk_idx % V
 
             # extend sequences

@@ -4,8 +4,9 @@ vqa_score, solved_acc, cider and clip_ti, registered under
 ``ofasys.metric`` with ofasys_tpu's names and computed in the same order
 (the same floats). ``bleu`` needs ``sacrebleu`` and ``clip_ti`` needs
 ``transformers`` and local CLIP weights, as in ofasys_tpu. The Spider
-metrics ``sql_exec_acc`` and ``sql_match_acc`` are registered and raise at
-``compute``: their SQL evaluators wait for ROADMAP Queue A item 11."""
+metrics ``sql_exec_acc`` (execution on the sqlite database,
+``utils/sql_eval.py``) and ``sql_match_acc`` (the classical parse-based
+evaluation, ``utils/sql_classical.py``) read ``db_id | sql`` strings."""
 
 from __future__ import annotations
 
@@ -296,21 +297,60 @@ class SqlExecMetricConfig(MetricConfig):
     database_path: str = ""
 
 
-SQL = ("the Spider SQL evaluators (utils/sql_eval.py, utils/sql_classical.py) are not ported to "
-       "ofasys_torch yet (ROADMAP Queue A item 11)")
-
-
 @register_config("ofasys.metric", "sql_exec_acc", SqlExecMetricConfig)
 class SqlExecAccMetric(BaseMetric):
-    """Spider execution accuracy (ofasys_tpu's ``sql_exec_acc``)."""
+    """Spider execution accuracy: each predicted and gold query runs on the
+    example's sqlite database and their result multisets are compared. Both
+    hyp and ref carry the database id as a ``db_id | sql`` prefix; a ref
+    whose database is not found counts as wrong."""
+
+    @staticmethod
+    def _split(s: str):
+        db_id, sep, sql = str(s).partition("|")
+        if not sep:
+            return None, str(s).strip()
+        return db_id.strip(), sql.strip()
+
+    def _db_file(self, db_id: str):
+        import os
+
+        for cand in (os.path.join(self.cfg.database_path, db_id, f"{db_id}.sqlite"),
+                     os.path.join(self.cfg.database_path, f"{db_id}.sqlite")):
+            if os.path.isfile(cand):
+                return cand
+        return None
 
     def compute(self, hyps, refs):
-        raise NotImplementedError(f"sql_exec_acc: {SQL}")
+        from ofasys_torch.utils.sql_eval import execution_match
+
+        ok, total = 0, 0
+        for h, r in zip(hyps, refs):
+            gold_db, gold_sql = self._split(r)
+            _, pred_sql = self._split(h)
+            total += 1
+            db = self._db_file(gold_db) if gold_db else None
+            if db is None:
+                continue
+            ok += execution_match(db, pred_sql, gold_sql)
+        return {"sql_exec_acc": ok / max(total, 1)}
 
 
 @register_config("ofasys.metric", "sql_match_acc", MetricConfig)
 class SqlMatchAccMetric(BaseMetric):
-    """Classical Spider evaluation (ofasys_tpu's ``sql_match_acc``)."""
+    """Classical (parse-based) Spider evaluation: exact set match with values
+    ignored, and the mean per-clause partial F1 (``sql_partial_f1``). Takes
+    the same ``db_id | sql`` strings as ``sql_exec_acc``."""
+
+    @staticmethod
+    def _sql(s: str) -> str:
+        db_id, sep, sql = str(s).partition("|")
+        return sql.strip() if sep else str(s).strip()
 
     def compute(self, hyps, refs):
-        raise NotImplementedError(f"sql_match_acc: {SQL}")
+        from ofasys_torch.utils.sql_classical import PARTIAL_TYPES, evaluate_classical
+
+        out = evaluate_classical([self._sql(h) for h in hyps], [self._sql(r) for r in refs])
+        result = {"sql_match_acc": out["exact"]["all"]}
+        pf = out["partial_f1"]["all"]
+        result["sql_partial_f1"] = sum(pf[t] for t in PARTIAL_TYPES) / len(PARTIAL_TYPES)
+        return result

@@ -33,6 +33,12 @@ def make_token_bucket_position(bucket_size: int, max_position: int) -> np.ndarra
     return (bucket + bucket_size - 1).astype(np.int32)
 
 
+def token_bucket(bucket_size: int, max_position: int, length: int) -> np.ndarray:
+    """(length, length) int32: the token bucket of a sequence's first
+    ``length`` positions."""
+    return make_token_bucket_position(bucket_size, max_position)[:length, :length]
+
+
 def token_bucket_count(bucket_size: int) -> int:
     return 2 * bucket_size - 1
 

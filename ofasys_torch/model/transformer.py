@@ -132,38 +132,86 @@ def get_activation_fn(name: str) -> Callable:
     raise ValueError(f"unknown activation {name!r}")
 
 
+class RelBucket:
+    """A combined (T, T) relative-position bucket on one device: ``host``
+    (int32 numpy), ``index`` (the same as a long tensor) and, made at the
+    first backward, the plan of the table gradient. The general adaptor
+    keeps one per layout."""
+
+    def __init__(self, host: np.ndarray, device):
+        self.host = host
+        self.index = torch.as_tensor(host, dtype=torch.long, device=device)
+        self._plan = None
+
+    def grad_plan(self, n_buckets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(positions, lengths): the flat positions of the entries that name
+        a bucket >= 1, in bucket order, and the count of each of the
+        ``n_buckets`` (the combined table's rows, fixed by the layout that
+        keys this bucket). Row 0 is the zero row, a constant: its entries
+        (every pair across slots) are left out and its gradient is 0."""
+        if self._plan is None:
+            flat = self.index.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            lengths = torch.bincount(flat, minlength=n_buckets)
+            zeros = int(lengths[0])
+            lengths[0] = 0
+            self._plan = (order[zeros:], lengths)
+        return self._plan
+
+
+class _RelBiasGather(torch.autograd.Function):
+    """tables (n, n_buckets, H) gathered at a RelBucket into (n, H, T, T).
+    The backward sums the bias gradient bucket by bucket over the bucket's
+    plan, made once per layout; autograd's own backward of the gather sorts
+    the T² indices at every update, which dominated a video update at
+    T = 1,600."""
+
+    @staticmethod
+    def forward(ctx, tables: torch.Tensor, bucket: RelBucket) -> torch.Tensor:
+        ctx.bucket = bucket
+        ctx.n_buckets = tables.shape[1]
+        return tables.transpose(1, 2)[:, :, bucket.index]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        n, H, T, _ = grad.shape
+        positions, lengths = ctx.bucket.grad_plan(ctx.n_buckets)
+        g = grad.reshape(n * H, T * T).index_select(1, positions)
+        sums = torch.segment_reduce(g, "sum", lengths=lengths.expand(n * H, -1).contiguous(), axis=1)
+        return sums.reshape(n, H, ctx.n_buckets).transpose(1, 2), None
+
+
 @dataclasses.dataclass
 class BiasSpec:
     """Lazy self-attention bias: per-layer relative tables + shared absolute
     position bias.
 
-    bucket: (T, T) int — indexes into the combined table's bucket axis
-            (row 0 of the table is the zero/no-bias bucket).
+    rel_bucket: the (T, T) bucket, indexing the combined table's bucket
+            axis (row 0 of the table is the zero/no-bias bucket, which takes
+            no gradient).
     tables: (n_tables, n_buckets, H) — n_tables is 1 (shared) or n_layers.
     abs_bias: (B or 1, H, T, T) or None — abs-position q/k bias, layer-shared.
     """
 
-    bucket: Optional[np.ndarray] = None
+    rel_bucket: Optional[RelBucket] = None
     tables: Optional[torch.Tensor] = None
     abs_bias: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         self._stacked = None
-        self._bucket_t = None
 
-    def _bucket(self) -> torch.Tensor:
-        if self._bucket_t is None:
-            self._bucket_t = torch.as_tensor(np.asarray(self.bucket), dtype=torch.long,
-                                             device=self.tables.device)
-        return self._bucket_t
+    @property
+    def bucket(self) -> Optional[np.ndarray]:
+        """The bucket on the host, (T, T) int32."""
+        return None if self.rel_bucket is None else self.rel_bucket.host
 
     def stacked(self) -> Optional[torch.Tensor]:
         """(n_tables, H, Tq, Tk) relative biases for every layer, gathered
         once per BiasSpec."""
-        if self.tables is None or self.bucket is None:
+        if self.tables is None or self.rel_bucket is None:
             return None
         if self._stacked is None:
-            self._stacked = self.tables[:, self._bucket()].permute(0, 3, 1, 2)
+            self._stacked = _RelBiasGather.apply(self.tables, self.rel_bucket)
         return self._stacked
 
     def layer_bias(self, layer_idx: int) -> Optional[torch.Tensor]:
@@ -180,8 +228,8 @@ class BiasSpec:
         """Decode-path bias: only ``size`` query rows from ``start`` (clamped
         like a dynamic slice), (1, H, size, Tk)."""
         out = None
-        if self.tables is not None and self.bucket is not None:
-            bucket = self._bucket()
+        if self.tables is not None and self.rel_bucket is not None:
+            bucket = self.rel_bucket.index
             start = max(0, min(start, bucket.shape[0] - size))
             rows = bucket[start:start + size]
             table = self.tables[min(layer_idx, self.tables.shape[0] - 1)]

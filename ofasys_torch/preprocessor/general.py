@@ -5,11 +5,12 @@ Sample path (pure numpy):
   instruction_map -> map per slot -> merge adjacent same-group slots
   -> per-position collate into SlotBatch arrays.
 
-The TEXT, BOX, IMAGE (``image`` and the VQGAN codes of ``image_vqgan``),
-AUDIO and MOTION preprocessors are ported (text-like modalities share the
-TEXT group and concatenate into one token run; an IMAGE, AUDIO or MOTION
-slot is a group of its own); a slot of any other modality raises
-``NotImplementedError`` naming the ROADMAP Queue A item that ports it.
+Every preprocessor of ofasys_tpu's registry is ported: TEXT, BOX, IMAGE
+(``image`` and the VQGAN codes of ``image_vqgan``), AUDIO, MOTION, VIDEO,
+PHONE (``phone``, ``text_phone``), STRUCT (``struct``, ``table``,
+``database``) and CATEGORY. Text-like modalities share the TEXT group and
+concatenate into one token run; an IMAGE, AUDIO, MOTION or VIDEO slot is a
+group of its own.
 ``to(device)`` gives the preprocessors that run a model (``image_vqgan``'s
 tokenizer) the device to run it on.
 """
@@ -23,7 +24,8 @@ from ofasys_torch import ModalityType
 from ofasys_torch.configure.config_store import ConfigStore
 # the ported preprocessors register themselves in the ConfigStore
 # (ofasys.preprocess/<name>) when their modules are imported
-from ofasys_torch.preprocessor import audio, box, image, image_vqgan, motion  # noqa: F401
+from ofasys_torch.preprocessor import (audio, box, image, image_vqgan, motion,  # noqa: F401
+                                       struct, video)
 from ofasys_torch.preprocessor.base import BasePreprocess, PreprocessSkipException
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.preprocessor.instruction import Instruction, Slot
@@ -40,12 +42,6 @@ DEFAULT_PREPROCESS = {
     ModalityType.VIDEO: "video",
     ModalityType.STRUCT: "struct",
     ModalityType.CATEGORY: "category",
-}
-
-# ROADMAP Queue A item that ports each preprocessor this slice lacks
-_PENDING = {
-    "phone": 11, "video": 11, "struct": 11, "category": 11, "database": 11,
-    "table": 11, "text_phone": 11,
 }
 
 # modalities whose token outputs merge into the TEXT group
@@ -80,7 +76,8 @@ class GeneralPreprocess:
 
     def _build(self, name: str) -> BasePreprocess:
         if not ConfigStore().contains("ofasys.preprocess", name):
-            self._raise_pending(name)
+            raise KeyError(f"unknown preprocessor {name!r}; registered: "
+                           f"{ConfigStore().names('ofasys.preprocess')}")
         # deep copy: each task owns its preprocessors and may tune their
         # config; the store's config object would leak across tasks
         node = ConfigStore().get("ofasys.preprocess", name)
@@ -99,15 +96,6 @@ class GeneralPreprocess:
             if hasattr(pre, "to"):
                 pre.to(device)
         return self
-
-    @staticmethod
-    def _raise_pending(name: str):
-        item = _PENDING.get(name)
-        where = f"ROADMAP Queue A item {item}" if item else "a later slice"
-        raise NotImplementedError(
-            f"preprocessor {name!r} is not ported to ofasys_torch yet ({where}); "
-            f"ported: {ConfigStore().names('ofasys.preprocess')}"
-        )
 
     # ------------------------------------------------------------- helpers
     @property

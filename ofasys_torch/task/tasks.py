@@ -5,10 +5,7 @@ under ofasys_tpu's registry names and class names.
 
 Data columns follow each task's TSV conventions; the templates are
 defaults, overridden by ``Task(..., instruction=...)`` or a config file.
-Every family builds and parses its template. A family whose preprocessor,
-adaptor or criterion is not ported raises at ``initialize`` naming its
-ROADMAP Queue A item: the STRUCT, PHONE and VIDEO families (sudoku, dart,
-fetaqa, spider, phone_to_text, the video families), item 11.
+Every family builds, parses its template and initializes.
 """
 
 from __future__ import annotations
@@ -257,7 +254,7 @@ class GlueTask(TraverseTask):
 
 @register_config("ofasys.task", "sudoku", TaskConfig)
 class SudokuTask(Task):
-    """Sudoku through STRUCT slots (the struct preprocessor: item 11)."""
+    """Sudoku through STRUCT slots (the struct preprocessor)."""
 
     def __init__(self, cfg=None, **kwargs):
         super().__init__(cfg, **kwargs)
@@ -288,10 +285,11 @@ class SpiderTaskConfig(TaskConfig):
 
 @register_config("ofasys.task", "spider", SpiderTaskConfig)
 class SpiderTask(Task):
-    """Text-to-SQL with execution accuracy. The database preprocessor and
-    the SQL evaluators wait for ROADMAP Queue A item 11: ``initialize``
-    raises, and so does a record whose schema must be read from its
-    database."""
+    """Text-to-SQL with execution accuracy: a record carries a question and
+    a db_id; the database's schema, read from its sqlite file
+    (``utils/sql_eval.dump_schema``), is linearized into the prompt with the
+    question's linked cell values, and ``sql_exec_acc`` runs the predicted
+    and the gold SQL on that database."""
 
     def __init__(self, cfg=None, **kwargs):
         super().__init__(cfg, **kwargs)
@@ -304,18 +302,42 @@ class SpiderTask(Task):
             self.cfg.evaluation.metrics = ("exact_match", "sql_match_acc", "sql_exec_acc")
         if self.cfg.name == "default":
             self.cfg.name = "spider"
+        self._schema_cache: Dict[str, Any] = {}
 
     def initialize(self, global_dict, is_train: bool = True):
-        raise NotImplementedError(
-            f"task {self.name}: the database preprocessor and the SQL evaluators are not ported "
-            "to ofasys_torch yet (ROADMAP Queue A item 11)")
+        super().initialize(global_dict, is_train)
+        # point the execution-accuracy metric at this task's database root
+        for m in self.metrics:
+            if hasattr(m.cfg, "database_path") and self.cfg.database_path:
+                m.cfg.database_path = self.cfg.database_path
+        return self
+
+    def _db_file(self, db_id: str) -> Optional[str]:
+        import os
+
+        root = self.cfg.database_path
+        if not root:
+            return None
+        for cand in (os.path.join(root, db_id, f"{db_id}.sqlite"),
+                     os.path.join(root, f"{db_id}.sqlite")):
+            if os.path.isfile(cand):
+                return cand
+        return None
 
     def preprocess(self, data: Dict[str, Any], split: str) -> Dict[str, Any]:
         db_id = data.get("db_id")
         if db_id and "database" not in data:
-            raise NotImplementedError(
-                f"task {self.name}: reading the schema of database {db_id!r} (utils/sql_eval.py) "
-                "is not ported to ofasys_torch yet (ROADMAP Queue A item 11)")
+            if db_id not in self._schema_cache:
+                from ofasys_torch.utils.sql_eval import dump_schema
+
+                db = self._db_file(db_id)
+                self._schema_cache[db_id] = (
+                    dump_schema(db, db_id) if db else {"db_id": db_id, "tables": {}})
+            # a copy per record with the question and the database file, for
+            # the database preprocessor's linking of question words to cells
+            data["database"] = dict(self._schema_cache[db_id],
+                                    question=str(data.get("question", "")),
+                                    db_path=self._db_file(db_id) or "")
         q = data.get("query")
         if q is not None:
             q = str(q).lower().replace("<unk>", "unk").strip()
@@ -378,8 +400,8 @@ _task("video_question_answering_generative",
 class VideoGenerationTask(Task):
     """Conditional frame generation: a per-sample condition index from the
     first frame's hash; the source video's frames from that index on are
-    zeroed and the target is the condition frame. The video preprocessor
-    waits for ROADMAP Queue A item 11."""
+    zeroed and the target is the condition frame, generated as VQGAN
+    codes."""
 
     def __init__(self, cfg=None, **kwargs):
         super().__init__(cfg, **kwargs)

@@ -7,6 +7,12 @@ as follows:
   * Dense ``kernel`` (in, out)     -> ``weight`` (out, in), transposed
   * Conv ``kernel`` (kh, kw, in, out) of an ``nn.Conv2d`` (the VQGAN)
                                    -> ``weight`` (out, in, kh, kw)
+  * Conv ``kernel`` (k, in, out) of an ``nn.Conv1d`` (HiFi-GAN)
+                                   -> ``weight`` (out, in, k)
+  * ConvTranspose ``kernel`` (k, in, out) of an ``nn.ConvTranspose1d``
+    (HiFi-GAN's upsampling; flipped along k, as flax correlates where
+    torch's transposed convolution convolves)
+                                   -> ``weight`` (in, out, k), unflipped
   * LayerNorm and GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
   * Embed ``embedding``            -> ``weight``
   * PatchEmbed ``kernel`` (p, p, C, E), the ResNet's convolution
@@ -92,7 +98,10 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
                 name = ".".join(path[:-1] + (_RENAME.get(leaf, leaf),))
                 if name not in own:
                     raise KeyError(f"flax param {'/'.join(path)} has no counterpart ({name}) in the net")
-                if leaf == "kernel":
+                if leaf == "kernel" and isinstance(net.get_submodule(".".join(path[:-1])),
+                                                   nn.ConvTranspose1d):
+                    arr = arr[::-1].transpose(1, 2, 0)
+                elif leaf == "kernel":
                     arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             p = own[name]
             if tuple(arr.shape) != tuple(p.shape):
@@ -110,7 +119,7 @@ def _flax_leaf(net: nn.Module, name: str) -> Tuple[str, str]:
     path, leaf = name.rsplit(".", 1) if "." in name else ("", name)
     if leaf == "weight":
         module = net.get_submodule(path) if path else net
-        if isinstance(module, (nn.Linear, nn.Conv2d)):
+        if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
             leaf = "kernel"
         elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
             leaf = "scale"
@@ -146,7 +155,10 @@ def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = N
         path, leaf = _flax_leaf(net, name)
         arr = value.detach().float().cpu().numpy()
         if leaf == "kernel" and name.endswith(".weight"):
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            if isinstance(net.get_submodule(path), nn.ConvTranspose1d):
+                arr = arr.transpose(2, 0, 1)[::-1]
+            else:
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         _set(tree, path, leaf, arr)
     quantized = [(n, m) for n, m in net.named_modules() if is_quantized(m)]
     if tensors is not None or not quantized:

@@ -17,7 +17,10 @@ these layout transforms:
 
 ``taming_to_flax_params`` maps a taming-transformers GumbelVQ state_dict
 onto the flax-path tree of model/vqgan.py's ``GumbelVQ`` (conv OIHW ->
-HWIO, GroupNorm weight -> scale), which ``load_jax_params`` then loads.
+HWIO, GroupNorm weight -> scale), and ``hifigan_to_flax_params`` a HiFi-GAN
+V1 generator's onto model/hifigan.py's (weight norm fused, Conv1d OIk ->
+kIO, ConvTranspose1d IOk -> kIO flipped), which ``load_jax_params`` then
+loads.
 
 ``import_reference_state_dict`` goes reference names -> the flax-path tree
 -> ``load_jax_params``; ``export_reference_state_dict`` goes
@@ -314,6 +317,51 @@ def taming_to_flax_params(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
             _put(out, f"{path}/bias", v)
         else:
             logger.warning("taming_to_flax_params: skipping %s", key)
+    return out
+
+
+def hifigan_to_flax_params(sd: Dict[str, np.ndarray], num_kernels: int = 3) -> Dict[str, Any]:
+    """A HiFi-GAN V1 generator state_dict (the released vocoder, reference
+    module/hifigan.py:115-172) as model/hifigan.py's flax-path tree.
+
+    Released checkpoints keep weight_norm unfused (``weight_g`` /
+    ``weight_v``): w = g * v / ||v||, the norm over every axis but 0 (torch
+    weight_norm's dim=0). Conv1d (O, I, k) -> flax (k, I, O);
+    ConvTranspose1d (I, O, k) -> flax (k, I, O) flipped along k (flax
+    correlates where torch's transposed convolution convolves). The
+    reference's flat ``resblocks`` index n splits into (upsample level
+    n // num_kernels, kernel branch n % num_kernels)."""
+    fused: Dict[str, np.ndarray] = {}
+    for key, raw in sd.items():
+        v = np.asarray(raw)
+        if key.endswith(".weight_v"):
+            g = np.asarray(sd[key[: -len("_v")] + "_g"])
+            norm = np.sqrt((v.reshape(v.shape[0], -1) ** 2).sum(axis=1))
+            fused[key[: -len(".weight_v")] + ".weight"] = v * (
+                g.reshape(-1) / np.maximum(norm, 1e-12)).reshape((-1,) + (1,) * (v.ndim - 1))
+        elif not key.endswith(".weight_g"):
+            fused[key] = v
+
+    out: Dict[str, Any] = {}
+    for key, v in fused.items():
+        k = key[len("generator."):] if key.startswith("generator.") else key
+        m = re.match(r"resblocks\.(\d+)\.(convs[12])\.(\d+)\.(weight|bias)", k)
+        if m:
+            n, sub, j, leaf = int(m.group(1)), m.group(2), m.group(3), m.group(4)
+            path = f"resblocks_{n // num_kernels}_{n % num_kernels}/{sub}_{j}"
+        else:
+            m = re.match(r"(conv_pre|conv_post|ups\.(\d+))\.(weight|bias)", k)
+            if not m:
+                logger.warning("hifigan_to_flax_params: skipping %s", key)
+                continue
+            leaf = m.group(3)
+            path = f"ups_{m.group(2)}" if m.group(2) is not None else m.group(1)
+        if leaf == "bias":
+            _put(out, f"{path}/bias", v)
+        elif path.startswith("ups_"):
+            _put(out, f"{path}/kernel", v.transpose(2, 0, 1)[::-1].copy())
+        else:
+            _put(out, f"{path}/kernel", v.transpose(2, 1, 0))
     return out
 
 

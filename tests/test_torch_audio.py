@@ -250,8 +250,8 @@ def test_general_preprocess_builds_audio_and_keeps_pending_items():
     gp = GeneralPreprocess(d, active=["text", "audio", "audio_embed", "motion_6d"])
     assert set(gp.name2pre) == {"text", "audio", "audio_embed", "motion_6d"}
     assert type(GeneralPreprocess(d, active=["box"]).name2pre["box"]).__name__ == "BoxPreprocess"
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        GeneralPreprocess(d, active=["phone"])
+    # the PHONE preprocessor is ported (tests/test_torch_struct.py)
+    assert type(GeneralPreprocess(d, active=["phone"]).name2pre["phone"]).__name__ == "PhonePreprocess"
 
 
 # ----------------------------------------------------------- audio_fbank
@@ -350,15 +350,17 @@ def test_audio_fbank_adaptor_matches_flax(extra_layers, masks):
 
 def test_unported_audio_adaptors_raise():
     """audio_tgt_fbank is ported (tests/test_torch_tts.py): it builds on the
-    decoder side only. The video adaptor still raises naming its item."""
+    decoder side only. So is the video adaptor (tests/test_torch_video.py),
+    on the encoder side only."""
     d = Dictionary()
     m = GeneralistModel(arch="tiny")
     m.initialize(d, active_adaptors=("text", "audio_tgt_fbank"), device="cpu")
     assert hasattr(m.net.decoder_adaptor, "audio_tgt_fbank")
     assert not hasattr(m.net.encoder_adaptor, "audio_tgt_fbank")
-    with pytest.raises(NotImplementedError, match="video_image_sequence.*Queue A item 11"):
-        GeneralistModel(arch="tiny").initialize(d, active_adaptors=("text", "video_image_sequence"),
-                                                device="cpu")
+    v = GeneralistModel(arch="tiny")
+    v.initialize(d, active_adaptors=("text", "video_image_sequence"), device="cpu")
+    assert hasattr(v.net.encoder_adaptor, "video_image_sequence")
+    assert not hasattr(v.net.decoder_adaptor, "video_image_sequence")
 
 
 # ------------------------------------------------------------- whole model
@@ -589,10 +591,43 @@ def test_speech_to_text_loss_matches_jax(env, crit):
         np.testing.assert_allclose(float(tlog[key]), float(jlog[key]), rtol=LOSS_RTOL)
 
 
+class _PhoneRows:
+    """A dictionary whose ``<phone>`` namespace is rows 8-19 of the model's
+    table (env's dictionaries have no phones)."""
+
+    def __init__(self, d):
+        self.d = d
+
+    def get_start_end_idx(self, prefix):
+        return 8, 20
+
+    def eos(self):
+        return self.d.eos()
+
+
 def test_speech_to_text_ctc_raises(env):
-    tm = env["tm"]
+    """The CTC term is ported (tests/test_torch_ctc.py): with phone targets
+    and ctc_weight > 0 both packages give the same CE, CTC and sum."""
+    jm, tm = env["jm"], env["tm"]
+    load_jax_params(tm.net, env["params"])
+    pad, eos = env["td"].pad(), env["td"].eos()
+    rng = np.random.default_rng(11)
+    tgt = np.full((8, 6), pad, np.int64)
+    for i in range(8):
+        n = int(rng.integers(1, 6))
+        tgt[i, :n] = rng.integers(9, 20, n)
+        tgt[i, n] = eos
+    jc = JS2TCriterion(JS2TConfig(ctc_weight=0.5), pad)
+    tc = SpeechToTextCriterion(SpeechToTextCriterionConfig(ctc_weight=0.5), pad)
+    jc.global_dict, tc.global_dict = _PhoneRows(env["jd"]), _PhoneRows(env["td"])
+    jsample = _jax_sample(env["jb"])
+    jsample["encoder_target"] = jnp.asarray(tgt, jnp.int32)
     sample = sample_to_device(env["tb"], "cpu")
-    sample["encoder_target"] = torch.full((8, 4), 5)
-    crit = SpeechToTextCriterion(SpeechToTextCriterionConfig(ctc_weight=0.5), env["td"].pad())
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        crit(tm, sample, None, train=False)
+    sample["encoder_target"] = torch.as_tensor(tgt)
+    jl, jss, jlog = jc(jm, {"params": env["params"]}, jsample, None, train=False)
+    with torch.no_grad():
+        tl, tss, tlog = tc(tm, sample, None, train=False)
+    assert float(tlog["ctc_loss"]) > 0
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    for key in ("ce_loss", "ctc_loss", "nll_loss"):
+        np.testing.assert_allclose(float(tlog[key]), float(jlog[key]), rtol=LOSS_RTOL)

@@ -181,8 +181,9 @@ def test_instruction_map_is_bit_equal_from_one_seed():
 def test_box_preprocess_is_registered():
     tgp = GeneralPreprocess(Dictionary(), active=["text", "box"])
     assert isinstance(tgp.name2pre["box"], BoxPreprocess)
-    with pytest.raises(NotImplementedError, match="phone"):
-        GeneralPreprocess(Dictionary(), active=["phone"])
+    # the PHONE preprocessor is ported too (tests/test_torch_struct.py)
+    assert type(GeneralPreprocess(Dictionary(), active=["phone"]).name2pre["phone"]).__name__ == \
+        "PhonePreprocess"
 
 
 # ------------------------------------------------------------------ search

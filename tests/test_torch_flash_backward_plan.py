@@ -23,6 +23,11 @@ SHAPES = {
     "infill_long_encoder": (16, 12, 488, 488, 64, True),
     "infill_long_decoder": (16, 12, 528, 528, 64, True),
     "serve_long": (8, 12, 944, 944, 64, False),
+    # train_video: the caption encoder (8 frames x 196 patches + the
+    # prompt), video_generation's encoder and its 1,032 x 1,568 cross
+    "video_encoder": (8, 12, 1600, 1600, 64, True),
+    "video_generation_encoder": (4, 12, 1568, 1568, 64, True),
+    "video_generation_cross": (4, 12, 1032, 1568, 64, True),
     "per_bh": (2, 12, 300, 300, 64, False),
     "ragged": (3, 12, 200, 333, 64, True),
     "D88": (2, 32, 300, 333, 88, True),
@@ -75,6 +80,10 @@ PATH_PLANS = {
     "gigaword_long_cross": (208, 5, 2, 16, 5),
     "infill_long_encoder": (176, 3, 16, 16, 3),
     "infill_long_decoder": (176, 3, 16, 16, 3),
+    # the first main path whose dq partials pass the cap: samples in groups of 4
+    "video_encoder": (240, 7, 1, 4, 7),
+    "video_generation_encoder": (224, 7, 1, 4, 7),
+    "video_generation_cross": (224, 7, 1, 4, 7),
     "long_T4096": (240, 18, 1, 1, 18),
     "long_T8192": (240, 35, 1, 1, 9),
 }

@@ -1,8 +1,9 @@
 """ofasys_torch stands alone: importing every one of its modules loads no
 jax, flax, optax or ofasys_tpu module, and its entry points refuse to run on an
 absent card unless the CPU is asked for explicitly (the hub, the server,
-Trainer.fit, OFASys.from_pretrained, utils/profiler.time_fn and the VQGAN
-tokenizer, also as the image_vqgan preprocessor builds it)."""
+Trainer.fit, OFASys.from_pretrained, utils/profiler.time_fn, the VQGAN
+tokenizer, also as the image_vqgan preprocessor builds it, and the HiFi-GAN
+vocoder)."""
 
 import json
 import os
@@ -92,6 +93,14 @@ if not torch.cuda.is_available():
         raised["ImageVqganPreprocess.tokenizer"] = False
     except RuntimeError:
         raised["ImageVqganPreprocess.tokenizer"] = True
+    from ofasys_torch.model.hifigan import HifiGanConfig, HifiGanVocoder
+    small = HifiGanConfig(upsample_initial_channel=16)
+    try:
+        HifiGanVocoder(small)
+        raised["HifiGanVocoder"] = False
+    except RuntimeError:
+        raised["HifiGanVocoder"] = True
+    HifiGanVocoder(small, device="cpu")
     out["raised"] = raised
 print(json.dumps(out))
 """
@@ -126,10 +135,15 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
                 "ofasys_torch.engine.criterion.tacotron2_loss",
                 "ofasys_torch.engine.criterion.speech_pretrain_loss",
                 "ofasys_torch.engine.criterion.scst_loss", "ofasys_torch.model.vqgan",
-                "ofasys_torch.adaptor.image_vqgan", "ofasys_torch.preprocessor.image_vqgan"}
+                "ofasys_torch.adaptor.image_vqgan", "ofasys_torch.preprocessor.image_vqgan",
+                "ofasys_torch.preprocessor.struct", "ofasys_torch.preprocessor.video",
+                "ofasys_torch.adaptor.video", "ofasys_torch.model.hifigan", "ofasys_torch.model.pooling",
+                "ofasys_torch.utils.spider_linking", "ofasys_torch.utils.sql_classical",
+                "ofasys_torch.utils.sql_eval"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
     if "raised" in out:
         assert out["raised"] == {"initialize": True, "OFASys": True, "InferenceServer": True,
                                  "Trainer.fit": True, "OFASys.from_pretrained": True, "time_fn": True,
-                                 "VQGANTokenizer": True, "ImageVqganPreprocess.tokenizer": True}
+                                 "VQGANTokenizer": True, "ImageVqganPreprocess.tokenizer": True,
+                                 "HifiGanVocoder": True}

@@ -401,6 +401,11 @@ FLASH_SHAPES = {
     # train_image_infilling (bos + 1,024 codes)
     "tts_decoder_causal": (16, 288, 288, 12, 64, "shared", True),
     "image_infilling_decoder_causal": (8, 1032, 1032, 12, 64, "shared", True),
+    # train_video: the caption encoder (8 frames x 196 patches + the
+    # prompt: the dq partials pass SCRATCH_CAP, samples in groups of 4) and
+    # video_generation's cross attention (1,025 codes + pad x 1,568 patches)
+    "video_encoder": (8, 1600, 1600, 12, 64, "shared", False),
+    "video_generation_cross": (4, 1032, 1568, 12, 64, "shared", False),
     # head dims the backward takes in 112- and 48-key ranges, a batch of
     # one (its bias counts as per-(b, h): ds), and T = 4,096, where the dq
     # partials pass SCRATCH_CAP and the samples go one at a time

@@ -1,11 +1,10 @@
 """ofasys_torch's task zoo (task/tasks.py) against ofasys_tpu's: the same
 registry names and class names; each family's templates, criterion,
 metrics, required preprocessors and adaptors; the raw-record
-``preprocess`` hooks on the same records; the families whose modules are
-not ported raise at ``initialize`` naming their ROADMAP Queue A item, the
-others (text_to_speech, audio_pretraining, image_gen and image_infilling
-among them) build their criterion and metrics; GLUE's subtasks from a keyword and from the
-store's flags."""
+``preprocess`` hooks on the same records; every family (the STRUCT,
+PHONE and VIDEO ones among them) builds its criterion and metrics at
+``initialize``; GLUE's subtasks from a keyword and from the store's
+flags."""
 
 import numpy as np
 import pytest
@@ -18,12 +17,8 @@ from ofasys_torch.configure import ConfigStore
 from ofasys_torch.preprocessor.dictionary import Dictionary
 
 FAMILIES = [n for n in JConfigStore().names("ofasys.task") if n not in ("default", "traverse")]
-# family -> the ROADMAP Queue A item its initialize names
-UNPORTED = {
-    "sudoku": 11, "dart": 11, "fetaqa": 11, "spider": 11,
-    "phone_to_text": 11, "video_caption": 11, "video_classify": 11,
-    "video_question_answering_generative": 11, "video_generation": 11,
-}
+# family -> the ROADMAP Queue A item its initialize names (none is left)
+UNPORTED = {}
 
 
 def _both(name, **kw):
@@ -91,9 +86,13 @@ def test_preprocess_hooks_match(name):
 
 
 def test_spider_schema_read_raises_naming_item_11():
-    _, t = _both("spider")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t.preprocess({"question": "q", "db_id": "farm", "query": "select 1"}, "train")
+    """The schema read is ported (tests/test_torch_struct.py): without a
+    database root both packages give the database an empty schema."""
+    j, t = _both("spider")
+    rec = {"question": "q", "db_id": "farm", "query": "select 1"}
+    assert t.preprocess(dict(rec), "train") == j.preprocess(dict(rec), "train")
+    assert t.preprocess(dict(rec), "train")["database"] == \
+        {"db_id": "farm", "tables": {}, "question": "q", "db_path": ""}
 
 
 @pytest.mark.parametrize("subtask", ["cola", "sst2", "mnli", "qnli", "qqp", "mrpc", "rte", "stsb"])
