@@ -121,8 +121,9 @@ After serve_motion (phase 19), on the serve model:
      a second base model from seed 1: B1 in both members' encoders, a
      one-member ensemble is the model bit for bit, p50 beside serve's
  38. serve_speculative: OFASys.set_draft with a tiny-arch draft (random
-     weights from SEED + 7), gamma 4: serve's 16 sources as greedy calls
-     (beam 1, no n-gram blocking) one at a time, then one dispatch of 8,
+     weights from SEED + 7), gamma 4: the first 4 of serve's sources as
+     greedy calls (beam 1, no n-gram blocking) one at a time, then one
+     dispatch of 8,
      each against the target alone in the same run (tokens equal, or
      parting at a near-tie of the target within SPEC_TIE_TOL, or where one
      side takes EOS and beam 1's answer scores better); the target steps,
@@ -150,20 +151,20 @@ After train_full (phase 20), before the grounding model:
      through the ConfigStore, text_infilling and gigaword TSV files of two
      batches' worth of rows each (train's byte lengths), two Tasks reading
      them (load_dataset_from_path; train's templates and batch sizes), then
-     Trainer(cfg).fit(GeneralistModel(arch="base"), tasks, max_update=6)
-     in summed mode (dropout 0.1, adamw at 1e-4, a checkpoint every 3
+     Trainer(cfg).fit(GeneralistModel(arch="base"), tasks, max_update=4)
+     in summed mode (dropout 0.1, adamw at 1e-4, a checkpoint every 2
      updates): the vocabulary (about 50.3k), 36 B1 and 36 B2 an update, a
      falling loss, the update ms beside train's, the batches' host ms and
      the prefetch thread's waits, checkpoint bytes and save/join/load ms,
      the host syncs of an update; a second Trainer resumes from
-     checkpoint_1_3 into its own save_dir and its checkpoint_last equals
+     checkpoint_1_2 into its own save_dir and its checkpoint_last equals
      the first's bit for bit, with the meters and iterator states; one
      resumed update profiled
  33. serve_pretrained: OFASys.from_pretrained(checkpoint_last) serves
      serve's 16 requests (sources of serve's token counts under the BPE
      table) through InferenceServer, tokens equal to
      OFASys.from_trainer(trainer, tasks)'s on the same batches; an ensemble
-     from_pretrained([checkpoint_last, checkpoint_1_3]) serves 4 (B1 twice
+     from_pretrained([checkpoint_last, checkpoint_1_2]) serves 4 (B1 twice
      per encoder layer); p50 beside serve's
 After serve_pretrained, on train_fit's files and checkpoints:
  35. evaluate: `python -m ofasys_torch.cli.evaluate evaluate.json --ckpt
@@ -182,9 +183,9 @@ After serve_pretrained, on train_fit's files and checkpoints:
      the same scores with B1's plain version in its place, on the card
  36. launch: `python -m ofasys_torch.launch launch.json`, train_fit's run
      written as JSON (its tasks, TSV files, batch sizes, dropout, adamw,
-     seed, 6 updates: the polynomial schedule's length is max_update, so a
-     3-update run would step another learning rate), into its own
-     save_dir: checkpoint_1_3 and checkpoint_last equal train_fit's bit for
+     seed, 4 updates: the polynomial schedule's length is max_update, so a
+     2-update run would step another learning rate), into its own
+     save_dir: checkpoint_1_2 and checkpoint_last equal train_fit's bit for
      bit (params, moments, step) with equal meters, 36 B1 and 36 B2 an
      update; the same config as YAML with an _include parent and
      ${var} paths loads to the same dict; one
@@ -237,7 +238,8 @@ audio_fbank, audio_tgt_fbank; random weights from SEED):
 Then, on an image-code model (the 8,192 <code>_i in its dictionary, the
 image_vqgan preprocessor's VQGAN at 256 px on the card; adaptors text,
 image_vit, image_vqgan):
- 46. serve_image_gen: 2 prompts best-of-2 through Task("image_gen"): 1,024
+ 46. serve_image_gen (the image-code model at 3+3 layers, CODE_LAYERS): 2
+     prompts best-of-2 through Task("image_gen"): 1,024
      codes each, every token a <code>, 256 x 256 images, the rerank skipped
      without CLIP weights (logged), B1 in the encoder
  47. train_image_infilling: 5 updates of B=8 with targets encoded to codes
@@ -285,6 +287,27 @@ After train_video:
      frames on the card, ms a second of audio, the first two against the
      CPU; the pooling head in each mode over serve's encoder output, card
      against CPU
+ 54. serve_scan (after nan_check): the serve hub's weights saved as a
+     stacked-layout checkpoint (``layers_scan/layer``) and served by
+     OFASys.from_pretrained into a scan_layers model: serve's tokens
+ 55. train_remat: one update's gradients of the two-task step under remat
+     'none', 'full' and 'dots' (equal bit for bit), each mode's peak memory
+     and gradient-step time, B1 twice per attention call under remat; then
+     train_long's batches under 'none' and 'full' (B3 recomputed)
+ 56. train_moe / serve_moe: 8 experts in every second layer at the base
+     width: 5 updates with a falling loss and the aux term logged, then
+     serve's 16 requests
+ 57. parallel_world: two spawned ranks on cuda:0 over gloo: one gradient
+     step at data=2, fsdp=2, tensor=2 (six heads a rank), sequence=2
+     (gigaword_long padded to 1,000: ring blocks of 500 on B3 and the flash
+     backward), expert=2 and pipeline=2, each against the one-process
+     step at the base width and 2+2 layers (each rank's parameter bytes
+     printed: fsdp holds only its slices); OFASys.shard at tensor=2
+     serving serve's dispatches in bf16 and after quantize() (B7 on the
+     weight shards) against one-rank serving; the ops staged through the
+     host printed
+ 58. nccl_world: the data path in a one-rank NCCL world, run beside
+     parallel_world
 The kernel phase holds B1 and B2 at the shapes of the new paths too (the
 asr encoder, causal decoder and cross attention, the motion decoder in full
 context and its cross attention, serve_asr's dispatches and serve_motion's
@@ -322,7 +345,9 @@ held at train_video's flash calls (the caption encoder at 8 x 1,600,
 video_generation's encoder, causal decoder and its 1,032 x 1,568 cross)
 with both planted faults, B3 at serve_video's dispatch and serve_spider's
 second batch; B1 and B2 at train_video's caption decoder and every call of
-train_struct and train_asr_ctc, B1 at serve_spider's first batch.
+train_struct and train_asr_ctc, B1 at serve_spider's first batch; B1
+and B2 at the tensor rank's six heads and B3 with the flash backward at
+the ring's blocks (non-causal and the causal diagonal).
 The build phase logs ptxas's registers and spills of every kernel and
 fails if B6-bwd's row kernel spills.
 Prints a ``{"kernels": [...]}`` line, then, last,
@@ -755,7 +780,7 @@ def _route(cfg, B, Tq, Tk, dropout_rate=0.0):
                            bias_shape=(1, H, Tq, Tk), mask_shape=(B, 1, 1, Tk))
 
 
-def time_ms(fn, n: int = 50, repeats: int = 5) -> float:
+def time_ms(fn, n: int = 50, repeats: int = 3) -> float:
     """Median over ``repeats`` of the mean device time of ``n`` back-to-back
     calls. A GPU sleep first lets the host queue the calls ahead, so the
     events bracket device work and not Python launch overhead: twice the
@@ -2016,20 +2041,28 @@ def _expected_launches(gp, calls, steps, net, tpl=TPL, members=1):
     return shapes, expected
 
 
-def build_base_hub():
-    """The base arch at full width (E=768, FFN 3072, 12 heads, 6+6 layers)
-    with 50,000 ``<text>_i`` symbols padded to a multiple of 128, random
-    weights from SEED, bf16 compute on the card."""
-    from ofasys_torch import GeneralistModel, OFASys
+def base_dictionary():
+    """The base slice's dictionary (50,000 ``<text>_i`` symbols padded to a
+    multiple of 128) and its text and image preprocessor."""
     from ofasys_torch.preprocessor.dictionary import Dictionary
     from ofasys_torch.preprocessor.general import GeneralPreprocess
 
-    t0 = time.perf_counter()
     d = Dictionary()
     gp = GeneralPreprocess(d, active=["text", "image"])   # registers <text>_0..255 and <mask>
     for i in range(256, 50000):                       # GPT-2-scale text vocabulary
         d.add_symbol(f"<text>_{i}")
     d.pad_to_multiple_(128)
+    return d, gp
+
+
+def build_base_hub():
+    """The base arch at full width (E=768, FFN 3072, 12 heads, 6+6 layers)
+    with 50,000 ``<text>_i`` symbols padded to a multiple of 128, random
+    weights from SEED, bf16 compute on the card."""
+    from ofasys_torch import GeneralistModel, OFASys
+
+    t0 = time.perf_counter()
+    d, gp = base_dictionary()
     model = GeneralistModel(arch="base")
     model.cfg.dropout = 0.0
     model.initialize(d, active_adaptors=ACTIVE_ADAPTORS, dtype=torch.bfloat16, device="cuda", seed=SEED)
@@ -2523,7 +2556,7 @@ def trunk_check(hub, card):
                 trunk_busy_ms=busy)
 
 
-def _selection_log(hub, instruction, data, kw, unconstrained=False):
+def _selection_log(hub, instruction, data, kw, unconstrained=False, result=None):
     """One inference of the batch with every stable top-k of the generator
     recorded: per call, the indices it kept and, per request row, the
     smallest gap between neighbours among the kept and the first dropped
@@ -2531,7 +2564,8 @@ def _selection_log(hub, instruction, data, kw, unconstrained=False):
     With ``unconstrained`` also the plain beam's choice of its 2K
     candidates from all K x V (``sg._full_top_k``, not the stable top-k).
     Only the generator's two top-k functions are wrapped; each wrapper
-    calls the function it replaces with the arguments as given."""
+    calls the function it replaces with the arguments as given. ``result``
+    (a list) receives the inference's output."""
     from ofasys_torch.generator import sequence_generator as sg
 
     saved, log_ = (sg._top_k, sg._full_top_k), []
@@ -2550,9 +2584,11 @@ def _selection_log(hub, instruction, data, kw, unconstrained=False):
     if unconstrained:
         sg._full_top_k = recorder(saved[1])
     try:
-        hub.inference(instruction, data, **kw)
+        out = hub.inference(instruction, data, **kw)
     finally:
         sg._top_k, sg._full_top_k = saved
+    if result is not None:
+        result.append(out)
     return log_
 
 
@@ -3896,9 +3932,9 @@ def train_optimizers_and_check(d, gp, card, batches):
 # train_fit: the train mix from TSV files through Task + Trainer.fit with a
 # GPT-2-sized BPE table (256 bytes + 50,000 merges + <|endoftext|>), summed
 # mode, a checkpoint every FIT_SAVE_EVERY updates; then a second Trainer
-# resumes from checkpoint_1_3 into its own save_dir.
-FIT_UPDATES = 6
-FIT_SAVE_EVERY = 3
+# resumes from checkpoint_1_2 into its own save_dir.
+FIT_UPDATES = 4
+FIT_SAVE_EVERY = 2
 N_MERGES = 50000
 FIT_TASKS = {
     "text_infilling": dict(TRAIN_TASKS["text_infilling"], cols="0:text"),
@@ -4303,8 +4339,8 @@ def train_fit_and_check(fx, card, device="cuda", arch="base", train_res=None):
         f"{[u + 1 for u in opens]} wait for its first batches [host CPU]")
 
     run1, run2 = (os.path.join(fx["root"], r) for r in ("run1", "run2"))
-    ck13 = os.path.join(run1, f"checkpoint_1_{FIT_SAVE_EVERY}")
-    nbytes = os.path.getsize(ck13)
+    ck_mid = os.path.join(run1, f"checkpoint_1_{FIT_SAVE_EVERY}")
+    nbytes = os.path.getsize(ck_mid)
     log(f"train_fit: checkpoint {nbytes} bytes ({nbytes / 2 ** 30:.3f} GiB: params, adamw moments, "
         f"step); first run's saves {[round(x, 1) for x in first_saves[0]]} ms to return (host copy, "
         f"background write started), joins {[round(x, 1) for x in first_saves[1]]} ms; loads "
@@ -4340,7 +4376,7 @@ def train_fit_and_check(fx, card, device="cuda", arch="base", train_res=None):
                metric_fetches=first.host_syncs,
                profile=second.profile, bpe_table=fx["table"], regex=REGEX_BACKEND)
     return launches, res, dict(trainer=first, tasks=tasks, last=os.path.join(run1, "checkpoint_last"),
-                               ck13=ck13)
+                               ck_mid=ck_mid)
 
 
 def _bpe_requests(gp):
@@ -4386,7 +4422,7 @@ def serve_pretrained_and_check(fit, card, device="cuda", serve_res=None):
         f"{mismatches} of {len(reqs)} requests differ")
     if mismatches:
         raise SystemExit("serve_pretrained: from_pretrained's tokens differ from from_trainer's")
-    ens = OFASys.from_pretrained([fit["last"], fit["ck13"]], device=device)
+    ens = OFASys.from_pretrained([fit["last"], fit["ck_mid"]], device=device)
     if device != "cuda":
         for m in ens._ensemble:
             m.cfg.attn_kernel = "pallas"
@@ -4906,7 +4942,7 @@ def launch_and_check(fx, fit, card, fit_launches, device="cuda", arch="base"):
     run = os.path.join(fx["root"], "launch")
     diffs = {}
     metas = {}
-    for name, ref in ((f"checkpoint_1_{FIT_SAVE_EVERY}", fit["ck13"]), ("checkpoint_last", fit["last"])):
+    for name, ref in ((f"checkpoint_1_{FIT_SAVE_EVERY}", fit["ck_mid"]), ("checkpoint_last", fit["last"])):
         a, meta_a = cu.load_checkpoint(os.path.join(run, name))
         b, meta_b = cu.load_checkpoint(ref)
         diffs[name] = _ckpt_trees_equal(a, b)
@@ -4952,11 +4988,14 @@ def launch_and_check(fx, fit, card, fit_launches, device="cuda", arch="base"):
 
 
 # ------------------------------------------------------------- slice 16
-# serve_speculative: serve's 16 sources as greedy calls (beam 1, no n-gram
+# serve_speculative: serve's sources as greedy calls (beam 1, no n-gram
 # blocking: the calls set_draft routes) one at a time, then one dispatch of
 # the first 8, with a tiny-arch draft (random weights from SEED + 7) and
 # with the target as its own draft
 SPEC_GAMMA = 4
+# requests decoded one at a time in each speculative run: the first 4 of
+# serve's 16 (the dispatch of 8 takes the first 8)
+SPEC_SINGLES = 4
 SPEC_OPTS = dict(beam_size=1, no_repeat_ngram_size=0, max_len_b=MAX_LEN_B)
 DRAFT_ARCH = "tiny"
 # a request's tokens may part from the target-alone run's where the
@@ -5044,12 +5083,13 @@ def _spec_partings(hub, records, spec, plain):
 
 
 def _spec_run(spec_hub, plain_hub, records, card, label):
-    """Each record alone through both hubs (target-alone, speculative,
-    speculative, target-alone, timed by the host clock ending in a
-    synchronize), then one dispatch of the first 8: the speculative runs'
-    launch counts (the first speculative pass and the dispatch), answers,
-    per-call stats and host syncs, and the p50s."""
+    """Each of the first SPEC_SINGLES records alone through both hubs
+    (target-alone, speculative, speculative, target-alone, timed by the
+    host clock ending in a synchronize), then one dispatch of the first 8:
+    the speculative runs' launch counts (the first speculative pass and the
+    dispatch), answers, per-call stats and host syncs, and the p50s."""
     dev = spec_hub.device
+    records = records[:SPEC_SINGLES]
     spec_hub.inference(TPL, records[:2], **SPEC_OPTS)          # warm-up, makes the generator
     plain_hub.inference(TPL, records[:2], **SPEC_OPTS)
     gen = _spec_gen(spec_hub)
@@ -5217,12 +5257,12 @@ def _fit_model(arch, device):
 
 
 def _vs_train_fit(run_dir, fit, label):
-    """checkpoint_1_3 and checkpoint_last of ``run_dir`` against train_fit's,
+    """checkpoint_1_2 and checkpoint_last of ``run_dir`` against train_fit's,
     params, moments and step bit for bit, with the meters."""
     from ofasys_torch.utils import checkpoint_utils as cu
 
     diffs, meters = {}, {}
-    for name, ref in ((f"checkpoint_1_{FIT_SAVE_EVERY}", fit["ck13"]), ("checkpoint_last", fit["last"])):
+    for name, ref in ((f"checkpoint_1_{FIT_SAVE_EVERY}", fit["ck_mid"]), ("checkpoint_last", fit["last"])):
         a, meta_a = cu.load_checkpoint(os.path.join(run_dir, name))
         b, meta_b = cu.load_checkpoint(ref)
         diffs[name] = _ckpt_trees_equal(a, b)
@@ -5485,6 +5525,10 @@ IMAGE_GEN_TPL = "[TEXT:cap] -> [IMAGE:code,preprocess=image_vqgan,adaptor=image_
 IMAGE_INFILL_TPL = ("what is the complete image? [IMAGE:img,mask_ratio=0.5] -> "
                     "[IMAGE:code,preprocess=image_vqgan,adaptor=image_vqgan]")
 CODE_IMAGE_SIZE = 256
+# serve_image_gen decodes 1,024 codes a candidate one step at a time on the
+# host: the code model (image_gen, image_infilling) runs at the base width
+# and half its depth
+CODE_LAYERS = 3
 IMAGE_GEN_PROMPT = (130, 160)
 N_IMAGE_GEN_PROMPTS = 2
 IMAGE_GEN_BEST_OF = 2
@@ -5520,14 +5564,16 @@ def vqgan_preprocess(device="cuda", code_image_size=CODE_IMAGE_SIZE):
 
 
 def build_vqgan_model(d, device="cuda", arch="base", dtype=torch.bfloat16, adaptors=VQGAN_ADAPTORS,
-                      code_image_size=CODE_IMAGE_SIZE):
+                      code_image_size=CODE_IMAGE_SIZE, layers=None):
     """The image-code model (random weights from SEED), its image_vqgan
-    adaptor at the preprocessor's code size."""
+    adaptor at the preprocessor's code size; ``layers`` cuts both stacks
+    to that depth."""
     from ofasys_torch import GeneralistModel
     from ofasys_torch.adaptor.image_vqgan import ImageVqganAdaptorConfig
 
     t0 = time.perf_counter()
-    model = GeneralistModel(arch=arch)
+    model = GeneralistModel(arch=arch, **({} if layers is None else
+                                          {"encoder.layers": layers, "decoder.layers": layers}))
     model.initialize(d, active_adaptors=adaptors, dtype=dtype, device=device, seed=SEED,
                      adaptor_cfgs={"image_vqgan": ImageVqganAdaptorConfig(code_image_size=code_image_size)})
     cfg = model.cfg
@@ -6395,6 +6441,534 @@ def _kernel_entry(name, launches, main_path, rows, err_key, nominal, card, **ext
     }
 
 
+# ------------------------------------------------------------- parallelism
+# remat modes of train_remat; its gradients are held to the run-to-run
+# difference of remat='none' itself (0 where the kernels are deterministic)
+# and at most REMAT_GRAD_REL_TOL
+REMAT_MODES = ("none", "full", "dots")
+REMAT_GRAD_REL_TOL = 1e-6
+# the MoE slice: 8 experts in every second layer at the base width
+MOE = {"moe_experts": 8, "moe_every_n": 2}
+N_MOE_UPDATES = 5
+# parallel_world: two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device); its training updates run the base width at this
+# depth (the serving check runs the base hub whole)
+WORLD = 2
+WORLD_LAYERS = 2
+WORLD_THREADS = 4
+# OFASys.shard against one-rank serving: the row-parallel out_proj and fc2
+# round each half's bf16 GEMM and sum the halves in fp32, where one GEMM
+# rounds its own fp32 sum once, and the q/k/v and fc1 halves run other GEMM
+# shapes: bf16 roundings differ,
+# and a beam selection kept by less than that margin can go either way, as
+# between B1 and the plain path (CLOSED_TIE_TOL)
+SHARD_TIE_TOL = CLOSED_TIE_TOL
+# the updates of parallel_world: (label, ParallelConfig fields, model config,
+# which batches). Each rank's gradients of one update (dropout 0) are held
+# against the one-process update's at GRAD_REL_TOL / LEAF_REL_TOL. The MoE
+# update routes without dropping a token on either side (capacity 8 x the
+# even share; the sharded capacity is per rank) and leaves the aux term out
+# (it averages per-rank routing statistics).
+WORLD_UPDATES = [
+    ("data", dict(data=2), {}, "train"),
+    ("fsdp", dict(data=1, fsdp=2), {}, "train"),
+    ("tensor", dict(data=1, tensor=2), {}, "train"),
+    ("sequence", dict(data=1, sequence=2), {"sequence_parallel": True}, "long"),
+    ("expert", dict(data=1, expert=2), dict(MOE, moe_capacity_factor=8.0, moe_aux_weight=0.0), "train"),
+    ("pipeline", dict(data=1, pipeline=2), {"pipeline_stages": 2, "scan_layers": True}, "train"),
+]
+
+
+def _updates(model, batches, n_updates, label, card):
+    """``n_updates`` summed multi-task updates (Adam at TRAIN_LR) on device
+    batches; returns (launches, losses, per-task logs, step ms, peak GiB)."""
+    from ofasys_torch.configure.configs import OptimizationConfig
+    from ofasys_torch.engine.optim import build_optimizer
+    from ofasys_torch.engine.train_step import TrainState, make_multitask_train_step
+    from ofasys_torch.utils.pytree import sample_to_device
+
+    dev = {n: sample_to_device(b, "cuda") for n, b in batches.items()}
+    crit = make_criteria(batches, model.global_dict.pad())
+    opt = build_optimizer(OptimizationConfig(lr=(TRAIN_LR,)))
+    state = TrainState.create(model.net, opt)
+    step = make_multitask_train_step(model, crit, opt)
+    state, _ = step(state, dev, SEED)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs, times = [], []
+    for _ in range(n_updates):
+        t0 = time.perf_counter()
+        state, out = step(state, dev, SEED)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(out)
+    launches = read_counts()
+    losses = [sum(float(t["loss"]) for t in o["tasks"].values())
+              / sum(float(t["sample_size"]) for t in o["tasks"].values()) for o in outs]
+    logs = {n: {k: [round(float(o["tasks"][n][k]), 4) for o in outs] for k in ("loss", "moe_aux")
+                if k in outs[0]["tasks"][n]} for n in dev}
+    return (launches, losses, logs, statistics.median(times) * 1e3,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def train_remat_and_check(d, card, batches, long_batches):
+    """train_remat: one update's gradients of the base two-task update
+    (dropout 0.1, one step generator) under remat 'none', 'full' and
+    'dots': equal within the run-to-run difference of 'none'; the peak
+    memory and the time of a gradient step for each mode, and the launches
+    the recompute implies (every attention forward twice, B1 or B3, its
+    backward once). Then one train_long gradient step under 'full', B3 and
+    the flash backward recomputed."""
+    from ofasys_torch.utils.pytree import sample_to_device
+
+    model = build_train_model(d, "cuda", adaptors=("text",))
+    names = [n for n, _ in model.net.named_parameters()]
+    params = list(model.net.parameters())
+    res = {}
+    counts = {}
+    for label, bs in (("train_remat", batches), ("train_remat_long", long_batches)):
+        dev = {n: sample_to_device(b, "cuda") for n, b in bs.items()}
+        crit = make_criteria(bs, d.pad())
+        per_update = _expected_train_launches(bs, model.cfg, model.net)
+        modes = REMAT_MODES if label == "train_remat" else ("none", "full")
+        grads = {}
+        for mode in modes:
+            model.cfg.remat = mode
+            grads[mode] = _grads(model, crit, params, 0, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            again = _grads(model, crit, params, 0, dev)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            expected = dict(per_update)
+            if mode != "none":
+                for k in ("dense_attention_fwd", "flash_attention_fwd"):
+                    expected[k] *= 2
+            noise = _grad_diff(names, again, grads[mode])[0]
+            rel, norm_rel, leaves = _grad_diff(names, grads[mode], grads["none"])
+            worst = max(leaves, key=leaves.get)
+            log(f"  {label} remat={mode!r}: gradient step {ms:.1f} ms, peak device memory {peak:.3f} GiB, "
+                f"launches {({k: v for k, v in launches.items() if v})} (expected "
+                f"{({k: v for k, v in expected.items() if v})}); gradients vs 'none' rel {rel:.3e} "
+                f"(worst leaf {worst} {leaves[worst]:.3e}), run-to-run {noise:.3e} [{card}]")
+            res[f"{label}_{mode}"] = dict(grad_step_ms=ms, peak_gib=peak, grad_rel=rel, run_to_run=noise)
+            counts[f"{label}_{mode}"] = launches
+            if launches != expected:
+                raise SystemExit(f"{label} remat={mode!r}: the recompute did not launch the kernels "
+                                 "as expected")
+            if mode != "none" and not rel <= max(2 * res[f"{label}_none"]["run_to_run"], REMAT_GRAD_REL_TOL):
+                raise SystemExit(f"{label} remat={mode!r}: gradients differ from remat='none'")
+            del again
+        del grads
+        torch.cuda.empty_cache()
+    model.cfg.remat = "none"
+    del model, params
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def train_moe_and_check(d, card, batches):
+    """train_moe: the base width with MOE (8 experts in every second layer):
+    N_MOE_UPDATES updates, a falling loss, the load-balance aux term logged
+    per task; the attention kernels launched once per call of their route.
+    Returns the launches, the results and the model (for serve_moe)."""
+    model = build_train_model(d, "cuda", adaptors=ACTIVE_ADAPTORS, **MOE)
+    moes = sum(1 for n, _ in model.net.named_parameters() if n.endswith("moe_ffn.moe_w1"))
+    launches, losses, logs, ms, peak = _updates(model, batches, N_MOE_UPDATES, "train_moe", card)
+    per_update = _expected_train_launches(batches, model.cfg, model.net)
+    expected = {k: v * N_MOE_UPDATES for k, v in per_update.items()}
+    log(f"  train_moe: {moes} MoE layers of {MOE['moe_experts']} experts; loss per token "
+        f"{[round(x, 5) for x in losses]}; per task {logs}; step {ms:.1f} ms, peak {peak:.3f} GiB; "
+        f"launches {({k: v for k, v in launches.items() if v})} (expected "
+        f"{({k: v for k, v in expected.items() if v})}) [{card}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("train_moe: the loss did not fall")
+    if not all("moe_aux" in v and all(np.isfinite(v["moe_aux"])) for v in logs.values()):
+        raise SystemExit("train_moe: the aux term was not logged")
+    if launches != expected:
+        raise SystemExit("train_moe: a kernel did not run once per attention call of its route")
+    model.net.eval()
+    return launches, dict(losses=losses, step_ms=ms, peak_gib=peak, logs=logs), model
+
+
+def serve_scan_and_check(hub, card, serve_res, root):
+    """serve_scan: the base hub's weights saved as a stacked-layout
+    checkpoint (``layers_scan/layer/<leaf>``, a leading layer axis) and
+    served by ``OFASys.from_pretrained`` into a ``scan_layers`` model: the
+    tokens of serve's dispatches equal serve's."""
+    from ofasys_torch import OFASys
+    from ofasys_torch.configure import to_dict
+    from ofasys_torch.utils import checkpoint_utils
+    from ofasys_torch.utils.jax_params import export_params
+
+    cfg = hub.model.cfg
+    cfg.scan_layers = True
+    try:
+        tree = export_params(hub.model.net)
+        meta = {"model_cfg": to_dict(cfg), "global_dict": hub.global_dict.state_dict(),
+                "active_adaptors": list(ACTIVE_ADAPTORS)}
+    finally:
+        cfg.scan_layers = False
+    depth = tree["encoder"]["layers_scan"]["layer"]["self_attn"]["q_proj"]["kernel"].shape[0]
+    checkpoint_utils.save_checkpoint(root, "scan", {"params": checkpoint_utils._to_tensors(tree)}, meta)
+    del tree
+    shub = OFASys.from_pretrained(os.path.join(root, "scan"), dtype=torch.bfloat16)
+    assert shub.model.cfg.scan_layers
+    reset_counts()
+    mismatches = 0
+    for instruction, data, kw, out in serve_res["calls"]:
+        got = shub.inference(instruction, data, **kw)
+        for a, b in zip(out if isinstance(data, list) else [out], got if isinstance(data, list) else [got],
+                        strict=True):
+            mismatches += not np.array_equal(a.tokens, b.tokens)
+    launches = read_counts()
+    log(f"  serve_scan: stacked checkpoint ({depth} layers a stack) served through "
+        f"{len(serve_res['calls'])} dispatches: {mismatches} token mismatches against serve; launches "
+        f"{({k: v for k, v in launches.items() if v})} [{card}]")
+    if mismatches or not launches["dense_attention_fwd"]:
+        raise SystemExit("serve_scan: the stacked layout does not serve serve's tokens")
+    del shub
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _rank_launch_expect(rows, cfg, tp):
+    """The launches one rank's gradient step should make: B1 and B2, or B3
+    and the flash backward, once for each attention call of a layer by
+    the route of the rank's rows ``rows`` ({task: (B, Ts, Tt)}) at its
+    local heads under tensor = ``tp``."""
+    import copy
+
+    local = copy.deepcopy(cfg)
+    for stack in (local.encoder, local.decoder):
+        stack.attention_heads //= tp
+        stack.embed_dim //= tp
+    n = dict.fromkeys(KERNELS, 0)
+    for B, Ts, Tt in rows.values():
+        for Tq, Tk, layers in ((Ts, Ts, local.encoder.layers), (Tt, Tt, local.decoder.layers),
+                               (Tt, Ts, local.decoder.layers)):
+            route = _route(local, B, Tq, Tk, local.attention_dropout)
+            if route != "plain":
+                n[f"{route}_attention_fwd"] += layers
+                n[f"{route}_attention_bwd"] += layers
+    return n
+
+
+def _ring_launch_expect(rows, cfg, n_seq):
+    """The launches of one rank's gradient step under sequence_parallel:
+    a self-attention whose length divides by the ring runs n_seq blocks of
+    T / n_seq (B3 and the flash backward each, where the block passes the
+    flash gate); the cross-attention and a length that does not divide
+    take their own route. These are the first rank's counts: in a causal
+    ring it holds the first query block, which sees one key block."""
+    from ofasys_torch.ops.flash_attention import flash_supported
+
+    n = dict.fromkeys(KERNELS, 0)
+    D = cfg.encoder.embed_dim // cfg.encoder.attention_heads
+    for B, Ts, Tt in rows.values():
+        for Tq, Tk, layers, kind in ((Ts, Ts, cfg.encoder.layers, "self"), (Tt, Tt, cfg.decoder.layers, "causal"),
+                                     (Tt, Ts, cfg.decoder.layers, "cross")):
+            if kind != "cross" and Tq % n_seq == 0:
+                if flash_supported(Tq // n_seq, Tk // n_seq, D, 0.0):
+                    blocks = 1 if kind == "causal" else n_seq
+                    n["flash_attention_fwd"] += blocks * layers
+                    n["flash_attention_bwd"] += blocks * layers
+                continue
+            route = _route(cfg, B, Tq, Tk)
+            if route != "plain":
+                n[f"{route}_attention_fwd"] += layers
+                n[f"{route}_attention_bwd"] += layers
+    return n
+
+
+_WORLD_REFS = {}
+
+
+def _rank_update(label, pcfg, cfg_kw, batches):
+    """One rank of a parallel_world update: the first rank computes the
+    one-process gradients of the base width at WORLD_LAYERS (dropout 0);
+    then every rank runs the sharded gradient step (parallel/api.py) on its
+    rows and shards, and the first rank holds the gathered gradients
+    against the one-process ones."""
+    import torch.distributed as dist
+
+    from ofasys_torch import GeneralistModel
+    from ofasys_torch.configure.configs import ParallelConfig
+    from ofasys_torch.engine.train_step import make_grad_step
+    from ofasys_torch.parallel import Layout, build_mesh, make_sharded_grad_step, put_batch, shard_model
+    from ofasys_torch.parallel import distributed as PD
+    from ofasys_torch.utils.pytree import sample_to_device
+
+    d, _ = base_dictionary()
+    rank = dist.get_rank()
+    kw = {"dropout": 0.0, "encoder.layers": WORLD_LAYERS, "decoder.layers": WORLD_LAYERS, **cfg_kw}
+    crit = make_criteria(batches, d.pad())
+    ref = None
+    if rank == 0:
+        # the one-process gradients, shared by the updates of one model config and batch
+        key = (tuple(sorted(kw.items())), tuple((n, _task_shapes(b)) for n, b in batches.items()))
+        if key not in _WORLD_REFS:
+            _WORLD_REFS.clear()
+            m = GeneralistModel(arch="base", **kw)
+            m.initialize(d, active_adaptors=("text",), dtype=torch.bfloat16, device="cuda", seed=SEED)
+            g = _grads(m, crit, list(m.net.parameters()), 0,
+                       {n: sample_to_device(b, "cuda") for n, b in batches.items()})
+            _WORLD_REFS[key] = [x.float() for x in g]
+            del m, g
+        ref = _WORLD_REFS[key]
+    mesh = build_mesh(ParallelConfig(**pcfg))
+    m = GeneralistModel(arch="base", **kw)
+    m.initialize(d, active_adaptors=("text",), dtype=torch.bfloat16, device=mesh.device, seed=SEED,
+                 mesh=mesh)
+    shard_model(m.net, mesh)
+    layout = Layout(m.net, mesh)
+    dev = {n: put_batch(b, mesh) for n, b in batches.items()}
+    steps = [make_sharded_grad_step(make_grad_step(m, crit[n], fold=i, shard=layout.data_shard), layout)
+             for i, n in enumerate(dev)]
+    torch.cuda.synchronize()
+    PD.STAGED_OPS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    acc = None
+    for gs, b in zip(steps, dev.values()):
+        g, _, _ = gs(layout.params, 0, b, SEED)
+        acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    staged = dict(PD.STAGED_OPS)
+    local_rows = {n: _task_shapes(b) for n, b in dev.items()}
+    full = layout.full_grads(acc)
+    out = dict(rank=rank, launches=launches, grad_ms=ms, staged=staged, local_rows=local_rows,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, param_bytes=layout.param_bytes(),
+               heads=m.net.encoder.layers_0.self_attn.num_heads, mesh=mesh.shape)
+    if rank == 0:
+        names = [n for n, _ in m.net.named_parameters()]
+        rel, norm_rel, leaves = _grad_diff(names, [full[n].float() for n in names], ref)
+        worst = max(leaves, key=leaves.get)
+        out.update(rel=rel, norm_rel=norm_rel, worst_leaf=worst, worst=leaves[worst])
+    return out
+
+
+def _rank_serve(calls, int8):
+    """One rank of parallel_world's serving check: the base hub (after
+    ``quantize()`` with ``int8``) serves serve's dispatches unsharded on the
+    first rank, then sharded with ``OFASys.shard`` over tensor = WORLD on
+    every rank, each run recording its beam selections
+    (``_selection_log``). A request whose best answer differs passes only
+    where its two searches first part at a selection with a margin of at
+    most SHARD_TIE_TOL or, where they never part, where the pick among the
+    finished hypotheses (both runs' n-best, run for those dispatches) does:
+    the row-parallel products are summed in another order than one GEMM's,
+    and bf16 rounds the difference."""
+    import torch.distributed as dist
+
+    from ofasys_torch.configure.configs import ParallelConfig
+    from ofasys_torch.parallel import distributed as PD
+
+    first = dist.get_rank() == 0
+
+    def nbest(hub, instruction, data, kw):
+        out = hub.inference(instruction, data, **dict(kw, return_n_best=kw.get("beam_size", 5)))
+        return [h if isinstance(h, list) else [h] for h in (out if isinstance(data, list) else [out])]
+
+    def run(hub):
+        out = []
+        for i, d, kw in calls:
+            res = []
+            log_ = _selection_log(hub, i, d, kw, unconstrained=True, result=res)
+            out.append((log_, [_best(o).tokens for o in _flat(res[0], d)]))
+        return out
+
+    hub = build_base_hub()
+    if int8:
+        hub.quantize()
+    ref = run(hub) if first else None
+    hub.shard(ParallelConfig(data=1, tensor=WORLD))
+    heads = hub.model.net.encoder.layers_0.self_attn.num_heads
+    PD.STAGED_OPS.clear()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(hub)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    # margins of the differing answers; dispatches whose searches never
+    # part there get the n-best of both runs (every rank runs the sharded one)
+    margins, final = [], [[]]
+    if first:
+        for c, ((log_g, tok_g), (log_r, tok_r)) in enumerate(zip(got, ref, strict=True)):
+            for row, (a, b) in enumerate(zip(tok_g, tok_r, strict=True)):
+                if not np.array_equal(a, b):
+                    m = _parting_margin(log_g, log_r, row)
+                    margins.append(m)
+                    if m == float("inf"):
+                        final[0].append((c, row, len(margins) - 1))
+    dist.broadcast_object_list(final, src=0)
+    calls_needed = sorted({c for c, _, _ in final[0]})
+    shard_n = {c: nbest(hub, *calls[c]) for c in calls_needed}
+    if first and calls_needed:
+        hub = build_base_hub()
+        if int8:
+            hub.quantize()
+        ref_n = {c: nbest(hub, *calls[c]) for c in calls_needed}
+        for c, row, k in final[0]:
+            g, r = shard_n[c][row], ref_n[c][row]
+            gaps = [float(mine[0].score - h.score) for mine, other in ((g, r), (r, g))
+                    for h in mine if np.array_equal(h.tokens, other[0].tokens)]
+            margins[k] = min(gaps) if gaps else float("inf")
+    return dict(launches=launches, margins=margins if first else None, wall_s=wall,
+                staged=dict(PD.STAGED_OPS), heads=heads, n=sum(len(t) for _, t in got))
+
+
+def _flat(out, data):
+    return out if isinstance(data, list) else [out]
+
+
+def _rank_warm():
+    """A spawned rank's start: the port imported and the CUDA context made
+    on cuda:0."""
+    import ofasys_torch.parallel  # noqa: F401
+
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    return True
+
+
+def worlds_start():
+    """parallel_world's WORLD ranks over gloo and nccl_world's one rank over
+    NCCL (parallel.distributed.World), spawned while the kernels build:
+    each rank imports the port and makes its CUDA context, then waits for
+    its work. Closed when the script exits, whatever happened before."""
+    import atexit
+
+    from ofasys_torch.parallel.distributed import World
+
+    worlds = (World(WORLD, backend="gloo", threads=WORLD_THREADS, timeout=600),
+              World(1, backend="nccl", threads=WORLD_THREADS, timeout=600))
+    for w in worlds:
+        w.submit(_rank_warm)
+    atexit.register(lambda: [w.close(force=True) for w in worlds])
+    return worlds
+
+
+def parallel_world_and_check(card, batches, long_batches, serve_res, world):
+    """parallel_world: WORLD ranks on cuda:0 over gloo (``world``, from
+    :func:`worlds_start`). It prints the transport's rule for CUDA
+    tensors on gloo and which ops each update staged through the host; runs each
+    WORLD_UPDATES update against the one-process update (the ring's
+    blocks through B3 and the flash backward, B1/B2 at the tensor rank's
+    six heads); and serves serve's dispatches on the tensor-parallel hub in
+    bf16 and after quantize() (B7 on the weight shards), tokens equal to
+    one-rank serving but at near-ties (SHARD_TIE_TOL). Returns {label:
+    launches of the first rank} and the
+    results."""
+    from ofasys_torch.parallel.distributed import GLOO_CUDA_OPS
+
+    counts, res = {}, {}
+    t0 = time.perf_counter()
+    with world as w:
+        w.collect()
+        log(f"parallel_world: {WORLD} ranks on cuda:0 over gloo up (waited {time.perf_counter() - t0:.1f} s)")
+        log(f"  the transport's rule for CUDA tensors on gloo: {sorted(GLOO_CUDA_OPS)} direct, every "
+            "other op staged through the host")
+        for label, pcfg, cfg_kw, which in WORLD_UPDATES:
+            t1 = time.perf_counter()
+            bs = batches if which == "train" else long_batches
+            outs = w.run(_rank_update, label, pcfg, cfg_kw, bs)
+            o = outs[0]
+            expected = _rank_launch_expect(o["local_rows"], _cfg_of(cfg_kw), pcfg.get("tensor", 1)) \
+                if label in ("data", "fsdp", "tensor") else None
+            local = o["local_rows"]
+            log(f"  parallel_world {label} {pcfg}: rank rows (B, Ts, Tt) {local}, heads a rank "
+                f"{o['heads']}; parameter bytes a rank {[x['param_bytes'] for x in outs]}; gradient step "
+                f"{[round(x['grad_ms'], 1) for x in outs]} ms, peak "
+                f"{[round(x['peak_gib'], 3) for x in outs]} GiB; launches rank 0 "
+                f"{({k: v for k, v in o['launches'].items() if v})}; staged through the host (gloo) "
+                f"{o['staged']}; vs one process: rel {o['rel']:.3e} (tol {GRAD_REL_TOL}), worst leaf "
+                f"{o['worst_leaf']} {o['worst']:.3e} (tol {LEAF_REL_TOL}) [{card}] "
+                f"({time.perf_counter() - t1:.1f} s)")
+            if not o["rel"] <= GRAD_REL_TOL or not o["worst"] <= LEAF_REL_TOL:
+                raise SystemExit(f"parallel_world {label}: gradients differ from the one-process update")
+            if label != "sequence" and any(x["launches"] != o["launches"] for x in outs):
+                raise SystemExit(f"parallel_world {label}: the ranks launched different kernels")
+            if expected is not None and o["launches"] != expected:
+                raise SystemExit(f"parallel_world {label}: a rank did not run each attention call's "
+                                 f"kernel (expected {({k: v for k, v in expected.items() if v})})")
+            if label == "fsdp" and not all(x["param_bytes"] < 0.6 * res["data"]["param_bytes"] for x in outs):
+                raise SystemExit("parallel_world fsdp: a rank holds more than its slices of the parameters")
+            if label == "tensor" and (o["heads"] != 6 or not o["launches"]["dense_attention_fwd"]
+                                      or not o["launches"]["dense_attention_bwd"]):
+                raise SystemExit("parallel_world tensor: B1/B2 did not run on the rank's six heads")
+            if label == "sequence":
+                expected = _ring_launch_expect(local, _cfg_of(cfg_kw), pcfg["sequence"])
+                log(f"  parallel_world sequence: expected launches a rank {({k: v for k, v in expected.items() if v})}")
+                if o["launches"] != expected or not o["launches"]["flash_attention_fwd"]:
+                    raise SystemExit("parallel_world sequence: the ring did not run B3 and the flash "
+                                     "backward once for each of its blocks")
+            counts[f"parallel_{label}"] = o["launches"]
+            res[label] = {k: v for k, v in o.items() if k != "launches"}
+        calls = [(i, d, kw) for i, d, kw, _ in serve_res["calls"]]
+        for label, int8 in (("serve_shard", False), ("serve_shard_int8", True)):
+            t1 = time.perf_counter()
+            o = w.run(_rank_serve, calls, int8)[0]
+            log(f"  parallel_world {label}: tensor={WORLD} ({o['heads']} heads a rank) served serve's "
+                f"{o['n']} requests (selections logged) in {o['wall_s']:.2f} s: "
+                f"{len(o['margins'])} answers differ from one-rank serving on the same batches, their "
+                f"searches parting at margins {[round(g, 5) for g in o['margins']]} (near-tie tol "
+                f"{SHARD_TIE_TOL}); launches rank 0 {({k: v for k, v in o['launches'].items() if v})}; "
+                f"staged {o['staged']} [{card}] ({time.perf_counter() - t1:.1f} s)")
+            if any(not g <= SHARD_TIE_TOL for g in o["margins"]):
+                raise SystemExit(f"parallel_world {label}: sharded tokens differ from one-rank serving")
+            kernel = "int8_matmul_fwd" if int8 else "dense_attention_fwd"
+            if not o["launches"][kernel]:
+                raise SystemExit(f"parallel_world {label}: {kernel} did not run on the shards")
+            counts[f"parallel_{label}"] = o["launches"]
+            res[label] = {k: v for k, v in o.items() if k != "launches"}
+    log(f"parallel_world: {time.perf_counter() - t0:.1f} s")
+    return counts, res
+
+
+def _cfg_of(cfg_kw):
+    from ofasys_torch import GeneralistModel
+
+    return GeneralistModel(arch="base", **{"encoder.layers": WORLD_LAYERS, "decoder.layers": WORLD_LAYERS,
+                                           **cfg_kw}).cfg
+
+
+def nccl_world_start(batches, w):
+    """nccl_world: a world of one rank over NCCL (``w``, from
+    :func:`worlds_start`) handed the data path's sharded gradient step,
+    which it runs beside parallel_world; ``nccl_world_and_check`` collects
+    it."""
+    w.collect()
+    w.submit(_rank_update, "nccl", dict(data=1), {}, batches)
+    return w, time.perf_counter()
+
+
+def nccl_world_and_check(card, started):
+    """The NCCL rank's gradient step (its reductions on NCCL) against the
+    one-process step."""
+    w, t0 = started
+    try:
+        o = w.collect()[0]
+    finally:
+        w.close()
+    log(f"  nccl_world: data path over a one-rank NCCL group (run beside parallel_world): gradient "
+        f"step {o['grad_ms']:.1f} ms, launches {({k: v for k, v in o['launches'].items() if v})}, staged "
+        f"{o['staged']}; vs one process rel {o['rel']:.3e} [{card}] ({time.perf_counter() - t0:.1f} s)")
+    if not o["rel"] <= GRAD_REL_TOL or o["staged"]:
+        raise SystemExit("nccl_world: the data path over NCCL disagrees with the one-process update")
+    return o["launches"], {k: v for k, v in o.items() if k != "launches"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -6410,6 +6984,7 @@ def main() -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
 
     name, card = phase_device()
+    gloo_world, nccl_world = worlds_start()
     phase_build()
     mark("build")
     hub = build_base_hub()
@@ -6594,6 +7169,11 @@ def main() -> int:
     nan_res = nan_check_and_check(hub, card)
     torch.cuda.empty_cache()
     mark("nan_check")
+    scan_root = tempfile.mkdtemp(prefix="ofasys_torch_scan_")
+    atexit.register(shutil.rmtree, scan_root, True)
+    counts["serve_scan"] = serve_scan_and_check(hub, card, serve_res, scan_root)
+    shutil.rmtree(scan_root, ignore_errors=True)
+    mark("serve_scan")
 
     model = build_train_model(d, "cuda")
     counts["train"], train_res, (step, state, dev) = train_and_check(
@@ -6738,7 +7318,7 @@ def main() -> int:
     del speech
     torch.cuda.empty_cache()
     mark("train_scst")
-    code_model = build_vqgan_model(code_d)
+    code_model = build_vqgan_model(code_d, layers=CODE_LAYERS)
     counts["serve_image_gen"], image_gen_res = serve_image_gen_and_check(code_model, card)
     torch.cuda.empty_cache()
     mark("serve_image_gen")
@@ -6774,6 +7354,50 @@ def main() -> int:
     mark("train_asr_ctc, serve_phone")
     heads_res = heads_and_check(tts_frames, serve_enc, card)
     mark("heads")
+
+    # parallelism: remat, MoE, and the ranks of parallel_world and nccl_world
+    long_grad = make_train_batches(long_gp, {n: dict(spec, batch=GRAD_CHECK_BATCH)
+                                             for n, spec in LONG_TRAIN_TASKS.items()})
+    remat_counts, remat_res = train_remat_and_check(d, card, train_batches, long_grad)
+    counts.update(remat_counts)
+    mark("train_remat")
+    counts["train_moe"], moe_res, moe_model = train_moe_and_check(d, card, train_batches)
+    mark("train_moe")
+    from ofasys_torch import OFASys
+
+    moe_hub = OFASys(moe_model, None, d, base_gp)
+    moe_serve = serve_and_check(moe_hub, card, label="serve_moe", check_encoder=False)
+    counts["serve_moe"] = moe_serve["launches"]
+    moe_res["serve_p50_ms"] = moe_serve["p50_ms"]
+    del moe_hub, moe_model, moe_serve
+    torch.cuda.empty_cache()
+    mark("serve_moe")
+    seq_gp = long_preprocess(d)
+    seq_gp.name2pre["text"].cfg.pad_to_fixed = True
+    seq_batches = make_train_batches(seq_gp, {"gigaword_long": LONG_TRAIN_TASKS["gigaword_long"]})
+    nccl = nccl_world_start(train_batches, nccl_world)
+    world_counts, world_res = parallel_world_and_check(card, train_batches, seq_batches, serve_res,
+                                                       gloo_world)
+    counts.update(world_counts)
+    mark("parallel_world")
+    counts["nccl_world"], nccl_res = nccl_world_and_check(card, nccl)
+    mark("nccl_world")
+    # the kernels at the parallel paths' own shapes: B1/B2 at the tensor
+    # rank's six heads, B3 and the flash backward at the ring's blocks
+    for label, (B, Ts, Tt) in world_res["tensor"]["local_rows"].items():
+        for call, (Tq, Tk), causal in (("encoder", (Ts, Ts), False), ("decoder", (Tt, Tt), True)):
+            shape = (B, Tq, Tk, 6, 64)
+            if _route(_cfg_of({}), B, Tq, Tk) == "dense":
+                fres.append(check_fwd(f"tensor2_{label}_{call}", shape, causal))
+                b2, b2r = check_bwd(f"tensor2_{label}_{call}", shape, causal)
+                bres.append(b2)
+                rres.append(b2r)
+    B, Ts, _ = world_res["sequence"]["local_rows"]["gigaword_long"]
+    n_seq = next(p["sequence"] for label, p, _, _ in WORLD_UPDATES if label == "sequence")
+    for label, causal in (("ring_block", False), ("ring_block_causal_diagonal", True)):
+        for kernel, r in check_flash(label, (B, Ts // n_seq, Ts // n_seq, 12, 64), causal).items():
+            flash_rows[kernel].append(r)
+    mark("parallel kernels")
 
     def by_path(kernel):
         return {path: c[kernel] for path, c in counts.items()}
@@ -6843,6 +7467,9 @@ def main() -> int:
         ("serve_speculative", spec_res), ("serve_video", video_res))}))
     for label, (_, res) in ln.items():
         log(f"{label}: {json.dumps(res)}")
+    for label, r in (("train_remat", remat_res), ("train_moe", moe_res), ("parallel_world", world_res),
+                     ("nccl_world", nccl_res)):
+        log(f"{label}: {json.dumps(r, default=str)}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

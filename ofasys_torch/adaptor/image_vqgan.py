@@ -70,7 +70,7 @@ class ImageVqganAdaptor(BaseAdaptor):
         pos_offset = slot.value.get("pos_offset", 0)
         B, T = tokens.shape
         padding_mask = tokens == self.pad_id
-        embed = self.embed_tokens.weight[tokens].to(self.dtype)
+        embed = self.embed_tokens.lookup(tokens).to(self.dtype)
 
         bucket = acfg.image_bucket_size
         ids = code_position_ids(acfg.code_image_size // acfg.code_downsample, bucket, T + 1)

@@ -41,7 +41,7 @@ class TextAdaptor(BaseAdaptor):
         pos_offset = slot.value.get("pos_offset", 0)
         positions = pos_offset + torch.arange(T, device=tokens.device)
         pos_embed = self.embed_positions.weight[positions][None].to(self.dtype)   # (1, T, E)
-        embed = self.embed_tokens.weight[tokens].to(self.dtype)
+        embed = self.embed_tokens.lookup(tokens).to(self.dtype)
 
         out = AdaptorOutput(
             embed=embed,

@@ -11,6 +11,9 @@ import sys
 
 
 def main(argv):
+    from ofasys_torch.parallel.distributed import distributed_init
+
+    distributed_init()
     if any(a.startswith("--ofasys.") for a in argv):
         from ofasys_torch.configure.options import parse_args_and_build
 

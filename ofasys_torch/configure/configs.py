@@ -2,9 +2,8 @@
 ofasys_tpu/configure/configs.py): the same groups, fields and defaults, so
 a config serialized by one package reads in the other.
 
-The port runs on one CUDA device: ``ParallelConfig`` keeps ofasys_tpu's
-mesh axes for config compatibility, and ``engine/trainer.py`` refuses any
-that asks for more than one device (ROADMAP Queue A item 13).
+``ParallelConfig`` holds ofasys_tpu's mesh axes; ``engine/trainer.py``
+builds the mesh of the world from it (ofasys_torch/parallel/).
 """
 
 from __future__ import annotations
@@ -46,8 +45,8 @@ class CommonConfig(BaseDataclass):
 
 @dataclass
 class ParallelConfig(BaseDataclass):
-    """ofasys_tpu's mesh axes; the port takes one device (every axis 1,
-    ``data`` -1 or 1), no ``zero1`` and no ``remat``."""
+    """ofasys_tpu's mesh axes (at most one -1, the product the world),
+    ``remat`` ('none', 'full', 'dots' or 'selective') and ``zero1``."""
 
     data: int = -1
     fsdp: int = 1

@@ -63,7 +63,7 @@ class SpeechToTextCriterion(LabelSmoothedCrossEntropyCriterion):
 
         enc = extra["encoder_out"]
         start, end = self.global_dict.get_start_end_idx("<phone>")
-        rows = model.net.embed_tokens.weight[start:end].float()          # (K, E)
+        rows = model.net.embed_tokens.full_weight()[start:end].float()   # (K, E)
         ctc_logits = torch.einsum("bte,ke->btk", enc.x.float(), rows)     # (B, Ts, K)
         tgt = torch.as_tensor(sample["encoder_target"], device=ctc_logits.device)
         valid = (tgt != self.pad_id) & (tgt != self.global_dict.eos())

@@ -19,6 +19,7 @@ from ofasys_torch import ModalityType
 from ofasys_torch.configure.config_store import register_config
 from ofasys_torch.engine.criterion.base import BaseCriterion, CriterionConfig
 from ofasys_torch.ops.fused_ce import chunked_ce_stats, pick_chunks
+from ofasys_torch.parallel import distributed as PD
 
 
 @dataclass
@@ -36,44 +37,95 @@ class LabelSmoothedCrossEntropyCriterionConfig(CriterionConfig):
 class LabelSmoothedCrossEntropyCriterion(BaseCriterion):
     def __call__(self, model, sample, generator=None, train: bool = True):
         slots = sample["net_input"]["slots"]
-        n_chunks = self._fused_plan(model, sample)
-        out, extra = model.apply_train(slots, deterministic=not train, generator=generator,
-                                       hidden_only=n_chunks is not None)
-        if n_chunks is None:
-            return self.compute_loss(out, sample, train=train)
-        x = extra["decoder_hidden"]
-        B, T, E = x.shape
-        return self.compute_loss_fused(x.reshape(B * T, E), model.net.embed_tokens.weight,
-                                       n_chunks, sample, train=train)
+        embed = model.net.embed_tokens
+        # a vocab-parallel table (tensor parallelism): the all-reduced
+        # log-softmax over each rank's vocab columns
+        vocab_parallel = (embed.tp_group is not None and not self.cfg.report_accuracy
+                          and self._tied_text_target(model, sample))
+        n_chunks = None if vocab_parallel else self._fused_plan(model, sample)
+        moe = train and model.cfg.moe_experts > 0
+        res = model.apply_train(slots, deterministic=not train, generator=generator,
+                                hidden_only=n_chunks is not None or vocab_parallel, with_aux_losses=moe)
+        out, extra = res[:2]
+        if vocab_parallel:
+            x = extra["decoder_hidden"]
+            B, T, E = x.shape
+            loss, sample_size, logging = self.compute_loss_vocab_parallel(
+                embed.local_logits(x.reshape(B * T, E), x.dtype), embed, sample, train=train)
+        elif n_chunks is None:
+            loss, sample_size, logging = self.compute_loss(out, sample, train=train)
+        else:
+            x = extra["decoder_hidden"]
+            B, T, E = x.shape
+            loss, sample_size, logging = self.compute_loss_fused(
+                x.reshape(B * T, E), embed.weight, n_chunks, sample, train=train)
+        if moe:
+            # the MoE load-balance aux, weighted per token so that its
+            # gradient survives the later 1/sample_size scaling
+            aux = res[2]
+            loss = loss + float(model.cfg.moe_aux_weight) * aux * sample_size
+            logging = dict(logging)
+            logging["moe_aux"] = aux * sample_size
+        return loss, sample_size, logging
 
     # ------------------------------------------- chunked-vocab fused path
-    def _fused_plan(self, model, sample):
-        """The number of vocabulary chunks when the chunked-vocab CE applies,
-        else None: ofasys_tpu's gates, decided before the forward (the
-        decoder's hidden states of a TEXT target are (B, T, E) and the text
-        adaptor's logits span the embedding's rows, so its checks on them
-        hold)."""
-        cfg = self.cfg
-        if not cfg.chunked_vocab or cfg.report_accuracy:
-            return None
+    def _tied_text_target(self, model, sample) -> bool:
+        """ofasys_tpu's gates of the chunked-vocab CE, decided before the
+        forward: one TEXT target of (B, T) ids, no constraint masks and the
+        logits x @ emb^T of the tied table (the decoder's hidden states of a
+        TEXT target are (B, T, E) and the text adaptor's logits span the
+        embedding's rows, so its checks on them hold)."""
         if sample.get("constraint_masks") is not None:
-            return None
+            return False
         try:
             tgt_slots = [s for s in sample["net_input"]["slots"] if not s.is_src]
         except (KeyError, TypeError):
-            return None
+            return False
         if len(tgt_slots) != 1 or tgt_slots[0].modality != ModalityType.TEXT:
-            return None
+            return False
         target = sample["target"]
         if (not isinstance(target, torch.Tensor) or target.dim() != 2
                 or target.is_floating_point() or target.dtype == torch.bool):
-            return None
+            return False
         # an untied output projection or an output bias: the logits would
         # not be x @ emb^T
         for name, _ in model.net.named_parameters():
             if {"output_projection", "output_projection_bias"} & set(name.split(".")):
-                return None
+                return False
+        return True
+
+    def _fused_plan(self, model, sample):
+        """The number of vocabulary chunks when the chunked-vocab CE applies,
+        else None."""
+        cfg = self.cfg
+        if not cfg.chunked_vocab or cfg.report_accuracy or not self._tied_text_target(model, sample):
+            return None
         return pick_chunks(model.net.embed_tokens.weight.shape[0])
+
+    def compute_loss_vocab_parallel(self, z_local: torch.Tensor, embed, sample, train: bool = True):
+        """compute_loss's loss from this rank's vocab columns ``z_local``
+        (N, V / n) of the vocab-parallel table ``embed``: the row maximum, the
+        sum of exponentials, the target logit (on the rank that holds it) and
+        the row sum are each reduced over the tensor group (Megatron's
+        vocab-parallel cross entropy), so every rank holds the whole loss."""
+        group = embed.tp_group
+        target = sample["target"]
+        B, T = target.shape
+        tgt = target.reshape(B * T).long()
+        zf = z_local.float()
+        V = zf.shape[-1] * PD.group_size(group)
+        zmax = PD.all_reduce(zf.max(dim=-1, keepdim=True).values.detach(), group,
+                             torch.distributed.ReduceOp.MAX)
+        lse = zmax[:, 0] + torch.log(PD.exit(torch.exp(zf - zmax).sum(dim=-1), group))
+        local = tgt - embed.vocab_start
+        inside = (local >= 0) & (local < zf.shape[-1])
+        z_t = torch.gather(zf, 1, local.clamp(0, zf.shape[-1] - 1)[:, None])[:, 0]
+        z_t = PD.exit(torch.where(inside, z_t, torch.zeros((), device=zf.device)), group)
+        smooth = -(PD.exit(zf.sum(-1), group) - V * lse)
+        valid = tgt != self.pad_id
+        if self.cfg.ignore_eos:
+            valid = valid & (tgt != getattr(self, "eos_id", 2))
+        return self._reduce(lse - z_t, smooth, float(V - 1), valid, tgt, sample, B, train)
 
     def compute_loss_fused(self, x2: torch.Tensor, emb: torch.Tensor, n_chunks: int, sample,
                            train: bool = True):

@@ -129,8 +129,9 @@ class SpeechPretrainCriterion(LabelSmoothedCrossEntropyCriterion):
         if do_mam:
             with torch.no_grad():
                 teacher_x = net.encode(src).x.float()
-                start, end = self._proj_range(net.embed_tokens.weight.shape[0])
-                emb = net.embed_tokens.weight[start:end].float()
+                emb = net.embed_tokens.full_weight()
+                start, end = self._proj_range(emb.shape[0])
+                emb = emb[start:end].float()
                 t_lp = torch.log_softmax(teacher_x @ emb.t(), dim=-1)         # (B, Ts, R)
             s_lp = torch.log_softmax(student_enc.x.float() @ emb.t(), dim=-1)
             kl_pos = torch.sum(torch.exp(t_lp) * (t_lp - s_lp), dim=-1)      # (B, Ts)

@@ -107,11 +107,14 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-             state: Dict[str, object]) -> Dict[str, object]:
+             state: Dict[str, object], g_norm: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        """``g_norm``: the gradient's global norm when ``grads`` are this
+        rank's pieces of it (parallel/sharding.Layout)."""
         grads = [g.float() for g in grads]
         if self.clip_norm and self.clip_norm > 0:
             # t if |g| < c, else (t / |g|) * c, decided on the device
-            g_norm = global_norm(grads)
+            if g_norm is None:
+                g_norm = global_norm(grads)
             below = g_norm < self.clip_norm
             grads = [torch.where(below, g, g / g_norm * self.clip_norm) for g in grads]
         count = state["count"]

@@ -54,9 +54,12 @@ class TrainState:
 
 
 def dropout_generator(seed: int, step: int, fold: int, micro: int,
-                      device: torch.device) -> torch.Generator:
-    """The generator of one microbatch of one task at one step."""
-    state = np.random.SeedSequence([seed, step, fold, micro]).generate_state(2, np.uint32)
+                      device: torch.device, shard: int = 0) -> torch.Generator:
+    """The generator of one microbatch of one task at one step; ``shard``
+    (this rank's index over the batch axes, parallel/api.py) decorrelates
+    the draws of the batch rows of different ranks."""
+    entropy = [seed, step, fold, micro] + ([shard] if shard else [])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(
         (int(state[0]) << 31 | int(state[1])) & ((1 << 63) - 1))
 
@@ -67,10 +70,11 @@ def _add_logs(acc: Optional[Dict[str, Any]], logging: Dict[str, Any]) -> Dict[st
     return {k: acc[k] + v for k, v in logging.items()}
 
 
-def make_grad_step(model, criterion, update_freq: int = 1, fold: int = 0) -> Callable:
+def make_grad_step(model, criterion, update_freq: int = 1, fold: int = 0, shard: int = 0) -> Callable:
     """Gradient half: raw-summed gradients, sample size and logging.
     ``fold`` (the task index in the multi-task step) decorrelates the
-    dropout streams of tasks that share one update."""
+    dropout streams of tasks that share one update, ``shard`` those of the
+    ranks of a data-parallel step."""
 
     def grad_step(params: List[torch.nn.Parameter], step: int, batch, seed: int):
         micro = batch if update_freq > 1 else [batch]
@@ -78,7 +82,7 @@ def make_grad_step(model, criterion, update_freq: int = 1, fold: int = 0) -> Cal
             raise ValueError(f"update_freq={update_freq} needs a list of {update_freq} samples")
         grads = sample_size = logs = None
         for i, mb in enumerate(micro):
-            generator = dropout_generator(seed, step, fold, i, params[0].device)
+            generator = dropout_generator(seed, step, fold, i, params[0].device, shard)
             # update_num rides in the sample for criteria that gate on it
             loss, ss, logging = criterion(model, {**mb, "update_num": step}, generator, train=True)
             g = torch.autograd.grad(loss, params, allow_unused=True)
@@ -100,18 +104,27 @@ def make_apply_step(
     lr_schedule=None,
     ema_start_update: int = 0,
     ema_update_freq: int = 1,
+    layout=None,
 ) -> Callable:
     """Optimizer half: scale the raw gradient sum by ``1/sample_size``,
     clip and step (the optimizer), then the EMA, gated by its start update
-    and update frequency."""
+    and update frequency. With a ``layout`` (parallel/sharding.Layout) the
+    gradients are this rank's pieces: the norm is taken over the mesh, the
+    optimizer steps the layout's slices and they are gathered back."""
 
     @torch.no_grad()
     def apply_step(state: TrainState, grads: List[torch.Tensor], sample_size: torch.Tensor):
         scale = 1.0 / torch.clamp(torch.as_tensor(sample_size, dtype=torch.float32,
                                                   device=grads[0].device), min=1.0)
         grads = [g * scale for g in grads]
-        gnorm = global_norm(grads)
-        state.opt_state = optimizer.step(state.params, grads, state.opt_state)
+        if layout is None:
+            gnorm = global_norm(grads)
+            state.opt_state = optimizer.step(state.params, grads, state.opt_state)
+        else:
+            gnorm = layout.global_norm(grads)
+            state.opt_state = optimizer.step(layout.views(state.params), grads, state.opt_state,
+                                             g_norm=gnorm)
+            layout.gather_params(state.params)
 
         if state.ema_params is not None and ema_decay > 0:
             # before the start update the shadow tracks the raw params

@@ -21,10 +21,21 @@ the step (engine/train_step.dropout_generator). ofasys_tpu pops the
 iterators before it restores them and restarts a resumed run's data at
 epoch 1 (ROADMAP Queue C).
 
-One CUDA device (``device="cuda"``, the default; the CPU only when asked
-for): a ``ParallelConfig`` that asks for more than one device, ``zero1``,
-``pipeline`` or ``sequence`` parallelism raises (ROADMAP Queue A item 13),
-and ``parallel.remat`` raises through the model's UNPORTED_DEFAULTS.
+Parallelism (ofasys_torch/parallel/): the trainer builds the mesh of
+``cfg.parallel`` over the world of the default process group
+(``parallel.distributed.distributed_init``; a world of one without one),
+which raises the mesh's ``ValueError`` when the axes do not multiply to the
+world. Each rank runs on its device (``cuda:{local_rank % device_count}``,
+the CPU only when asked for) and reads its data shard (its index over
+data x fsdp); the model is cut to the rank's tensor and expert shards
+(``parallel.sharding.shard_model``), ``parallel.pipeline > 1`` turns on the
+model's pipeline stages (and the stacked layout), ``parallel.remat`` sets the
+model's remat mode (an explicit model-level one wins), and the steps are
+the sharded ones of parallel/api.py over a ``Layout`` (fsdp: each rank
+holds its slices of the parameters and their moments, the layers gather
+theirs as they run; ``zero1``: the optimizer state over the data axis when
+fsdp is 1). Validation gathers the fsdp slices it reads. A world of more than
+one rank saves and restores sharded checkpoints (utils/checkpoint_utils.py).
 
 ``common.profile=True`` traces the update loop with torch.profiler
 (utils/profiler.py) into ``common.profile_dir/trace.json``, each update
@@ -33,6 +44,7 @@ inside a ``record_function`` range named ``update <n>``.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -53,6 +65,8 @@ from ofasys_torch.io.reader.dataset import tree_index
 from ofasys_torch.logging.meters import AverageMeter, MetersDict, TimeMeter
 from ofasys_torch.logging.progress_bar import build_progress_bar
 from ofasys_torch.model.ofa import modal_ids_of_params
+from ofasys_torch.parallel import (Layout, build_mesh, make_sharded_multitask_train_step,
+                                   make_sharded_train_step, shard_model, shard_train_state)
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.utils import checkpoint_utils, profiler
 from ofasys_torch.utils.device import resolve_device
@@ -60,30 +74,16 @@ from ofasys_torch.utils.pytree import sample_to_device
 
 logger = logging.getLogger("ofasys_torch.trainer")
 
-PARALLEL = "ROADMAP Queue A item 13 (parallelism)"
-
-
-def check_parallel(cfg: TrainerConfig):
-    """Raise for what the one-device trainer cannot run."""
-    p = cfg.parallel
-    many = {k: getattr(p, k) for k in ("fsdp", "tensor", "expert", "sequence", "pipeline")
-            if getattr(p, k) != 1}
-    if p.data not in (-1, 1):
-        many["data"] = p.data
-    if many or p.zero1:
-        raise NotImplementedError(
-            f"parallel {many or {'zero1': True}}: ofasys_torch trains on one device; "
-            f"multi-device training waits for {PARALLEL}")
-
-
 class Trainer:
     def __init__(self, cfg: Optional[TrainerConfig] = None,
                  device: Union[str, torch.device] = "cuda", **kwargs):
         self.cfg = cfg or TrainerConfig()
         if kwargs:
             self.cfg.update(**kwargs)
-        check_parallel(self.cfg)
-        self.device = resolve_device(device)
+        dev = device if torch.distributed.is_initialized() else resolve_device(device)
+        self.mesh = build_mesh(self.cfg.parallel, device=dev)
+        self.device = self.mesh.device
+        self.layout: Optional[Layout] = None
         self.meters = MetersDict()
         self.state: Optional[TrainState] = None
         self._step_fns: Dict[str, Callable] = {}
@@ -128,15 +128,25 @@ class Trainer:
         total_updates = max_update or cfg.optimization.max_update or 1000
         self._total_updates = total_updates
 
-        # 1) the remat mode from the trainer's (an explicit model-level remat wins)
+        # 1) the remat mode from the trainer's (an explicit model-level remat
+        # wins), and the pipeline's stages
         if model.cfg.remat == "none" and cfg.parallel.remat != "none":
             model.cfg.remat = {"selective": "dots", "full": "full",
                                "dots": "dots"}[cfg.parallel.remat]
-        # 2) vocab, adaptors, dtype, parameters
+        if cfg.parallel.pipeline > 1:
+            model.cfg.pipeline_stages = cfg.parallel.pipeline
+            model.cfg.scan_layers = True
+        # 2) vocab, adaptors, dtype, parameters; the rank's shards
         self.init_model(model, tasks)
         optimizer = build_optimizer(cfg.optimization, total_num_update=total_updates)
         lr_sched = build_lr_schedule(cfg.optimization, total_updates)
-        self.state = TrainState.create(model.net, optimizer, ema=cfg.ema.store_ema)
+        if self.sharded:
+            shard_model(model.net, self.mesh)
+            zero1 = cfg.parallel.zero1 and self.mesh.size("fsdp") == 1 and self.mesh.size("data") > 1
+            self.layout = Layout(model.net, self.mesh, zero1=zero1)
+            self.state = shard_train_state(self.layout, optimizer, ema=cfg.ema.store_ema)
+        else:
+            self.state = TrainState.create(model.net, optimizer, ema=cfg.ema.store_ema)
         self.model = model
         self.tasks = tasks
         self.optimizer = optimizer
@@ -159,7 +169,17 @@ class Trainer:
         ema_kw = dict(ema_decay=ema_decay, lr_schedule=lr_sched,
                       ema_start_update=cfg.ema.ema_start_update,
                       ema_update_freq=cfg.ema.ema_update_freq)
-        if self._sum_mode:
+        if self.sharded:
+            if self._sum_mode:
+                self._fused_fn = make_sharded_multitask_train_step(
+                    model, {t.name: t.criterion for t in tasks}, optimizer, self.layout,
+                    update_freqs={t.name: self._update_freq(t) for t in tasks}, **ema_kw)
+            else:
+                for task in tasks:
+                    self._step_fns[task.name] = make_sharded_train_step(
+                        model, task.criterion, optimizer, self.layout,
+                        update_freq=self._update_freq(task), **ema_kw)
+        elif self._sum_mode:
             self._fused_fn = make_multitask_train_step(
                 model, {t.name: t.criterion for t in tasks}, optimizer,
                 update_freqs={t.name: self._update_freq(t) for t in tasks}, **ema_kw)
@@ -180,6 +200,16 @@ class Trainer:
             self.meters.add_meter("ups", TimeMeter(round=2))
             self.meters.add_meter("wps", TimeMeter(round=0))
         return start_update
+
+    @property
+    def sharded(self) -> bool:
+        """Whether this trainer runs in a world of several ranks."""
+        return self.mesh.backend is not None
+
+    def _data_shard(self):
+        """(this rank's index, the number of shards) over data x fsdp."""
+        n = self.mesh.size("data") * self.mesh.size("fsdp")
+        return self.mesh.index("data") * self.mesh.size("fsdp") + self.mesh.index("fsdp"), n
 
     def _update_freq(self, task) -> int:
         """The train iterator's accumulation factor (update_freq times the
@@ -338,7 +368,8 @@ class Trainer:
         model.initialize(global_dict, active_adaptors=tuple(adaptors),
                          dtype=torch.bfloat16 if use_bf16 else torch.float32,
                          device=self.device, seed=common.seed,
-                         sample_slots=sample_slots, modal_ids=modal_ids)
+                         sample_slots=sample_slots, modal_ids=modal_ids,
+                         mesh=self.mesh if self.sharded else None)
         self.global_dict = global_dict
         return global_dict
 
@@ -346,7 +377,14 @@ class Trainer:
         """The task's first batch, then a fresh iterator. The peek runs
         without the prefetch thread: a thread left running would go on
         drawing from the task's random generators."""
-        it = task.get_batch_iterator("train", seed=self.cfg.common.seed)
+        rank, n = self._data_shard()
+        if n > 1:
+            # every rank collates its own rows: fixed-length padding keeps the
+            # ranks' shapes (and so their collectives) alike
+            for pre in task.general_preprocess.name2pre.values():
+                if hasattr(pre.cfg, "pad_to_fixed"):
+                    pre.cfg.pad_to_fixed = True
+        it = task.get_batch_iterator("train", seed=self.cfg.common.seed, rank=rank, world_size=n)
         it.prefetch = 0
         self._update_freqs[task.name] = it.update_freq
         epochs = it.next_epoch_itr()
@@ -358,8 +396,9 @@ class Trainer:
     def _task_batches(self, task):
         """Endless stream of batches, rolling over epochs, from the restored
         iterator state when there is one."""
+        rank, n = self._data_shard()
         it = task.get_batch_iterator(
-            "train", seed=self.cfg.common.seed,
+            "train", seed=self.cfg.common.seed, rank=rank, world_size=n,
             drop_last=self.cfg.optimization.skip_remainder_batch,
         )
         if task.name in self._resume_iterators:
@@ -450,7 +489,8 @@ class Trainer:
         for i, batch in enumerate(it.next_epoch_itr(shuffle=False)):
             if max_batches is not None and i >= max_batches:
                 break
-            out = fn(sample_to_device(batch_device_view(batch), self.device))
+            with self.layout.unsharded() if self.layout is not None else contextlib.nullcontext():
+                out = fn(sample_to_device(batch_device_view(batch), self.device))
             logs.append({k: v.item() if isinstance(v, torch.Tensor) else v for k, v in out.items()})
         return task.criterion.reduce_metrics(logs, task_name=task.name)
 
@@ -470,11 +510,27 @@ class Trainer:
             "meters": self.meters.state_dict(),
         }
         params_only = cfg.checkpoint.no_save_optimizer_state
-        state = checkpoint_utils.train_state_dict(self.model.net, self.state,
-                                                  with_optimizer=not params_only)
         if params_only:
             # params-only checkpoint: resume treats it like finetune_from_model
             meta["no_optimizer_state"] = True
+        if self.sharded:
+            # every rank writes its own pieces; nothing is gathered
+            pieces = checkpoint_utils.sharded_pieces(self.state, self.layout,
+                                                     with_optimizer=not params_only)
+            checkpoint_utils.save_sharded(cfg.checkpoint.save_dir, name, pieces, self.mesh.rank, meta,
+                                          barrier=torch.distributed.barrier,
+                                          mirror_last=not cfg.checkpoint.no_last_checkpoints)
+            if self.mesh.rank == 0:
+                ck = cfg.checkpoint
+                if is_best:
+                    checkpoint_utils._mirror(os.path.join(os.path.abspath(ck.save_dir), name),
+                                             os.path.join(ck.save_dir, "checkpoint_best"))
+                if ck.keep_interval_updates > 0:
+                    checkpoint_utils._prune(ck.save_dir, ck.keep_interval_updates, extra=name,
+                                            keep_multiple=ck.keep_interval_updates_pattern)
+            return
+        state = checkpoint_utils.train_state_dict(self.model.net, self.state,
+                                                  with_optimizer=not params_only)
         checkpoint_utils.save_checkpoint(
             cfg.checkpoint.save_dir, name, state, meta,
             keep_last=cfg.checkpoint.keep_interval_updates, is_best=is_best,
@@ -510,6 +566,15 @@ class Trainer:
             # params-only checkpoint: the weights restore, the optimizer starts fresh
             self._load_params_only(path)
             return int(pre_meta.get("num_updates", 0))
+        if self.sharded:
+            # each rank reads the parts of the saved pieces that it holds
+            checkpoint_utils.load_sharded_state(path, self.state, self.layout)
+            meta = checkpoint_utils.upgrade_state_meta(checkpoint_utils.read_meta(path)) or {}
+            if not ck.reset_dataloader:
+                self._resume_iterators = dict(meta.get("iterator_states", {}))
+            if not ck.reset_meters and meta.get("meters"):
+                self.meters.load_state_dict(meta["meters"])
+            return int(meta.get("num_updates", 0))
         state, meta = checkpoint_utils.load_checkpoint(path)
         saved_syms = (pre_meta or {}).get("global_dict", {}).get("symbols")
         cur_syms = self.global_dict.state_dict()["symbols"]
@@ -535,8 +600,11 @@ class Trainer:
     def _load_params_only(self, path: str):
         """Restore the model weights (and the EMA if both have one) from
         ``path``; the optimizer, meters and iterators keep their fresh state."""
-        state, _ = checkpoint_utils.load_checkpoint(path)
-        checkpoint_utils.load_train_state(self.model.net, self.state, state, params_only=True)
+        if self.sharded:
+            checkpoint_utils.load_sharded_state(path, self.state, self.layout, params_only=True)
+        else:
+            state, _ = checkpoint_utils.load_checkpoint(path)
+            checkpoint_utils.load_train_state(self.model.net, self.state, state, params_only=True)
         logger.info("loaded model weights (params-only) from %s", path)
 
 

@@ -23,7 +23,11 @@ draws. An AUDIO target decodes through ``AutoRegressiveSpeechGenerator``
 gcmvn stats; ``seed`` seeds the prenet's dropout) and returns one
 ``SpeechGeneratorOutput`` with its waveform a request. With a draft
 attached, calls that resolve to greedy decoding go to
-``SpeculativeGenerator``. ``shard`` waits for ROADMAP Queue A item 13.
+``SpeculativeGenerator``.
+
+    hub.shard()           # tensor-parallel serving over every rank of the world
+                          # (parallel/sharding.shard_model); after quantize(),
+                          # the int8 weights and scales are cut too
 """
 
 from __future__ import annotations
@@ -149,6 +153,9 @@ class OFASys:
         """Wrap a live training session for in-process inference: the hub
         serves the trainer's model (its parameters as they are now, and as
         later updates leave them)."""
+        if getattr(trainer.model.net, "fsdp_held", None):
+            raise ValueError("from_trainer: under fsdp each rank holds only slices of the parameters; "
+                             "serve a checkpoint of the run (OFASys.from_pretrained)")
         gp = tasks[0].general_preprocess if tasks else GeneralPreprocess(trainer.global_dict)
         return cls(trainer.model, None, trainer.global_dict, gp, device=trainer.device,
                    tasks={t.name: t for t in (tasks or [])})
@@ -165,9 +172,34 @@ class OFASys:
             raise ValueError("quantize() does not support ensembles — quantize each member "
                              "before ensembling")
         net = self.model.net
+        if getattr(net, "shards", None):
+            raise ValueError("quantize() before shard(): the row-parallel scales need whole rows")
         if not any(is_quantized(m) for m in net.modules()):
             quantize_for_serving(net, **kwargs)
         self.model.cfg.quant_mode = mode
+        self._generators.clear()
+        return self
+
+    def shard(self, parallel=None, mesh=None) -> "OFASys":
+        """Shard the serving model IN PLACE over a mesh of the world
+        (ofasys_tpu's ``shard``): each rank keeps its tensor-parallel shards
+        (the local heads and FFN columns; the row-parallel products summed
+        over the tensor group), so the attention kernels and, after
+        ``quantize()``, kernel B7 run on the local shards, and the decoded
+        tokens are those of one-rank serving. The default layout is tensor
+        parallelism over every rank; ``parallel`` (a ``ParallelConfig``) or
+        a built ``mesh`` for another. The ensemble members and the draft are
+        sharded too. Returns self."""
+        from ofasys_torch.configure.configs import ParallelConfig
+        from ofasys_torch.parallel import build_mesh, shard_model
+
+        if mesh is None:
+            mesh = build_mesh(parallel or ParallelConfig(data=1, tensor=-1), device=self.device)
+        models = [self.model] + [m for m in (self._ensemble or []) if m is not self.model]
+        if self._draft is not None:
+            models.append(self._draft[0])
+        for m in models:
+            shard_model(m.net, mesh)
         self._generators.clear()
         return self
 

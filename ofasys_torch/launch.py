@@ -179,6 +179,11 @@ def main(argv: Optional[List[str]] = None):
         return 0
     path, sets, opts = parse_launch_args(argv)
     data = apply_overrides(load_yaml_config(path), sets)
+    # several ranks: the process group from the environment (torchrun's or
+    # OFASYS_*), before the trainer builds its mesh
+    from ofasys_torch.parallel.distributed import distributed_init
+
+    distributed_init()
     trainer, model, tasks = build_from_config(data, opts.get("device"))
     trainer.fit(model, tasks)
     return 0

@@ -2,11 +2,13 @@
 ofasys_tpu/model/config.py, every default kept).
 
 Plain dataclasses (the ConfigStore holds one as ``ofasys.model/unify``).
-Fields that name execution features the port does not run yet (MoE, scan-over-layers,
-pipeline and sequence parallelism, remat) stay so that a config carried
-over from ofasys_tpu keeps its shape; ``GeneralistModel.initialize`` raises
-when one is set away from its default, and when ``quant_training`` is
-neither 'none' nor 'fwd'. ``ln_impl`` is checked where the stacks build
+``GeneralistModel.initialize`` holds the layer-layout options to
+ofasys_tpu's guards (:func:`check_layout`: pipeline stages need the stacked
+layout, which refuses LayerDrop and MoE, and sequence parallelism does not
+pipeline) and raises when ``quant_training`` is neither 'none' nor 'fwd'.
+``scan_layers`` selects the stacked parameter layout of the trees that go
+in and out (``layers_scan/layer/<leaf>`` with a leading layer axis,
+utils/jax_params.py); the modules stay one per layer. ``ln_impl`` is checked where the stacks build
 their LayerNorms (``model/transformer.make_ln``) and ``quant_mode`` where
 an int8 matmul runs (``ops/quant.int8_matmul``), as in ofasys_tpu.
 """
@@ -79,6 +81,8 @@ class GeneralistModelConfig:
     #   'xla'    — never (plain attention)
     #   'pallas' — same gate, and on the CPU too through B1's plain version
     attn_kernel: str = "auto"
+    # per-layer activation checkpointing in training: 'none', 'full' or
+    # 'dots' (model/transformer.remat_call)
     remat: str = "none"
     scan_layers: bool = False
     moe_experts: int = 0
@@ -138,14 +142,26 @@ def apply_arch(cfg: GeneralistModelConfig, arch: str):
 
 QUANT_TRAINING = ("none", "fwd")
 
-# fields whose non-default values select code this slice does not port,
-# with where each waits
-UNPORTED_DEFAULTS = {
-    "scan_layers": (False, "Queue A item 13"),
-    "moe_experts": (0, "Queue A item 13"),
-    "pipeline_stages": (1, "Queue A item 13"),
-    "sequence_parallel": (False, "Queue A item 13"),
-    # per-layer activation checkpointing; torch.utils.checkpoint with the
-    # step's generator draws replayed comes with the parallelism item
-    "remat": ("none", "Queue A item 13"),
-}
+REMAT_MODES = ("none", "full", "dots")
+
+
+def check_layout(cfg: GeneralistModelConfig):
+    """ofasys_tpu's ``GeneralistModel.initialize`` guards on the layer
+    layout, and the remat mode."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {cfg.remat!r}; expected 'none', 'full' or 'dots'")
+    if cfg.pipeline_stages > 1 and not cfg.scan_layers:
+        raise ValueError("pipeline_stages > 1 requires scan_layers=True (stacked layer params)")
+    if cfg.scan_layers and (cfg.encoder.layerdrop > 0.0 or cfg.decoder.layerdrop > 0.0):
+        raise ValueError(
+            "layerdrop requires the loop layer layout (scan_layers=False): "
+            "nn.scan shares one compiled body across layers"
+        )
+    if cfg.scan_layers and cfg.moe_experts > 0:
+        raise ValueError(
+            "moe_experts requires the loop layer layout (scan_layers=False): "
+            "MoE layers have different params than dense layers, which "
+            "breaks nn.scan's homogeneous stacked-parameter structure"
+        )
+    if cfg.pipeline_stages > 1 and cfg.sequence_parallel:
+        raise ValueError("sequence_parallel cannot be combined with pipeline_stages > 1")

@@ -26,13 +26,13 @@ from ofasys_torch.adaptor.audio import Conv1d
 from ofasys_torch.adaptor.general import GeneralAdaptor
 from ofasys_torch.adaptor.image import PatchEmbed
 from ofasys_torch.configure.config_store import ConfigStore, register_config
-from ofasys_torch.model.config import (QUANT_TRAINING, UNPORTED_DEFAULTS, GeneralistModelConfig,
-                                      apply_arch)
+from ofasys_torch.model.config import QUANT_TRAINING, GeneralistModelConfig, apply_arch, check_layout
 from ofasys_torch.model.resnet import init_resnet_
 from ofasys_torch.model.transformer import (
     BiasSpec,
     Dense,
     Embed,
+    MoEFeedForward,
     MultiheadAttention,
     TransformerDecoder,
     TransformerEncoder,
@@ -157,12 +157,12 @@ class GeneralistNet(nn.Module):
         d = self.decoder_adaptor(tgt_slots)
         cb = self.cross_bias(d.pos_embed, enc.pos_embed)
         cfg = self.cfg
-        H = cfg.decoder.attention_heads
-        head_dim = cfg.decoder.embed_dim // H
         B = enc.x.shape[0]
         cache = {}
         for i in range(cfg.decoder.layers):
             attn = getattr(self.decoder, f"layers_{i}").encoder_attn
+            # the layer's own heads: a tensor-parallel shard holds its local ones
+            H, head_dim = attn.num_heads, attn.head_dim
             cache[f"layers_{i}"] = {
                 "self": MultiheadAttention.init_cache(B, max_len, H, head_dim, self.dtype, enc.x.device),
                 "cross": {"k": attn.k_proj(enc.x).reshape(B, -1, H, head_dim),
@@ -229,6 +229,12 @@ def _init_parameters(net: GeneralistNet, generator: torch.Generator):
                 p.fill_(1.0)
             elif leaf in ("rel_pos_table", "image_rel_pos_table"):
                 p.zero_()
+            elif leaf == "router":
+                p.normal_(0.0, 0.02, generator=generator)
+            elif leaf in ("moe_w1", "moe_w2"):
+                # lecun-normal per expert: the fan-in is the input axis
+                std = math.sqrt(1.0 / p.shape[-2]) / 0.87962566103423978
+                nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def modal_ids_of(sample_slots: Sequence) -> Dict[str, Tuple[int, ...]]:
@@ -284,7 +290,8 @@ class GeneralistModel:
                    device: Union[str, torch.device] = "cuda", seed: int = 0,
                    adaptor_cfgs: Optional[Dict[str, Any]] = None,
                    sample_slots: Optional[Sequence] = None,
-                   modal_ids: Optional[Dict[str, Tuple[int, ...]]] = None):
+                   modal_ids: Optional[Dict[str, Tuple[int, ...]]] = None,
+                   mesh=None):
         """Build the net once the vocab is final, with random parameters
         drawn from ``seed``, on ``device`` (raises when CUDA is requested
         and absent). ``adaptor_cfgs`` configures adaptors by name (e.g.
@@ -293,14 +300,13 @@ class GeneralistModel:
         ``sample_slots`` (one slot list, or one list per task), required
         under ``cfg.modal_ffn``: each stack gets an expert for every
         modality that a source (encoder) or target (decoder) slot of these
-        lists has, as ofasys_tpu's ``init_params`` creates exactly those."""
+        lists has, as ofasys_tpu's ``init_params`` creates exactly those.
+
+        ``mesh`` (parallel/mesh.py): the mesh that sequence and pipeline
+        parallelism and expert-parallel MoE run over; the net's modules
+        read it (``parallel.sharding.set_mesh``)."""
         dev = resolve_device(device)
-        for name, (default, where) in UNPORTED_DEFAULTS.items():
-            if getattr(self.cfg, name) != default:
-                raise NotImplementedError(
-                    f"config {name}={getattr(self.cfg, name)!r} is not ported to ofasys_torch "
-                    f"yet ({where})"
-                )
+        check_layout(self.cfg)
         if self.cfg.quant_training not in QUANT_TRAINING:
             raise ValueError(f"unknown quant_training {self.cfg.quant_training!r}; expected one of "
                              f"{QUANT_TRAINING}")
@@ -314,6 +320,10 @@ class GeneralistModel:
                             adaptor_cfgs=adaptor_cfgs, modal_ids=modal_ids)
         _init_parameters(net, torch.Generator().manual_seed(seed))
         self.net = net.to(dev).eval()
+        if mesh is not None:
+            from ofasys_torch.parallel.sharding import set_mesh
+
+            set_mesh(self.net, mesh)
         return self
 
     @torch.no_grad()
@@ -324,7 +334,7 @@ class GeneralistModel:
 
     def apply_train(self, slots: List[SlotBatch], deterministic: bool = False,
                     generator: Optional[torch.Generator] = None, full_context: bool = False,
-                    hidden_only: bool = False):
+                    hidden_only: bool = False, with_aux_losses: bool = False):
         """The forward with gradients (ofasys_tpu's ``apply(params, slots,
         deterministic, rngs)``): with ``deterministic=False`` and a
         ``generator`` on the net's device, dropout, DropPath and LayerDrop
@@ -333,5 +343,18 @@ class GeneralistModel:
         ``hidden_only`` as in ``GeneralistNet.forward``."""
         if self.net is None:
             raise RuntimeError("call initialize(global_dict) first")
-        return self.net(slots, full_context=full_context,
-                        generator=None if deterministic else generator, hidden_only=hidden_only)
+        if not with_aux_losses:
+            return self.net(slots, full_context=full_context,
+                            generator=None if deterministic else generator, hidden_only=hidden_only)
+        moes = [m for m in self.net.modules() if isinstance(m, MoEFeedForward)]
+        for m in moes:
+            m.sink = []
+        try:
+            out, extra = self.net(slots, full_context=full_context,
+                                  generator=None if deterministic else generator, hidden_only=hidden_only)
+            leaves = [a for m in moes for a in m.sink]
+        finally:
+            for m in moes:
+                m.sink = None
+        aux = sum(leaves) if leaves else torch.zeros((), device=self.net.device)
+        return out, extra, aux

@@ -26,9 +26,18 @@ B7, in training calls, the fused q/k/v as one call; the tied logits and the
 adaptors stay in the compute dtype) and ``cfg.ln_impl`` (``make_ln``: the
 LayerNorm kernels B6) follow ofasys_tpu's ``QuantDense``/``QuantEmbed`` and
 ``make_ln``; ``cfg.modal_ffn`` routes each modality's span through its own
-FeedForward experts (:class:`FeedForward`). MoE, scan_layers, remat, ring attention and pipeline
-parallelism wait for later slices (GeneralistModel.initialize raises when a
-config asks for them).
+FeedForward experts (:class:`FeedForward`).
+
+Parallelism (ofasys_torch/parallel/): ``cfg.remat`` checkpoints every
+training layer (:func:`remat_call`); ``cfg.moe_experts`` puts
+:class:`MoEFeedForward` in every ``moe_every_n``-th layer; with a mesh set on
+the net (``parallel.sharding.set_mesh``) ``cfg.sequence_parallel`` routes
+training self-attention through ring attention, ``cfg.pipeline_stages > 1``
+runs the training stacks as a GPipe pipeline over the mesh's ``pipe`` axis,
+and ``parallel.sharding.shard_model`` gives the attention and FFN modules
+their tensor-parallel shards (``tp_group``: the local heads and FFN
+columns; ``Dense.row_group``: the row-parallel ``out_proj``/``fc2``, summed
+over the tensor group).
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from ofasys_torch.ops.attention import causal_mask, combine_masks, dot_product_a
 from ofasys_torch.ops.dense_attention import dense_attention, dense_supported
 from ofasys_torch.ops.flash_attention import flash_attention, flash_available, flash_supported
 from ofasys_torch.ops.quant import int8_matmul, int8_train_matmul, is_quantized
+from ofasys_torch.ops.int8_matmul import int8_matmul_fwd
+from ofasys_torch.parallel import distributed as PD
 
 LN_EPS = 1e-5
 
@@ -58,13 +69,41 @@ class Dense(nn.Linear):
     ``qtrain`` (a training call under quant_training='fwd') runs
     ``int8_train_matmul`` on the fp32 weight."""
 
+    # the tensor group of a row-parallel shard (parallel.sharding.shard_model):
+    # the weight holds this rank's input columns, the partial products are
+    # summed over the group in fp32 and the bias is added once
+    row_group = None
+
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  cfg: GeneralistModelConfig):
         super().__init__(in_features, out_features)
         self.dtype = dtype
         self.cfg = cfg
 
+    def _row_parallel(self, x: torch.Tensor, qtrain: bool) -> torch.Tensor:
+        g = self.row_group
+        if is_quantized(self) and self.cfg.quant_mode == "w8a8":
+            # w8a8 quantizes each activation row over its whole width: the
+            # row maximum is taken over the group
+            xf = x.reshape(-1, x.shape[-1]).float()
+            amax = PD.all_reduce(xf.abs().amax(dim=-1, keepdim=True), g, torch.distributed.ReduceOp.MAX)
+            sx = torch.clamp(amax, min=1e-8) / 127.0
+            xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+            y = int8_matmul_fwd(xq, sx, self.q, self.scale, torch.float32)
+            y = y.reshape(*x.shape[:-1], self.q.shape[0])
+        elif is_quantized(self):
+            y = int8_matmul(x, self.q, self.scale, mode=self.cfg.quant_mode, out_dtype=torch.float32)
+        elif qtrain:
+            y = int8_train_matmul(x.to(self.dtype), self.weight).float()
+        else:
+            # the GEMM in the compute dtype, as the one-rank Dense runs it;
+            # its partial product is widened for the fp32 sum over the group
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype)).float()
+        return (PD.exit(y, g) + self.bias.float()).to(self.dtype)
+
     def forward(self, x: torch.Tensor, qtrain: bool = False) -> torch.Tensor:
+        if self.row_group is not None:
+            return self._row_parallel(x, qtrain)
         if is_quantized(self):
             y = int8_matmul(x, self.q, self.scale, mode=self.cfg.quant_mode, out_dtype=self.dtype)
             return y + self.bias.to(self.dtype)
@@ -83,12 +122,40 @@ class Embed(nn.Embedding):
     """``nn.Embedding`` (fp32 table) whose ``attend`` is the tied output
     projection: ``query @ weight.T`` in ``dtype``, or, with an int8 attend
     table (``quantize_for_serving``), the w8a8 product through kernel B7
-    (ofasys_tpu's ``QuantEmbed.attend``, which takes w8a8 whatever the mode)."""
+    (ofasys_tpu's ``QuantEmbed.attend``, which takes w8a8 whatever the mode).
 
-    def attend(self, query: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    Vocab-parallel (``tp_group``, parallel.sharding.shard_model): the table
+    holds this rank's rows from ``vocab_start``; a lookup takes the rows it
+    holds and sums over the group, ``local_logits`` are this rank's vocab
+    columns (the criterion's all-reduced log-softmax reads them),
+    ``attend`` gathers them whole, and ``full_weight`` gathers the table."""
+
+    tp_group = None
+    vocab_start = 0
+
+    def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The rows of ``tokens`` (fp32)."""
+        if self.tp_group is None:
+            return self.weight[tokens]
+        local = tokens - self.vocab_start
+        inside = (local >= 0) & (local < self.weight.shape[0])
+        rows = self.weight[local.clamp(0, self.weight.shape[0] - 1)]
+        return PD.exit(torch.where(inside[..., None], rows, torch.zeros((), device=rows.device)),
+                       self.tp_group)
+
+    def local_logits(self, query: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The logits of this rank's vocab rows (all of them off a group)."""
+        if self.tp_group is not None:
+            query = PD.enter(query, self.tp_group)
         if is_quantized(self):
             return int8_matmul(query, self.q, self.scale, mode="w8a8", out_dtype=query.dtype)
         return query.to(dtype) @ self.weight.to(dtype).t()
+
+    def attend(self, query: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return PD.gather(self.local_logits(query, dtype), -1, self.tp_group)
+
+    def full_weight(self) -> torch.Tensor:
+        return PD.gather(self.weight, 0, self.tp_group)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -304,6 +371,12 @@ class MultiheadAttention(nn.Module):
     ``observer``: set by :class:`AttentionProbs` inside its block."""
 
     observer = None
+    # the mesh (sequence parallelism: ring attention) and the tensor group
+    # of a tensor-parallel shard, whose ``num_heads`` local heads start at
+    # global head ``head_offset`` (parallel.sharding)
+    mesh = None
+    tp_group = None
+    head_offset = 0
 
     def __init__(self, cfg: GeneralistModelConfig, embed_dim: int, num_heads: int,
                  dtype: torch.dtype):
@@ -311,6 +384,7 @@ class MultiheadAttention(nn.Module):
         self.cfg = cfg
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
         self.dtype = dtype
         self.q_proj = Dense(embed_dim, embed_dim, dtype, cfg)
         self.k_proj = Dense(embed_dim, embed_dim, dtype, cfg)
@@ -360,10 +434,17 @@ class MultiheadAttention(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
         cfg = self.cfg
         H = self.num_heads
-        head_dim = self.embed_dim // H
+        head_dim = self.head_dim
         scaling = float(head_dim * cfg.attn_scale_factor) ** -0.5
         B, Tq = query.shape[:2]
         qtrain = qtrain_active(cfg, generator)
+        if self.tp_group is not None:
+            # the local heads read the replicated inputs and bias
+            query = PD.enter(query, self.tp_group)
+            if key_value is not None:
+                key_value = PD.enter(key_value, self.tp_group)
+            if bias is not None:
+                bias = PD.enter(bias, self.tp_group)[:, self.head_offset:self.head_offset + H]
         if cache is not None and static_kv:
             # cross-attention at decode time: k/v computed once, reused
             q = self.q_proj(query).reshape(B, Tq, H, head_dim)
@@ -397,13 +478,22 @@ class MultiheadAttention(nn.Module):
         # kernel gates refuse a nonzero rate
         p_drop = cfg.attention_dropout if generator is not None else 0.0
         Tq_, Tk_ = q.shape[1], k.shape[1]
-        route = attention_route(
+        ring = self._ring_ok(B, Tq_, Tk_, p_drop, mask, cache is not None, key_value is not None)
+        route = "ring" if ring else attention_route(
             cfg, q.device, B, Tq_, Tk_, H, head_dim, p_drop,
             bias_shape=None if bias is None else tuple(bias.shape),
             mask_shape=None if mask is None else tuple(mask.shape),
             cached=cache is not None,
         )
-        if route == "flash":
+        if route == "ring":
+            from ofasys_torch.parallel.ring_attention import ring_attention
+
+            g = self.mesh.group("sequence")
+            rows = None if bias is None else PD.scatter(bias, 2, g)
+            x = ring_attention(PD.scatter(q, 1, g), PD.scatter(k, 1, g), PD.scatter(v, 1, g),
+                               self.mesh, scale=scaling, causal=causal, bias=rows, mask=mask)
+            x = PD.gather(x, 1, g).to(self.dtype)
+        elif route == "flash":
             x = flash_attention(q, k, v, bias=bias, mask=mask, scale=scaling,
                                 causal=causal).to(self.dtype)
         elif route == "dense":
@@ -427,8 +517,31 @@ class MultiheadAttention(nn.Module):
             obs.maps.append((name, torch.softmax(logits, dim=-1)))
         if cfg.scale_heads:
             x = x * self.c_attn.to(self.dtype)[None, None, :, None]
-        x = self.out_proj(x.reshape(B, Tq, self.embed_dim), qtrain)
+        x = self.out_proj(x.reshape(B, Tq, H * head_dim), qtrain)
         return x, cache
+
+    def _ring_ok(self, B: int, Tq: int, Tk: int, p_drop: float, mask, cached: bool,
+                 cross: bool) -> bool:
+        """ofasys_tpu's ring-attention gate: a training self-attention under
+        ``cfg.sequence_parallel`` on a mesh whose sequence axis is > 1, no
+        dropout, Tq == Tk divisible by the axis, a padding-only mask. When
+        a self-attention fails it, the dense fallback is announced."""
+        mesh = self.mesh
+        if not (self.cfg.sequence_parallel and mesh is not None and mesh.size("sequence") > 1):
+            return False
+        n_seq = mesh.size("sequence")
+        ok = (not cached and not cross and p_drop == 0.0 and Tq == Tk and Tq % n_seq == 0
+              and (mask is None or (mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1
+                                    and mask.shape[0] == B)))
+        if not ok and not cached and not cross:
+            import warnings
+
+            warnings.warn(
+                "sequence_parallel requested but ring attention gate failed for self-attention "
+                f"(B={B}, T={Tq}, heads={self.num_heads}, dropout={p_drop}, mesh sequence={n_seq}); "
+                "falling back to DENSE attention. Check divisibility (T % sequence) and "
+                "attention_dropout == 0.", stacklevel=3)
+        return ok
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -472,6 +585,10 @@ class FeedForward(nn.Module):
             self.add_module(fc2, Dense(ffn_dim, embed_dim, dtype, cfg))
             self.add_module(fc2 + "_ln", make_ln(cfg, ffn_dim, dtype) if cfg.scale_fc else None)
 
+    # the tensor group of a tensor-parallel shard: fc1 holds this rank's
+    # hidden columns, fc2 (row-parallel) the matching rows of its input
+    tp_group = None
+
     def _run(self, x: torch.Tensor, fc1: str, fc2: str,
              generator: Optional[torch.Generator]) -> torch.Tensor:
         if not hasattr(self, fc1):
@@ -479,11 +596,13 @@ class FeedForward(nn.Module):
                 f"FeedForward has no {fc1!r}: its parameters are {sorted(n for n, _ in self.named_children())} "
                 "(under modal_ffn only the experts of the initialized modalities exist)")
         qtrain = qtrain_active(self.cfg, generator)
+        if self.tp_group is not None:
+            x = PD.enter(x, self.tp_group)
         h = self.act(getattr(self, fc1)(x, qtrain))
         h = dropout(h, self.cfg.activation_dropout, generator)
         ln = getattr(self, fc2 + "_ln")
         if ln is not None:
-            h = ln(h)
+            h = ln(h) if self.tp_group is None else _sharded_layer_norm(h, ln, self.tp_group)
         return getattr(self, fc2)(h, qtrain)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -494,11 +613,131 @@ class FeedForward(nn.Module):
                           for start, end, m in modal_spans], dim=1)
 
 
+def _sharded_layer_norm(h: torch.Tensor, ln: nn.Module, group) -> torch.Tensor:
+    """LayerNorm over a feature axis split over ``group`` (the FFN's mid
+    LayerNorm under tensor parallelism). The plain LayerNorm sums its fp32
+    statistics over the group and applies this rank's slice of the weight
+    and bias. Kernel B6 (``ln_impl`` 'hybrid' or 'pallas') normalizes whole
+    rows: the rows, the weight and the bias are gathered, every rank runs
+    B6 on them, and keeps its own columns."""
+    from ofasys_torch.ops.layer_norm import FusedLayerNorm
+
+    if isinstance(ln, FusedLayerNorm):
+        row = PD.gather(h, -1, group)
+        y = ln.normalize(row, PD.gather(ln.weight, 0, group), PD.gather(ln.bias, 0, group))
+        return PD.scatter(y, -1, group)
+    xf = h.float()
+    n = xf.shape[-1] * PD.group_size(group)
+    mu = PD.enter(PD.exit(xf.sum(-1, keepdim=True), group), group) / n
+    xc = xf - mu
+    var = PD.enter(PD.exit((xc * xc).sum(-1, keepdim=True), group), group) / n
+    y = xc * torch.rsqrt(var + LN_EPS) * ln.weight.float() + ln.bias.float()
+    return y.to(ln.dtype)
+
+
+def is_moe_layer(cfg: GeneralistModelConfig, i: int) -> bool:
+    """Every moe_every_n-th layer (1-based) carries the MoE FFN."""
+    return cfg.moe_experts > 0 and (i + 1) % max(cfg.moe_every_n, 1) == 0
+
+
+class MoEFeedForward(nn.Module):
+    """Switch-style mixture-of-experts FFN (ofasys_tpu's ``MoEFeedForward``):
+    top-1 routing with capacity over ``cfg.moe_experts`` experts, parameters
+    ``router`` (D, E), ``moe_w1`` (E, D, H) and ``moe_w2`` (E, H, D) fp32.
+    With a mesh whose expert axis is > 1 the experts are split over it
+    (``parallel.sharding.shard_model`` keeps this rank's, ``local_experts``)
+    and the tokens go through ``parallel.moe.moe_ffn_sharded``; else
+    ``moe_ffn_dense``. Each call's load-balance aux loss is appended to
+    ``sink`` when the caller set one (``GeneralistModel.apply_train(...,
+    with_aux_losses=True)``)."""
+
+    mesh = None
+    local_experts = False
+    sink = None
+
+    def __init__(self, cfg: GeneralistModelConfig, ffn_dim: int, embed_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        E = cfg.moe_experts
+        self.router = nn.Parameter(torch.zeros(embed_dim, E))
+        self.moe_w1 = nn.Parameter(torch.zeros(E, embed_dim, ffn_dim))
+        self.moe_w2 = nn.Parameter(torch.zeros(E, ffn_dim, embed_dim))
+        self.act = get_activation_fn(cfg.activation_fn)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        from ofasys_torch.parallel.moe import moe_ffn_dense, moe_ffn_sharded
+
+        B, T, D = x.shape
+        xs = x.reshape(B * T, D)
+        E = self.cfg.moe_experts
+        ep = self.mesh.size("expert") if self.mesh is not None else 1
+        if ep > 1 and E % ep == 0 and (B * T) % ep == 0:
+            out, aux = moe_ffn_sharded(xs, self.router, self.moe_w1, self.moe_w2, self.mesh,
+                                       capacity_factor=self.cfg.moe_capacity_factor, activation=self.act)
+        elif self.local_experts:
+            raise ValueError(f"MoE: {B * T} tokens do not divide over the expert axis ({ep}) and this "
+                             "rank holds only its own experts")
+        else:
+            out, aux = moe_ffn_dense(xs, self.router, self.moe_w1, self.moe_w2,
+                                     capacity_factor=self.cfg.moe_capacity_factor, activation=self.act)
+        if self.sink is not None:
+            self.sink.append(aux)
+        return out.reshape(B, T, D).to(self.dtype)
+
+
+def remat_call(cfg: GeneralistModelConfig, fn: Callable, generator: Optional[torch.Generator], *args):
+    """``fn(*args)`` under ``cfg.remat`` (ofasys_tpu's ``_maybe_remat``), when
+    gradients are on: 'none' runs it as it is; 'full' keeps only its inputs
+    and recomputes it in the backward; 'dots' keeps the results of products
+    without a batch dimension (``aten.mm``, ``aten.addmm``, ``aten.linear``;
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
+    attention kernels included. ``torch.utils.checkpoint`` replays only the
+    global RNGs, so the state of ``generator`` (the step's dropout draws) is
+    saved before the call and set again for the recompute, which then draws
+    the same masks."""
+    mode = cfg.remat
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}; expected 'none', 'full' or 'dots'")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    import functools
+
+    from torch.utils.checkpoint import checkpoint
+
+    saved = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0] or generator is None:
+            first[0] = False
+            return fn(*a)
+        now = generator.get_state()
+        generator.set_state(saved)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(now)
+
+    kw = {}
+    if mode == "dots":
+        from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+        saveable = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                    torch.ops.aten.linear.default}
+
+        def policy(ctx, op, *a, **k):
+            return CheckpointPolicy.MUST_SAVE if op in saveable else CheckpointPolicy.PREFER_RECOMPUTE
+
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, policy)
+    return checkpoint(run, *args, use_reentrant=False, **kw)
+
+
 class TransformerEncoderLayer(nn.Module):
     """Pre-LN encoder block with normformer extras."""
 
     def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
-                 modal_ids: Optional[Tuple[int, ...]] = None):
+                 modal_ids: Optional[Tuple[int, ...]] = None, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
         E = cfg.encoder.embed_dim
@@ -506,7 +745,10 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = MultiheadAttention(cfg, E, cfg.encoder.attention_heads, dtype)
         self.attn_ln = make_ln(cfg, E, dtype) if cfg.scale_attn else None
         self.final_layer_norm = make_ln(cfg, E, dtype)
-        self.ffn = FeedForward(cfg, cfg.encoder.ffn_embed_dim, E, dtype, modal_ids)
+        if use_moe:
+            self.moe_ffn = MoEFeedForward(cfg, cfg.encoder.ffn_embed_dim, E, dtype)
+        else:
+            self.ffn = FeedForward(cfg, cfg.encoder.ffn_embed_dim, E, dtype, modal_ids)
         if cfg.scale_resids:
             self.w_resid = nn.Parameter(torch.ones(E))
         self.dtype = dtype
@@ -527,7 +769,7 @@ class TransformerEncoderLayer(nn.Module):
 
         residual = x
         h = self.final_layer_norm(x) if pre else x
-        h = self.ffn(h, generator, modal_spans)
+        h = self.moe_ffn(h, generator) if hasattr(self, "moe_ffn") else self.ffn(h, generator, modal_spans)
         h = dropout(h, cfg.dropout, generator)
         if cfg.scale_resids:
             residual = residual * self.w_resid.to(self.dtype)
@@ -541,7 +783,7 @@ class TransformerDecoderLayer(nn.Module):
     """Pre-LN decoder block: causal self-attention + cross-attention + FFN."""
 
     def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
-                 modal_ids: Optional[Tuple[int, ...]] = None):
+                 modal_ids: Optional[Tuple[int, ...]] = None, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
         E = cfg.decoder.embed_dim
@@ -553,7 +795,10 @@ class TransformerDecoderLayer(nn.Module):
         self.encoder_attn = MultiheadAttention(cfg, E, H, dtype)
         self.cross_attn_ln = make_ln(cfg, E, dtype) if cfg.scale_attn else None
         self.final_layer_norm = make_ln(cfg, E, dtype)
-        self.ffn = FeedForward(cfg, cfg.decoder.ffn_embed_dim, E, dtype, modal_ids)
+        if use_moe:
+            self.moe_ffn = MoEFeedForward(cfg, cfg.decoder.ffn_embed_dim, E, dtype)
+        else:
+            self.ffn = FeedForward(cfg, cfg.decoder.ffn_embed_dim, E, dtype, modal_ids)
         if cfg.scale_resids:
             self.w_resid = nn.Parameter(torch.ones(E))
         self.dtype = dtype
@@ -599,7 +844,7 @@ class TransformerDecoderLayer(nn.Module):
 
         residual = x
         h = self.final_layer_norm(x) if pre else x
-        h = self.ffn(h, generator, modal_spans)
+        h = self.moe_ffn(h, generator) if hasattr(self, "moe_ffn") else self.ffn(h, generator, modal_spans)
         h = dropout(h, cfg.dropout, generator)
         if cfg.scale_resids:
             residual = residual * self.w_resid.to(self.dtype)
@@ -609,9 +854,38 @@ class TransformerDecoderLayer(nn.Module):
         return x, (new_cache if cache is not None else None)
 
 
+def _layer_bias(stacked: Optional[torch.Tensor], abs_bias: Optional[torch.Tensor],
+                i: int) -> Optional[torch.Tensor]:
+    """BiasSpec.layer_bias from the stacked tables and the absolute bias."""
+    out = None
+    if stacked is not None:
+        out = stacked[min(i, stacked.shape[0] - 1)][None]
+    if abs_bias is not None:
+        out = abs_bias if out is None else out + abs_bias
+    return out
+
+
+def _split_side(B: int, named: Dict[str, Optional[torch.Tensor]]):
+    """Side inputs of a pipelined stack: batch-major ones stream with the
+    microbatches, batch-1 (shared) ones go whole to every stage."""
+    micro, shared = {}, {}
+    for k, v in named.items():
+        if v is not None:
+            (micro if v.shape[0] == B else shared)[k] = v
+    return micro, shared
+
+
+def _pipelined(cfg: GeneralistModelConfig, mesh) -> bool:
+    return cfg.pipeline_stages > 1 and mesh is not None
+
+
 class TransformerEncoder(nn.Module):
     """Layer stack over already-adapted embeddings. ``modal_ids``: the
-    experts of every layer's FeedForward under ``cfg.modal_ffn``."""
+    experts of every layer's FeedForward under ``cfg.modal_ffn``. With
+    ``cfg.pipeline_stages > 1`` and a mesh, the training stack runs as a
+    GPipe pipeline over the mesh's ``pipe`` axis (parallel/pipeline.py)."""
+
+    mesh = None
 
     def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
                  modal_ids: Optional[Tuple[int, ...]] = None):
@@ -619,7 +893,8 @@ class TransformerEncoder(nn.Module):
         self.cfg = cfg
         self.n_layers = cfg.encoder.layers
         for i in range(self.n_layers):
-            self.add_module(f"layers_{i}", TransformerEncoderLayer(cfg, dtype, modal_ids))
+            self.add_module(f"layers_{i}", TransformerEncoderLayer(cfg, dtype, modal_ids,
+                                                                   use_moe=is_moe_layer(cfg, i)))
         self.layer_norm = make_ln(cfg, cfg.encoder.embed_dim, dtype) if cfg.encoder.normalize_before else None
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
@@ -629,19 +904,43 @@ class TransformerEncoder(nn.Module):
         """x (B, T, E) adapted embeddings; padding_mask (B, T) True = valid;
         ``generator`` turns on training mode (module docstring);
         ``modal_spans`` route the FeedForwards under ``cfg.modal_ffn``."""
+        cfg = self.cfg
         attn_mask = padding_mask[:, None, None, :]
-        dpr = np.linspace(0.0, self.cfg.encode_drop_path_rate, self.n_layers)
-        for i in range(self.n_layers):
-            bias = bias_spec.layer_bias(i) if bias_spec is not None else None
-            y = getattr(self, f"layers_{i}")(x, attn_mask, bias, generator, float(dpr[i]), modal_spans)
-            x = layer_drop(y, x, self.cfg.encoder.layerdrop, generator)
+        dpr = np.linspace(0.0, cfg.encode_drop_path_rate, self.n_layers)
+        if _pipelined(cfg, self.mesh):
+            from ofasys_torch.parallel.pipeline import pipeline_stack
+
+            stacked = bias_spec.stacked() if bias_spec is not None else None
+            abs_bias = bias_spec.abs_bias if bias_spec is not None else None
+            micro, shared = _split_side(x.shape[0], {"mask": attn_mask, "abs": abs_bias})
+
+            def layer_apply(gi, m, x_mb, mm, bcast):
+                side = {**bcast[1], **mm}
+                bias = _layer_bias(bcast[0], side.get("abs"), gi)
+                layer = getattr(self, f"layers_{gi}")
+                return remat_call(cfg, layer, generator, x_mb, side.get("mask"), bias, generator,
+                                  float(dpr[gi]), modal_spans)
+
+            x = pipeline_stack(self.mesh, layer_apply, self.n_layers,
+                               lambda gi: list(getattr(self, f"layers_{gi}").parameters()), x,
+                               micro_args=micro, bcast_args=(stacked, shared),
+                               n_micro=cfg.pipeline_microbatches or cfg.pipeline_stages)
+        else:
+            for i in range(self.n_layers):
+                bias = bias_spec.layer_bias(i) if bias_spec is not None else None
+                y = remat_call(cfg, getattr(self, f"layers_{i}"), generator, x, attn_mask, bias,
+                               generator, float(dpr[i]), modal_spans)
+                x = layer_drop(y, x, cfg.encoder.layerdrop, generator)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return x
 
 
 class TransformerDecoder(nn.Module):
-    """Decoder stack; full-sequence and incremental (KV cache) modes."""
+    """Decoder stack; full-sequence and incremental (KV cache) modes. The
+    full-sequence stack is pipelined as the encoder's is."""
+
+    mesh = None
 
     def __init__(self, cfg: GeneralistModelConfig, dtype: torch.dtype,
                  modal_ids: Optional[Tuple[int, ...]] = None):
@@ -649,7 +948,8 @@ class TransformerDecoder(nn.Module):
         self.cfg = cfg
         self.n_layers = cfg.decoder.layers
         for i in range(self.n_layers):
-            self.add_module(f"layers_{i}", TransformerDecoderLayer(cfg, dtype, modal_ids))
+            self.add_module(f"layers_{i}", TransformerDecoderLayer(cfg, dtype, modal_ids,
+                                                                   use_moe=is_moe_layer(cfg, i)))
         self.layer_norm = make_ln(cfg, cfg.decoder.embed_dim, dtype) if cfg.decoder.normalize_before else None
 
     def forward(
@@ -667,6 +967,7 @@ class TransformerDecoder(nn.Module):
         generator: Optional[torch.Generator] = None,
         modal_spans: Optional[Tuple[Tuple[int, int, int], ...]] = None,
     ):
+        cfg = self.cfg
         Tt = x.shape[1]
         self_mask = None
         if cache is None and self_padding_mask is not None:
@@ -676,25 +977,48 @@ class TransformerDecoder(nn.Module):
             cross_mask = encoder_padding_mask[:, None, None, :]
 
         new_cache: Optional[Dict[str, Any]] = {} if cache is not None else None
-        dpr = np.linspace(0.0, self.cfg.decode_drop_path_rate, self.n_layers)
-        for i in range(self.n_layers):
-            self_bias = None
-            if self_bias_spec is not None:
-                self_bias = (self_bias_spec.layer_bias(i) if cache is None
-                             else self_bias_spec.layer_bias_rows(i, cache_index, Tt))
-            cb = cross_bias
-            if cb is not None and cache is not None:
-                start = max(0, min(cache_index, cb.shape[2] - Tt))
-                cb = cb[:, :, start:start + Tt]
-            y, layer_cache = getattr(self, f"layers_{i}")(
-                x, encoder_out, self_mask, self_bias, cross_mask, cb,
-                None if cache is None else cache[f"layers_{i}"], full_context,
-                generator, float(dpr[i]), modal_spans,
-            )
-            # LayerDrop (never during incremental decoding)
-            x = y if cache is not None else layer_drop(y, x, self.cfg.decoder.layerdrop, generator)
-            if cache is not None:
-                new_cache[f"layers_{i}"] = layer_cache
+        dpr = np.linspace(0.0, cfg.decode_drop_path_rate, self.n_layers)
+        if cache is None and _pipelined(cfg, self.mesh):
+            from ofasys_torch.parallel.pipeline import pipeline_stack
+
+            spec = self_bias_spec
+            stacked = spec.stacked() if spec is not None else None
+            micro, shared = _split_side(x.shape[0], {
+                "eo": encoder_out, "sm": self_mask, "cm": cross_mask, "cb": cross_bias,
+                "abs": spec.abs_bias if spec is not None else None})
+
+            def layer_apply(gi, m, x_mb, mm, bcast):
+                a = {**bcast[1], **mm}
+                self_bias = _layer_bias(bcast[0], a.get("abs"), gi)
+                layer = getattr(self, f"layers_{gi}")
+                y, _ = remat_call(cfg, layer, generator, x_mb, a.get("eo"), a.get("sm"), self_bias,
+                                  a.get("cm"), a.get("cb"), None, full_context, generator,
+                                  float(dpr[gi]), modal_spans)
+                return y
+
+            x = pipeline_stack(self.mesh, layer_apply, self.n_layers,
+                               lambda gi: list(getattr(self, f"layers_{gi}").parameters()), x,
+                               micro_args=micro, bcast_args=(stacked, shared),
+                               n_micro=cfg.pipeline_microbatches or cfg.pipeline_stages)
+        else:
+            for i in range(self.n_layers):
+                self_bias = None
+                if self_bias_spec is not None:
+                    self_bias = (self_bias_spec.layer_bias(i) if cache is None
+                                 else self_bias_spec.layer_bias_rows(i, cache_index, Tt))
+                cb = cross_bias
+                if cb is not None and cache is not None:
+                    start = max(0, min(cache_index, cb.shape[2] - Tt))
+                    cb = cb[:, :, start:start + Tt]
+                layer = getattr(self, f"layers_{i}")
+                args = (x, encoder_out, self_mask, self_bias, cross_mask, cb,
+                        None if cache is None else cache[f"layers_{i}"], full_context,
+                        generator, float(dpr[i]), modal_spans)
+                y, layer_cache = layer(*args) if cache is not None else remat_call(cfg, layer, generator, *args)
+                # LayerDrop (never during incremental decoding)
+                x = y if cache is not None else layer_drop(y, x, cfg.decoder.layerdrop, generator)
+                if cache is not None:
+                    new_cache[f"layers_{i}"] = layer_cache
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return x, new_cache

@@ -383,7 +383,12 @@ class FusedLayerNorm(LayerNorm):
         self.mode = mode
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.normalize(x, self.weight, self.bias)
+
+    def normalize(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The module's LayerNorm of ``x`` with the given weight and bias (a
+        tensor-parallel shard passes the gathered whole ones)."""
         fn = HybridLayerNormFunction if self.mode == "hybrid" else FusedLayerNormFunction
         shape = x.shape
-        y = fn.apply(x.reshape(-1, shape[-1]).contiguous(), self.weight, self.bias, self.eps)
+        y = fn.apply(x.reshape(-1, shape[-1]).contiguous(), weight, bias, self.eps)
         return y.reshape(shape).to(self.dtype)

@@ -24,7 +24,8 @@ quantizes the live fp32 weight per output channel and the activations per
 row in every training forward of the stacks' projections and runs kernel
 B7; its backward is straight-through in the compute dtype.
 
-Not ported: scan-stacked (L, in, out) kernels (``scan_layers`` is not ported).
+A stacked tree's (L, in, out) kernels with (L, out) scales (``scan_layers``)
+load into the per-layer modules through utils/jax_params.unstack_layers.
 """
 
 from __future__ import annotations

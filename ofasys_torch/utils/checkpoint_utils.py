@@ -20,6 +20,16 @@ rotate as in ofasys_tpu.
 ``async_save``: the state is copied to host memory before
 ``save_checkpoint`` returns (the caller may update its tensors at once)
 and written on a background thread; ``wait_for_async_saves`` joins it.
+
+Sharded checkpoints (a world of several ranks, parallel/): ``<name>`` is a
+directory with one ``shard_<rank>.pt`` a rank that wrote pieces (each
+piece written once, by the first of its replicas): for every parameter,
+optimizer moment and EMA leaf the rank holds, its global shape, the box of
+it this rank holds (torch coordinates) and whether the flax leaf is its
+transpose. No rank gathers the state: ``load_sharded_state`` fills each
+rank's pieces on any other layout from the overlapping pieces (read through
+memory maps), and ``load_checkpoint`` of the directory assembles the whole
+tree for one process (``OFASys.from_pretrained``).
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ofasys_torch.utils.jax_params import export_params
+from ofasys_torch.utils.jax_params import export_params, stack_layers, unstack_layers
 
 _inflight: Optional[threading.Thread] = None
 _inflight_error: List[BaseException] = []
@@ -66,10 +76,10 @@ def flax_tree(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None)
     is, under its parameter's path)."""
     own = dict(net.named_parameters())
     if tensors is None:
-        tree = export_params(net)
+        tree = export_params(net, stacked=False)
     else:
         same = {n: t for n, t in tensors.items() if tuple(t.shape) == tuple(own[n].shape)}
-        tree = export_params(net, {n: same.get(n, own[n]) for n in own}) if same else {}
+        tree = export_params(net, {n: same.get(n, own[n]) for n in own}, stacked=False) if same else {}
         for n, t in tensors.items():
             if n in same:
                 continue
@@ -78,7 +88,8 @@ def flax_tree(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None)
             for k in path.split(".") if path else ():
                 node = node.setdefault(k, {})
             node[_flax_leaf(net, n)] = t.detach().float().cpu().numpy()
-    return _to_tensors(tree)
+    return _to_tensors(stack_layers(tree) if getattr(getattr(net, "cfg", None), "scan_layers", False)
+                       else tree)
 
 
 def _flax_leaf(net: nn.Module, name: str) -> str:
@@ -101,7 +112,9 @@ def _to_tensors(tree):
 
 def from_flax_tree(net: nn.Module, tree: Dict[str, Any]) -> List[torch.Tensor]:
     """The inverse of :func:`flax_tree`: CPU tensors in the net's parameter
-    order (a Linear kernel of its parameter's shape transposed back)."""
+    order (a Linear kernel of its parameter's shape transposed back); the
+    tree in either layer layout."""
+    tree = unstack_layers(tree)
     out = []
     for name, p in net.named_parameters():
         path = name.rsplit(".", 1)[0] if "." in name else ""
@@ -272,9 +285,11 @@ def _resolve(path: str) -> str:
 
 def load_checkpoint(path: str):
     """Returns (state, meta): the checkpoint tree (CPU tensors) and its
-    sidecar (None when absent)."""
+    sidecar (None when absent). A sharded checkpoint is assembled whole."""
     wait_for_async_saves()   # same-process save-then-load sees committed data
     path = _resolve(path)
+    if os.path.isdir(path):
+        return assemble_sharded(path), read_meta(path)
     state = torch.load(path, map_location="cpu", weights_only=True)
     return state, read_meta(path)
 
@@ -401,3 +416,185 @@ def upgrade_state_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(its, list):
         meta["iterator_states"] = {str(i): s for i, s in enumerate(its)}
     return meta
+
+
+# ------------------------------------------------------------ sharded state
+
+def _shard_files(path: str) -> List[str]:
+    return sorted(os.path.join(path, f) for f in os.listdir(path)
+                  if f.startswith("shard_") and f.endswith(".pt"))
+
+
+def sharded_pieces(state, layout, with_optimizer: bool = True) -> Dict[str, Any]:
+    """This rank's pieces of a TrainState over ``layout``
+    (parallel/sharding.Layout): {key: {"shape", "box", "transposed", "data"}}
+    with key ``params/<flax path>``, ``opt_state/<name>/<flax path>`` or
+    ``ema_params/<flax path>``, and the scalars (step, optimizer counters)
+    under ``_scalars`` on the first rank."""
+    out: Dict[str, Any] = {}
+
+    def put(key, leaf, t, sliced):
+        if not layout.writer(leaf, sliced):
+            return
+        local = [b.stop - b.start for b in leaf.box]
+        if sliced and leaf.opt_dim is not None:
+            local[leaf.opt_dim] //= layout.mesh.size(leaf.opt_axis)
+        if tuple(t.shape) != tuple(local):
+            shape, box = tuple(t.shape), tuple(slice(0, d) for d in t.shape)   # a factored moment
+        else:
+            shape, box = leaf.shape, layout.box_of(leaf, sliced)
+        out[key] = {"shape": tuple(shape), "box": [(b.start, b.stop) for b in box],
+                    "transposed": leaf.transposed and len(shape) == 2,
+                    "data": t.detach().cpu().clone()}
+
+    for i, leaf in enumerate(layout.leaves):
+        put(f"params/{leaf.path}", leaf, state.params[i], leaf.held)
+        if state.ema_params is not None:
+            put(f"ema_params/{leaf.path}", leaf, state.ema_params[i], leaf.held)
+        if with_optimizer:
+            for k, v in state.opt_state.items():
+                if isinstance(v, list):
+                    put(f"opt_state/{k}/{leaf.path}", leaf, v[i], True)
+    if layout.mesh.rank == 0:
+        out["_scalars"] = {"step": int(state.step),
+                           "opt_state": {k: v for k, v in state.opt_state.items() if not isinstance(v, list)}}
+    return out
+
+
+def save_sharded(save_dir: str, name: str, pieces: Dict[str, Any], rank: int,
+                 meta: Optional[Dict[str, Any]] = None, barrier=None, mirror_last: bool = True):
+    """Write this rank's ``pieces`` under ``<save_dir>/<name>/``; the first
+    rank writes the sidecar and the ``checkpoint_last`` mirror after every
+    rank has written (``barrier``)."""
+    path = os.path.join(os.path.abspath(save_dir), name)
+    if rank == 0 and os.path.exists(path) and not os.path.isdir(path):
+        _remove(path)
+    if barrier is not None:
+        barrier()
+    os.makedirs(path, exist_ok=True)
+    if pieces:
+        _write(pieces, os.path.join(path, f"shard_{rank:05d}.pt"))
+    if barrier is not None:
+        barrier()
+    if rank == 0:
+        if meta is not None:
+            with open(path + ".meta.json", "w") as f:
+                json.dump(meta, f)
+        if name != "checkpoint_last" and mirror_last:
+            _mirror(path, os.path.join(save_dir, "checkpoint_last"))
+
+
+def _to_flax(t: torch.Tensor, transposed: bool) -> torch.Tensor:
+    return t.t().contiguous() if transposed else t
+
+
+def assemble_sharded(path: str) -> Dict[str, Any]:
+    """The whole checkpoint tree of a sharded checkpoint (loop layout)."""
+    full: Dict[str, torch.Tensor] = {}
+    transposed: Dict[str, bool] = {}
+    scalars: Dict[str, Any] = {}
+    for f in _shard_files(path):
+        shard = torch.load(f, map_location="cpu", weights_only=True, mmap=True)
+        scalars.update(shard.pop("_scalars", {}))
+        for key, piece in shard.items():
+            if key not in full:
+                full[key] = torch.zeros(piece["shape"], dtype=piece["data"].dtype)
+                transposed[key] = piece["transposed"]
+            full[key][tuple(slice(a, b) for a, b in piece["box"])] = piece["data"]
+    tree: Dict[str, Any] = {"step": scalars.get("step", 0)}
+    opt = dict(scalars.get("opt_state", {}))
+    for key, t in full.items():
+        parts = key.split("/")
+        if parts[0] == "opt_state":
+            node = opt.setdefault(parts[1], {})
+            rest = parts[2:]
+        else:
+            node = tree.setdefault(parts[0], {})
+            rest = parts[1:]
+        for k in rest[:-1]:
+            node = node.setdefault(k, {})
+        node[rest[-1]] = _to_flax(t, transposed[key])
+    if opt:
+        tree["opt_state"] = opt
+    return tree
+
+
+def _get(tree: Dict[str, Any], path: str):
+    node = tree
+    for k in path.split("/"):
+        node = node[k]
+    return node
+
+
+@torch.no_grad()
+def load_sharded_state(path: str, state, layout, params_only: bool = False):
+    """Fill this rank's pieces of a TrainState (over ``layout``) from a
+    checkpoint of any layout: a sharded directory (only the overlapping
+    parts of its pieces are read) or a one-file checkpoint."""
+    path = _resolve(path)
+    wanted: List[tuple] = []   # (key, leaf, target tensor, sliced)
+    for i, leaf in enumerate(layout.leaves):
+        wanted.append((f"params/{leaf.path}", leaf, state.params[i], leaf.held))
+        if state.ema_params is not None:
+            wanted.append((f"ema_params/{leaf.path}", leaf, state.ema_params[i], leaf.held))
+        if not params_only:
+            for k, v in state.opt_state.items():
+                if isinstance(v, list):
+                    wanted.append((f"opt_state/{k}/{leaf.path}", leaf, v[i], True))
+    if os.path.isdir(path):
+        filled = set()
+        scalars = {}
+        for f in _shard_files(path):
+            shard = torch.load(f, map_location="cpu", weights_only=True, mmap=True)
+            scalars.update(shard.pop("_scalars", {}))
+            for key, leaf, target, sliced in wanted:
+                piece = shard.get(key)
+                if piece is None:
+                    continue
+                if tuple(piece["shape"]) != tuple(leaf.shape) and sliced:
+                    target.copy_(piece["data"].to(target.dtype))       # a factored moment
+                    filled.add(key)
+                    continue
+                box = layout.box_of(leaf, sliced)
+                src, dst = [], []
+                for (a, b), want in zip(piece["box"], box):
+                    lo, hi = max(a, want.start), min(b, want.stop)
+                    if lo >= hi:
+                        break
+                    src.append(slice(lo - a, hi - a))
+                    dst.append(slice(lo - want.start, hi - want.start))
+                else:
+                    target[tuple(dst)] = piece["data"][tuple(src)].to(target.dtype)
+                    filled.add(key)
+        if ({"params/" + lf.path for lf in layout.leaves} - filled):
+            raise KeyError(f"{path}: parameters missing from the sharded checkpoint")
+        if not params_only:
+            state.step = int(scalars.get("step", 0))
+            for k, v in scalars.get("opt_state", {}).items():
+                state.opt_state[k] = v
+        return state
+    tree, _ = load_checkpoint(path)
+    for part in ("params", "ema_params", "opt_state"):
+        if isinstance(tree.get(part), dict):
+            tree[part] = ({k: unstack_layers(v) if isinstance(v, dict) else v for k, v in tree[part].items()}
+                          if part == "opt_state" else unstack_layers(tree[part]))
+    for key, leaf, target, sliced in wanted:
+        parts = key.split("/")
+        try:
+            t = _get(tree, "/".join(parts))
+        except (KeyError, TypeError):
+            if parts[0] == "params":
+                raise
+            continue
+        t = torch.as_tensor(t)
+        if leaf.transposed and t.dim() == 2 and tuple(t.shape) == tuple(leaf.shape)[::-1]:
+            t = t.t()
+        if tuple(t.shape) == tuple(leaf.shape):
+            t = t[layout.box_of(leaf, sliced)]
+        target.copy_(t.to(target.dtype))
+    if not params_only:
+        state.step = int(tree["step"])
+        for k, v in tree.get("opt_state", {}).items():
+            if not isinstance(v, dict):
+                state.opt_state[k] = int(v) if isinstance(state.opt_state.get(k), int) else v
+    return state

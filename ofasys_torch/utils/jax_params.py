@@ -33,6 +33,15 @@ transposed to (V, E).
 Every parameter of the net must be filled and every leaf of the tree used;
 anything else raises. ``export_params`` goes the other way, for the net's
 parameters or for any tensors named like them (their gradients).
+
+The stacked layout (``cfg.scan_layers``, ofasys_tpu's scan over layers):
+a stack's ``layers_scan/layer/<leaf>`` holds every layer's leaf with a
+leading layer axis, int8 serving kernels included (``qkern/.../q`` (L, in,
+out), ``scale`` (L, out): scales per layer and output channel). The port's
+modules stay one per layer: :func:`unstack_layers` splits such a tree into
+``layers_<i>`` (``load_jax_params`` takes either layout) and
+:func:`stack_layers` joins them (``export_params`` of a net whose config
+has ``scan_layers`` returns the stacked layout).
 """
 
 from __future__ import annotations
@@ -79,14 +88,69 @@ def _load_qkern(net: nn.Module, qkern: Dict[str, Any]):
         quantize_module(module, q.to(device), scale.to(device))
 
 
+_STACKS = ("encoder", "decoder")
+
+
+def unstack_layers(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of ``tree`` with every stack's ``layers_scan/layer`` split into
+    ``layers_<i>`` along the leading axis (other nodes shared)."""
+    out = dict(tree)
+    for stack in _STACKS:
+        node = out.get(stack)
+        if not isinstance(node, dict) or "layers_scan" not in node:
+            continue
+        node = dict(node)
+        layer = node.pop("layers_scan")["layer"]
+        n = len(next(v for _, v in _walk(layer)))
+        for i in range(n):
+            node[f"layers_{i}"] = _map_leaves(layer, lambda a, i=i: a[i])
+        out[stack] = node
+    return out
+
+
+def stack_layers(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`unstack_layers`: every stack's ``layers_<i>``
+    joined into ``layers_scan/layer`` with a leading layer axis."""
+    out = dict(tree)
+    for stack in _STACKS:
+        node = out.get(stack)
+        if not isinstance(node, dict) or "layers_0" not in node:
+            continue
+        node = dict(node)
+        layers = []
+        while f"layers_{len(layers)}" in node:
+            layers.append(node.pop(f"layers_{len(layers)}"))
+        node["layers_scan"] = {"layer": _stack_trees(layers)}
+        out[stack] = node
+    return out
+
+
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _stack_trees(trees):
+    first = trees[0]
+    out = {}
+    for k, v in first.items():
+        if isinstance(v, dict):
+            out[k] = _stack_trees([t[k] for t in trees])
+        elif isinstance(v, torch.Tensor):
+            out[k] = torch.stack([t[k] for t in trees])
+        else:
+            out[k] = np.stack([np.asarray(t[k]) for t in trees])
+    return out
+
+
 def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     """Copy ``params`` (a param tree, ``{"params": tree}`` or int8 serving
     variables ``{"params": tree, "qkern": ...}``) into ``net`` in place
     (dtype and device of the net's parameters kept); returns ``net``."""
     if isinstance(params.get("params"), dict) and set(params) <= {"params", "qkern"}:
         if "qkern" in params:
-            _load_qkern(net, params["qkern"])
+            _load_qkern(net, unstack_layers(params["qkern"]))
         params = params["params"]
+    params = unstack_layers(params)
     own = dict(net.named_parameters())
     seen = set()
     with torch.no_grad():
@@ -142,13 +206,22 @@ def _set(tree: Dict[str, Any], path: str, leaf: str, arr: np.ndarray):
     node[leaf] = np.ascontiguousarray(arr)
 
 
-def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+def _stacked(net: nn.Module) -> bool:
+    cfg = getattr(net, "cfg", None)
+    return bool(getattr(cfg, "scan_layers", False))
+
+
+def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None,
+                  stacked: Optional[bool] = None) -> Dict[str, Any]:
     """The flax-shaped tree (nested dicts of fp32 numpy arrays) of the
     net's parameters, or of ``tensors``, a dict from parameter name to a
     tensor of the parameter's shape (``{n: p.grad for n, p in
     net.named_parameters()}``); the inverse of :func:`load_jax_params`. For
     a net with int8 modules and no ``tensors``, the serving variables
-    ``{"params": tree, "qkern": {<module>: {"q", "scale"}}}``."""
+    ``{"params": tree, "qkern": {<module>: {"q", "scale"}}}``. ``stacked``
+    (default: the net's ``cfg.scan_layers``) gives the stacked layout."""
+    if stacked is None:
+        stacked = _stacked(net)
     tree: Dict[str, Any] = {}
     for name, p in net.named_parameters():
         value = p if tensors is None else tensors[name]
@@ -162,9 +235,11 @@ def export_params(net: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = N
         _set(tree, path, leaf, arr)
     quantized = [(n, m) for n, m in net.named_modules() if is_quantized(m)]
     if tensors is not None or not quantized:
-        return tree
+        return stack_layers(tree) if stacked else tree
     qkern: Dict[str, Any] = {}
     for path, module in quantized:
         _set(qkern, path, "q", module.q.cpu().numpy().T)
         _set(qkern, path, "scale", module.scale.cpu().numpy())
+    if stacked:
+        tree, qkern = stack_layers(tree), stack_layers(qkern)
     return {"params": tree, "qkern": qkern}

@@ -202,7 +202,8 @@ def import_reference_state_dict(
     from ofasys_torch.utils.jax_params import export_params, load_jax_params
 
     net = _net(model)
-    target = export_params(net)
+    # reference keys name each layer: match them in the loop layout
+    target = export_params(net, stacked=False)
     if "qkern" in target:
         raise ValueError("import_reference_state_dict: import before quantize()")
     used = set()
@@ -251,12 +252,12 @@ def import_reference_state_dict(
 def export_reference_state_dict(model) -> Dict[str, np.ndarray]:
     """The inverse: a GeneralistModel, its net, or a flax-path param tree
     -> a reference-named state_dict of numpy arrays."""
-    if isinstance(model, dict):
-        tree = model
-    else:
-        from ofasys_torch.utils.jax_params import export_params
+    from ofasys_torch.utils.jax_params import export_params, unstack_layers
 
-        tree = export_params(_net(model))
+    if isinstance(model, dict):
+        tree = unstack_layers(model)
+    else:
+        tree = export_params(_net(model), stacked=False)
     out: Dict[str, np.ndarray] = {}
     for p, leaf in _walk(tree):
         mapped = flax_to_reference_key(p)

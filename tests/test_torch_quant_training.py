@@ -33,7 +33,7 @@ from ofasys_tpu.ops.quant import _int8_fwd_value, int8_train_matmul as jint8_tra
 from ofasys_tpu.preprocessor.dictionary import Dictionary as JDictionary
 from ofasys_tpu.utils.pytree import SlotBatch as JSlotBatch
 from ofasys_torch import GeneralistModel, ModalityType
-from ofasys_torch.model.config import UNPORTED_DEFAULTS
+from ofasys_torch.model.config import QUANT_TRAINING
 from ofasys_torch.ops import quant
 from ofasys_torch.preprocessor.dictionary import Dictionary
 from ofasys_torch.utils.jax_params import export_params, load_jax_params
@@ -148,7 +148,11 @@ def pair():
 
 
 def test_config_accepts_fwd_and_none_only():
-    assert "quant_training" not in UNPORTED_DEFAULTS
+    assert QUANT_TRAINING == ("none", "fwd")
+    for qt in QUANT_TRAINING:
+        m = GeneralistModel(arch="tiny")
+        _configure(m, qt)
+        m.initialize(_dictionary(Dictionary), active_adaptors=("text",), device="cpu")
     m = GeneralistModel(arch="tiny")
     _configure(m, "int4")
     with pytest.raises(ValueError, match="quant_training"):

@@ -258,10 +258,41 @@ def test_unported_generation_options_raise(env, monkeypatch, opt):
 
 
 @pytest.mark.parametrize("mode", ["full", "dots"])
-def test_remat_is_refused_until_ported(mode):
-    """``remat`` (per-layer checkpointing in ofasys_tpu) changes memory, not
-    values; the port has no counterpart yet, so a non-default value raises
-    and names the item it waits for instead of being ignored."""
-    m = GeneralistModel(arch="tiny", remat=mode)
-    with pytest.raises(NotImplementedError, match=r"remat=.*Queue A item 13"):
-        m.initialize(Dictionary(), active_adaptors=("text",), device="cpu")
+def test_remat_is_refused_until_ported(env, mode):
+    """``remat`` (per-layer checkpointing, model/transformer.remat_call)
+    changes memory, not values: served tokens and training-mode outputs and
+    gradients equal those of ``remat='none'`` on the same weights."""
+    from ofasys_torch.engine.train_step import dropout_generator
+
+    base = env["hub"].model
+    td = _dictionary(Dictionary)
+    tm = GeneralistModel(arch="tiny", remat=mode)
+    tm.cfg.encoder.layers = tm.cfg.decoder.layers = 2
+    tm.cfg.dropout = 0.1
+    tgp = GeneralPreprocess(td, active=["text"])
+    tm.initialize(td, active_adaptors=("text",), dtype=torch.float32, device="cpu")
+    hub = OFASys(tm, env["params"], td, tgp, device="cpu")
+    recs = [{"src": "a b c"}, {"src": "d e"}]
+    for a, b in zip(env["hub"].inference(TPL, recs, max_len_b=6), hub.inference(TPL, recs, max_len_b=6),
+                    strict=True):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    slots = hub.general_preprocess.collate(
+        [hub.general_preprocess(Instruction(TPL, split="train").format(src="a b c", tgt="d e"))])
+    from ofasys_torch.utils.pytree import sample_to_device
+
+    slots = sample_to_device(slots, "cpu")["net_input"]["slots"]
+    base.cfg.dropout = 0.1
+    try:
+        outs = []
+        for m in (base, tm):
+            out, _ = m.apply_train(slots, generator=dropout_generator(0, 0, 0, 0, torch.device("cpu")))
+            params = list(m.net.parameters())
+            outs.append((out, torch.autograd.grad(out.float().square().sum(), params, allow_unused=True)))
+    finally:
+        base.cfg.dropout = 0.0
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=0)
+    for ga, gb in zip(outs[0][1], outs[1][1]):
+        if ga is None or gb is None:
+            assert ga is None and gb is None
+        else:
+            torch.testing.assert_close(gb, ga, rtol=0, atol=0)

@@ -342,20 +342,36 @@ def test_reset_optimizer_and_params_only_resume(init, tmp_path):
 @pytest.mark.parametrize("parallel", [dict(data=8), dict(fsdp=2), dict(tensor=2), dict(pipeline=2),
                                       dict(sequence=2), dict(expert=2), dict(zero1=True)])
 def test_multi_device_parallel_config_raises(parallel):
+    """In a world of one, a mesh whose axes do not multiply to one rank
+    raises the ValueError of ``resolve_axis_sizes`` (ofasys_tpu's
+    parallel/mesh.py:38-50); ``zero1`` alone is accepted (it shards the
+    optimizer state only when data > 1, as in ofasys_tpu)."""
+    from ofasys_tpu.parallel.mesh import resolve_axis_sizes as jresolve
+    from ofasys_tpu.configure.configs import ParallelConfig as JParallelConfig
+
     cfg = TrainerConfig()
     cfg.parallel = ParallelConfig(**parallel)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    if parallel == {"zero1": True}:
+        assert Trainer(cfg, device="cpu").mesh.world == 1
+        return
+    with pytest.raises(ValueError) as jerr:
+        jresolve(JParallelConfig(**parallel), 1)
+    with pytest.raises(ValueError) as err:
         Trainer(cfg, device="cpu")
+    assert str(err.value) == str(jerr.value)
 
 
 def test_profile_and_remat_raise(init, tmp_path):
     """``common.profile`` builds a trainer (its trace: tests/test_torch_tools.py);
-    ``parallel.remat`` still raises."""
+    a fit under ``parallel.remat='full'`` sets the model's remat mode and
+    runs its update."""
     cfg = TrainerConfig()
     cfg.common.profile = True
     assert Trainer(cfg, device="cpu").cfg.common.profile
-    cfg = make_cfg(True, tmp_path)
+    cfg = make_cfg(True, tmp_path, finetune_from_model=init["torch"], no_save=True)
     cfg.parallel.remat = "full"
-    with pytest.raises(NotImplementedError, match="remat"):
-        Trainer(cfg, device="cpu").fit(make_model(True), make_tasks(True, init["data"], ("summary",)),
-                                       max_update=1)
+    tr = Trainer(cfg, device="cpu")
+    model = make_model(True)
+    tr.fit(model, make_tasks(True, init["data"], ("summary",)), max_update=1)
+    assert model.cfg.remat == "full" and tr.state.step == 1
+    assert all(torch.isfinite(p).all() for p in tr.state.params)
