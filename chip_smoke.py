@@ -4,7 +4,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi
-  2. build: every CUDA kernel of ofasys_torch/csrc, one nvcc each, in parallel
+  2. build: every CUDA kernel of ofasys_torch/csrc, one nvcc each, in parallel,
+     and beside them the host C++ libraries of csrc/host (the BPE encoder,
+     the line index) with the host's compiler
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving and training paths give it, with times (CUDA
      events, median), the library call's time and the bound
@@ -192,11 +194,21 @@ After serve_pretrained, on train_fit's files and checkpoints:
      `python -m ofasys_torch.cli.train launch.json --set ...` run whose
      overrides reach its TrainerConfig
  40. train_profile: train_fit's run with common.profile=True: the Chrome
-     trace the trainer wrote read back, B1 and B2 counted in it by kernel
-     name (36 each an update), each update's wall, busy time and idle share
-     from the trace (the median of updates 2, 4 and 6 beside train_fit's
-     torch.profiler figure), checkpoints and meters bit for bit with
-     train_fit's
+     trace the trainer wrote read back by tools/profile_breakdown (one
+     summary per `update <n>` range), B1 and B2 counted in it by kernel
+     name (36 each an update), each update's wall, busy time (the union of
+     its device events) and idle share (the median of updates 2, 4 and 6
+     beside train_fit's torch.profiler figure), checkpoints and meters bit
+     for bit with train_fit's
+ 40a. host_native: serve's request sources and train_fit's TSV texts
+     tokenized by NativeGPT2BPE and by GPT2BPE on train_fit's 50,257-entry
+     table (the same ids for every string; µs a string, cold and warm);
+     train_fit's preprocess_ms per task with each encoder, alternated in
+     this call; the TSVs' line index built natively and by the numpy scan
+     (the same bytes; ms each); profile_breakdown's summary of
+     train_profile's trace: device time by kind, the top ops, the five
+     longest idle gaps with the host event active on the launching thread,
+     and the steady updates' idle share beside train_fit's figure
  41. train_fetch: train_fit's TSVs read as testfs:// URLs through a
      fetcher the phase registers (a copy of the local file) into a fresh
      $OFA_CACHE_HOME: checkpoints bit for bit with train_fit's at updates 3
@@ -393,8 +405,10 @@ arch="tiny")``; phase 34 on the tiny grounding hub with
 phases 38-39 on a tiny hub (fp32, ``attn_kernel="pallas"``) with
 ``serve_speculative_and_check(hub, "cpu")`` and ``nan_check_and_check(hub,
 "cpu")``; phases 40-41 after train_fit's rehearsal with
-``train_profile_and_check(fx, fit, "cpu", res, device="cpu", arch="tiny")``
-and ``train_fetch_and_check(fx, fit, "cpu", device="cpu", arch="tiny")``;
+``launches, prof, breakdown = train_profile_and_check(fx, fit, "cpu", res,
+device="cpu", arch="tiny")``, ``host_native_and_check(fx, "cpu", breakdown,
+prof, res)`` and ``train_fetch_and_check(fx, fit, "cpu", device="cpu",
+arch="tiny")``;
 phases 42-47 as the README's rehearsal paragraph shows (a tiny fp32 speech
 model and image-code model at 32 px, ``flash_available`` patched); phases
 48-53 the same way on tiny fp32 models: ``serve_video_and_check(vm, gp,
@@ -817,13 +831,20 @@ def phase_device():
 
 
 def phase_build():
-    from ofasys_torch.ops import cuda_build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ofasys_torch.ops import cuda_build, host_build
 
     names = sorted(p[:-3] for p in os.listdir(cuda_build.CSRC) if p.endswith(".cu"))
+    host_names = sorted(p[:-4] for p in os.listdir(host_build.HOST_CSRC) if p.endswith(".cpp"))
     t0 = time.perf_counter()
-    reports = cuda_build.build(names)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(host_build.build, host_names)
+        reports = cuda_build.build(names)
+        host.result()
     secs = time.perf_counter() - t0
-    log(f"build: {names} in {secs:.2f} s")
+    log(f"build: {names} in {secs:.2f} s; beside them the host libraries {host_names} with "
+        f"{os.environ.get('CXX') or 'c++'}")
     spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
     for name, rep in reports.items():
         entry = ""
@@ -4218,15 +4239,18 @@ def _ckpt_trees_equal(a, b, path=""):
     return [] if a == b else [f"{path}: {a} vs {b}"]
 
 
-def preprocess_ms(fx, n=3):
+def preprocess_ms(fx, n=3, tokenizers=None):
     """Host ms to read, preprocess and collate one batch of each task (no
-    prefetch thread), on fresh tasks."""
+    prefetch thread), on fresh tasks; each task's tokenizer class name is
+    appended to ``tokenizers``."""
     from ofasys_torch.preprocessor.dictionary import Dictionary
 
     tasks = fit_tasks(fx)
     d = Dictionary()
     for t in tasks:
         t.initialize(d)
+        if tokenizers is not None:
+            tokenizers.append(type(t.general_preprocess.bpe).__name__)
     out = {}
     for t in tasks:
         it = t.get_batch_iterator("train", seed=SEED)
@@ -5276,64 +5300,23 @@ def _vs_train_fit(run_dir, fit, label):
         raise SystemExit(f"{label}: the run differs from train_fit's")
 
 
-def _trace_updates(trace):
-    """Per profiled update (the trainer's 'update <n>' ranges): its device
-    events (kernels, copies, sets) by the launches made inside the range
-    (CUDA correlation ids; a kernel without a correlated launch goes with
-    the update of the launch before it on the stream), wall (from the
-    range's start to the later of its end and its last device event's),
-    busy (the union of its device events) and the launches by name."""
-    events = trace["traceEvents"]
-    ranges = sorted((e["ts"], e["ts"] + e["dur"], int(e["name"].split()[1])) for e in events
-                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                    and str(e.get("name", "")).startswith("update "))
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
-    device = sorted((e for e in events if e.get("ph") == "X"
-                     and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
-
-    def owner(ts):
-        for lo, hi, n in ranges:
-            if lo <= ts <= hi:
-                return n
-        return None
-
-    out, current = {}, None
-    for e in device:
-        n = owner(launch_ts.get(e.get("args", {}).get("correlation"), -1.0))
-        current = n if n is not None else current
-        if current is not None:
-            out.setdefault(current, []).append(e)
-    res = {}
-    for lo, hi, n in ranges:
-        evs = out.get(n, [])
-        end = max([hi] + [e["ts"] + e["dur"] for e in evs])
-        busy, last = 0.0, lo
-        for e in evs:                         # the union of the intervals
-            s, f = max(e["ts"], last), e["ts"] + e["dur"]
-            if f > s:
-                busy += f - s
-                last = f
-            last = max(last, f)
-        names = {}
-        for e in evs:
-            if e.get("cat") == "kernel":
-                names[e["name"]] = names.get(e["name"], 0) + 1
-        res[n] = dict(wall_ms=(end - lo) / 1e3, busy_ms=busy / 1e3, idle=1 - busy / max(end - lo, 1e-9),
-                      launches=sum(e.get("cat") == "kernel" for e in evs), kernels=names)
-    return res
-
-
 def _count_named(kernels, names):
     return sum(c for k, c in kernels.items() if any(n in k for n in names))
 
 
+def _pct(x):
+    return "not measured" if x is None else f"{100 * x:.1f}%"
+
+
 def train_profile_and_check(fx, fit, card, fit_res=None, device="cuda", arch="base"):
     """train_profile: train_fit's run with common.profile=True: the trace
-    the trainer wrote, B1 and B2 counted in it by kernel name (36 each an
+    the trainer wrote, read by tools/profile_breakdown with one summary per
+    'update <n>' range; B1 and B2 counted in it by kernel name (36 each an
     update), one steady update's idle share from it beside train_fit's
-    torch.profiler figure; its checkpoints bit for bit with train_fit's."""
+    torch.profiler figure; its checkpoints bit for bit with train_fit's.
+    Returns the launch counts, the results and the tool's summary."""
     from ofasys_torch import Trainer
+    from ofasys_torch.tools import profile_breakdown
     from ofasys_torch.utils import profiler
 
     cfg = fit_config(fx, "profile")
@@ -5347,32 +5330,147 @@ def train_profile_and_check(fx, fit, card, fit_res=None, device="cuda", arch="ba
     path = os.path.join(cfg.common.profile_dir, profiler.TRACE_FILE)
     nbytes = os.path.getsize(path)
     t0 = time.perf_counter()
-    with open(path) as f:
-        trace = json.load(f)
-    updates = _trace_updates(trace)
+    summary = profile_breakdown.summarize(path, top_n=10, ranges="update ", verbose=False)
     read_s = time.perf_counter() - t0
-    b1 = {n: _count_named(u["kernels"], B1_KERNEL_NAMES) for n, u in updates.items()}
-    b2 = {n: _count_named(u["kernels"], B2_KERNEL_NAMES) for n, u in updates.items()}
-    steady = {n: updates[n] for n in PROFILE_UPDATES if n in updates}
-    idle = statistics.median(u["idle"] for u in steady.values()) if steady else float("nan")
+    updates = {int(name.split()[1]): r for name, r in summary["ranges"].items()}
+    b1 = {n: _count_named(u["op_counts"], B1_KERNEL_NAMES) for n, u in updates.items()}
+    b2 = {n: _count_named(u["op_counts"], B2_KERNEL_NAMES) for n, u in updates.items()}
+    steady = {n: updates[n] for n in PROFILE_UPDATES if n in updates and updates[n]["idle"] is not None}
+    idle = statistics.median(u["idle"] for u in steady.values()) if steady else None
     fit_idle = ((fit_res or {}).get("profile") or {}).get("idle")
     log(f"train_profile: Trainer.fit with common.profile=True, {FIT_UPDATES} updates in {fit_s:.1f} s; "
-        f"trace {path} ({nbytes} bytes, read in {read_s:.1f} s), update ranges {sorted(updates)}; "
-        f"per update wall/busy ms, idle, launches: "
-        + "; ".join(f"{n}: {u['wall_ms']:.2f}/{u['busy_ms']:.2f}, {100 * u['idle']:.1f}%, {u['launches']}"
+        f"trace {path} ({nbytes} bytes, read by profile_breakdown in {read_s:.1f} s), update ranges "
+        f"{sorted(updates)}; per update wall/busy ms, idle, launches: "
+        + "; ".join(f"{n}: {u['wall_ms']:.2f}/{u['busy_ms']:.2f}, {_pct(u['idle'])}, {u['launches']}"
                     for n, u in sorted(updates.items()))
-        + f"; steady updates {sorted(steady)} median idle {100 * idle:.1f}% (train_fit's one profiled "
-        f"update {'not measured' if fit_idle is None else f'{100 * fit_idle:.1f}%'}) [{card}]")
+        + f"; steady updates {sorted(steady)} median idle {_pct(idle)} (train_fit's one profiled "
+        f"update {_pct(fit_idle)}) [{card}]")
     log(f"  train_profile: B1 by kernel name an update {b1}, B2 {b2}; wrapper counts {launches}")
     if torch.device(device).type == "cuda":
         if sorted(updates) != list(range(1, FIT_UPDATES + 1)) or set(b1.values()) != {36} \
                 or set(b2.values()) != {36} or launches["dense_attention_fwd"] != 36 * FIT_UPDATES:
             raise SystemExit("train_profile: the trace does not show 36 B1 and 36 B2 in every update")
     _vs_train_fit(os.path.join(fx["root"], "profile"), fit, "train_profile")
-    return launches, dict(fit_s=fit_s, trace_bytes=nbytes, idle_steady=idle, train_fit_idle=fit_idle,
-                          updates={n: {k: v for k, v in u.items() if k != "kernels"}
-                                   for n, u in updates.items()},
-                          b1_by_update=b1, b2_by_update=b2)
+    keep = ("wall_ms", "busy_ms", "idle", "launches", "copies")
+    return launches, dict(fit_s=fit_s, trace_bytes=nbytes, read_s=read_s, idle_steady=idle,
+                          train_fit_idle=fit_idle,
+                          updates={n: {k: u[k] for k in keep} for n, u in updates.items()},
+                          b1_by_update=b1, b2_by_update=b2), summary
+
+
+def _encode_all(tok, texts):
+    """The ids of every text, and the µs a text of a first (cold word
+    caches) and a second (warm) pass."""
+    out = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ids = [tok.encode(t) for t in texts]
+        out.append((time.perf_counter() - t0) * 1e6 / len(texts))
+    return ids, out
+
+
+def host_native_and_check(fx, card, breakdown, profile_res=None, fit_res=None):
+    """host_native: the native data plane on train_fit's data. Serve's
+    request sources and the TSV texts through NativeGPT2BPE and GPT2BPE on
+    train_fit's table (the same ids for every string; µs a string);
+    preprocess_ms per task with each encoder (OFASYS_NATIVE_BPE), alternated
+    in this call; the TSVs' line index natively and by the numpy scan (the
+    same bytes); and profile_breakdown's summary of train_profile's trace
+    (``breakdown``) logged: kinds, top ops, the longest gaps with their
+    host events, the steady updates' idle beside train_fit's figure."""
+    from ofasys_torch.io.reader import file_reader
+    from ofasys_torch.preprocessor.tokenizer.gpt2_bpe import GPT2BPE
+    from ofasys_torch.preprocessor.tokenizer.native_bpe import NativeGPT2BPE
+    from ofasys_torch.tools import profile_breakdown
+
+    texts = [r["src"] for r, _ in _serve_requests()]
+    for spec in fx["tasks"].values():
+        with open(spec["path"], encoding="utf-8") as f:
+            texts += [col for line in f for col in line.rstrip("\n").split("\t")]
+    res = dict(strings=len(texts), bytes=sum(len(t.encode()) for t in texts))
+    ids, load_ms = {}, {}
+    for label, cls in (("native", NativeGPT2BPE), ("python", GPT2BPE)):
+        t0 = time.perf_counter()
+        tok = cls(fx["encoder_json"], fx["vocab_bpe"])
+        load_ms[label] = (time.perf_counter() - t0) * 1e3
+        ids[label], res[f"{label}_us"] = _encode_all(tok, texts)
+    differ = [i for i, (a, b) in enumerate(zip(ids["native"], ids["python"])) if a != b]
+    res.update(ids=sum(map(len, ids["python"])), differ=len(differ), load_ms=load_ms)
+    log(f"host_native: {len(texts)} strings ({res['bytes']} bytes, {res['ids']} ids: serve's "
+        f"{N_BEAM_REQUESTS + N_GREEDY_REQUESTS} sources and the TSV texts) on the "
+        f"{fx['table']['entries']}-entry table: ids of NativeGPT2BPE and GPT2BPE equal for "
+        f"{len(texts) - len(differ)} of {len(texts)}; µs a string cold / warm: native "
+        f"{res['native_us'][0]:.2f} / {res['native_us'][1]:.2f}, python {res['python_us'][0]:.2f} / "
+        f"{res['python_us'][1]:.2f} (python / native {res['python_us'][0] / res['native_us'][0]:.1f}x "
+        f"cold, {res['python_us'][1] / res['native_us'][1]:.1f}x warm); table load ms "
+        f"{ {k: round(v, 1) for k, v in load_ms.items()} } [host CPU]")
+    if differ:
+        raise SystemExit(f"host_native: the native ids differ on {len(differ)} strings, e.g. "
+                         f"{texts[differ[0]][:80]!r}")
+
+    prep, kinds = {"native": [], "python": []}, {}
+    saved = os.environ.get("OFASYS_NATIVE_BPE")
+    try:
+        for label in ("native", "python", "native", "python"):
+            os.environ["OFASYS_NATIVE_BPE"] = "1" if label == "native" else "0"
+            seen = []
+            prep[label].append(preprocess_ms(fx, tokenizers=seen))
+            kinds[label] = sorted(set(seen))
+    finally:
+        if saved is None:
+            os.environ.pop("OFASYS_NATIVE_BPE", None)
+        else:
+            os.environ["OFASYS_NATIVE_BPE"] = saved
+    res["preprocess_ms"] = {label: {t: [round(r[t], 2) for r in runs] for t in runs[0]}
+                            for label, runs in prep.items()}
+    log(f"host_native: host ms to read, preprocess and collate one batch per task (median of "
+        f"{min(3, FIT_BATCHES_PER_EPOCH)}, no prefetch), native and python alternated in this call: "
+        f"{res['preprocess_ms']}; tokenizers {kinds} [host CPU]")
+    if kinds != {"native": ["NativeGPT2BPE"], "python": ["GPT2BPE"]}:
+        raise SystemExit(f"host_native: OFASYS_NATIVE_BPE did not pick the encoder: {kinds}")
+
+    res["index"] = {}
+    for name, spec in fx["tasks"].items():
+        out, ms = {}, {}
+        for label, fn in (("native", file_reader._build_index_native),
+                          ("numpy", file_reader._build_index_numpy)):
+            dst = os.path.join(fx["root"], f"{name}.{label}.idx")
+            t0 = time.perf_counter()
+            fn(spec["path"], dst)
+            ms[label] = (time.perf_counter() - t0) * 1e3
+            with open(dst, "rb") as f:
+                out[label] = f.read()
+        res["index"][name] = dict(ms, bytes=len(out["native"]), same=out["native"] == out["numpy"],
+                                  file_bytes=os.path.getsize(spec["path"]))
+    log(f"host_native: line index of train_fit's TSVs, native and numpy (ms, warm reads): "
+        f"{res['index']} [host CPU]")
+    if not all(r["same"] for r in res["index"].values()):
+        raise SystemExit("host_native: the native line index differs from the numpy scan's")
+
+    log("host_native: profile_breakdown of train_profile's trace, all updates:")
+    lines = profile_breakdown.format_window(breakdown, 10, "  ")
+    ranges = {int(k.split()[1]): r for k, r in breakdown.get("ranges", {}).items()}
+    steady = [n for n in PROFILE_UPDATES if n in ranges]
+    for n in steady:
+        lines += [f"  update {n}:"] + profile_breakdown.format_window(ranges[n], 5, "    ")
+    for line in lines:
+        log(line)
+    idle = {n: ranges[n]["idle"] for n in steady}
+    fit_idle = ((fit_res or {}).get("profile") or {}).get("idle")
+    log(f"host_native: steady updates' idle share from profile_breakdown (the union of device "
+        f"events) {({n: _pct(v) for n, v in idle.items()})}; train_profile's median "
+        f"{_pct((profile_res or {}).get('idle_steady'))}; train_fit's one profiled update "
+        f"{_pct(fit_idle)} (torch.profiler on the card alone, key_averages summed) [{card}]")
+    if breakdown["device"]:
+        if not breakdown["gaps"] or not all(k in breakdown["by_kind"] for k in ("B1", "B2")):
+            raise SystemExit("host_native: the breakdown shows no gaps or no B1/B2")
+    res["breakdown"] = dict(
+        wall_ms=breakdown["wall_ms"], busy_ms=breakdown["busy_ms"], idle=breakdown["idle"],
+        launches=breakdown["launches"],
+        by_kind={k: round(v["ms"], 3) for k, v in breakdown["by_kind"].items()},
+        gaps=[dict(ms=round(g["ms"], 3), host=g["stack"][-3:]) for g in breakdown["gaps"]],
+        steady_idle=idle, train_fit_idle=fit_idle)
+    return res
 
 
 def train_fetch_and_check(fx, fit, card, device="cuda", arch="base"):
@@ -7265,9 +7363,12 @@ def main() -> int:
         mark("traverse_kernels")
         counts["launch"], launch_res = launch_and_check(fx, fit, card, counts["train_fit"])
         mark("launch")
-        counts["train_profile"], profile_res = train_profile_and_check(fx, fit, card, fit_res)
+        counts["train_profile"], profile_res, breakdown = train_profile_and_check(fx, fit, card, fit_res)
         torch.cuda.empty_cache()
         mark("train_profile")
+        native_res = host_native_and_check(fx, card, breakdown, profile_res, fit_res)
+        del breakdown
+        mark("host_native")
         counts["train_fetch"], fetch_res = train_fetch_and_check(fx, fit, card)
         del fit
     torch.cuda.empty_cache()
@@ -7453,6 +7554,7 @@ def main() -> int:
     log(f"serve_speculative: {json.dumps({k: v for k, v in spec_res.items() if k != 'launches'})}")
     log(f"nan_check: {json.dumps(nan_res)}")
     log(f"train_profile: {json.dumps(profile_res)}")
+    log(f"host_native: {json.dumps(native_res)}")
     log(f"train_fetch: {json.dumps(fetch_res)}")
     for label, res in (("serve_tts", tts_res), ("train_tts", train_tts_res),
                        ("train_audio_pretrain", pretrain_res), ("train_scst", scst_res),

@@ -36,14 +36,41 @@ def _paths(name: str):
     return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
 
 
+def newer(lib: Path, deps: Iterable[Path]) -> bool:
+    """``lib`` exists and is newer than every file of ``deps``."""
+    return lib.exists() and lib.stat().st_mtime >= max(p.stat().st_mtime for p in deps)
+
+
 def _fresh(name: str) -> bool:
     """The library exists and is newer than its source and than every
     shared header of ``csrc/`` (a changed ``.cuh`` rebuilds its users)."""
     src, lib = _paths(name)
-    if not lib.exists():
-        return False
-    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
-    return lib.stat().st_mtime >= newest
+    return newer(lib, [src, *CSRC.glob("*.cuh")])
+
+
+def compile_all(jobs: Dict[str, tuple]) -> Dict[str, str]:
+    """Run every job ``name -> (command, source, library)`` at once, each
+    writing a temporary file of its own (``{out}`` in the command) that
+    replaces the library when it succeeds, so that concurrent processes can
+    build the same library. Returns each compiler's output; raises with it
+    on any failure."""
+    procs = {}
+    for name, (cmd, src, lib) in jobs.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [str(tmp) if a == "{out}" else a for a in cmd]
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{cmd[0]} could not be started for {src.name}: {e}") from e
+        procs[name] = (proc, cmd[0], src, tmp, lib)
+    reports = {}
+    for name, (proc, compiler, src, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(compiler)} failed for {src.name}:\n{out}")
+        os.replace(tmp, lib)
+        reports[name] = out
+    return reports
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -51,24 +78,14 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     started together. Returns the compiler's ``-Xptxas -v`` report per
     compiled name; raises with the compiler output on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name in names:
-        if _fresh(name):
-            continue
-        src, lib = _paths(name)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, lib)
-    reports = {}
-    for name, (proc, tmp, lib) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-        os.replace(tmp, lib)
-        reports[name] = out
-    return reports
+        if not _fresh(name):
+            src, lib = _paths(name)
+            jobs[name] = ([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", "{out}", str(src)],
+                          src, lib)
+    return compile_all(jobs)
 
 
 def load(name: str) -> ctypes.CDLL:

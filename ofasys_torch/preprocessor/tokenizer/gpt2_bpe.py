@@ -5,9 +5,12 @@ ofasys_tpu/preprocessor/tokenizer/gpt2_bpe.py).
 from ``$OFA_CACHE_HOME`` (default ``~/.cache/ofasys_torch``). The word
 split uses the ``regex`` package's Unicode classes when it is installed
 and an ASCII pattern with ``re`` otherwise, exactly as ofasys_tpu does;
-``REGEX_BACKEND`` names the one in use. The C++ encoder of ofasys_tpu
-(``native_bpe.py``) is not ported: ``build_tokenizer`` always returns the
-Python ``GPT2BPE``, whose ids are the same.
+``REGEX_BACKEND`` names the one in use. ``build_tokenizer("gpt2")``
+returns the C++ encoder ``native_bpe.NativeGPT2BPE`` (the same ids, built
+with the host's C++ compiler at first use) unless ``OFASYS_NATIVE_BPE=0``
+asks for the Python ``GPT2BPE``. Where ofasys_tpu falls back to Python
+without a word when the native encoder fails, the port raises: a run that
+asked for the native encoder has used it.
 """
 
 from __future__ import annotations
@@ -207,8 +210,18 @@ class WordPieceTokenizer(BaseTokenizer):
 def build_tokenizer(name: str, **kwargs) -> BaseTokenizer:
     if name in ("gpt2", "gpt2_bpe"):
         if kwargs.get("encoder_json"):
-            return GPT2BPE(kwargs["encoder_json"], kwargs["vocab_bpe"])
-        return GPT2BPE(*_assets(cache_home()))
+            enc, bpe = kwargs["encoder_json"], kwargs["vocab_bpe"]
+        else:
+            enc, bpe = _assets(cache_home())
+        if os.environ.get("OFASYS_NATIVE_BPE", "1") == "0":
+            return GPT2BPE(enc, bpe)
+        from ofasys_torch.preprocessor.tokenizer import native_bpe
+
+        try:
+            return native_bpe.build(enc, bpe)
+        except Exception as e:
+            raise RuntimeError(f"the native GPT-2 BPE encoder failed ({e}); set OFASYS_NATIVE_BPE=0 "
+                               "for the Python encoder") from e
     if name == "bytes":
         return ByteTokenizer()
     if name in ("characters", "char"):

@@ -4,7 +4,8 @@ an index build:
 
     python -m ofasys_torch.tools.create_tsv_cache a.tsv b.tsv ...
 
-Each index is ``FileLineReader``'s, cached under ``$OFA_CACHE_HOME``.
+Each index is ``FileLineReader``'s, built by the C++ scanner
+(``build_line_index``'s default) and cached under ``$OFA_CACHE_HOME``.
 """
 
 import sys

@@ -147,9 +147,17 @@ def test_wordpiece_and_character_tokenizers(tmp_path):
 
 
 def test_build_tokenizer_names(assets, tmp_path, monkeypatch):
+    from ofasys_torch.preprocessor.tokenizer import native_bpe
+
     enc, bpe = assets
+    monkeypatch.delenv("OFASYS_NATIVE_BPE", raising=False)
     for name in ("gpt2", "gpt2_bpe"):
+        # the C++ encoder by default, the Python one under OFASYS_NATIVE_BPE=0
+        assert isinstance(tbpe.build_tokenizer(name, encoder_json=enc, vocab_bpe=bpe),
+                          native_bpe.NativeGPT2BPE)
+        monkeypatch.setenv("OFASYS_NATIVE_BPE", "0")
         assert isinstance(tbpe.build_tokenizer(name, encoder_json=enc, vocab_bpe=bpe), tbpe.GPT2BPE)
+        monkeypatch.delenv("OFASYS_NATIVE_BPE")
     assert isinstance(tbpe.build_tokenizer("bytes"), tbpe.ByteTokenizer)
     for name in ("characters", "char"):
         assert isinstance(tbpe.build_tokenizer(name), tbpe.CharacterTokenizer)

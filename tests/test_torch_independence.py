@@ -3,10 +3,14 @@ jax, flax, optax or ofasys_tpu module, and its entry points refuse to run on an
 absent card unless the CPU is asked for explicitly (the hub, the server,
 Trainer.fit, OFASys.from_pretrained, utils/profiler.time_fn, the VQGAN
 tokenizer, also as the image_vqgan preprocessor builds it, and the HiFi-GAN
-vocoder)."""
+vocoder). The port's native data plane builds and loads its own host
+libraries: no source names ofasys_tpu's ``native/`` or the root ``tools/``,
+and the BPE encoder and the line index load only libraries under
+``ofasys_torch/_build/``."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -139,7 +143,9 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
                 "ofasys_torch.preprocessor.struct", "ofasys_torch.preprocessor.video",
                 "ofasys_torch.adaptor.video", "ofasys_torch.model.hifigan", "ofasys_torch.model.pooling",
                 "ofasys_torch.utils.spider_linking", "ofasys_torch.utils.sql_classical",
-                "ofasys_torch.utils.sql_eval"}
+                "ofasys_torch.utils.sql_eval", "ofasys_torch.ops.host_build",
+                "ofasys_torch.preprocessor.tokenizer.native_bpe", "ofasys_torch.tools.profile_breakdown",
+                "ofasys_torch.tools.gen_unicode_tables"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
     if "raised" in out:
@@ -147,3 +153,64 @@ def test_port_imports_nothing_of_jax_and_needs_explicit_cpu():
                                  "Trainer.fit": True, "OFASys.from_pretrained": True, "time_fn": True,
                                  "VQGANTokenizer": True, "ImageVqganPreprocess.tokenizer": True,
                                  "HifiGanVocoder": True}
+
+
+# a path into ofasys_tpu's native/ or the root tools/ (not ofasys_tpu/tools/
+# or ofasys_torch/tools/), as text or as a path component
+_FOREIGN = re.compile(r"""(?<!ofasys_tpu/)(?<!ofasys_torch/)\b(native|tools)/|["'](native|tools)["']""")
+# the build modules name the libraries they build under _build/
+_BUILDERS = {"cuda_build.py", "host_build.py"}
+
+
+def test_port_names_no_native_dir_no_root_tools_no_prebuilt_library():
+    root = os.path.join(REPO, "ofasys_torch")
+    bad = []
+    for dirpath, dirnames, files in os.walk(root):
+        dirnames[:] = [d for d in dirnames if d not in ("_build", "__pycache__")]
+        for name in files:
+            if not name.endswith((".py", ".cpp", ".h", ".cu", ".cuh")):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path, encoding="utf-8") as f:
+                for lineno, line in enumerate(f, 1):
+                    hit = _FOREIGN.search(line)
+                    lib = re.search(r"[\w.-]*\.so\b", line)
+                    if hit or (lib and name not in _BUILDERS and "_build/" not in line):
+                        bad.append(f"{os.path.relpath(path, REPO)}:{lineno}: {line.strip()}")
+    assert bad == []
+
+
+_NATIVE_CHILD = r"""
+import json, os, sys, tempfile
+from ofasys_torch.preprocessor.tokenizer import native_bpe
+from ofasys_torch.tools import profile_breakdown
+from ofasys_torch.io.reader.file_reader import build_line_index
+from ofasys_torch.preprocessor.tokenizer.gpt2_bpe import bytes_to_unicode
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ofasys_tpu"))
+d = tempfile.mkdtemp()
+os.environ["OFA_CACHE_HOME"] = d
+b2u = bytes_to_unicode()
+enc = {b2u[b]: b for b in range(256)}
+json.dump(enc, open(os.path.join(d, "encoder.json"), "w"))
+open(os.path.join(d, "vocab.bpe"), "w").write("#version: test\n")
+tok = native_bpe.build(os.path.join(d, "encoder.json"), os.path.join(d, "vocab.bpe"))
+ids = tok.encode("ab c")
+open(os.path.join(d, "x.tsv"), "w").write("a\nb\n")
+n = len(build_line_index(os.path.join(d, "x.tsv"))) - 1
+libs = sorted({line.split()[-1] for line in open("/proc/self/maps")
+               if "bpe_encode" in line or "line_locate" in line})
+print(json.dumps({"bad": bad, "ids": ids, "lines": n, "libs": libs}))
+"""
+
+
+def test_native_data_plane_loads_only_the_ports_libraries():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_CHILD], capture_output=True, text=True,
+                          env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["ids"] == [97, 98, 32, 99] and out["lines"] == 2
+    build = os.path.join(REPO, "ofasys_torch", "_build")
+    assert [os.path.dirname(p) for p in out["libs"]] == [build, build], out["libs"]
