@@ -1,0 +1,11 @@
+"""Model FLOP of the requests completed in the window (trunk, encoder and
+every decode step, beams counted; portbench/flops.py) over the window's
+time and the H100's bf16 peak (%)."""
+
+from portbench import flops
+
+
+def read(ctx):
+    if ctx.get("kind") != "serve" or not ctx.get("on_card"):
+        return None
+    return 100.0 * ctx["flops"] / ctx["window_s"] / flops.PEAK_BF16_FLOPS
